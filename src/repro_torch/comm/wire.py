@@ -8,11 +8,15 @@ Three codecs per leaf, cheapest wins:
   ``dense``   every entry                              → size·itemsize
 
 Encoding keeps *nonzero* entries (``np.flatnonzero``) and is lossless.
-Payloads hold host numpy buffers — they model bytes crossing the network —
-as in the reference.  Where the reference keeps a JAX treedef, a
-``Payload`` keeps its layer-key structure: ``(layer, name)`` pairs in the
-order JAX flattens a tuple of dicts (layers in order, keys sorted), so
-leaf i is the same leaf in both packages.  Integrity sealing and
+``encode_selected`` is the same encoding from the selection's operands:
+each weight leaf is compacted on the device by the select-compact kernel
+(kept *and* nonzero entries, row-major), and only the chosen codec's
+buffers cross to the host.  Payloads hold host numpy buffers — they
+model bytes crossing the network — as in the reference.  Where the
+reference keeps a JAX treedef, a ``Payload`` keeps its layer-key
+structure: ``(layer, name)`` pairs in the order JAX flattens a tuple of
+dicts (layers in order, keys sorted), so leaf i is the same leaf in both
+packages.  Integrity sealing and
 checksums come with the faults slice (ROADMAP A11).
 """
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.select_mask import select_compact
 
 INDEX_BYTES = 4                      # int32 flat index (coo)
 
@@ -151,6 +157,62 @@ def encode(tree: Sequence[dict], codec: str = "auto") -> Payload:
     keys = flat_keys(tree)
     return Payload(keys, tuple(encode_leaf(tree[l][k], codec)
                                for l, k in keys))
+
+
+def _leaf_from_compact(leaf: torch.Tensor, idx: torch.Tensor,
+                       vals: torch.Tensor, nnz: int) -> LayerPayload:
+    """``encode_leaf(leaf)`` from the leaf's compacted nonzeros: its first
+    ``nnz`` row-major (idx, vals).  One device→host copy per leaf."""
+    size = int(leaf.numel())
+    shape = tuple(leaf.shape)
+    codec, nbytes = cheapest_bytes(nnz, size, 4)
+    if codec == "dense":
+        return LayerPayload(codec, shape, np.dtype(np.float32), size,
+                            nbytes, idx=None, bitmap=None,
+                            values=_host(leaf).reshape(-1).copy())
+    both = torch.cat([idx[:nnz], vals[:nnz].view(torch.int32)]).cpu().numpy()
+    nz, values = both[:nnz], both[nnz:].view(np.float32)
+    if codec == "coo":
+        return LayerPayload(codec, shape, np.dtype(np.float32), nnz, nbytes,
+                            idx=nz, bitmap=None, values=values)
+    mask = np.zeros(size, np.uint8)
+    mask[nz] = 1
+    return LayerPayload(codec, shape, np.dtype(np.float32), nnz, nbytes,
+                        idx=None, bitmap=np.packbits(mask), values=values)
+
+
+def encode_selected(masked: Sequence[dict], operands: Sequence) -> Payload:
+    """``encode(masked)`` for a channel-selected delta, field for field,
+    with the weight leaves compacted on the device.
+
+    ``operands[l]`` is layer l's edge rule (``core.channels.EdgeOperands``
+    — g, row, col, thr, rest — in the geometry of ``masked[l]["w"]``);
+    the select-compact kernel turns it into the leaf's kept-and-nonzero
+    COO buffers, which are exactly ``np.flatnonzero`` of the masked leaf.
+    All leaves' counts reach the host in one copy and pick each leaf's
+    codec; then coo and bitmap copy only the kept entries and dense
+    copies the masked leaf.  Bias leaves (vectors no kernel computes)
+    take the host path of ``encode_leaf``.  Weight leaves are fp32.
+    """
+    keys = flat_keys(masked)
+    compact = {}
+    for l, op in enumerate(operands):
+        if masked[l]["w"].dtype != torch.float32:
+            raise TypeError(f"encode_selected takes fp32 weight leaves, got "
+                            f"{masked[l]['w'].dtype}")
+        compact[l] = select_compact(op.g, op.row, op.col, op.thr, op.rest,
+                                    capacity=op.g.numel(), drop_zeros=True)
+    nnzs = torch.stack([c for _, _, c in compact.values()]).tolist() \
+        if compact else []
+    layers = []
+    for l, k in keys:
+        if k == "w":
+            idx, vals, _ = compact[l]
+            layers.append(_leaf_from_compact(masked[l][k], idx, vals,
+                                             int(nnzs[l])))
+        else:
+            layers.append(encode_leaf(masked[l][k]))
+    return Payload(keys, tuple(layers))
 
 
 def validate_layer(lp: LayerPayload, leaf_shape: Optional[Tuple[int, ...]]

@@ -9,12 +9,14 @@ the broadcast sum of L vectors and the edge rule needs only pair sums:
 
 Two kernels carry the per-client pass: ``kernels.channel_norm`` gives the
 column norms behind ``layer_scores`` and ``kernels.select_mask`` applies
-the edge rule to every weight matrix.  The rest is plain torch.  All
+the edge rule to every weight matrix; ``edge_operands`` hands the same
+rule to the upload encoder (``comm.wire.encode_selected``).  The rest is
+plain torch.  All
 scores are fp32 regardless of gradient dtype.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,37 +163,65 @@ def max_completion(scores: Sequence[torch.Tensor]) -> torch.Tensor:
     return total
 
 
+class EdgeOperands(NamedTuple):
+    """One weight matrix's edge rule: keep ``g[p, q]`` iff
+    ``(row[p] + col[q]) + rest > thr`` — the operands of the select-mask
+    and select-compact kernels."""
+
+    g: torch.Tensor
+    row: torch.Tensor
+    col: torch.Tensor
+    thr: torch.Tensor
+    rest: torch.Tensor
+
+
+def edge_operands(grads: Sequence[dict], scores: Sequence[torch.Tensor],
+                  threshold: torch.Tensor) -> List[EdgeOperands]:
+    """The edge rule of every weight matrix, in the reference's order of
+    additions: layer 0 tests ``s_0[q] + rest`` (fed as row scores of
+    zeros, since ``(0 + s) + rest`` is bitwise ``s + rest``), layer l > 0
+    tests ``(s_{l-1}[p] + s_l[q]) + rest``."""
+    maxes = [torch.max(s) for s in scores]
+    total_max = max_completion(scores)
+    thr = torch.as_tensor(threshold, dtype=torch.float32,
+                          device=scores[0].device)
+    ops = []
+    for l, g in enumerate(grads):
+        w = g["w"]
+        if l == 0:
+            row = torch.zeros((w.shape[0],), dtype=torch.float32,
+                              device=w.device)
+            ops.append(EdgeOperands(w, row, scores[0], thr,
+                                    total_max - maxes[0]))
+        else:
+            ops.append(EdgeOperands(w, scores[l - 1], scores[l], thr,
+                                    total_max - maxes[l - 1] - maxes[l]))
+    return ops
+
+
 def apply_channel_mask(grads: Sequence[dict], scores: Sequence[torch.Tensor],
                        threshold: torch.Tensor) -> Tuple[list, list]:
     """Mask an MLP delta to the selected channels with the exact edge rule.
 
-    Returns (masked_grads, per_layer_bool_masks).  Every weight mask comes
-    from the select-mask kernel with the reference's order of additions:
-    layer 0 tests ``s_0[q] + rest`` (fed as row scores of zeros, since
-    ``(0 + s) + rest`` is bitwise ``s + rest``), layer l > 0 tests
-    ``(s_{l-1}[p] + s_l[q]) + rest``.  Bias masks are (m_l,) vectors and
-    stay plain torch.
+    Returns (masked_grads, per_layer_bool_masks).
     """
-    maxes = [torch.max(s) for s in scores]
-    total_max = max_completion(scores)
-    threshold = torch.as_tensor(threshold, dtype=torch.float32,
-                                device=scores[0].device)
+    return mask_by_operands(grads, edge_operands(grads, scores, threshold))
+
+
+def mask_by_operands(grads: Sequence[dict], ops: Sequence[EdgeOperands]
+                     ) -> Tuple[list, list]:
+    """``apply_channel_mask`` from its ``edge_operands``: every weight mask
+    comes from the select-mask kernel; bias masks are (m_l,) vectors and
+    stay plain torch."""
     masked, masks = [], []
-    for l, g in enumerate(grads):
-        w = g["w"]
+    for l, (g, op) in enumerate(zip(grads, ops)):
+        mw, w_mask, _ = select_mask(*op)
         if l == 0:
-            rest = total_max - maxes[0]
-            row = torch.zeros((w.shape[0],), dtype=torch.float32,
-                              device=w.device)
-            mw, w_mask, _ = select_mask(w, row, scores[0], threshold, rest)
-            b_mask = scores[0] + rest > threshold
+            b_mask = op.col + op.rest > op.thr
         else:
-            rest = total_max - maxes[l - 1] - maxes[l]
-            mw, w_mask, _ = select_mask(w, scores[l - 1], scores[l],
-                                        threshold, rest)
             # bias of neuron q is on a selected channel iff its best
             # channel is
-            b_mask = (maxes[l - 1] + scores[l] + rest) > threshold
+            b_mask = (torch.max(op.row) + op.col + op.rest) > op.thr
         mg = {"w": mw}
         has_bias = "b" in g and g["b"] is not None
         if has_bias:

@@ -8,7 +8,13 @@ One global loop:
      score-and-mask pass running through the Hopper kernels on CUDA);
   3. the strategy folds the uploads into the server:
      W <- W + Σ_k ΔW̃_k for SCBF, the example-weighted mean for FedAvg;
-  4. AUC-ROC / AUC-PR on the test set, plus the upload bytes.
+  4. (SCBFwP / FAwP, ``ScbfConfig.prune``) while the cumulative pruned
+     fraction is below θ_total, prune θ of the server's remaining hidden
+     neurons by APoZ on the validation set (``core.pruning.Pruner``, the
+     counts from the apoz kernel): ``reshape`` slices the model,
+     ``mask`` switches neurons off with device keep-masks and compacts
+     once the budget is spent;
+  5. AUC-ROC / AUC-PR on the test set, plus the upload bytes.
 
 The run happens on ``device`` — ``None`` means CUDA, and without a CUDA
 device the caller must ask for the CPU (``repro_torch.device``).  Matmuls
@@ -19,13 +25,14 @@ draws the initial weights and every epoch permutation.  Parity tests
 inject the reference's draws instead: ``init_params`` (numpy) and
 ``perms`` (``(loop, client, epoch) -> index array``).
 
-Pruning (SCBFwP), DP, the batched and fused engines, FedBuff, the
-simulated clock, fault injection, the admission gate and the flight
-recorder are not ported yet; configs that ask for them raise
-``NotImplementedError`` naming their ROADMAP item.
+DP, the batched and fused engines, FedBuff, the simulated clock, fault
+injection, the admission gate and the flight recorder are not ported
+yet; configs that ask for them raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.core import pruning
 from repro_torch.core.client import epoch_perms
 from repro_torch.data.medical import (MedicalCohort, dirichlet_split,
                                       federated_split)
@@ -94,12 +102,14 @@ class RunResult:
         return sum(r.sparse_bytes for r in self.records)
 
 
-def _evaluate(params, x: torch.Tensor, y: torch.Tensor, batch: int = 8192
-              ) -> Tuple[float, float]:
+def _evaluate(params, x: torch.Tensor, y: torch.Tensor, batch: int = 8192,
+              neuron_masks=None) -> Tuple[float, float]:
     """(AUC-ROC, AUC-PR) of the model on (x, y), both on the run's device;
-    one host copy at the end."""
+    one host copy at the end.  ``neuron_masks`` scores the masked model
+    (mask-mode SCBFwP)."""
     with torch.no_grad():
-        scores = torch.cat([mlp_forward(params, x[s:s + batch])
+        scores = torch.cat([mlp_forward(params, x[s:s + batch],
+                                        neuron_masks)
                             for s in range(0, x.shape[0], batch)])
         both = torch.stack([auc_roc(scores, y), auc_pr(scores, y)])
     roc, pr = both.tolist()
@@ -140,15 +150,23 @@ def _should_eval(loop: int, total_loops: int, eval_every: int) -> bool:
 
 
 def check_slice(train_cfg: TrainConfig, method: str) -> None:
-    """Refuse what the port does not run yet, naming its ROADMAP item."""
+    """Refuse what the reference refuses, and what the port does not run
+    yet, naming its ROADMAP item."""
     cfg, fed = train_cfg.scbf, train_cfg.fed
     if method not in ("scbf", "fedavg"):
         raise ValueError(method)
     if cfg.dp_noise_multiplier < 0:
         raise ValueError(f"dp_noise_multiplier must be >= 0, got "
                          f"{cfg.dp_noise_multiplier}")
+    if cfg.prune and cfg.prune_impl not in ("reshape", "mask"):
+        raise ValueError(f"unknown prune_impl {cfg.prune_impl!r}; "
+                         "one of ('reshape', 'mask')")
+    if cfg.prune and cfg.prune_impl == "mask" and method != "scbf":
+        raise ValueError("prune_impl='mask' threads neuron keep-masks "
+                         "through the sparse scbf pipeline; "
+                         "method='fedavg' (FAwP) prunes by reshaping — "
+                         "use prune_impl='reshape'")
     todo = [
-        (cfg.prune, "pruning (SCBFwP) is ROADMAP A8"),
         (cfg.dp_noise_multiplier > 0, "DP on the upload path is ROADMAP A5"),
         (fed.engine != "sequential",
          f"engine={fed.engine!r}: the batched engine is ROADMAP A9"),
@@ -177,7 +195,8 @@ def run_federated(cohort: MedicalCohort,
                   device=None,
                   init_params: Optional[Sequence[dict]] = None,
                   perms: Optional[PermFn] = None) -> RunResult:
-    """Run one federated experiment: method "scbf" | "fedavg".
+    """Run one federated experiment: method "scbf" | "fedavg", with
+    pruning controlled by ``train_cfg.scbf.prune`` (→ SCBFwP / FAwP).
 
     ``device``: None → cuda (raises without one); "cpu" on request.
     ``init_params``: numpy layer dicts to start from (else He init on the
@@ -185,8 +204,9 @@ def run_federated(cohort: MedicalCohort,
     that client's shard for that epoch (else drawn on the generator).
 
     ``LoopRecord.wall_time`` spans the round — plan, local training,
-    selection, encoding (the host then holds the payloads) and the server
-    update, synchronised with the device — and leaves evaluation out.
+    selection, encoding (the host then holds the payloads), the server
+    update and the prune step, synchronised with the device — and leaves
+    evaluation out.
     """
     check_slice(train_cfg, method)
     dev = resolve_device(device)
@@ -208,16 +228,25 @@ def run_federated(cohort: MedicalCohort,
     lrs = _lr_table(train_cfg)
     x_test = torch.as_tensor(cohort.x_test).to(dev)
     y_test = torch.as_tensor(cohort.y_test).to(dev)
-    result = RunResult(method=method)
+    pruner = None
+    if cfg.prune:
+        pruner = pruning.Pruner(params, cohort.x_val,
+                                prune_rate=cfg.prune_rate,
+                                prune_total=cfg.prune_total,
+                                impl=cfg.prune_impl,
+                                compact=cfg.prune_compact)
+    result = RunResult(method=method + ("wp" if cfg.prune else ""))
 
     init_model = params
     known = {"roc": None, "pr": None}
 
-    def _metrics(params_now, do_eval: bool):
+    def _metrics(params_now, do_eval: bool, nmasks=None):
         """(auc_roc, auc_pr, evaluated) — last-known when not evaluating
-        (the initial model, scored lazily, before any evaluation)."""
+        (the initial model, scored lazily, before any evaluation).
+        ``nmasks`` scores the masked model (mask-mode SCBFwP)."""
         if do_eval:
-            known["roc"], known["pr"] = _evaluate(params_now, x_test, y_test)
+            known["roc"], known["pr"] = _evaluate(params_now, x_test, y_test,
+                                                  neuron_masks=nmasks)
             return known["roc"], known["pr"], True
         if known["roc"] is None:
             known["roc"], known["pr"] = _evaluate(init_model, x_test, y_test)
@@ -240,12 +269,20 @@ def run_federated(cohort: MedicalCohort,
         payloads, stats = [], []
         if P:
             if method == "scbf":
+                nmasks = pruner.masks if pruner is not None else None
+                keep_eff = pruner.emission_keep if pruner is not None \
+                    else None
                 payloads, stats = eng.scbf_round(state.params, part, lr,
                                                  round_perms, cfg,
-                                                 generator=gen)
+                                                 generator=gen,
+                                                 nmasks=nmasks, keep=keep_eff)
+                expand = None
+                if keep_eff is not None:
+                    expand = (lambda ps, _k=keep_eff, _ref=state.params:
+                              pruning.expand_payloads(ps, _k, _ref))
                 contrib = RoundContribution(
                     num_examples=eng.counts[np.asarray(part)],
-                    payloads=payloads)
+                    payloads=payloads, expand=expand)
             else:
                 client_params, counts = eng.fedavg_round(
                     state.params, part, lr, round_perms)
@@ -253,11 +290,6 @@ def run_federated(cohort: MedicalCohort,
                                             client_params=client_params)
             state = strategy.aggregate(state, contrib)
         params = state.params
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-
-        n_params = num_params(params)
         if method == "scbf":
             up_frac = float(np.mean([s.upload_fraction for s in stats])) \
                 if stats else 0.0
@@ -265,19 +297,39 @@ def run_federated(cohort: MedicalCohort,
             dense_bytes = int(sum(p.dense_nbytes for p in payloads))
         else:
             up_frac = 1.0 if P else 0.0
-            dense_bytes = n_params * 4 * P
+            dense_bytes = num_params(params) * 4 * P
             sparse_bytes = dense_bytes
+
+        # ---- pruning (SCBFwP / FAwP), inside the loop's wall clock ----
+        if pruner is not None and pruner.active:
+            # reshape: returns the sliced params; mask: updates the
+            # keep-masks and returns params unchanged
+            params = pruner.step(params)
+        if pruner is not None and pruner.should_compact:
+            params = pruner.compact(params)   # mask mode, budget spent
+        state = dataclasses.replace(state, params=params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
 
         roc, pr, evaluated = _metrics(
             params, _should_eval(loop, train_cfg.global_loops,
-                                 train_cfg.eval_every))
+                                 train_cfg.eval_every),
+            pruner.masks if pruner is not None else None)
+        if pruner is not None:
+            # the effective model, whether neurons are masked or gone
+            n_params = pruner.effective_param_count(params)
+            hidden = pruner.hidden_sizes()
+        else:
+            n_params = num_params(params)
+            hidden = hidden_sizes(params)
         rec = LoopRecord(
             loop=loop, auc_roc=roc, auc_pr=pr,
             upload_fraction=up_frac,
             sparse_bytes=sparse_bytes, dense_bytes=dense_bytes,
             wall_time=wall,
             flops_proxy=float(n_params) * cohort.x_train.shape[0],
-            hidden_sizes=hidden_sizes(params),
+            hidden_sizes=hidden,
             num_participants=P, evaluated=evaluated)
         result.records.append(rec)
         if verbose:

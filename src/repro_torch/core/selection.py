@@ -10,9 +10,10 @@ numbers.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
+
 
 from repro_torch.comm import wire
 from repro_torch.core import channels
@@ -51,15 +52,18 @@ def select_gradients(grads: Sequence[dict], upload_rate: float,
                      score_norm: bool = False,
                      sample_idx: Optional[Sequence] = None,
                      generator: Optional[torch.Generator] = None,
-                     neuron_masks=None
-                     ) -> Tuple[list, list, torch.Tensor]:
+                     neuron_masks=None) -> tuple:
     """The paper's channel-selection pipeline for MLP gradients.
 
     positive: upload channels with norm above the (1-α)-quantile (top α).
     negative: discard channels below the α-quantile (upload the top 1-α).
     ``sample_idx``/``generator`` feed the sampled quantile path only.
+    ``neuron_masks`` (mask-mode SCBFwP): per-hidden-layer keep-masks;
+    pruned neurons score ``-inf`` and the quantile runs over the rest.
 
-    Returns (masked_grads, masks, threshold).
+    Returns (masked_grads, masks, threshold, operands): ``operands`` are
+    each weight matrix's ``channels.EdgeOperands``, what the on-device
+    upload encoder (``comm.wire.encode_selected``) compacts.
     """
     scores = channels.layer_scores(grads, normalize=score_norm,
                                    neuron_masks=neuron_masks)
@@ -68,5 +72,6 @@ def select_gradients(grads: Sequence[dict], upload_rate: float,
                                     sample_idx=sample_idx,
                                     generator=generator,
                                     masked=neuron_masks is not None)
-    masked, masks = channels.apply_channel_mask(grads, scores, thr)
-    return masked, masks, thr
+    ops = channels.edge_operands(grads, scores, thr)
+    masked, masks = channels.mask_by_operands(grads, ops)
+    return masked, masks, thr, ops

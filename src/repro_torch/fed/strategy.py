@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 
@@ -32,6 +32,11 @@ class RoundContribution:
     num_examples: np.ndarray                   # (P,) shard sizes
     payloads: Optional[List[wire.Payload]] = None   # sparse scbf uploads
     client_params: Optional[List[Any]] = None  # per-client full weights
+    # mask-mode SCBFwP ships effective-geometry payloads; this remaps them
+    # to the server's full geometry (core.pruning.expand_payloads) just
+    # before they are applied
+    expand: Optional[Callable[[List[wire.Payload]],
+                              List[wire.Payload]]] = None
 
 
 class ScbfSum:
@@ -46,7 +51,10 @@ class ScbfSum:
                   contrib: RoundContribution) -> ServerState:
         if not contrib.payloads:
             return state
-        params = wire.apply_payloads(state.params, contrib.payloads)
+        payloads = contrib.payloads
+        if contrib.expand is not None:
+            payloads = contrib.expand(payloads)
+        params = wire.apply_payloads(state.params, payloads)
         return dataclasses.replace(state, params=params,
                                    version=state.version + 1)
 

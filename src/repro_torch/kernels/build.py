@@ -24,18 +24,19 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("channel_norm", "select_mask")
+SOURCES = ("channel_norm", "select_mask", "select_compact", "apoz")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 # C signatures of the exported launchers; every launcher returns the
 # cudaError_t of its launch (0 = success)
 SIGNATURES = {
     "channel_norm": {
         # (M, N) -> floats of scratch the launcher needs
-        "channel_norms_workspace": ([_INT, _INT], ctypes.c_longlong),
+        "channel_norms_workspace": ([_INT, _INT], _LL),
         # g, dtype, M, N, row, col, work, stream
         "channel_norms_launch": ([_VOID, _INT, _INT, _INT, _VOID, _VOID,
                                   _VOID, _VOID], _INT),
@@ -45,6 +46,19 @@ SIGNATURES = {
         "select_mask_launch": ([_VOID, _INT, _INT, _INT, _VOID, _VOID,
                                 _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
                                _INT),
+    },
+    "select_compact": {
+        # (M, N) -> int32 scratch the launcher needs
+        "select_compact_workspace": ([_INT, _INT], _LL),
+        # g, dtype, M, N, row, col, thr, rest, drop_zeros, capacity, idx,
+        # vals, count, work, stream
+        "select_compact_launch": ([_VOID, _INT, _INT, _INT, _VOID, _VOID,
+                                   _VOID, _VOID, _INT, _LL, _VOID, _VOID,
+                                   _VOID, _VOID, _VOID], _INT),
+    },
+    "apoz": {
+        # acts, B, N, counts, stream
+        "apoz_counts_launch": ([_VOID, _INT, _INT, _VOID, _VOID], _INT),
     },
 }
 

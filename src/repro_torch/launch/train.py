@@ -1,14 +1,16 @@
 """Training launcher for the port (counterpart of ``repro.launch.train``).
 
-``--mode medical`` runs the paper's experiment — SCBF and FedAvg on the
+``--mode medical`` runs the paper's experiment — SCBF, FedAvg and their
+APoZ-pruned variants SCBFwP and FAwP (``scbfwp``, ``fedavgwp``) on the
 synthetic 30,760 × 2,917 medical cohort, 5 clients — on the CUDA device
 (``--device cpu`` on request) and writes one CSV history per method,
-with the reference's columns.  SCBFwP/FAwP (ROADMAP A8) and ``--mode lm``
-(ROADMAP A14) are not ported yet.
+with the reference's columns.  ``--mode lm`` (ROADMAP A14) is not ported
+yet.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode medical \
-        --methods scbf,fedavg --loops 30 --out experiments/medical_torch
+        --methods scbf,fedavg,scbfwp,fedavgwp --loops 30 \
+        --out experiments/medical_torch
 """
 from __future__ import annotations
 
@@ -37,17 +39,34 @@ def write_csv(path: str, res) -> None:
                         "" if r.epsilon is None else r.epsilon])
 
 
-def run_medical(args):
+def method_config(method: str, args, fed=None):
+    """(base method, TrainConfig) of one ``--methods`` entry: a ``wp``
+    suffix turns pruning on (SCBFwP / FAwP) over its base method."""
     from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
+
+    prune = method.endswith("wp")
+    base = method[:-2] if prune else method
+    # SCBF sums K client deltas (paper Algorithm 1); FA averages.
+    # Scale SCBF's local lr by 1/K for an equal effective server step.
+    m_lr = args.lr / args.clients if base == "scbf" else args.lr
+    return base, TrainConfig(
+        learning_rate=m_lr, global_loops=args.loops,
+        local_epochs=args.local_epochs,
+        local_batch_size=args.batch_size, seed=args.seed,
+        scbf=ScbfConfig(upload_rate=args.upload_rate,
+                        selection=args.selection,
+                        num_clients=args.clients,
+                        prune=prune, prune_rate=args.prune_rate,
+                        prune_total=args.prune_total,
+                        prune_impl=args.prune_impl),
+        fed=fed or FedConfig())
+
+
+def run_medical(args):
+    from repro_torch.config import FedConfig
     from repro_torch.core.scbf import run_federated
     from repro_torch.data.medical import generate_cohort
 
-    methods = args.methods.split(",")
-    for method in methods:
-        if method.endswith("wp"):
-            raise NotImplementedError(
-                f"{method}: pruning (SCBFwP/FAwP) is ROADMAP A8; not "
-                "ported yet")
     cohort = generate_cohort(seed=args.seed)
     os.makedirs(args.out, exist_ok=True)
     fed = FedConfig(sample_fraction=args.sample_fraction,
@@ -56,19 +75,9 @@ def run_medical(args):
                     partition=args.partition,
                     dirichlet_alpha=args.dirichlet_alpha)
     results = {}
-    for method in methods:
-        # SCBF sums K client deltas (paper Algorithm 1); FA averages.
-        # Scale SCBF's local lr by 1/K for an equal effective server step.
-        m_lr = args.lr / args.clients if method == "scbf" else args.lr
-        cfg = TrainConfig(
-            learning_rate=m_lr, global_loops=args.loops,
-            local_epochs=args.local_epochs,
-            local_batch_size=args.batch_size, seed=args.seed,
-            scbf=ScbfConfig(upload_rate=args.upload_rate,
-                            selection=args.selection,
-                            num_clients=args.clients),
-            fed=fed)
-        res = run_federated(cohort, cfg, method=method, verbose=True,
+    for method in args.methods.split(","):
+        base, cfg = method_config(method, args, fed)
+        res = run_federated(cohort, cfg, method=base, verbose=True,
                             device=args.device)
         results[method] = res
         write_csv(os.path.join(args.out, f"{res.method}.csv"), res)
@@ -79,10 +88,10 @@ def run_medical(args):
     return results
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["medical", "lm"], default="medical")
-    ap.add_argument("--methods", default="scbf,fedavg")
+    ap.add_argument("--methods", default="scbf,fedavg,scbfwp,fedavgwp")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--loops", type=int, default=30)
@@ -92,6 +101,10 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--upload-rate", type=float, default=0.10)
     ap.add_argument("--selection", default="positive")
+    ap.add_argument("--prune-rate", type=float, default=0.10)
+    ap.add_argument("--prune-total", type=float, default=0.47)
+    ap.add_argument("--prune-impl", default="reshape",
+                    choices=["reshape", "mask"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="experiments/medical_torch")
     ap.add_argument("--sample-fraction", type=float, default=1.0)
@@ -100,7 +113,11 @@ def main(argv=None):
     ap.add_argument("--partition", default="iid",
                     choices=["iid", "dirichlet"])
     ap.add_argument("--dirichlet-alpha", type=float, default=0.5)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.mode == "lm":
         raise NotImplementedError("--mode lm (the LM zoo) is ROADMAP A14; "
                                   "not ported yet")

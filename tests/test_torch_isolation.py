@@ -8,6 +8,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
+CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
+KERNELS = ("channel_norm", "select_mask", "select_compact", "apoz")
 
 
 def _forbidden(name: str) -> bool:
@@ -25,9 +27,29 @@ def _imports(path: Path):
 
 
 def test_the_port_has_files():
+    """Every TPU kernel has its CUDA source, and the build compiles all of
+    them and only them."""
+    from repro_torch.kernels import build
     assert len(FILES) > 15
-    assert (REPO / "src" / "repro_torch" / "kernels" / "csrc"
-            / "channel_norm.cu").exists()
+    assert sorted(p.stem for p in CSRC.glob("*.cu")) == sorted(KERNELS)
+    assert sorted(build.SOURCES) == sorted(KERNELS)
+    assert sorted(build.SIGNATURES) == sorted(KERNELS)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_cuda_sources_are_plain_c_without_torch_or_jax(name):
+    """Each kernel source includes only CUDA headers (the build binds it
+    with ctypes, no PyTorch headers) and names the TPU kernel it
+    replaces."""
+    text = (CSRC / f"{name}.cu").read_text()
+    includes = [l.split()[1] for l in text.splitlines()
+                if l.startswith("#include")]
+    assert includes and all(i.startswith("<cuda") for i in includes), \
+        includes
+    assert "torch" not in text.lower().replace("pytorch", "") and \
+        "jax" not in text
+    assert "Replaces the TPU kernel repro/kernels/" in text
+    assert 'extern "C" int' in text
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -22,32 +22,51 @@ FEATS = (64, 32, 16, 1)
 CLIENTS, LOOPS, EPOCHS, BATCH, SEED = 3, 2, 1, 64, 0
 
 
-def _cfgs(method):
+# SCBFwP / FAwP: 48 hidden neurons, θ = 0.25 of the remaining per loop up
+# to θ_total = 0.4 (19 neurons): 12 go at loop 0 and 7 at loop 1, so mask
+# mode ships effective-geometry payloads at loop 1, compacts after it, and
+# runs the compacted model at loop 2
+PRUNE = dict(prune=True, prune_rate=0.25, prune_total=0.4)
+PRUNED_LOOPS = 3
+
+
+def _cfgs(method, loops=LOOPS, **scbf):
     lr = 0.05 / CLIENTS if method == "scbf" else 0.05
-    ref = RefTrainConfig(learning_rate=lr, global_loops=LOOPS,
+    ref = RefTrainConfig(learning_rate=lr, global_loops=loops,
                          local_epochs=EPOCHS, local_batch_size=BATCH,
-                         seed=SEED, scbf=RefScbfConfig(num_clients=CLIENTS),
+                         seed=SEED,
+                         scbf=RefScbfConfig(num_clients=CLIENTS, **scbf),
                          fed=RefFedConfig(engine="sequential"))
-    port = tcfg.TrainConfig(learning_rate=lr, global_loops=LOOPS,
+    port = tcfg.TrainConfig(learning_rate=lr, global_loops=loops,
                             local_epochs=EPOCHS, local_batch_size=BATCH,
                             seed=SEED,
-                            scbf=tcfg.ScbfConfig(num_clients=CLIENTS))
+                            scbf=tcfg.ScbfConfig(num_clients=CLIENTS,
+                                                 **scbf))
     return ref, port
 
 
-@pytest.mark.parametrize("method", ["scbf", "fedavg"])
-def test_run_federated_matches_reference(method):
+@pytest.mark.parametrize("method,loops,scbf", [
+    ("scbf", LOOPS, {}),
+    ("fedavg", LOOPS, {}),
+    ("scbf", PRUNED_LOOPS, dict(PRUNE, prune_impl="reshape")),
+    ("fedavg", PRUNED_LOOPS, dict(PRUNE, prune_impl="reshape")),
+    ("scbf", PRUNED_LOOPS, dict(PRUNE, prune_impl="mask",
+                                prune_compact=True)),
+], ids=["scbf", "fedavg", "scbfwp-reshape", "fedavgwp-reshape",
+        "scbfwp-mask-compact"])
+def test_run_federated_matches_reference(method, loops, scbf):
     cohort = ref_cohort(num_admissions=1500, num_medicines=64, seed=SEED)
     shards = ref_split(cohort.x_train, cohort.y_train, CLIENTS, seed=SEED)
     init, perms = reference_draws(SEED, FEATS, [len(y) for _, y in shards],
-                                  LOOPS, EPOCHS)
-    ref_cfg, port_cfg = _cfgs(method)
+                                  loops, EPOCHS)
+    ref_cfg, port_cfg = _cfgs(method, loops, **scbf)
     want = ref_run(cohort, ref_cfg, method=method, mlp_features=FEATS)
     got = run_federated(
         generate_cohort(num_admissions=1500, num_medicines=64, seed=SEED),
         port_cfg, method=method, mlp_features=FEATS, device="cpu",
         init_params=init, perms=perms)
-    assert len(got.records) == len(want.records) == LOOPS
+    assert got.method == want.method
+    assert len(got.records) == len(want.records) == loops
     for g, w in zip(got.records, want.records):
         assert g.upload_fraction == w.upload_fraction
         assert g.sparse_bytes == w.sparse_bytes
@@ -59,7 +78,11 @@ def test_run_federated_matches_reference(method):
         np.testing.assert_allclose(g.auc_pr, w.auc_pr, atol=1e-3)
     for lg, lw in zip(np_tree(got.final_params), np_tree(want.final_params)):
         for k in lw:
+            assert lg[k].shape == lw[k].shape
             np.testing.assert_allclose(lg[k], lw[k], atol=1e-5, rtol=0)
+    if scbf:
+        sizes = [r.hidden_sizes for r in got.records]
+        assert sum(sizes[0]) == 48 - 12 and sum(sizes[-1]) == 48 - 19
 
 
 def test_device_none_without_cuda_raises():
@@ -72,7 +95,6 @@ def test_device_none_without_cuda_raises():
 
 
 @pytest.mark.parametrize("change", [
-    dict(scbf=tcfg.ScbfConfig(prune=True)),
     dict(scbf=tcfg.ScbfConfig(dp_noise_multiplier=1.0)),
     dict(fed=tcfg.FedConfig(engine="batched")),
     dict(fed=tcfg.FedConfig(fuse_rounds=4)),
@@ -81,12 +103,34 @@ def test_device_none_without_cuda_raises():
     dict(fed=tcfg.FedConfig(faults=tcfg.FaultConfig(enabled=True))),
     dict(fed=tcfg.FedConfig(max_update_norm=1.0)),
     dict(fed=tcfg.FedConfig(min_valid_participants=2)),
-], ids=["prune", "dp", "batched", "fused", "fedbuff", "clock", "faults",
+], ids=["dp", "batched", "fused", "fedbuff", "clock", "faults",
         "admission", "quorum"])
 def test_out_of_slice_configs_refused(change):
     cohort = generate_cohort(num_admissions=200, num_medicines=16, seed=0)
     cfg = tcfg.TrainConfig(global_loops=1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_federated(cohort, cfg, mlp_features=(16, 8, 4, 1), device="cpu")
+
+
+def test_mask_pruning_with_fedavg_raises_in_both_packages():
+    """Mask-mode keep-masks ride the sparse scbf pipeline; FAwP prunes by
+    reshaping — both packages refuse the combination up front."""
+    ref_cfg, port_cfg = _cfgs("fedavg", 1, prune=True, prune_impl="mask")
+    with pytest.raises(ValueError, match="reshape"):
+        ref_run(ref_cohort(num_admissions=200, num_medicines=16, seed=0),
+                ref_cfg, method="fedavg", mlp_features=(16, 8, 4, 1))
+    with pytest.raises(ValueError, match="reshape"):
+        run_federated(generate_cohort(num_admissions=200, num_medicines=16,
+                                      seed=0),
+                      port_cfg, method="fedavg", mlp_features=(16, 8, 4, 1),
+                      device="cpu")
+
+
+def test_unknown_prune_impl_raises():
+    cohort = generate_cohort(num_admissions=200, num_medicines=16, seed=0)
+    cfg = tcfg.TrainConfig(global_loops=1, scbf=tcfg.ScbfConfig(
+        prune=True, prune_impl="drop"))
+    with pytest.raises(ValueError, match="prune_impl"):
         run_federated(cohort, cfg, mlp_features=(16, 8, 4, 1), device="cpu")
 
 

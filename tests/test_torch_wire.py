@@ -10,8 +10,12 @@ import torch
 from repro.comm import wire as ref_wire
 from repro.core import selection as ref_sel
 from repro_torch.comm import wire as port_wire
+from repro_torch.core import channels as port_ch
 from repro_torch.core import selection as port_sel
 from repro_torch.core import server as port_server
+from repro_torch.core.pruning import index_tensors
+from repro_torch.fed.engine import _compact_layers, _compact_operands
+from repro_torch.kernels import select_mask as sm
 from repro_torch.params import from_numpy
 
 from _torch_parity import np_tree
@@ -130,3 +134,84 @@ def test_validation_refuses_corrupt_payloads():
         port_wire.apply_payloads(params, [dataclasses.replace(
             good, layers=good.layers[:2])])
     port_wire.validate_payload(good, params)
+
+
+def _selected_delta(seed, density):
+    """A delta, its edge operands (thresholds at ``density`` of the pair
+    sums — all of them at 1 — rest 0.1) and the select-mask output.  Every fourth row of W0 is
+    exactly zero — a medication no example in the batches takes — so many
+    kept entries are zeros that the wire must not ship."""
+    rng = np.random.default_rng(seed)
+    g = []
+    for l, (fin, fout) in enumerate(zip(FEATS[:-1], FEATS[1:])):
+        w = rng.standard_normal((fin, fout)).astype(np.float32)
+        if l == 0:
+            w[::4] = 0.0
+            w[rng.random(w.shape) < 0.05] = 0.0
+        g.append({"w": w, "b": rng.standard_normal(fout).astype(np.float32)})
+    g = from_numpy(tuple(g), "cpu")
+    ops = []
+    for l, layer in enumerate(g):
+        m, n = layer["w"].shape
+        row = torch.from_numpy(rng.random(m).astype(np.float32)) if l \
+            else torch.zeros(m)
+        col = torch.from_numpy(rng.random(n).astype(np.float32))
+        rest = torch.tensor(0.1)
+        pairs = ((row[:, None] + col[None, :]) + rest).reshape(-1)
+        thr = torch.quantile(pairs, 1.0 - density) if density < 1 \
+            else pairs.min() - 1.0
+        ops.append(port_ch.EdgeOperands(layer["w"], row, col, thr, rest))
+    masked, _ = port_ch.mask_by_operands(g, ops)
+    return masked, ops
+
+
+@pytest.mark.parametrize("density", [0.02, 0.3, 1.0])
+def test_encode_selected_equals_encode_byte_for_byte(density):
+    """The device encoder (the select-compact kernel's plain version on
+    the CPU) gives the host encoder's payload, and the reference's, field
+    for field — with kept-but-zero entries dropped as the wire drops
+    them."""
+    masked, ops = _selected_delta(20, density)
+    sm.reset_launches()
+    got = port_wire.encode_selected(masked, ops)
+    assert sm.compact_launches == 0            # CPU: the plain version
+    _assert_same_payload(got, port_wire.encode(masked))
+    _assert_same_payload(got, ref_wire.encode(np_tree(masked)))
+    kept = int(sm.select_mask(*ops[0])[2])
+    assert got.layers[1].nnz < kept or kept == 0   # zeros were selected
+
+
+def test_encode_selected_picks_all_three_codecs():
+    seen = set()
+    for density in (0.02, 0.3, 1.0):
+        masked, ops = _selected_delta(21, density)
+        seen |= {lp.codec for (_, k), lp in zip(
+            *(lambda p: (p.keys, p.layers))(
+                port_wire.encode_selected(masked, ops))) if k == "w"}
+    assert seen == {"coo", "bitmap", "dense"}
+
+
+def test_encode_selected_from_the_selection_pipeline():
+    """select_gradients' operands feed the encoder on the main path."""
+    rng = np.random.default_rng(22)
+    g = tuple({"w": rng.standard_normal((fin, fout)).astype(np.float32)
+               * (rng.random((fin, 1)) < 0.7),
+               "b": rng.standard_normal(fout).astype(np.float32)}
+              for fin, fout in zip(FEATS[:-1], FEATS[1:]))
+    masked, _, _, ops = port_sel.select_gradients(from_numpy(g, "cpu"), 0.1)
+    want, _, _ = ref_sel.select_gradients(
+        tuple({k: jnp.asarray(v) for k, v in l.items()} for l in g), 0.1)
+    got = port_wire.encode_selected(masked, ops)
+    _assert_same_payload(got, ref_wire.encode(want))
+
+
+def test_encode_selected_in_effective_geometry():
+    """Mask-mode emission: slicing the operands by the keep sets on the
+    device and compacting gives the payload of the sliced masked delta."""
+    masked, ops = _selected_delta(23, 0.3)
+    keep = index_tensors([np.array([0, 3, 4, 9, 15, 19]),
+                          np.array([1, 2, 7])], "cpu")
+    eff = _compact_layers(masked, keep)
+    assert [tuple(l["w"].shape) for l in eff] == [(30, 6), (6, 3), (3, 1)]
+    got = port_wire.encode_selected(eff, _compact_operands(ops, keep))
+    _assert_same_payload(got, ref_wire.encode(np_tree(eff)))
