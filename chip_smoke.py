@@ -16,18 +16,25 @@ its own failure:
    select_mask bitwise (values, mask, count) and select_compact bitwise
    (idx, vals, count) over several thresholds, an exact tie, rest in
    {0, 0.37}, -inf scores, drop_zeros on and off and a capacity below the
-   count; apoz bitwise at the SCBFwP path's shapes with an all-zero
-   column, -0.0 and NaN.  Then times kernel and plain version (and
-   apoz's library call) at the main path's shapes.
+   count; the same for leaf tables (K2 one launch, K3 one count and one
+   scatter launch over mixed shapes, capacities at size, half the count
+   and the count); apoz bitwise at the SCBFwP path's shapes with an
+   all-zero column, -0.0 and NaN.  Then times kernel and plain version
+   (and apoz's library call) at the main path's shapes: K2 and K3 a
+   client pass at a time, as one table and as single-leaf calls, K3 also
+   on the encoder's count-first route, each with its device time from
+   the profiler.
 4. main path at full width — the synthetic cohort (30,760 × 2,917),
    MLP 2917-256-64-1, 5 IID clients, 2 local epochs, batch 256, upload
    rate 0.10, through ``repro_torch.core.scbf.run_federated`` on cuda:
    2 SCBF loops, 1 FedAvg loop, then 8 loops each of SCBFwP reshape and
    SCBFwP mask with compaction (prune rate 0.10, total 0.47: 150 of the
    320 hidden neurons go in 7 steps).  The launch counts are set to 0
-   before each run and read after it: K1, K2 and K3 launch loops ×
-   clients × 3 times on every SCBF run, K4 prune steps × 2 validation
-   batches × 2 hidden layers.
+   before each run and read after it: on every SCBF run K1 launches
+   loops × clients × 3 times, K2 and K3's count loops × clients times,
+   K3's scatter once a client pass with a coo or bitmap weight leaf (the
+   run's codec mix is logged), K4 prune steps × 2 validation batches × 2
+   hidden layers.
 5. profile — torch.profiler over one more full-width SCBF loop: the
    device's busy share and the kernels that take its time.
 6. small-input agreement — SCBF and SCBFwP (mask, compacted) on cuda
@@ -80,11 +87,13 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel) -> tuple:
-    """(plain_ms, kernel_ms), timed plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), \
-        cuda_ms(plain)
-    return (p1 + p2) / 2, (k1 + k2) / 2
+def in_turns(*fns) -> tuple:
+    """Two functions: (plain_ms, kernel_ms), timed plain, kernel, kernel,
+    plain.  More: each one's ms, timed in the order given."""
+    if len(fns) == 2:
+        p1, k1, k2, p2 = (cuda_ms(f) for f in fns + fns[::-1])
+        return (p1 + p2) / 2, (k1 + k2) / 2
+    return tuple(cuda_ms(f) for f in fns)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple:
@@ -179,7 +188,8 @@ def check_select_compact(torch, gen) -> float:
                         full = sm.select_compact_plain(g, srow, scol, thr,
                                                        rest_t, g.numel(),
                                                        drop)
-                        caps = [g.numel(), max(int(full[2]) // 2, 0)]
+                        caps = [g.numel(), max(int(full[2]) // 2, 0),
+                                int(full[2])]
                         for cap in caps:
                             got = sm.select_compact(g, srow, scol, thr,
                                                     rest_t, capacity=cap,
@@ -200,6 +210,80 @@ def check_select_compact(torch, gen) -> float:
     log(f"kernels vs plain: select_compact {checks} cases bitwise "
         f"(idx, vals, count)")
     return err
+
+
+def _same(torch, got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def check_leaf_tables(torch, gen) -> None:
+    """K2 and K3 over leaf tables — one launch (K2), one count and one
+    scatter launch (K3) for a table of mixed shapes — bitwise against the
+    plain versions leaf by leaf.  Each table holds the main path's and
+    the check shapes, one leaf whose g starts one element past an
+    alignment (the scalar path at N % 4 == 0) and one leaf of more than
+    1,024 tiles (K3's offsets from the count launch); -inf scores, a
+    threshold per leaf at a quantile or an exact tie, rest 0 or 0.37 in
+    turn, kept-but-zero rows of g.  K3 scatters at capacity M*N, at half
+    the count and at the count, over all leaves and over every other."""
+    from repro_torch.core.channels import quantile
+    from repro_torch.kernels import channel_norm as cn
+    from repro_torch.kernels import select_mask as sm
+
+    shapes = CHECK_SHAPES + [(256, 64)]             # the last misaligned
+    checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        gs = []
+        for k, (m, n) in enumerate(shapes + [(4099, 1031)]):
+            flat = torch.randn(m * n + 1, generator=gen).to(dtype).cuda()
+            g = flat[1:].view(m, n) if k == len(shapes) - 1 else \
+                flat[:-1].view(m, n)
+            g[::3] = 0
+            gs.append(g)
+        parts = []
+        for g in gs:
+            prow, pcol = cn.channel_norms_plain(g)
+            parts.append(_scores_and_thresholds(torch, quantile, prow, pcol))
+        for t in range(4):                 # the quantiles, then the ties
+            leaves = [(g, srow, scol, thrs[t],
+                       torch.tensor(0.37 * ((t + k) % 2), device="cuda"))
+                      for k, (g, (srow, scol, thrs)) in
+                      enumerate(zip(gs, parts))]
+            outs, masks, counts = sm.select_mask_leaves(leaves)
+            for k, leaf in enumerate(leaves):
+                want = sm.select_mask_plain(*leaf)
+                if not _same(torch, (outs[k], masks[k], counts[k]), want):
+                    raise AssertionError(f"select_mask table differs from "
+                                         f"plain at leaf {k} "
+                                         f"{tuple(leaf[0].shape)} {dtype}")
+                checks += 1
+            for drop in (False, True):
+                cc = sm.compact_count(leaves, drop_zeros=drop)
+                full = [sm.select_compact_plain(*leaf, leaf[0].numel(), drop)
+                        for leaf in leaves]
+                nnz = [int(c) for _, _, c in full]
+                if cc.counts.tolist() != nnz:
+                    raise AssertionError(f"select_compact table counts "
+                                         f"{cc.counts.tolist()} != {nnz}")
+                odd = list(range(1, len(leaves), 2))
+                for which, caps in (
+                        (None, [leaf[0].numel() for leaf in leaves]),
+                        (None, [c // 2 for c in nnz]), (None, nnz),
+                        (odd, [nnz[k] for k in odd])):
+                    _, views = sm.compact_scatter(cc, caps, which)
+                    for k, cap, (idx, vals) in zip(
+                            which or range(len(leaves)), caps, views):
+                        want = sm.select_compact_plain(*leaves[k], cap, drop)
+                        if not _same(torch, (idx, vals), want):
+                            raise AssertionError(
+                                f"select_compact table differs from plain "
+                                f"at leaf {k} {tuple(leaves[k][0].shape)} "
+                                f"{dtype} drop_zeros={drop} capacity={cap}")
+                        checks += 1
+    torch.cuda.synchronize()
+    log(f"kernels vs plain: leaf tables, {checks} leaf cases bitwise "
+        f"(select_mask one launch a table, select_compact count + "
+        f"scatter)")
 
 
 def check_apoz(torch, gen) -> float:
@@ -223,40 +307,58 @@ def check_apoz(torch, gen) -> float:
     return 0.0
 
 
+def device_us(torch, fn, names, iters: int = 50):
+    """Device microseconds per call of ``fn`` spent in the kernels whose
+    names hold one of ``names``, from torch.profiler over ``iters`` calls;
+    None if the profiler records no CUDA event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    return sum(e.time_range.elapsed_us() for e in events
+               if any(s in e.name for s in names)) / iters
+
+
 def time_kernels(torch, gen, errs: dict) -> list:
     """Kernel, plain version and library call timed in turns at the main
-    path's shapes; the report rows (launches filled in later)."""
+    path's shapes; the report rows (launches filled in later).  K2 and K3
+    are timed a client pass at a time (one leaf a weight matrix, fp32,
+    threshold at the 0.9 quantile of the pair sums): K2 as one table
+    launch and as three single-leaf calls; K3 at capacity M*N with
+    drop_zeros as one table (count + scatter launch) and as three
+    single-leaf calls (PR 12's timing), and on the encoder's route:
+    count, the counts read on the host, scatter of the coo and bitmap
+    leaves at their counts."""
+    from repro_torch.comm.wire import cheapest_bytes
+    from repro_torch.core.channels import quantile
     from repro_torch.kernels import apoz as az
     from repro_torch.kernels import channel_norm as cn
     from repro_torch.kernels import select_mask as sm
-    from repro_torch.core.channels import quantile
 
     t = {k: {"plain": 0.0, "kernel": 0.0, "library": 0.0}
          for k in ("channel_norm", "select_mask", "select_compact", "apoz")}
     nbytes = dict.fromkeys(t, 0.0)
     flops = dict.fromkeys(t, 0.0)
-    # one client's pass is one call per weight matrix (fp32); the encoder
-    # compacts each at capacity M*N with drop_zeros
+    leaves = []
     for m, n in MAIN_SHAPES:
         g = torch.randn((m, n), generator=gen).cuda()
         row, col = cn.channel_norms_plain(g)
         thr = quantile((row[:, None] + col[None, :]).reshape(-1), 0.9)
-        rest = torch.tensor(0.0, device="cuda")
-        for name, plain, kern in (
-                ("channel_norm", lambda: cn.channel_norms_plain(g),
-                 lambda: cn.channel_norms(g)),
-                ("select_mask",
-                 lambda: sm.select_mask_plain(g, row, col, thr, rest),
-                 lambda: sm.select_mask(g, row, col, thr, rest)),
-                ("select_compact",
-                 lambda: sm.select_compact_plain(g, row, col, thr, rest,
-                                                 m * n, True),
-                 lambda: sm.select_compact(g, row, col, thr, rest,
-                                           capacity=m * n,
-                                           drop_zeros=True))):
-            p, k = in_turns(plain, kern)
-            t[name]["plain"] += p
-            t[name]["kernel"] += k
+        leaves.append((g, row, col, thr, torch.tensor(0.0, device="cuda")))
+        p, k = in_turns(lambda: cn.channel_norms_plain(g),
+                        lambda: cn.channel_norms(g))
+        t["channel_norm"]["plain"] += p
+        t["channel_norm"]["kernel"] += k
         nbytes["channel_norm"] += 4 * m * n + 4 * (m + n)
         flops["channel_norm"] += 3 * m * n
         nbytes["select_mask"] += 4 * m * n + 4 * (m + n) + 8 + 4 * m * n \
@@ -265,6 +367,51 @@ def time_kernels(torch, gen, errs: dict) -> list:
         nbytes["select_compact"] += 4 * m * n + 4 * (m + n) + 8 \
             + 8 * m * n + 4
         flops["select_compact"] += 4 * m * n
+    sizes = [leaf[0].numel() for leaf in leaves]
+    nnz = sm.compact_count(leaves, drop_zeros=True).counts.tolist()
+    sparse = [k for k, (c, size) in enumerate(zip(nnz, sizes))
+              if c and cheapest_bytes(c, size)[0] != "dense"]
+
+    def compact_table():
+        sm.compact_scatter(sm.compact_count(leaves, drop_zeros=True), sizes)
+
+    def compact_encoder():
+        cc = sm.compact_count(leaves, drop_zeros=True)
+        counts = cc.counts.tolist()
+        sm.compact_scatter(cc, [counts[k] for k in sparse], sparse)
+
+    routes = {
+        "select_mask": (
+            lambda: [sm.select_mask_plain(*leaf) for leaf in leaves],
+            lambda: sm.select_mask_leaves(leaves),
+            lambda: [sm.select_mask(*leaf) for leaf in leaves],
+            ("select_mask_kernel",)),
+        "select_compact": (
+            lambda: [sm.select_compact_plain(*leaf, leaf[0].numel(), True)
+                     for leaf in leaves],
+            compact_table,
+            lambda: [sm.select_compact(*leaf, capacity=leaf[0].numel(),
+                                       drop_zeros=True) for leaf in leaves],
+            ("compact_",)),
+    }
+    extra = {}
+    for name, (plain, table, single, names) in routes.items():
+        p1, k1, s1, s2, k2, p2 = in_turns(plain, table, single, single,
+                                          table, plain)
+        t[name]["plain"] = (p1 + p2) / 2
+        t[name]["kernel"] = (k1 + k2) / 2
+        extra[name] = {"ms_single_leaf": (s1 + s2) / 2,
+                       "device_us": device_us(torch, table, names),
+                       "device_us_single_leaf": device_us(torch, single,
+                                                          names)}
+    enc_bytes = sum(4 * m * n + 4 * (m + n) + 12 for m, n in MAIN_SHAPES) \
+        + sum(8 * nnz[k] for k in sparse)
+    enc_bound, enc_by = bound_ms(enc_bytes, flops["select_compact"])
+    extra["select_compact"]["encoder"] = {
+        "ms": cuda_ms(compact_encoder),
+        "device_us": device_us(torch, compact_encoder, ("compact_",)),
+        "bound_us": enc_bound * 1e3, "bound_by": enc_by,
+        "nnz": nnz, "scattered_leaves": sparse}
     # one SCBFwP prune step: 2 validation batches x 2 hidden layers
     for b, n in APOZ_SHAPES:
         a = torch.relu(torch.randn((b, n), generator=gen)).cuda()
@@ -283,11 +430,12 @@ def time_kernels(torch, gen, errs: dict) -> list:
     meta = {
         "channel_norm": ("src/repro/kernels/channel_norm.py:48", main_txt,
                          None),
-        "select_mask": ("src/repro/kernels/select_mask.py:123", main_txt,
-                        None),
+        "select_mask": ("src/repro/kernels/select_mask.py:123",
+                        main_txt + ", one table launch a pass", None),
         # no one PyTorch call compacts by a pairwise score test in order
-        "select_compact": ("src/repro/kernels/select_mask.py:78", main_txt,
-                           None),
+        "select_compact": ("src/repro/kernels/select_mask.py:78",
+                           main_txt + ", capacity M*N, one table a pass "
+                           "(count + scatter launch)", None),
         "apoz": ("src/repro/kernels/apoz.py:46", apoz_txt,
                  t["apoz"]["library"]),
     }
@@ -300,7 +448,8 @@ def time_kernels(torch, gen, errs: dict) -> list:
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[name], "ms": t[name]["kernel"],
             "plain_ms": t[name]["plain"], "bound_ms": bound, "bound_by": by,
-            "library_ms": library, "shape": shape_txt})
+            "library_ms": library, "shape": shape_txt,
+            **extra.get(name, {})})
     return report
 
 
@@ -310,6 +459,7 @@ def phase_kernels(torch) -> list:
     errs["channel_norm"], errs["select_mask"] = \
         check_channel_norm_and_select_mask(torch, gen)
     errs["select_compact"] = check_select_compact(torch, gen)
+    check_leaf_tables(torch, gen)
     errs["apoz"] = check_apoz(torch, gen)
     return time_kernels(torch, gen, errs)
 
@@ -342,12 +492,52 @@ class PruneTimer:
         self.cls.step, self.cls.compact = self.saved
 
 
+class CodecTally:
+    """The codecs the upload encoder picks for the weight leaves, one
+    tuple a client pass, while installed."""
+
+    def __init__(self):
+        from repro_torch.comm import wire
+        self.wire, self.saved, self.passes = wire, wire.encode_selected, []
+
+    def _encode(self, masked, operands):
+        payload = self.saved(masked, operands)
+        self.passes.append(tuple(
+            (lp.codec, lp.nnz) for (_, k), lp in
+            zip(payload.keys, payload.layers) if k == "w"))
+        return payload
+
+    def __enter__(self):
+        self.wire.encode_selected = self._encode
+        return self
+
+    def __exit__(self, *exc):
+        self.wire.encode_selected = self.saved
+
+    def mix(self) -> dict:
+        """{layer: {codec: passes}} over the weight leaves."""
+        out = {}
+        for leaves in self.passes:
+            for l, (codec, _) in enumerate(leaves):
+                per = out.setdefault(f"w{l}", {})
+                per[codec] = per.get(codec, 0) + 1
+        return out
+
+    def scatter_passes(self) -> int:
+        """Passes with a coo or bitmap weight leaf that keeps an entry:
+        the passes whose encoder launches the scatter."""
+        return sum(any(c != "dense" and nnz for c, nnz in leaves)
+                   for leaves in self.passes)
+
+
 def _launch_counts() -> dict:
     from repro_torch.kernels import apoz as az
     from repro_torch.kernels import channel_norm as cn
     from repro_torch.kernels import select_mask as sm
-    return {"channel_norm": cn.launches, "select_mask": sm.launches,
-            "select_compact": sm.compact_launches, "apoz": az.launches}
+    return {"channel_norm": cn.launches, "select_mask": sm.mask_launches,
+            "select_compact_count": sm.compact_count_launches,
+            "select_compact_scatter": sm.compact_scatter_launches,
+            "apoz": az.launches}
 
 
 def _reset_launches() -> None:
@@ -383,19 +573,21 @@ def phase_main_path(torch, card: str):
                           local_epochs=2, local_batch_size=256, seed=0,
                           scbf=ScbfConfig(upload_rate=0.10,
                                           num_clients=K_CLIENTS, **scbf))
-        with PruneTimer(torch) as timer:
+        with PruneTimer(torch) as timer, CodecTally() as codecs:
             _reset_launches()
             res = run_federated(cohort, cfg, method=method,
                                 mlp_features=feats, device="cuda")
             counts = _launch_counts()
         runs[label] = (res, counts, timer.seconds)
-        _check_run(torch, label, res, counts, card, timer.seconds)
+        _check_run(torch, label, res, counts, card, timer.seconds, codecs)
     return runs, cohort
 
 
-def _check_run(torch, label, res, counts, card, prune_s) -> None:
+def _check_run(torch, label, res, counts, card, prune_s, codecs) -> None:
     """Log every loop; hold the records, the weights and the launch counts
-    to what the run must give."""
+    to what the run must give: K1 three launches a client pass, K2 one,
+    K3 one count launch a pass and one scatter launch a pass that has a
+    coo or bitmap weight leaf (the codec tally says which)."""
     pruned = label.startswith("scbfwp")
     # prune steps run at loops 0 .. WP_STEPS-1; the mask run's compaction
     # follows the last step inside the same loop
@@ -412,6 +604,8 @@ def _check_run(torch, label, res, counts, card, prune_s) -> None:
             f"hidden={'x'.join(map(str, r.hidden_sizes))} "
             f"wall_s={r.wall_time:.3f} prune_s={ps:.3f} ({card})")
     log(f"[{label}] kernel launches: {counts}")
+    log(f"[{label}] weight-leaf codecs over {len(codecs.passes)} client "
+        f"passes: {json.dumps(codecs.mix())}")
     for r in res.records:
         for v in (r.auc_roc, r.auc_pr):
             if not (math.isfinite(v) and 0.5 < v <= 1.0):
@@ -424,13 +618,16 @@ def _check_run(torch, label, res, counts, card, prune_s) -> None:
             if v.device.type != "cuda" or not torch.isfinite(v).all():
                 raise AssertionError(f"{label}: final params not finite "
                                      "on cuda")
-    loops = len(res.records)
-    per_run = loops * K_CLIENTS * LAYERS
+    passes = len(res.records) * K_CLIENTS
     if label == "fedavg":
         want = dict.fromkeys(counts, 0)
     else:
-        want = {"channel_norm": per_run, "select_mask": per_run,
-                "select_compact": per_run,
+        if len(codecs.passes) != passes:
+            raise AssertionError(f"{label}: {len(codecs.passes)} encoded "
+                                 f"passes, want {passes}")
+        want = {"channel_norm": passes * LAYERS, "select_mask": passes,
+                "select_compact_count": passes,
+                "select_compact_scatter": codecs.scatter_passes(),
                 "apoz": WP_STEPS * VAL_BATCHES * HIDDEN_LAYERS if pruned
                 else 0}
         for r in res.records:
@@ -501,7 +698,9 @@ def phase_profile(torch, cohort, card: str) -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         ours = {k: v for k, v in by_name.items()
                 if any(s in k for s in ("partials_kernel", "finish_kernel",
-                                        "select_mask_kernel", "compact_",
+                                        "select_mask_kernel",
+                                        "compact_count_kernel",
+                                        "compact_scatter_kernel",
                                         "apoz_counts_kernel"))}
         log("profile: " + json.dumps({
             "what": f"one full-width {what} loop + evaluation",
@@ -588,16 +787,22 @@ def main() -> int:
     runs, cohort = phase_main_path(torch, card)
     phase_profile(torch, cohort, card)
     phase_agreement(torch)
+    kinds = {"select_compact": ("select_compact_count",
+                                "select_compact_scatter")}
     for r in report:
-        by_run = {label: counts[r["name"]]
+        by_run = {label: {k: counts[k] for k in kinds.get(r["name"],
+                                                         (r["name"],))}
                   for label, (_, counts, _) in runs.items()}
-        r["launches"] = sum(by_run.values())
+        r["launches"] = sum(sum(c.values()) for c in by_run.values())
         r["launches_by_run"] = by_run
         log("kernel timing: " + json.dumps(
             {"kernel": r["name"], "kernel_ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_us": r["bound_ms"] * 1e3,
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-             "launches": r["launches"], "shape": r["shape"]}))
+             "launches": r["launches"], "shape": r["shape"],
+             "card": card, **{k: v for k, v in r.items() if k in (
+                 "ms_single_leaf", "device_us", "device_us_single_leaf",
+                 "encoder")}}))
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

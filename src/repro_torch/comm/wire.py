@@ -9,9 +9,10 @@ Three codecs per leaf, cheapest wins:
 
 Encoding keeps *nonzero* entries (``np.flatnonzero``) and is lossless.
 ``encode_selected`` is the same encoding from the selection's operands:
-each weight leaf is compacted on the device by the select-compact kernel
-(kept *and* nonzero entries, row-major), and only the chosen codec's
-buffers cross to the host.  Payloads hold host numpy buffers — they
+the select-compact kernel counts every weight leaf's kept *and* nonzero
+entries on the device, the counts pick the codecs, and only the coo and
+bitmap leaves are compacted (row-major, at their counts) and cross to
+the host.  Payloads hold host numpy buffers — they
 model bytes crossing the network — as in the reference.  Where the
 reference keeps a JAX treedef, a ``Payload`` keeps its layer-key
 structure: ``(layer, name)`` pairs in the order JAX flattens a tuple of
@@ -28,7 +29,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.select_mask import select_compact
+from repro_torch.kernels.select_mask import compact_count, compact_scatter
 
 INDEX_BYTES = 4                      # int32 flat index (coo)
 
@@ -159,10 +160,12 @@ def encode(tree: Sequence[dict], codec: str = "auto") -> Payload:
                                for l, k in keys))
 
 
-def _leaf_from_compact(leaf: torch.Tensor, idx: torch.Tensor,
-                       vals: torch.Tensor, nnz: int) -> LayerPayload:
-    """``encode_leaf(leaf)`` from the leaf's compacted nonzeros: its first
-    ``nnz`` row-major (idx, vals).  One device→host copy per leaf."""
+def _leaf_from_compact(leaf: torch.Tensor, nnz: int,
+                       nz: Optional[np.ndarray], values: Optional[np.ndarray]
+                       ) -> LayerPayload:
+    """``encode_leaf(leaf)`` from the leaf's nonzero count and, for coo
+    and bitmap, its ``nnz`` row-major flat indices and values (host
+    arrays); dense copies the masked leaf."""
     size = int(leaf.numel())
     shape = tuple(leaf.shape)
     codec, nbytes = cheapest_bytes(nnz, size, 4)
@@ -170,8 +173,6 @@ def _leaf_from_compact(leaf: torch.Tensor, idx: torch.Tensor,
         return LayerPayload(codec, shape, np.dtype(np.float32), size,
                             nbytes, idx=None, bitmap=None,
                             values=_host(leaf).reshape(-1).copy())
-    both = torch.cat([idx[:nnz], vals[:nnz].view(torch.int32)]).cpu().numpy()
-    nz, values = both[:nnz], both[nnz:].view(np.float32)
     if codec == "coo":
         return LayerPayload(codec, shape, np.dtype(np.float32), nnz, nbytes,
                             idx=nz, bitmap=None, values=values)
@@ -183,33 +184,45 @@ def _leaf_from_compact(leaf: torch.Tensor, idx: torch.Tensor,
 
 def encode_selected(masked: Sequence[dict], operands: Sequence) -> Payload:
     """``encode(masked)`` for a channel-selected delta, field for field,
-    with the weight leaves compacted on the device.
+    with the weight leaves compacted on the device, count first.
 
     ``operands[l]`` is layer l's edge rule (``core.channels.EdgeOperands``
     — g, row, col, thr, rest — in the geometry of ``masked[l]["w"]``);
-    the select-compact kernel turns it into the leaf's kept-and-nonzero
-    COO buffers, which are exactly ``np.flatnonzero`` of the masked leaf.
-    All leaves' counts reach the host in one copy and pick each leaf's
-    codec; then coo and bitmap copy only the kept entries and dense
-    copies the masked leaf.  Bias leaves (vectors no kernel computes)
-    take the host path of ``encode_leaf``.  Weight leaves are fp32.
+    its kept-and-nonzero entries are exactly ``np.flatnonzero`` of the
+    masked leaf.  One count launch of the select-compact kernel over all
+    weight leaves; the counts reach the host in one copy and pick each
+    leaf's codec; one scatter launch then compacts only the coo and bitmap
+    leaves, each at capacity = its count (no tail), and their buffers
+    reach the host in one copy.  Dense leaves copy the masked leaf.  Bias
+    leaves (vectors no kernel computes) take the host path of
+    ``encode_leaf``.  Weight leaves are fp32.
     """
     keys = flat_keys(masked)
-    compact = {}
-    for l, op in enumerate(operands):
+    for l in range(len(operands)):
         if masked[l]["w"].dtype != torch.float32:
             raise TypeError(f"encode_selected takes fp32 weight leaves, got "
                             f"{masked[l]['w'].dtype}")
-        compact[l] = select_compact(op.g, op.row, op.col, op.thr, op.rest,
-                                    capacity=op.g.numel(), drop_zeros=True)
-    nnzs = torch.stack([c for _, _, c in compact.values()]).tolist() \
-        if compact else []
+    nnzs, host = [], {}
+    if operands:
+        cc = compact_count(operands, drop_zeros=True)
+        nnzs = cc.counts.tolist()
+        sparse = [l for l, op in enumerate(operands) if nnzs[l] and
+                  cheapest_bytes(nnzs[l], int(op.g.numel()), 4)[0] != "dense"]
+        if sparse:
+            buf, views = compact_scatter(cc, [nnzs[l] for l in sparse],
+                                         sparse)
+            flat = buf.cpu().numpy()
+        for l, (idx, vals) in zip(sparse, views if sparse else ()):
+            a, b = idx.storage_offset(), vals.storage_offset()
+            host[l] = (flat[a:a + nnzs[l]],
+                       flat[b:b + nnzs[l]].view(np.float32))
     layers = []
     for l, k in keys:
         if k == "w":
-            idx, vals, _ = compact[l]
-            layers.append(_leaf_from_compact(masked[l][k], idx, vals,
-                                             int(nnzs[l])))
+            nz, values = host.get(
+                l, (np.zeros(0, np.int32), np.zeros(0, np.float32)))
+            layers.append(_leaf_from_compact(masked[l][k], int(nnzs[l]), nz,
+                                             values))
         else:
             layers.append(encode_leaf(masked[l][k]))
     return Payload(keys, tuple(layers))

@@ -9,9 +9,9 @@ the broadcast sum of L vectors and the edge rule needs only pair sums:
 
 Two kernels carry the per-client pass: ``kernels.channel_norm`` gives the
 column norms behind ``layer_scores`` and ``kernels.select_mask`` applies
-the edge rule to every weight matrix; ``edge_operands`` hands the same
-rule to the upload encoder (``comm.wire.encode_selected``).  The rest is
-plain torch.  All
+the edge rule to every weight matrix, all of a pass in one launch;
+``edge_operands`` hands the same rule to the upload encoder
+(``comm.wire.encode_selected``).  The rest is plain torch.  All
 scores are fp32 regardless of gradient dtype.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.channel_norm import channel_norms
-from repro_torch.kernels.select_mask import select_mask
+from repro_torch.kernels.select_mask import select_mask_leaves
 
 # Materialise T exactly up to this many channels; sample beyond it.
 MAX_MATERIALIZED = 1 << 22
@@ -211,11 +211,12 @@ def apply_channel_mask(grads: Sequence[dict], scores: Sequence[torch.Tensor],
 def mask_by_operands(grads: Sequence[dict], ops: Sequence[EdgeOperands]
                      ) -> Tuple[list, list]:
     """``apply_channel_mask`` from its ``edge_operands``: every weight mask
-    comes from the select-mask kernel; bias masks are (m_l,) vectors and
-    stay plain torch."""
+    comes from one launch of the select-mask kernel over the pass's leaf
+    table; bias masks are (m_l,) vectors and stay plain torch."""
     masked, masks = [], []
-    for l, (g, op) in enumerate(zip(grads, ops)):
-        mw, w_mask, _ = select_mask(*op)
+    w_masked, w_masks, _ = select_mask_leaves(ops)
+    for l, (g, op, mw, w_mask) in enumerate(zip(grads, ops, w_masked,
+                                               w_masks)):
         if l == 0:
             b_mask = op.col + op.rest > op.thr
         else:

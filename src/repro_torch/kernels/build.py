@@ -42,19 +42,16 @@ SIGNATURES = {
                                   _VOID, _VOID], _INT),
     },
     "select_mask": {
-        # g, dtype, M, N, row, col, thr, rest, out, mask, count, stream
-        "select_mask_launch": ([_VOID, _INT, _INT, _INT, _VOID, _VOID,
-                                _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
-                               _INT),
+        # rows (host int64 table), L, dtype, counts, stream
+        "select_mask_launch": ([_VOID, _INT, _INT, _VOID, _VOID], _INT),
     },
     "select_compact": {
-        # (M, N) -> int32 scratch the launcher needs
-        "select_compact_workspace": ([_INT, _INT], _LL),
-        # g, dtype, M, N, row, col, thr, rest, drop_zeros, capacity, idx,
-        # vals, count, work, stream
-        "select_compact_launch": ([_VOID, _INT, _INT, _INT, _VOID, _VOID,
-                                   _VOID, _VOID, _INT, _LL, _VOID, _VOID,
-                                   _VOID, _VOID, _VOID], _INT),
+        # rows (host int64 table), L, dtype, drop_zeros, tile_counts,
+        # offsets, work_len, stream
+        "select_compact_count_launch": ([_VOID, _INT, _INT, _INT, _VOID,
+                                         _VOID, _LL, _VOID], _INT),
+        "select_compact_scatter_launch": ([_VOID, _INT, _INT, _INT, _VOID,
+                                           _VOID, _LL, _VOID], _INT),
     },
     "apoz": {
         # acts, B, N, counts, stream

@@ -204,8 +204,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     acts = torch.relu(g)
     assert torch.equal(az.apoz_counts(acts), az.apoz_counts_plain(acts))
-    assert cn.launches == 0 and sm.launches == 0
-    assert sm.compact_launches == 0 and az.launches == 0
+    table = [(g, row, col, 300.0, 0.5), (g[:7, :9].contiguous(),
+                                         row[:7], col[:9], 0.0, 0.0)]
+    sm.select_mask_leaves(table)
+    cc = sm.compact_count(table, drop_zeros=True)
+    sm.compact_scatter(cc, [4, 0])
+    assert cn.launches == 0 and sm.mask_launches == 0 and az.launches == 0
+    assert sm.compact_count_launches == 0
+    assert sm.compact_scatter_launches == 0
 
 
 @pytest.mark.parametrize("bad", ["float64", "rank1", "noncontig", "empty"])
@@ -234,3 +240,116 @@ def test_select_mask_checks_score_shapes():
     with pytest.raises(ValueError, match="scalar"):
         sm.select_mask(torch.zeros(4, 5), torch.zeros(4), torch.zeros(5),
                        torch.zeros(2))
+
+
+# a client pass as a leaf table: W0 scaled down, the ragged check shapes
+# and a one-column last layer
+TABLE_SHAPES = [(183, 16), (33, 257), (7, 9), (64, 1)]
+
+
+def _table(dtype, rest, seed, tie=False):
+    """Leaves of mixed shapes with -inf scores on some rows and columns
+    and kept-but-zero rows of g; each leaf's threshold is a quantile of
+    its finite pair sums, or (``tie``) exactly one of them."""
+    rng = np.random.default_rng(seed)
+    leaves, jax_leaves = [], []
+    for k, shape in enumerate(TABLE_SHAPES):
+        gj, gt = _pair(shape, dtype, seed + k)
+        gt[::5] = 0
+        gj = jnp.asarray(gt.float().numpy()).astype(DTYPES[dtype][0])
+        row = torch.from_numpy(rng.random(shape[0]).astype(np.float32))
+        col = torch.from_numpy(rng.random(shape[1]).astype(np.float32))
+        row[::7] = float("-inf")
+        if shape[1] > 1:
+            col[1::5] = float("-inf")
+        pairs = (row[:, None] + col[None, :]).reshape(-1)
+        finite = torch.sort(pairs[torch.isfinite(pairs)]).values
+        thr = finite[finite.numel() // 2].clone() if tie else \
+            torch.tensor(np.float32(np.quantile(finite.numpy(), 0.4)))
+        leaves.append((gt, row, col, thr, torch.tensor(rest)))
+        jax_leaves.append((gj, jnp.asarray(row.numpy()),
+                           jnp.asarray(col.numpy()), np.float32(thr)))
+    return leaves, jax_leaves
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("rest", [0.0, 0.37])
+@pytest.mark.parametrize("tie", [False, True])
+def test_select_mask_leaves_cpu_route_matches_plain_and_pallas(dtype, rest,
+                                                               tie):
+    """The table wrapper's CPU route is the single-leaf plain version leaf
+    by leaf, and with rest = 0 the Pallas kernel's (interpret mode)."""
+    leaves, jax_leaves = _table(dtype, rest, 30, tie)
+    outs, masks, counts = sm.select_mask_leaves(leaves)
+    assert counts.dtype == torch.int32 and counts.shape == (len(leaves),)
+    for leaf, jleaf, out, mask, cnt in zip(leaves, jax_leaves, outs, masks,
+                                           counts):
+        pout, pmask, pcnt = sm.select_mask_plain(*leaf)
+        assert torch.equal(out, pout) and torch.equal(mask, pmask)
+        assert int(cnt) == int(pcnt)
+        if rest == 0.0:
+            want, want_cnt = ops.scbf_select_fused(*jleaf)
+            assert np.array_equal(out.float().numpy().view(np.uint32),
+                                  np.asarray(want, np.float32).view(np.uint32))
+            assert int(cnt) == int(want_cnt)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("rest", [0.0, 0.37])
+@pytest.mark.parametrize("drop_zeros", [False, True])
+def test_compact_leaves_cpu_route_matches_plain_and_pallas(dtype, rest,
+                                                           drop_zeros):
+    """compact_count + compact_scatter over a table (capacities at size,
+    half the count and the count; all leaves and a subset) are the
+    single-leaf plain version leaf by leaf, and with rest = 0 and
+    drop_zeros off the Pallas kernel's (interpret mode)."""
+    leaves, jax_leaves = _table(dtype, rest, 40, tie=rest > 0)
+    cc = sm.compact_count(leaves, drop_zeros=drop_zeros)
+    full = [sm.select_compact_plain(*leaf, leaf[0].numel(), drop_zeros)
+            for leaf in leaves]
+    nnz = [int(c) for _, _, c in full]
+    assert cc.counts.tolist() == nnz
+    for which, caps in ((None, [leaf[0].numel() for leaf in leaves]),
+                        (None, [c // 2 for c in nnz]), (None, nnz),
+                        ([1, 3], [nnz[1], nnz[3]])):
+        buf, views = sm.compact_scatter(cc, caps, which)
+        for k, cap, (idx, vals) in zip(which or range(len(leaves)), caps,
+                                       views):
+            assert idx.untyped_storage().data_ptr() == \
+                buf.untyped_storage().data_ptr()
+            want = sm.select_compact_plain(*leaves[k], cap, drop_zeros)
+            assert torch.equal(idx, want[0]) and torch.equal(vals, want[1])
+            if rest == 0.0 and not drop_zeros:
+                jwant = ops.select_compact(*jax_leaves[k], capacity=cap)
+                assert np.array_equal(idx.numpy(), np.asarray(jwant[0]))
+                assert vals.numpy().tobytes() == \
+                    np.asarray(jwant[1], np.float32).tobytes()
+
+
+def test_select_mask_refuses_int32_overflow():
+    big = torch.empty(2 ** 16, 2 ** 15, device="meta")    # no storage
+    with pytest.raises(ValueError, match="2\\^31"):
+        sm.select_mask(big, torch.zeros(2 ** 16, device="meta"),
+                       torch.zeros(2 ** 15, device="meta"), 0.0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        sm.select_mask_leaves([(torch.zeros(2, 2), torch.zeros(2),
+                                torch.zeros(2), 0.0, 0.0),
+                               (big, torch.zeros(2 ** 16, device="meta"),
+                                torch.zeros(2 ** 15, device="meta"), 0.0,
+                                0.0)])
+
+
+def test_leaf_tables_refuse_what_a_launch_does_not_take():
+    leaf = (torch.zeros(4, 5), torch.zeros(4), torch.zeros(5), 0.0, 0.0)
+    for bad in ([], [leaf] * (sm.MAX_LEAVES + 1)):
+        with pytest.raises(ValueError, match="leaves"):
+            sm.select_mask_leaves(bad)
+        with pytest.raises(ValueError, match="leaves"):
+            sm.compact_count(bad)
+    cc = sm.compact_count([leaf, leaf])
+    with pytest.raises(ValueError, match="capacity"):
+        sm.compact_scatter(cc, [3])
+    with pytest.raises(ValueError, match="capacity"):
+        sm.compact_scatter(cc, [3, -1])
+    with pytest.raises(ValueError, match="scalar"):
+        sm.select_mask_leaves([leaf[:3] + (torch.zeros(2), 0.0)])

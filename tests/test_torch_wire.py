@@ -174,7 +174,8 @@ def test_encode_selected_equals_encode_byte_for_byte(density):
     masked, ops = _selected_delta(20, density)
     sm.reset_launches()
     got = port_wire.encode_selected(masked, ops)
-    assert sm.compact_launches == 0            # CPU: the plain version
+    assert sm.compact_count_launches == 0      # CPU: the plain version
+    assert sm.compact_scatter_launches == 0
     _assert_same_payload(got, port_wire.encode(masked))
     _assert_same_payload(got, ref_wire.encode(np_tree(masked)))
     kept = int(sm.select_mask(*ops[0])[2])
@@ -215,3 +216,51 @@ def test_encode_selected_in_effective_geometry():
     assert [tuple(l["w"].shape) for l in eff] == [(30, 6), (6, 3), (3, 1)]
     got = port_wire.encode_selected(eff, _compact_operands(ops, keep))
     _assert_same_payload(got, ref_wire.encode(np_tree(eff)))
+
+
+@pytest.mark.parametrize("case", ["dense_w0", "signed_zeros", "all_zero"])
+def test_encode_selected_count_first_matches_encode(case):
+    """The count-first encoder (count every weight leaf, pick the codecs,
+    compact only the coo and bitmap leaves at their counts) gives
+    ``encode``'s payload and the reference's byte for byte: a W0 every
+    entry of which is kept and almost all nonzero (dense wins, nothing
+    scattered for it), kept entries that are -0.0 or +0.0 (the wire drops
+    both), and a leaf that keeps nothing (coo with no entry)."""
+    rng = np.random.default_rng(24)
+    g = []
+    for fin, fout in zip(FEATS[:-1], FEATS[1:]):
+        g.append({"w": rng.standard_normal((fin, fout)).astype(np.float32),
+                  "b": rng.standard_normal(fout).astype(np.float32)})
+    if case == "signed_zeros":
+        g[0]["w"][::4] = -0.0
+        g[1]["w"][1::3] = 0.0
+    else:
+        g[0]["w"][0, 0] = -0.0          # one zero: dense still wins
+    g = from_numpy(tuple(g), "cpu")
+    ops = []
+    for l, layer in enumerate(g):
+        m, n = layer["w"].shape
+        row = torch.zeros(m) if l == 0 else \
+            torch.from_numpy(rng.random(m).astype(np.float32))
+        col = torch.from_numpy(rng.random(n).astype(np.float32))
+        pairs = (row[:, None] + col[None, :]).reshape(-1)
+        if l == 0 or case == "signed_zeros":
+            thr = pairs.min() - 1.0              # everything kept
+        elif case == "all_zero" and l == 2:
+            thr = pairs.max() + 1.0              # nothing kept
+        else:
+            thr = torch.quantile(pairs, 0.7)
+        ops.append(port_ch.EdgeOperands(layer["w"], row, col, thr,
+                                        torch.tensor(0.0)))
+    masked, _ = port_ch.mask_by_operands(g, ops)
+    got = port_wire.encode_selected(masked, ops)
+    _assert_same_payload(got, port_wire.encode(masked))
+    _assert_same_payload(got, ref_wire.encode(np_tree(masked)))
+    codecs = [lp.codec for (_, k), lp in zip(got.keys, got.layers)
+              if k == "w"]
+    if case == "signed_zeros":
+        assert codecs[0] == "bitmap" and got.layers[1].nnz == 22 * 20
+    else:
+        assert codecs[0] == "dense"
+    if case == "all_zero":
+        assert codecs[2] == "coo" and got.layers[5].nnz == 0
