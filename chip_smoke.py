@@ -12,29 +12,31 @@ its own failure:
    kernels/csrc`` with nvcc (one process per source, in parallel).
 3. kernels vs plain — each kernel against its plain PyTorch version on
    the card, at the main path's shapes and ragged ones: channel_norm to
-   rtol 1e-5 / atol 1e-6 and bitwise equal across two launches;
+   rtol 1e-5 / atol 1e-6 and bitwise equal across two launches, single
+   leaves and leaf tables of mixed shapes (one launch);
    select_mask bitwise (values, mask, count) and select_compact bitwise
    (idx, vals, count) over several thresholds, an exact tie, rest in
    {0, 0.37}, -inf scores, drop_zeros on and off and a capacity below the
    count; the same for leaf tables (K2 one launch, K3 one count and one
    scatter launch over mixed shapes, capacities at size, half the count
    and the count); apoz bitwise at the SCBFwP path's shapes with an
-   all-zero column, -0.0 and NaN.  Then times kernel and plain version
-   (and apoz's library call) at the main path's shapes: K2 and K3 a
-   client pass at a time, as one table and as single-leaf calls, K3 also
-   on the encoder's count-first route, each with its device time from
-   the profiler.
+   all-zero column, -0.0 and NaN, single leaves and a table a validation
+   batch (one launch, counts and fractions).  Then times kernel and plain
+   version (and apoz's library call) at the main path's shapes: K1, K2
+   and K3 a client pass at a time, as one table and as single-leaf calls,
+   K3 also on the encoder's count-first route, K4 a prune step at a time
+   (a table a batch, and single leaves), each with its device time from
+   the profiler (and K4's memsets).
 4. main path at full width — the synthetic cohort (30,760 × 2,917),
    MLP 2917-256-64-1, 5 IID clients, 2 local epochs, batch 256, upload
    rate 0.10, through ``repro_torch.core.scbf.run_federated`` on cuda:
    2 SCBF loops, 1 FedAvg loop, then 8 loops each of SCBFwP reshape and
    SCBFwP mask with compaction (prune rate 0.10, total 0.47: 150 of the
    320 hidden neurons go in 7 steps).  The launch counts are set to 0
-   before each run and read after it: on every SCBF run K1 launches
-   loops × clients × 3 times, K2 and K3's count loops × clients times,
-   K3's scatter once a client pass with a coo or bitmap weight leaf (the
-   run's codec mix is logged), K4 prune steps × 2 validation batches × 2
-   hidden layers.
+   before each run and read after it: on every SCBF run K1, K2 and K3's
+   count launch loops × clients times, K3's scatter once a client pass
+   with a coo or bitmap weight leaf (the run's codec mix is logged), K4
+   prune steps × 2 validation batches.
 5. profile — torch.profiler over one more full-width SCBF loop: the
    device's busy share and the kernels that take its time.
 6. small-input agreement — SCBF and SCBFwP (mask, compacted) on cuda
@@ -61,7 +63,7 @@ CHECK_SHAPES = MAIN_SHAPES + [(33, 257), (7, 9), (1024, 128)]
 # SCBFwP's APoZ calls: the 3,076 validation rows in batches of 2048 + 1028,
 # over the two hidden layers at their full widths
 APOZ_SHAPES = [(2048, 256), (2048, 64), (1028, 256), (1028, 64)]
-K_LOOPS, K_CLIENTS, LAYERS = 2, 5, 3
+K_LOOPS, K_CLIENTS = 2, 5
 WP_LOOPS, PRUNE_RATE, PRUNE_TOTAL = 8, 0.10, 0.47
 WP_STEPS, WP_HIDDEN = 7, 170          # 320 hidden neurons, 150 pruned
 VAL_BATCHES, HIDDEN_LAYERS = 2, 2
@@ -286,16 +288,69 @@ def check_leaf_tables(torch, gen) -> None:
         f"scatter)")
 
 
+def check_channel_norm_tables(torch, gen) -> float:
+    """K1 over leaf tables — one launch for a table of mixed shapes — to
+    rtol 1e-5 / atol 1e-6 against the plain version leaf by leaf, and
+    bitwise equal across two launches.  The table holds the main path's
+    and the check shapes, one leaf whose g starts one element past an
+    alignment (the scalar path at N % 4 == 0) and one of many tiles and
+    strips (4099 x 1031); fp32 and bf16.  Returns the max abs error."""
+    from repro_torch.kernels import channel_norm as cn
+
+    shapes = CHECK_SHAPES + [(256, 64), (4099, 1031)]
+    err, checks = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        gs = []
+        for k, (m, n) in enumerate(shapes):
+            flat = torch.randn(m * n + 1, generator=gen).to(dtype).cuda()
+            gs.append(flat[1:].view(m, n) if k == len(CHECK_SHAPES) else
+                      flat[:-1].view(m, n))
+        for _ in range(2):              # the main path's table, then all
+            got = cn.channel_norms_leaves(gs)
+            again = cn.channel_norms_leaves(gs)
+            for g, (row, col), (row2, col2) in zip(gs, got, again):
+                prow, pcol = cn.channel_norms_plain(g)
+                torch.testing.assert_close(row, prow, rtol=1e-5, atol=1e-6)
+                torch.testing.assert_close(col, pcol, rtol=1e-5, atol=1e-6)
+                if not (torch.equal(row, row2) and torch.equal(col, col2)):
+                    raise AssertionError(f"channel_norm table not "
+                                         f"deterministic at {tuple(g.shape)} "
+                                         f"{dtype}")
+                err = max(err, (row - prow).abs().max().item(),
+                          (col - pcol).abs().max().item())
+                checks += 1
+            gs = gs[:len(MAIN_SHAPES)]
+    torch.cuda.synchronize()
+    log(f"kernels vs plain: channel_norm leaf tables, {checks} leaf cases "
+        f"(max abs err {err:.3g}, deterministic, one launch a table)")
+    return err
+
+
+def _apoz_input(torch, gen, shape, offset: int = 0):
+    """ReLU activations with -0.0 (a zero), NaN (not one) and an all-zero
+    column; ``offset`` starts the matrix that many floats into its
+    storage."""
+    b, n = shape
+    a = torch.relu(torch.randn(b * n + offset, generator=gen)).cuda()
+    a = a[offset:].view(b, n)
+    a[0] = -0.0
+    a[1, ::2] = float("nan")
+    a[:, n // 2] = 0.0
+    return a
+
+
 def check_apoz(torch, gen) -> float:
-    """K4 bitwise against its plain version; its max abs error (0)."""
+    """K4 bitwise against its plain version: single leaves, and leaf
+    tables (one launch) with the fractions fl(count * fl(1/B)) — a table
+    a validation batch of the SCBFwP path, and a ragged one.  Its max abs
+    error (0)."""
+    import numpy as np
+
     from repro_torch.kernels import apoz as az
 
     checks = 0
     for shape in APOZ_SHAPES + [(33, 257), (7, 9), (130, 3)]:
-        a = torch.relu(torch.randn(shape, generator=gen)).cuda()
-        a[0] = -0.0                     # -0.0 counts as a zero
-        a[1, ::2] = float("nan")        # NaN does not
-        a[:, shape[1] // 2] = 0.0       # an all-zero column
+        a = _apoz_input(torch, gen, shape)
         got, want = az.apoz_counts(a), az.apoz_counts_plain(a)
         torch.cuda.synchronize()
         if not torch.equal(got, want) or \
@@ -303,42 +358,73 @@ def check_apoz(torch, gen) -> float:
             raise AssertionError(f"apoz_counts differs from plain at "
                                  f"{shape}")
         checks += 1
-    log(f"kernels vs plain: apoz {checks} cases bitwise")
+    tables = [APOZ_SHAPES[:HIDDEN_LAYERS], APOZ_SHAPES[HIDDEN_LAYERS:],
+              [(33, 257), (7, 9), (130, 3), (64, 64)]]
+    for shapes in tables:
+        acts = [_apoz_input(torch, gen, s, int(s == (64, 64)))
+                for s in shapes]
+        recip = float(np.float32(1.0) / np.float32(shapes[0][0]))
+        for r in (recip, None):
+            counts, frac = az.apoz_counts_leaves(acts, r)
+            pcounts, pfrac = az.apoz_leaves_plain(acts, r)
+            torch.cuda.synchronize()
+            if not all(torch.equal(c, p) for c, p in zip(counts, pcounts)) \
+                    or (r is None) != (frac is None) or \
+                    (frac is not None and not torch.equal(frac, pfrac)):
+                raise AssertionError(f"apoz table differs from plain at "
+                                     f"{shapes} recip={r}")
+            checks += len(shapes)
+    log(f"kernels vs plain: apoz {checks} cases bitwise (counts, and "
+        f"fractions on the table route)")
     return 0.0
 
 
-def device_us(torch, fn, names, iters: int = 50):
-    """Device microseconds per call of ``fn`` spent in the kernels whose
-    names hold one of ``names``, from torch.profiler over ``iters`` calls;
-    None if the profiler records no CUDA event."""
+def device_us(torch, fn, names, launches: int, iters: int = 50) -> tuple:
+    """(device µs per call in the kernels whose names hold one of
+    ``names``, device µs per call in memsets), from torch.profiler over
+    ``iters`` calls of ``fn``, which launches those kernels ``launches``
+    times a call.  A window whose count of those kernels falls short (the
+    profiler lost events) is measured again, twice at most; then, or if
+    the profiler records no CUDA event, (None, None): not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        return None
-    return sum(e.time_range.elapsed_us() for e in events
-               if any(s in e.name for s in names)) / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        ours = [e for e in events if any(s in e.name for s in names)]
+        if len(ours) == launches * iters:
+            return (sum(e.time_range.elapsed_us() for e in ours) / iters,
+                    sum(e.time_range.elapsed_us() for e in events
+                        if "Memset" in e.name) / iters)
+        log(f"profile window of {names}: {len(ours)} kernel events, want "
+            f"{launches * iters}; measuring again")
+    return None, None
 
 
 def time_kernels(torch, gen, errs: dict) -> list:
     """Kernel, plain version and library call timed in turns at the main
-    path's shapes; the report rows (launches filled in later).  K2 and K3
-    are timed a client pass at a time (one leaf a weight matrix, fp32,
-    threshold at the 0.9 quantile of the pair sums): K2 as one table
-    launch and as three single-leaf calls; K3 at capacity M*N with
-    drop_zeros as one table (count + scatter launch) and as three
-    single-leaf calls (PR 12's timing), and on the encoder's route:
-    count, the counts read on the host, scatter of the coo and bitmap
-    leaves at their counts."""
+    path's shapes; the report rows (launches filled in later).  K1, K2
+    and K3 are timed a client pass at a time (one leaf a weight matrix,
+    fp32; K2 and K3 with the threshold at the 0.9 quantile of the pair
+    sums): K1 and K2 as one table launch and as three single-leaf calls;
+    K3 at capacity M*N with drop_zeros as one table (count + scatter
+    launch) and as three single-leaf calls (PR 12's timing), and on the
+    encoder's route: count, the counts read on the host, scatter of the
+    coo and bitmap leaves at their counts.  K4 is timed a prune step at a
+    time: a table a validation batch with the fractions (the main path's
+    route) and four single-leaf count calls, beside the library's count
+    of nonzeros; the memsets on each route are counted too."""
+    import numpy as np
+
     from repro_torch.comm.wire import cheapest_bytes
     from repro_torch.core.channels import quantile
     from repro_torch.kernels import apoz as az
@@ -355,10 +441,6 @@ def time_kernels(torch, gen, errs: dict) -> list:
         row, col = cn.channel_norms_plain(g)
         thr = quantile((row[:, None] + col[None, :]).reshape(-1), 0.9)
         leaves.append((g, row, col, thr, torch.tensor(0.0, device="cuda")))
-        p, k = in_turns(lambda: cn.channel_norms_plain(g),
-                        lambda: cn.channel_norms(g))
-        t["channel_norm"]["plain"] += p
-        t["channel_norm"]["kernel"] += k
         nbytes["channel_norm"] += 4 * m * n + 4 * (m + n)
         flops["channel_norm"] += 3 * m * n
         nbytes["select_mask"] += 4 * m * n + 4 * (m + n) + 8 + 4 * m * n \
@@ -367,10 +449,22 @@ def time_kernels(torch, gen, errs: dict) -> list:
         nbytes["select_compact"] += 4 * m * n + 4 * (m + n) + 8 \
             + 8 * m * n + 4
         flops["select_compact"] += 4 * m * n
-    sizes = [leaf[0].numel() for leaf in leaves]
+    gs = [leaf[0] for leaf in leaves]
+    sizes = [g.numel() for g in gs]
     nnz = sm.compact_count(leaves, drop_zeros=True).counts.tolist()
     sparse = [k for k, (c, size) in enumerate(zip(nnz, sizes))
               if c and cheapest_bytes(c, size)[0] != "dense"]
+    # one SCBFwP prune step: 2 validation batches x 2 hidden layers
+    batches = []
+    for k in range(VAL_BATCHES):
+        shapes = APOZ_SHAPES[k * HIDDEN_LAYERS:(k + 1) * HIDDEN_LAYERS]
+        acts = [torch.relu(torch.randn(s, generator=gen)).cuda()
+                for s in shapes]
+        batches.append((acts, float(np.float32(1.0) /
+                                    np.float32(shapes[0][0]))))
+        for b, n in shapes:
+            nbytes["apoz"] += 4 * b * n + 8 * n      # counts and fractions
+            flops["apoz"] += b * n
 
     def compact_table():
         sm.compact_scatter(sm.compact_count(leaves, drop_zeros=True), sizes)
@@ -380,63 +474,73 @@ def time_kernels(torch, gen, errs: dict) -> list:
         counts = cc.counts.tolist()
         sm.compact_scatter(cc, [counts[k] for k in sparse], sparse)
 
+    layers, steps = len(MAIN_SHAPES), VAL_BATCHES * HIDDEN_LAYERS
+    # plain, table route, single-leaf route, kernel names, launches a
+    # call of the table and of the single-leaf route
     routes = {
+        "channel_norm": (
+            lambda: [cn.channel_norms_plain(g) for g in gs],
+            lambda: cn.channel_norms_leaves(gs),
+            lambda: [cn.channel_norms(g) for g in gs],
+            ("channel_norms_kernel",), 1, layers),
         "select_mask": (
             lambda: [sm.select_mask_plain(*leaf) for leaf in leaves],
             lambda: sm.select_mask_leaves(leaves),
             lambda: [sm.select_mask(*leaf) for leaf in leaves],
-            ("select_mask_kernel",)),
+            ("select_mask_kernel",), 1, layers),
         "select_compact": (
             lambda: [sm.select_compact_plain(*leaf, leaf[0].numel(), True)
                      for leaf in leaves],
             compact_table,
             lambda: [sm.select_compact(*leaf, capacity=leaf[0].numel(),
                                        drop_zeros=True) for leaf in leaves],
-            ("compact_",)),
+            ("compact_",), 2, 2 * layers),
+        "apoz": (
+            lambda: [az.apoz_leaves_plain(acts, r) for acts, r in batches],
+            lambda: [az.apoz_counts_leaves(acts, r) for acts, r in batches],
+            lambda: [az.apoz_counts(a) for acts, _ in batches for a in acts],
+            ("apoz_leaves_kernel",), VAL_BATCHES, steps),
     }
     extra = {}
-    for name, (plain, table, single, names) in routes.items():
+    for name, (plain, table, single, names, n_table, n_single) in \
+            routes.items():
         p1, k1, s1, s2, k2, p2 = in_turns(plain, table, single, single,
                                           table, plain)
         t[name]["plain"] = (p1 + p2) / 2
         t[name]["kernel"] = (k1 + k2) / 2
+        dev, memset = device_us(torch, table, names, n_table)
+        dev1, memset1 = device_us(torch, single, names, n_single)
         extra[name] = {"ms_single_leaf": (s1 + s2) / 2,
-                       "device_us": device_us(torch, table, names),
-                       "device_us_single_leaf": device_us(torch, single,
-                                                          names)}
+                       "device_us": dev, "device_us_single_leaf": dev1,
+                       "memset_us": memset, "memset_us_single_leaf": memset1}
+    # the library's count of nonzeros per column: the complement of the
+    # zero count, in one call a leaf
+    t["apoz"]["library"] = cuda_ms(
+        lambda: [torch.count_nonzero(a, dim=0)
+                 for acts, _ in batches for a in acts])
     enc_bytes = sum(4 * m * n + 4 * (m + n) + 12 for m, n in MAIN_SHAPES) \
         + sum(8 * nnz[k] for k in sparse)
     enc_bound, enc_by = bound_ms(enc_bytes, flops["select_compact"])
     extra["select_compact"]["encoder"] = {
         "ms": cuda_ms(compact_encoder),
-        "device_us": device_us(torch, compact_encoder, ("compact_",)),
+        "device_us": device_us(torch, compact_encoder, ("compact_",),
+                               1 + bool(sparse))[0],
         "bound_us": enc_bound * 1e3, "bound_by": enc_by,
         "nnz": nnz, "scattered_leaves": sparse}
-    # one SCBFwP prune step: 2 validation batches x 2 hidden layers
-    for b, n in APOZ_SHAPES:
-        a = torch.relu(torch.randn((b, n), generator=gen)).cuda()
-        p, k = in_turns(lambda: az.apoz_counts_plain(a),
-                        lambda: az.apoz_counts(a))
-        t["apoz"]["plain"] += p
-        t["apoz"]["kernel"] += k
-        # the library's count of nonzeros per column: the complement of
-        # the zero count, in one call
-        t["apoz"]["library"] += cuda_ms(
-            lambda: torch.count_nonzero(a, dim=0))
-        nbytes["apoz"] += 4 * b * n + 4 * n
-        flops["apoz"] += b * n
     main_txt = "+".join(f"{m}x{n}" for m, n in MAIN_SHAPES) + " fp32"
     apoz_txt = "+".join(f"{b}x{n}" for b, n in APOZ_SHAPES) + " fp32"
     meta = {
-        "channel_norm": ("src/repro/kernels/channel_norm.py:48", main_txt,
-                         None),
+        # no one PyTorch call gives both the row and the column norms
+        "channel_norm": ("src/repro/kernels/channel_norm.py:48",
+                         main_txt + ", one table launch a pass", None),
         "select_mask": ("src/repro/kernels/select_mask.py:123",
                         main_txt + ", one table launch a pass", None),
         # no one PyTorch call compacts by a pairwise score test in order
         "select_compact": ("src/repro/kernels/select_mask.py:78",
                            main_txt + ", capacity M*N, one table a pass "
                            "(count + scatter launch)", None),
-        "apoz": ("src/repro/kernels/apoz.py:46", apoz_txt,
+        "apoz": ("src/repro/kernels/apoz.py:46",
+                 apoz_txt + ", one table launch a batch with the fractions",
                  t["apoz"]["library"]),
     }
     report = []
@@ -458,6 +562,8 @@ def phase_kernels(torch) -> list:
     errs = {}
     errs["channel_norm"], errs["select_mask"] = \
         check_channel_norm_and_select_mask(torch, gen)
+    errs["channel_norm"] = max(errs["channel_norm"],
+                               check_channel_norm_tables(torch, gen))
     errs["select_compact"] = check_select_compact(torch, gen)
     check_leaf_tables(torch, gen)
     errs["apoz"] = check_apoz(torch, gen)
@@ -585,9 +691,10 @@ def phase_main_path(torch, card: str):
 
 def _check_run(torch, label, res, counts, card, prune_s, codecs) -> None:
     """Log every loop; hold the records, the weights and the launch counts
-    to what the run must give: K1 three launches a client pass, K2 one,
-    K3 one count launch a pass and one scatter launch a pass that has a
-    coo or bitmap weight leaf (the codec tally says which)."""
+    to what the run must give: K1 one launch a client pass, K2 one, K3 one
+    count launch a pass and one scatter launch a pass that has a coo or
+    bitmap weight leaf (the codec tally says which), K4 one a validation
+    batch of a prune step."""
     pruned = label.startswith("scbfwp")
     # prune steps run at loops 0 .. WP_STEPS-1; the mask run's compaction
     # follows the last step inside the same loop
@@ -625,11 +732,10 @@ def _check_run(torch, label, res, counts, card, prune_s, codecs) -> None:
         if len(codecs.passes) != passes:
             raise AssertionError(f"{label}: {len(codecs.passes)} encoded "
                                  f"passes, want {passes}")
-        want = {"channel_norm": passes * LAYERS, "select_mask": passes,
+        want = {"channel_norm": passes, "select_mask": passes,
                 "select_compact_count": passes,
                 "select_compact_scatter": codecs.scatter_passes(),
-                "apoz": WP_STEPS * VAL_BATCHES * HIDDEN_LAYERS if pruned
-                else 0}
+                "apoz": WP_STEPS * VAL_BATCHES if pruned else 0}
         for r in res.records:
             if not 0.0 < r.upload_fraction < 1.0:
                 raise AssertionError(f"{label} upload_fraction "
@@ -697,11 +803,11 @@ def phase_profile(torch, cohort, card: str) -> None:
         busy_us = sum(us for _, us in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         ours = {k: v for k, v in by_name.items()
-                if any(s in k for s in ("partials_kernel", "finish_kernel",
+                if any(s in k for s in ("channel_norms_kernel",
                                         "select_mask_kernel",
                                         "compact_count_kernel",
                                         "compact_scatter_kernel",
-                                        "apoz_counts_kernel"))}
+                                        "apoz_leaves_kernel", "Memset"))}
         log("profile: " + json.dumps({
             "what": f"one full-width {what} loop + evaluation",
             "card": card, "wall_s": wall,
@@ -802,7 +908,7 @@ def main() -> int:
              "launches": r["launches"], "shape": r["shape"],
              "card": card, **{k: v for k, v in r.items() if k in (
                  "ms_single_leaf", "device_us", "device_us_single_leaf",
-                 "encoder")}}))
+                 "encoder", "memset_us", "memset_us_single_leaf")}}))
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

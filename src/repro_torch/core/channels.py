@@ -7,9 +7,9 @@ the broadcast sum of L vectors and the edge rule needs only pair sums:
 
     s_{l-1}[p] + s_l[q] + Σ_{j∉{l-1,l}} max_i s_j[i]  >  q_α
 
-Two kernels carry the per-client pass: ``kernels.channel_norm`` gives the
-column norms behind ``layer_scores`` and ``kernels.select_mask`` applies
-the edge rule to every weight matrix, all of a pass in one launch;
+Two kernels carry the per-client pass, each in one launch over every
+weight matrix: ``kernels.channel_norm`` gives the column norms behind
+``layer_scores`` and ``kernels.select_mask`` applies the edge rule;
 ``edge_operands`` hands the same rule to the upload encoder
 (``comm.wire.encode_selected``).  The rest is plain torch.  All
 scores are fp32 regardless of gradient dtype.
@@ -21,7 +21,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.channel_norm import channel_norms
+from repro_torch.kernels.channel_norm import channel_norms_leaves
 from repro_torch.kernels.select_mask import select_mask_leaves
 
 # Materialise T exactly up to this many channels; sample beyond it.
@@ -34,13 +34,14 @@ def layer_scores(grads: Sequence[dict], normalize: bool = False,
     """Per-layer neuron scores s_l (fp32, shape (m_l,)) for an MLP delta.
 
     The weight part is the column squared norm from the channel-norm
-    kernel; the bias square is added after it, as in the reference.
+    kernel, one launch for every weight matrix; the bias square is added
+    after it, as in the reference.
     ``normalize`` divides by the layer mean; ``neuron_masks`` scores
     pruned neurons ``-inf`` (mask-mode SCBFwP).
     """
     scores = []
-    for l, g in enumerate(grads):
-        _, s = channel_norms(g["w"])
+    norms = channel_norms_leaves([g["w"] for g in grads])
+    for l, (g, (_, s)) in enumerate(zip(grads, norms)):
         if "b" in g and g["b"] is not None:
             b = g["b"].to(torch.float32)
             s = s + b * b

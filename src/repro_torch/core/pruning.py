@@ -46,11 +46,13 @@ def apoz_scores(params: Sequence[dict], x_val, batch_size: int = 2048,
                          "got 0 examples (disable pruning or provide "
                          "validation data)")
     device = params[0]["w"].device
+    splits = np.cumsum(hidden_sizes(params))[:-1]
     totals, count = None, 0
     for start in range(0, n_val, batch_size):
         xb = torch.as_tensor(x_val[start:start + batch_size]).to(device)
-        fracs = apoz_batch_fractions(tuple(params), xb, neuron_masks)
-        frac = [f.cpu().numpy() for f in fracs]
+        # every layer's fractions in one buffer: one copy to the host
+        flat = apoz_batch_fractions(tuple(params), xb, neuron_masks)
+        frac = np.split(flat.cpu().numpy(), splits)
         n = int(xb.shape[0])
         if totals is None:
             totals = [f * n for f in frac]

@@ -35,11 +35,8 @@ _LL = ctypes.c_longlong
 # cudaError_t of its launch (0 = success)
 SIGNATURES = {
     "channel_norm": {
-        # (M, N) -> floats of scratch the launcher needs
-        "channel_norms_workspace": ([_INT, _INT], _LL),
-        # g, dtype, M, N, row, col, work, stream
-        "channel_norms_launch": ([_VOID, _INT, _INT, _INT, _VOID, _VOID,
-                                  _VOID, _VOID], _INT),
+        # rows (host int64 table), L, dtype, stream
+        "channel_norms_launch": ([_VOID, _INT, _INT, _VOID], _INT),
     },
     "select_mask": {
         # rows (host int64 table), L, dtype, counts, stream
@@ -54,8 +51,8 @@ SIGNATURES = {
                                            _VOID, _LL, _VOID], _INT),
     },
     "apoz": {
-        # acts, B, N, counts, stream
-        "apoz_counts_launch": ([_VOID, _INT, _INT, _VOID, _VOID], _INT),
+        # rows (host int64 table), L, recip, stream
+        "apoz_counts_launch": ([_VOID, _INT, ctypes.c_float, _VOID], _INT),
     },
 }
 

@@ -209,6 +209,13 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     sm.select_mask_leaves(table)
     cc = sm.compact_count(table, drop_zeros=True)
     sm.compact_scatter(cc, [4, 0])
+    norms = cn.channel_norms_leaves([leaf[0] for leaf in table])
+    assert all(torch.equal(a, b) for got, leaf in zip(norms, table)
+               for a, b in zip(got, cn.channel_norms_plain(leaf[0])))
+    counts, frac = az.apoz_counts_leaves([acts, torch.relu(table[1][0])],
+                                         0.25)
+    assert torch.equal(counts[0], az.apoz_counts_plain(acts))
+    assert frac.shape == (g.shape[1] + 9,)
     assert cn.launches == 0 and sm.mask_launches == 0 and az.launches == 0
     assert sm.compact_count_launches == 0
     assert sm.compact_scatter_launches == 0
@@ -353,3 +360,102 @@ def test_leaf_tables_refuse_what_a_launch_does_not_take():
         sm.compact_scatter(cc, [3, -1])
     with pytest.raises(ValueError, match="scalar"):
         sm.select_mask_leaves([leaf[:3] + (torch.zeros(2), 0.0)])
+
+
+# a client pass of the main path, then the ragged check shapes
+NORM_TABLE = [(2917, 256), (256, 64), (64, 1), (33, 257), (7, 9), (1024, 128)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_channel_norms_leaves_cpu_route_matches_plain_and_pallas(dtype):
+    """The table wrapper's CPU route is the plain version leaf by leaf,
+    and within fp32 rounding of the Pallas kernel (interpret mode)."""
+    pairs = [_pair(shape, dtype, 50 + k) for k, shape in
+             enumerate(NORM_TABLE)]
+    got = cn.channel_norms_leaves([gt for _, gt in pairs])
+    assert len(got) == len(NORM_TABLE)
+    for (gj, gt), (row, col) in zip(pairs, got):
+        prow, pcol = cn.channel_norms_plain(gt)
+        assert torch.equal(row, prow) and torch.equal(col, pcol)
+        assert row.dtype == col.dtype == torch.float32
+        want_row, want_col = ops.channel_norms(gj)
+        np.testing.assert_allclose(row.numpy(), np.asarray(want_row),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(col.numpy(), np.asarray(want_col),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def _acts(shape, seed):
+    """ReLU activations with -0.0 (a zero), NaN (not one) and an all-zero
+    column."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    a = np.maximum(x, 0.0)
+    a[0, :] = -0.0
+    a[1, ::2] = np.nan
+    a[:, shape[1] // 2] = 0.0
+    return a
+
+
+@pytest.mark.parametrize("shapes", [[(512, 256), (512, 64)],
+                                    [(33, 257), (7, 9), (1000, 77)]],
+                         ids=["batch", "ragged"])
+@pytest.mark.parametrize("with_recip", [True, False])
+def test_apoz_counts_leaves_cpu_route_matches_plain_and_pallas(shapes,
+                                                               with_recip):
+    """Counts bitwise the plain version, ``ops.apoz_counts`` (interpret
+    mode) and ``ref.apoz_counts_ref``; the fractions, leaf after leaf in
+    one vector, bitwise count · fl(1/B)."""
+    arrays = [_acts(shape, 60 + k) for k, shape in enumerate(shapes)]
+    recip = np.float32(1.0) / np.float32(shapes[0][0])
+    counts, frac = az.apoz_counts_leaves(
+        [torch.from_numpy(a) for a in arrays],
+        float(recip) if with_recip else None)
+    assert len(counts) == len(shapes)
+    for a, got in zip(arrays, counts):
+        assert got.dtype == torch.int32
+        assert torch.equal(got, az.apoz_counts_plain(torch.from_numpy(a)))
+        for want in (ops.apoz_counts(jnp.asarray(a)),
+                     ref.apoz_counts_ref(jnp.asarray(a))):
+            assert np.array_equal(got.numpy(), np.asarray(want))
+        assert int(got[a.shape[1] // 2]) == a.shape[0]
+    if not with_recip:
+        assert frac is None
+        return
+    want = np.concatenate([c.numpy() for c in counts]).astype(np.float32) \
+        * recip
+    assert frac.dtype == torch.float32
+    assert frac.numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("bad", ["empty", "too_many", "mixed_devices",
+                                 "mixed_dtypes", "noncontig", "wrong_dtype"])
+def test_table_wrappers_refuse_what_a_launch_does_not_take(bad):
+    """channel_norms_leaves and apoz_counts_leaves refuse an empty table,
+    more than MAX_LEAVES leaves, leaves on two devices or (channel norms)
+    of two dtypes, a non-contiguous leaf and a dtype the kernel does not
+    take."""
+    a = torch.zeros(4, 6)
+    tables = {
+        "empty": ([], []),
+        "too_many": ([a] * (cn.MAX_LEAVES + 1), [a] * (az.MAX_LEAVES + 1)),
+        "mixed_devices": ([a, torch.zeros(4, 6, device="meta")],
+                          [a, torch.zeros(4, 6, device="meta")]),
+        "mixed_dtypes": ([a, a.to(torch.bfloat16)],
+                         [a, a.to(torch.bfloat16)]),
+        "noncontig": ([a, a[:, ::2]], [a, a[:, ::2]]),
+        "wrong_dtype": ([a.double()], [a.to(torch.bfloat16)]),
+    }
+    norms, acts = tables[bad]
+    with pytest.raises((TypeError, ValueError)):
+        cn.channel_norms_leaves(norms)
+    with pytest.raises((TypeError, ValueError)):
+        az.apoz_counts_leaves(acts, 0.25)
+    assert cn.launches == 0 and az.launches == 0
+
+
+def test_channel_norms_refuses_a_table_beyond_its_scratch():
+    """The launch's partials live in the library's fixed scratch: a table
+    that needs more is refused before it is launched."""
+    cn._check_scratch([torch.empty(2917, 256, device="meta")])
+    with pytest.raises(ValueError, match="partials"):
+        cn._check_scratch([torch.empty(2 ** 14, 2 ** 14, device="meta")])
