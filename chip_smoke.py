@@ -19,29 +19,47 @@ its own failure:
    {0, 0.37}, -inf scores, drop_zeros on and off and a capacity below the
    count; the same for leaf tables (K2 one launch, K3 one count and one
    scatter launch over mixed shapes, capacities at size, half the count
-   and the count); apoz bitwise at the SCBFwP path's shapes with an
-   all-zero column, -0.0 and NaN, single leaves and a table a validation
-   batch (one launch, counts and fractions).  Then times kernel and plain
-   version (and apoz's library call) at the main path's shapes: K1, K2
-   and K3 a client pass at a time, as one table and as single-leaf calls,
-   K3 also on the encoder's count-first route, K4 a prune step at a time
-   (a table a batch, and single leaves), each with its device time from
-   the profiler (and K4's memsets).
+   and the count); slot-stacked tables of S in {1, 3, 5, 8} slots (the
+   batched engine's rounds; layer 0's zero row shared by every slot),
+   fp32 and bf16, each slot also bitwise its one-slot launch and every
+   launch bitwise a second one; apoz bitwise at the SCBFwP path's shapes
+   with an all-zero column, -0.0 and NaN, single leaves and a table a
+   validation batch (one launch, counts and fractions).  Then times
+   kernel and plain version (and apoz's library call): K1, K2 and K3 a
+   round of 5 slots (the main path's unit; K3 at capacity M*N and on the
+   encoder's route) and a client pass at a time (as one table and as
+   single-leaf calls, K3 also on the encoder's route), K4 a prune step
+   at a time (a table a batch, and single leaves), each with its device
+   time from the profiler (and K4's memsets); a round's device time with
+   L2 flushed between calls, and back to back beside it.
 4. main path at full width — the synthetic cohort (30,760 × 2,917),
    MLP 2917-256-64-1, 5 IID clients, 2 local epochs, batch 256, upload
-   rate 0.10, through ``repro_torch.core.scbf.run_federated`` on cuda:
-   2 SCBF loops, 1 FedAvg loop, then 8 loops each of SCBFwP reshape and
-   SCBFwP mask with compaction (prune rate 0.10, total 0.47: 150 of the
-   320 hidden neurons go in 7 steps).  The launch counts are set to 0
-   before each run and read after it: on every SCBF run K1, K2 and K3's
-   count launch loops × clients times, K3's scatter once a client pass
-   with a coo or bitmap weight leaf (the run's codec mix is logged), K4
-   prune steps × 2 validation batches.
-5. profile — torch.profiler over one more full-width SCBF loop: the
-   device's busy share and the kernels that take its time.
-6. small-input agreement — SCBF and SCBFwP (mask, compacted) on cuda
-   and on the CPU (whose plain path the CPU tests hold against the JAX
-   reference) from the same initial weights and permutations.
+   rate 0.10, through ``repro_torch.core.scbf.run_federated`` on cuda,
+   on the batched engine (the default): 2 SCBF loops, 1 FedAvg loop, 8
+   loops each of SCBFwP reshape and SCBFwP mask with compaction (prune
+   rate 0.10, total 0.47: 150 of the 320 hidden neurons go in 7 steps);
+   then on the sequential engine 2 SCBF loops, held against the batched
+   run (bytes and upload fractions equal, AUC and final weights to 1e-5;
+   the weight-mask entries that flip are counted), 1 FedAvg loop and 8
+   loops each of SCBFwP reshape and mask with compaction; back on the
+   batched engine 2 SCBF loops with DP (noise
+   multiplier 1.0, clip 1.0: ε finite and rising, every payload's
+   nonzeros on exactly its reveal masks), and 3 SCBF loops on Dirichlet
+   shards (α = 0.5) with sample_fraction 0.6 (the masked loss, 3
+   participants in 4 slots a round).  The launch counts are set to 0
+   before each run and read after it: a batched run launches K1, K2 and
+   K3's count once a round, K3's scatter once a round whose uploads hold
+   a coo or bitmap weight leaf; a sequential run the same once a client
+   pass; K4 prune steps × 2 validation batches (the codec mix is
+   logged).
+5. profile — torch.profiler over one more full-width loop of SCBF on
+   each engine and of SCBFwP: the device's busy share, the host-device
+   copies and the kernels that take its time.
+6. small-input agreement — SCBF, SCBF with DP (normals injected) and
+   SCBFwP (mask, compacted) on the batched engine, and SCBFwP (mask,
+   compacted) on the sequential one, on cuda and on the CPU (whose plain
+   path the CPU tests hold against the JAX reference), from the same
+   initial weights and permutations.
 7. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
@@ -67,6 +85,15 @@ K_LOOPS, K_CLIENTS = 2, 5
 WP_LOOPS, PRUNE_RATE, PRUNE_TOTAL = 8, 0.10, 0.47
 WP_STEPS, WP_HIDDEN = 7, 170          # 320 hidden neurons, 150 pruned
 VAL_BATCHES, HIDDEN_LAYERS = 2, 2
+# slot-stacked tables: the batched engine's rounds (S slots a leaf)
+SLOTS = (1, 3, 5, 8)
+SLOT_SHAPES = MAIN_SHAPES + [(33, 257)]
+ROUND_SLOTS = K_CLIENTS               # a round of the main path
+DP = dict(dp_noise_multiplier=1.0, dp_clip_norm=1.0)
+DIRICHLET = dict(partition="dirichlet", dirichlet_alpha=0.5,
+                 sample_fraction=0.6)
+DIR_LOOPS = 3
+FLUSH_BYTES = 256 << 20               # written between timed calls: > L2
 
 
 def log(msg: str) -> None:
@@ -326,6 +353,145 @@ def check_channel_norm_tables(torch, gen) -> float:
     return err
 
 
+def _slot_operands(torch, quantile, gs, rest_for=None):
+    """Slot-stacked edge operands of a table of (S, M, N) matrices, as the
+    batched engine gives them: layer 0 tests against one zero row vector
+    shared by every slot (slot stride 0), the others against their own
+    (S, M) scores; -inf scores on some rows and columns, a threshold a
+    slot at a quantile of its pair sums or an exact tie, rest 0 or 0.37
+    by slot."""
+    from repro_torch.kernels import channel_norm as cn
+
+    leaves = []
+    for l, g in enumerate(gs):
+        s_count, m, _ = g.shape
+        prow, pcol = cn.channel_norms_plain(g)
+        parts = [_scores_and_thresholds(torch, quantile, prow[s], pcol[s])
+                 for s in range(s_count)]
+        row = torch.zeros(m, device="cuda") if l == 0 else \
+            torch.stack([p[0] for p in parts])
+        col = torch.stack([p[1] for p in parts])
+        thr = torch.stack([p[2][(s + l) % 4] for s, p in enumerate(parts)])
+        rest = torch.tensor([0.37 * ((s + l) % 2) for s in range(s_count)],
+                            device="cuda")
+        leaves.append((g, row, col, thr, rest))
+    return leaves
+
+
+def check_slot_tables(torch, gen) -> float:
+    """K1, K2 and K3 over slot-stacked tables — a round of the batched
+    engine: S in SLOTS slots of the main path's three matrices and a
+    ragged 33 x 257, fp32 and bf16, kept-but-zero rows of g.  K1 to rtol
+    1e-5 / atol 1e-6 against the plain version (another summation order),
+    K2 and K3 bitwise against it; all three bitwise against the one-slot
+    launch of each slot and across two launches.  K3 scatters every pair
+    at its count and at M*N, and every other pair at half its count.
+    Returns K1's max abs error."""
+    from repro_torch.core.channels import quantile
+    from repro_torch.kernels import channel_norm as cn
+    from repro_torch.kernels import select_mask as sm
+
+    err, cases = 0.0, {"channel_norm": 0, "select_mask": 0,
+                       "select_compact": 0}
+    for s_count in SLOTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            gs = []
+            for m, n in SLOT_SHAPES:
+                g = torch.randn((s_count, m, n), generator=gen).to(dtype)
+                g[:, ::3] = 0
+                gs.append(g.cuda())
+            got = cn.channel_norms_leaves(gs)
+            again = cn.channel_norms_leaves(gs)
+            ones = [cn.channel_norms_leaves([g[s] for g in gs])
+                    for s in range(s_count)]
+            for l, g in enumerate(gs):
+                prow, pcol = cn.channel_norms_plain(g)
+                torch.testing.assert_close(got[l][0], prow, rtol=1e-5,
+                                           atol=1e-6)
+                torch.testing.assert_close(got[l][1], pcol, rtol=1e-5,
+                                           atol=1e-6)
+                if not (_same(torch, got[l], again[l]) and all(
+                        _same(torch, (got[l][0][s], got[l][1][s]), ones[s][l])
+                        for s in range(s_count))):
+                    raise AssertionError(f"channel_norm slots not bitwise "
+                                         f"(S={s_count} {tuple(g.shape)} "
+                                         f"{dtype})")
+                err = max(err, (got[l][0] - prow).abs().max().item(),
+                          (got[l][1] - pcol).abs().max().item())
+                cases["channel_norm"] += s_count
+            leaves = _slot_operands(torch, quantile, gs)
+            outs, masks, counts = sm.select_mask_leaves(leaves)
+            outs2, masks2, counts2 = sm.select_mask_leaves(leaves)
+            per_slot = [sm.select_mask_leaves([sm.leaf_slot(leaf, s)
+                                               for leaf in leaves])
+                        for s in range(s_count)]
+            for l, leaf in enumerate(leaves):
+                mine = (outs[l], masks[l],
+                        counts[l * s_count:(l + 1) * s_count])
+                if not (_same(torch, mine, sm.select_mask_plain(*leaf)) and
+                        _same(torch, mine, (outs2[l], masks2[l], counts2[
+                            l * s_count:(l + 1) * s_count])) and
+                        all(_same(torch, (outs[l][s], masks[l][s],
+                                          counts[l * s_count + s]),
+                                  (o[l], m[l], c[l]))
+                            for s, (o, m, c) in enumerate(per_slot))):
+                    raise AssertionError(f"select_mask slots differ "
+                                         f"(S={s_count} leaf {l} {dtype})")
+                cases["select_mask"] += s_count
+            for drop in (False, True):
+                cc = sm.compact_count(leaves, drop_zeros=drop)
+                nnz = cc.counts.tolist()
+                plain = [int(sm.select_compact_plain(
+                    *sm.leaf_slot(leaves[l], s), 0, drop)[2])
+                    for l, s in cc.pairs]
+                if nnz != plain:
+                    raise AssertionError(f"select_compact slot counts {nnz} "
+                                         f"!= {plain}")
+                odd = list(range(1, len(cc.pairs), 2))
+                sizes = [leaves[l][0][s].numel() for l, s in cc.pairs]
+                at_count = None
+                for which, caps in ((None, nnz), (None, sizes),
+                                    (odd, [nnz[k] // 2 for k in odd])):
+                    _, views = sm.compact_scatter(cc, caps, which)
+                    cc2 = sm.compact_count(leaves, drop_zeros=drop)
+                    _, views2 = sm.compact_scatter(cc2, caps, which)
+                    for k, cap, v, v2 in zip(which or range(len(nnz)), caps,
+                                             views, views2):
+                        l, s = cc.pairs[k]
+                        want = sm.select_compact_plain(
+                            *sm.leaf_slot(leaves[l], s), cap, drop)
+                        if not (_same(torch, v, want) and
+                                _same(torch, v, v2)):
+                            raise AssertionError(
+                                f"select_compact slot pair {(l, s)} differs "
+                                f"(S={s_count} {dtype} drop_zeros={drop} "
+                                f"capacity={cap})")
+                        cases["select_compact"] += 1
+                    if at_count is None:
+                        at_count = views
+                for s in range(s_count):       # the one-slot launches
+                    one = [sm.leaf_slot(leaf, s) for leaf in leaves]
+                    cc1 = sm.compact_count(one, drop_zeros=drop)
+                    caps = [nnz[cc.pairs.index((l, s))]
+                            for l in range(len(leaves))]
+                    _, views1 = sm.compact_scatter(cc1, caps)
+                    for l, v1 in enumerate(views1):
+                        if not _same(torch, v1,
+                                     at_count[cc.pairs.index((l, s))]):
+                            raise AssertionError(
+                                f"select_compact slot {s} of leaf {l} is "
+                                f"not its one-slot launch (S={s_count} "
+                                f"{dtype} drop_zeros={drop})")
+    torch.cuda.synchronize()
+    log(f"kernels vs plain: slot tables S in {list(SLOTS)} over "
+        f"{len(SLOT_SHAPES)} leaves, fp32 and bf16 — channel_norm "
+        f"{cases['channel_norm']} slot cases (max abs err {err:.3g}), "
+        f"select_mask {cases['select_mask']} and select_compact "
+        f"{cases['select_compact']} pair cases bitwise; every slot bitwise "
+        f"its one-slot launch and across two launches")
+    return err
+
+
 def _apoz_input(torch, gen, shape, offset: int = 0):
     """ReLU activations with -0.0 (a zero), NaN (not one) and an all-zero
     column; ``offset`` starts the matrix that many floats into its
@@ -379,23 +545,31 @@ def check_apoz(torch, gen) -> float:
     return 0.0
 
 
-def device_us(torch, fn, names, launches: int, iters: int = 50) -> tuple:
+def device_us(torch, fn, names, launches: int, iters: int = 50,
+              flush: bool = False) -> tuple:
     """(device µs per call in the kernels whose names hold one of
     ``names``, device µs per call in memsets), from torch.profiler over
     ``iters`` calls of ``fn``, which launches those kernels ``launches``
-    times a call.  A window whose count of those kernels falls short (the
-    profiler lost events) is measured again, twice at most; then, or if
-    the profiler records no CUDA event, (None, None): not measured."""
+    times a call.  With ``flush``, FLUSH_BYTES are written between calls
+    (a fill kernel, not counted), so each call meets its inputs in HBM and
+    not in the 50 MB L2, as the main path's round does after a round's
+    training.  A window whose count of those kernels falls short (the
+    profiler lost events) is measured again, four times at most; then, or
+    if the profiler records no CUDA event, (None, None): not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    scratch = (torch.empty(FLUSH_BYTES // 4, device="cuda") if flush
+               else None)
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if scratch is not None:
+                    scratch.fill_(0.0)
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
@@ -408,6 +582,94 @@ def device_us(torch, fn, names, launches: int, iters: int = 50) -> tuple:
         log(f"profile window of {names}: {len(ours)} kernel events, want "
             f"{launches * iters}; measuring again")
     return None, None
+
+
+def time_rounds(torch, gen) -> dict:
+    """K1, K2 and K3 timed a round of the batched engine at a time:
+    ROUND_SLOTS slots of the main path's three matrices (fp32), one table
+    launch each (K3: count + scatter of every pair at capacity M*N with
+    drop_zeros, and the encoder's route: count, the counts read on the
+    host, scatter of the coo and bitmap pairs at their counts), beside
+    the plain versions (a loop over slots); profiler device µs with each
+    window's event count checked, with L2 flushed between calls (the
+    reported device time) and without (back to back, L2-warm), and the
+    bound at S x a pass's bytes.  Thresholds at the 0.9 quantile of each
+    slot's pair sums."""
+    from repro_torch.comm.wire import cheapest_bytes
+    from repro_torch.core.channels import quantile
+    from repro_torch.kernels import channel_norm as cn
+    from repro_torch.kernels import select_mask as sm
+
+    s_count = ROUND_SLOTS
+    leaves, nbytes, flops = [], {}, {}
+    for m, n in MAIN_SHAPES:
+        g = torch.randn((s_count, m, n), generator=gen).cuda()
+        row, col = cn.channel_norms_plain(g)
+        thr = torch.stack([quantile((row[s][:, None] + col[s][None, :])
+                                    .reshape(-1), 0.9)
+                           for s in range(s_count)])
+        leaves.append((g, row, col, thr,
+                       torch.zeros(s_count, device="cuda")))
+        for name, b, f in (
+                ("channel_norm", 4 * m * n + 4 * (m + n), 3 * m * n),
+                ("select_mask", 4 * m * n + 4 * (m + n) + 8 + 4 * m * n
+                 + m * n + 4, 3 * m * n),
+                ("select_compact", 4 * m * n + 4 * (m + n) + 8 + 8 * m * n
+                 + 4, 4 * m * n)):
+            nbytes[name] = nbytes.get(name, 0) + s_count * b
+            flops[name] = flops.get(name, 0) + s_count * f
+    gs = [leaf[0] for leaf in leaves]
+    cc = sm.compact_count(leaves, drop_zeros=True)
+    pairs, nnz = cc.pairs, cc.counts.tolist()
+    sizes = [leaves[l][0][s].numel() for l, s in pairs]
+    sparse = [k for k, (c, size) in enumerate(zip(nnz, sizes))
+              if c and cheapest_bytes(c, size)[0] != "dense"]
+
+    def compact_table():
+        sm.compact_scatter(sm.compact_count(leaves, drop_zeros=True), sizes)
+
+    def compact_encoder():
+        c = sm.compact_count(leaves, drop_zeros=True)
+        counts = c.counts.tolist()
+        sm.compact_scatter(c, [counts[k] for k in sparse], sparse)
+
+    routes = {
+        "channel_norm": (lambda: [cn.channel_norms_plain(g) for g in gs],
+                         lambda: cn.channel_norms_leaves(gs),
+                         ("channel_norms_kernel",), 1),
+        "select_mask": (lambda: [sm.select_mask_plain(*leaf)
+                                 for leaf in leaves],
+                        lambda: sm.select_mask_leaves(leaves),
+                        ("select_mask_kernel",), 1),
+        "select_compact": (
+            lambda: [sm.select_compact_plain(*sm.leaf_slot(leaves[l], s), size,
+                                             True)
+                     for (l, s), size in zip(pairs, sizes)],
+            compact_table, ("compact_",), 2),
+    }
+    out = {}
+    for name, (plain, kernel, names, launches) in routes.items():
+        plain_ms, ms = in_turns(plain, kernel)
+        bound, by = bound_ms(nbytes[name], flops[name])
+        out[name] = {"slots": s_count, "ms": ms, "plain_ms": plain_ms,
+                     "device_us": device_us(torch, kernel, names, launches,
+                                            flush=True)[0],
+                     "device_us_l2_warm": device_us(torch, kernel, names,
+                                                    launches)[0],
+                     "bound_ms": bound, "bound_by": by}
+    enc_bytes = s_count * sum(4 * m * n + 4 * (m + n) + 12
+                              for m, n in MAIN_SHAPES) \
+        + sum(8 * nnz[k] for k in sparse)
+    enc_bound, enc_by = bound_ms(enc_bytes, flops["select_compact"])
+    out["select_compact"]["encoder"] = {
+        "ms": cuda_ms(compact_encoder),
+        "device_us": device_us(torch, compact_encoder, ("compact_",),
+                               1 + bool(sparse), flush=True)[0],
+        "device_us_l2_warm": device_us(torch, compact_encoder,
+                                       ("compact_",), 1 + bool(sparse))[0],
+        "bound_us": enc_bound * 1e3, "bound_by": enc_by,
+        "scattered_pairs": len(sparse)}
+    return out
 
 
 def time_kernels(torch, gen, errs: dict) -> list:
@@ -532,28 +794,41 @@ def time_kernels(torch, gen, errs: dict) -> list:
     meta = {
         # no one PyTorch call gives both the row and the column norms
         "channel_norm": ("src/repro/kernels/channel_norm.py:48",
-                         main_txt + ", one table launch a pass", None),
+                         main_txt + f", {ROUND_SLOTS} slots: one table "
+                         "launch a round", None),
         "select_mask": ("src/repro/kernels/select_mask.py:123",
-                        main_txt + ", one table launch a pass", None),
+                        main_txt + f", {ROUND_SLOTS} slots: one table "
+                        "launch a round", None),
         # no one PyTorch call compacts by a pairwise score test in order
         "select_compact": ("src/repro/kernels/select_mask.py:78",
-                           main_txt + ", capacity M*N, one table a pass "
-                           "(count + scatter launch)", None),
+                           main_txt + f", {ROUND_SLOTS} slots, capacity "
+                           "M*N: one table a round (count + scatter "
+                           "launch)", None),
         "apoz": ("src/repro/kernels/apoz.py:46",
                  apoz_txt + ", one table launch a batch with the fractions",
                  t["apoz"]["library"]),
     }
+    # K1-K3 on the main path take a round (the batched engine's slot
+    # tables): their row's ms, plain_ms and bound are a round's; a client
+    # pass (the sequential engine's unit) is kept beside it
+    rounds = time_rounds(torch, gen)
     report = []
     for name, (replaces, shape_txt, library) in meta.items():
         bound, by = bound_ms(nbytes[name], flops[name])
+        row = {"ms": t[name]["kernel"], "plain_ms": t[name]["plain"],
+               "bound_ms": bound, "bound_by": by}
+        extra_row = dict(extra.get(name, {}))
+        if name in rounds:
+            extra_row = {"pass": {**row, **extra_row}}
+            r = rounds[name]
+            row = {k: r[k] for k in row}
+            extra_row.update({k: v for k, v in r.items() if k not in row})
         report.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": None,
-            "max_abs_err": errs[name], "ms": t[name]["kernel"],
-            "plain_ms": t[name]["plain"], "bound_ms": bound, "bound_by": by,
-            "library_ms": library, "shape": shape_txt,
-            **extra.get(name, {})})
+            "max_abs_err": errs[name], **row,
+            "library_ms": library, "shape": shape_txt, **extra_row})
     return report
 
 
@@ -566,6 +841,8 @@ def phase_kernels(torch) -> list:
                                check_channel_norm_tables(torch, gen))
     errs["select_compact"] = check_select_compact(torch, gen)
     check_leaf_tables(torch, gen)
+    errs["channel_norm"] = max(errs["channel_norm"],
+                               check_slot_tables(torch, gen))
     errs["apoz"] = check_apoz(torch, gen)
     return time_kernels(torch, gen, errs)
 
@@ -598,42 +875,101 @@ class PruneTimer:
         self.cls.step, self.cls.compact = self.saved
 
 
-class CodecTally:
-    """The codecs the upload encoder picks for the weight leaves, one
-    tuple a client pass, while installed."""
+class RoundTap:
+    """Every SCBF round an engine runs, while installed: the engine, the
+    participants, their bucket of slots, whether the cohort is uniform,
+    and the payloads and upload stats it returns.  With ``masks``, also
+    every mask the channel selection returns (kept on the device: no
+    sync inside the loop)."""
 
-    def __init__(self):
-        from repro_torch.comm import wire
-        self.wire, self.saved, self.passes = wire, wire.encode_selected, []
-
-    def _encode(self, masked, operands):
-        payload = self.saved(masked, operands)
-        self.passes.append(tuple(
-            (lp.codec, lp.nnz) for (_, k), lp in
-            zip(payload.keys, payload.layers) if k == "w"))
-        return payload
+    def __init__(self, masks: bool = False):
+        from repro_torch.core import selection as sel
+        from repro_torch.fed import engine as fe
+        self.sel, self.want_masks = sel, masks
+        self.saved = {cls: cls.scbf_round
+                      for cls in (fe.BatchedEngine, fe.SequentialEngine)}
+        self.saved_select = sel.select_gradients
+        self.rounds, self.selected = [], []
 
     def __enter__(self):
-        self.wire.encode_selected = self._encode
+        from repro_torch.fed.cohort import bucket_size
+        for cls, fn in self.saved.items():
+            def tapped(eng, params, participants, *a, _fn=fn, **k):
+                payloads, stats = _fn(eng, params, participants, *a, **k)
+                p = len(participants)
+                batched = eng.name == "batched"
+                self.rounds.append({
+                    "engine": eng.name, "participants": p,
+                    "slots": bucket_size(p, eng.num_clients, eng.bucket)
+                    if batched and p else p,
+                    "uniform": eng.cohort.uniform if batched else None,
+                    "payloads": payloads, "stats": stats})
+                return payloads, stats
+            cls.scbf_round = tapped
+        if self.want_masks:
+            def select(*a, **k):
+                out = self.saved_select(*a, **k)
+                self.selected.append([{k: v.clone() for k, v in m.items()
+                                       if v is not None} for m in out[1]])
+                return out
+            self.sel.select_gradients = select
         return self
 
     def __exit__(self, *exc):
-        self.wire.encode_selected = self.saved
+        for cls, fn in self.saved.items():
+            cls.scbf_round = fn
+        self.sel.select_gradients = self.saved_select
 
-    def mix(self) -> dict:
-        """{layer: {codec: passes}} over the weight leaves."""
-        out = {}
-        for leaves in self.passes:
-            for l, (codec, _) in enumerate(leaves):
-                per = out.setdefault(f"w{l}", {})
-                per[codec] = per.get(codec, 0) + 1
+    def units(self) -> list:
+        """The payload lists of each encoder call: a round (batched) or a
+        client pass (sequential); empty rounds encode nothing."""
+        out = []
+        for r in self.rounds:
+            if r["engine"] == "batched":
+                out += [r["payloads"]] if r["participants"] else []
+            else:
+                out += [[p] for p in r["payloads"]]
         return out
 
-    def scatter_passes(self) -> int:
-        """Passes with a coo or bitmap weight leaf that keeps an entry:
-        the passes whose encoder launches the scatter."""
-        return sum(any(c != "dense" and nnz for c, nnz in leaves)
-                   for leaves in self.passes)
+    def mix(self) -> dict:
+        """{layer: {codec: payloads}} over the weight leaves."""
+        out = {}
+        for unit in self.units():
+            for payload in unit:
+                for (l, k), lp in zip(payload.keys, payload.layers):
+                    if k == "w":
+                        per = out.setdefault(f"w{l}", {})
+                        per[lp.codec] = per.get(lp.codec, 0) + 1
+        return out
+
+    def scatter_units(self) -> int:
+        """Encoder calls with a coo or bitmap weight leaf that keeps an
+        entry: the calls that launch the scatter."""
+        return sum(any(k == "w" and lp.codec != "dense" and lp.nnz
+                       for payload in unit
+                       for (_, k), lp in zip(payload.keys, payload.layers))
+                   for unit in self.units())
+
+    def client_masks(self) -> list:
+        """Per (loop, participant) the masks selection returned (layer
+        dicts), whatever the engine."""
+        out = []
+        for r, masks in zip(self._select_rounds(), self.selected):
+            if r["engine"] == "batched":
+                out += [[{k: v[s] for k, v in m.items()} for m in masks]
+                        for s in range(r["participants"])]
+            else:
+                out.append(masks)
+        return out
+
+    def _select_rounds(self) -> list:
+        rows = []
+        for r in self.rounds:
+            if r["engine"] == "batched":
+                rows += [r] if r["participants"] else []
+            else:
+                rows += [r] * r["participants"]
+        return rows
 
 
 def _launch_counts() -> dict:
@@ -656,7 +992,11 @@ def _reset_launches() -> None:
 
 
 def phase_main_path(torch, card: str):
-    from repro_torch.config import ScbfConfig, TrainConfig
+    """The runs of the main path at full width (the batched engine unless
+    a run says otherwise), each with its checks; then SCBF on the two
+    engines held against each other, the DP run's payloads against its
+    reveal masks, and the Dirichlet run's buckets."""
+    from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
     from repro_torch.core.scbf import run_federated
     from repro_torch.data.medical import generate_cohort
 
@@ -667,34 +1007,57 @@ def phase_main_path(torch, card: str):
         f"{time.perf_counter() - t0:.1f}s")
     feats = (cohort.num_features, 256, 64, 1)
     wp = dict(prune=True, prune_rate=PRUNE_RATE, prune_total=PRUNE_TOTAL)
-    runs = {}
-    for label, method, loops, lr, scbf in (
-            ("scbf", "scbf", K_LOOPS, 0.05 / K_CLIENTS, {}),
-            ("fedavg", "fedavg", 1, 0.05, {}),
-            ("scbfwp_reshape", "scbf", WP_LOOPS, 0.05 / K_CLIENTS,
-             dict(wp, prune_impl="reshape")),
-            ("scbfwp_mask", "scbf", WP_LOOPS, 0.05 / K_CLIENTS,
-             dict(wp, prune_impl="mask", prune_compact=True))):
+    lr_scbf = 0.05 / K_CLIENTS
+    runs, taps = {}, {}
+    for label, method, loops, lr, scbf, fed in (
+            ("scbf", "scbf", K_LOOPS, lr_scbf, {}, {}),
+            ("fedavg", "fedavg", 1, 0.05, {}, {}),
+            ("scbfwp_reshape", "scbf", WP_LOOPS, lr_scbf,
+             dict(wp, prune_impl="reshape"), {}),
+            ("scbfwp_mask", "scbf", WP_LOOPS, lr_scbf,
+             dict(wp, prune_impl="mask", prune_compact=True), {}),
+            ("scbf_sequential", "scbf", K_LOOPS, lr_scbf, {},
+             dict(engine="sequential")),
+            ("fedavg_sequential", "fedavg", 1, 0.05, {},
+             dict(engine="sequential")),
+            ("scbfwp_reshape_sequential", "scbf", WP_LOOPS, lr_scbf,
+             dict(wp, prune_impl="reshape"), dict(engine="sequential")),
+            ("scbfwp_mask_sequential", "scbf", WP_LOOPS, lr_scbf,
+             dict(wp, prune_impl="mask", prune_compact=True),
+             dict(engine="sequential")),
+            ("scbf_dp", "scbf", K_LOOPS, lr_scbf, DP, {}),
+            ("scbf_dirichlet", "scbf", DIR_LOOPS, lr_scbf, {}, DIRICHLET)):
         cfg = TrainConfig(learning_rate=lr, global_loops=loops,
                           local_epochs=2, local_batch_size=256, seed=0,
                           scbf=ScbfConfig(upload_rate=0.10,
-                                          num_clients=K_CLIENTS, **scbf))
-        with PruneTimer(torch) as timer, CodecTally() as codecs:
+                                          num_clients=K_CLIENTS, **scbf),
+                          fed=FedConfig(**fed))
+        with PruneTimer(torch) as timer, \
+                RoundTap(masks=label in ("scbf", "scbf_sequential",
+                                         "scbf_dp")) as tap:
             _reset_launches()
             res = run_federated(cohort, cfg, method=method,
                                 mlp_features=feats, device="cuda")
             counts = _launch_counts()
         runs[label] = (res, counts, timer.seconds)
-        _check_run(torch, label, res, counts, card, timer.seconds, codecs)
+        taps[label] = tap
+        _check_run(torch, label, res, counts, card, timer.seconds, tap,
+                   cfg.fed.engine)
+    compare_engines(torch, runs["scbf"][0], runs["scbf_sequential"][0],
+                    taps["scbf"], taps["scbf_sequential"])
+    check_dp_run(torch, runs["scbf_dp"][0], taps["scbf_dp"])
+    check_dirichlet_run(runs["scbf_dirichlet"][0], taps["scbf_dirichlet"])
     return runs, cohort
 
 
-def _check_run(torch, label, res, counts, card, prune_s, codecs) -> None:
+def _check_run(torch, label, res, counts, card, prune_s, tap,
+               engine: str) -> None:
     """Log every loop; hold the records, the weights and the launch counts
-    to what the run must give: K1 one launch a client pass, K2 one, K3 one
-    count launch a pass and one scatter launch a pass that has a coo or
-    bitmap weight leaf (the codec tally says which), K4 one a validation
-    batch of a prune step."""
+    to what the run must give.  A batched run launches K1, K2 and K3's
+    count once a round that has participants, and K3's scatter once a
+    round whose uploads hold a coo or bitmap weight leaf (the tap says
+    which); a sequential run the same once a client pass; K4 once a
+    validation batch of a prune step."""
     pruned = label.startswith("scbfwp")
     # prune steps run at loops 0 .. WP_STEPS-1; the mask run's compaction
     # follows the last step inside the same loop
@@ -702,22 +1065,26 @@ def _check_run(torch, label, res, counts, card, prune_s, codecs) -> None:
     if pruned:
         for i, s in enumerate(prune_s[:WP_STEPS]):
             per_loop[i] += s
-        if label == "scbfwp_mask":
+        if label.startswith("scbfwp_mask"):
             per_loop[WP_STEPS - 1] += sum(prune_s[WP_STEPS:])
     for r, ps in zip(res.records, per_loop):
         log(f"[{label}] loop {r.loop} auc_roc={r.auc_roc:.4f} "
             f"auc_pr={r.auc_pr:.4f} upload_fraction={r.upload_fraction:.4f} "
             f"sparse_bytes={r.sparse_bytes} dense_bytes={r.dense_bytes} "
             f"hidden={'x'.join(map(str, r.hidden_sizes))} "
+            f"clients={r.num_participants} epsilon={r.epsilon} "
             f"wall_s={r.wall_time:.3f} prune_s={ps:.3f} ({card})")
-    log(f"[{label}] kernel launches: {counts}")
-    log(f"[{label}] weight-leaf codecs over {len(codecs.passes)} client "
-        f"passes: {json.dumps(codecs.mix())}")
+    log(f"[{label}] {engine} engine, kernel launches: {counts}")
+    log(f"[{label}] weight-leaf codecs over {len(tap.units())} encoder "
+        f"calls: {json.dumps(tap.mix())}")
+    # DP noise of σ = 1 a revealed weight swamps the model: its AUC is
+    # only held to be a probability, in [0, 1]; every other run's above 0.5
     for r in res.records:
         for v in (r.auc_roc, r.auc_pr):
-            if not (math.isfinite(v) and 0.5 < v <= 1.0):
-                raise AssertionError(f"{label} loop {r.loop}: AUC {v} not "
-                                     "in (0.5, 1]")
+            ok = 0.0 <= v <= 1.0 if label == "scbf_dp" else 0.5 < v <= 1.0
+            if not (math.isfinite(v) and ok):
+                raise AssertionError(f"{label} loop {r.loop}: AUC {v} out "
+                                     f"of range")
         if r.sparse_bytes > r.dense_bytes:
             raise AssertionError(f"{label}: sparse > dense bytes")
     for layer in res.final_params:
@@ -725,19 +1092,21 @@ def _check_run(torch, label, res, counts, card, prune_s, codecs) -> None:
             if v.device.type != "cuda" or not torch.isfinite(v).all():
                 raise AssertionError(f"{label}: final params not finite "
                                      "on cuda")
-    passes = len(res.records) * K_CLIENTS
-    if label == "fedavg":
+    if label.startswith("fedavg"):
         want = dict.fromkeys(counts, 0)
     else:
-        if len(codecs.passes) != passes:
-            raise AssertionError(f"{label}: {len(codecs.passes)} encoded "
-                                 f"passes, want {passes}")
-        want = {"channel_norm": passes, "select_mask": passes,
-                "select_compact_count": passes,
-                "select_compact_scatter": codecs.scatter_passes(),
+        units = len(tap.units())
+        passes = sum(r.num_participants for r in res.records)
+        rounds = sum(1 for r in res.records if r.num_participants)
+        if units != (rounds if engine == "batched" else passes):
+            raise AssertionError(f"{label}: {units} encoder calls for "
+                                 f"{rounds} rounds, {passes} passes")
+        want = {"channel_norm": units, "select_mask": units,
+                "select_compact_count": units,
+                "select_compact_scatter": tap.scatter_units(),
                 "apoz": WP_STEPS * VAL_BATCHES if pruned else 0}
         for r in res.records:
-            if not 0.0 < r.upload_fraction < 1.0:
+            if r.num_participants and not 0.0 < r.upload_fraction <= 1.0:
                 raise AssertionError(f"{label} upload_fraction "
                                      f"{r.upload_fraction}")
     if counts != want:
@@ -763,25 +1132,132 @@ def _check_run(torch, label, res, counts, card, prune_s, codecs) -> None:
             "wall_s_after_budget": walls[-1]}))
 
 
+def compare_engines(torch, batched, sequential, tap_b, tap_s) -> None:
+    """SCBF on the batched engine against the sequential one, same draws
+    (the run's generator).  The batched products are batched GEMMs, which
+    may round otherwise than one GEMM a client: the final weights are held
+    to 1e-5 and the AUCs to 1e-5 (a rounding of the last bits moves a
+    prediction by far less).  The selection must come out the same: bytes
+    and upload fractions equal.  The weight-mask entries that flip between
+    the engines are counted and logged; bytes equal with a flip would need
+    flips that cancel, and the count shows them."""
+    import numpy as np
+
+    from repro_torch.params import to_numpy
+
+    flips, entries = [], 0
+    mb, ms = tap_b.client_masks(), tap_s.client_masks()
+    if len(mb) != len(ms):
+        raise AssertionError(f"{len(mb)} batched client selections, "
+                             f"{len(ms)} sequential")
+    for a, b in zip(mb, ms):
+        flips.append(int(sum(torch.count_nonzero(x["w"] != y["w"]).item()
+                             for x, y in zip(a, b))))
+        entries += sum(x["w"].numel() for x in a)
+    for a, b in zip(batched.records, sequential.records):
+        if a.upload_fraction != b.upload_fraction or \
+                a.sparse_bytes != b.sparse_bytes or \
+                abs(a.auc_roc - b.auc_roc) > 1e-5 or \
+                abs(a.auc_pr - b.auc_pr) > 1e-5:
+            raise AssertionError(f"batched vs sequential loop {a.loop}: "
+                                 f"{a} != {b}")
+    diff = max(float(np.max(np.abs(x[k] - y[k])))
+               for x, y in zip(to_numpy(batched.final_params),
+                               to_numpy(sequential.final_params))
+               for k in x)
+    if diff > 1e-5:
+        raise AssertionError(f"batched vs sequential final weights differ "
+                             f"by {diff}")
+    log("engines: " + json.dumps({
+        "batched_vs_sequential": "scbf, full width",
+        "final_weights_max_abs_diff": diff,
+        "sparse_bytes": [[a.sparse_bytes, b.sparse_bytes] for a, b in
+                         zip(batched.records, sequential.records)],
+        "upload_fraction": [[a.upload_fraction, b.upload_fraction]
+                            for a, b in zip(batched.records,
+                                            sequential.records)],
+        "weight_mask_flips_per_client_pass": flips,
+        "weight_mask_entries": entries,
+        "loop_wall_s": [[a.wall_time, b.wall_time] for a, b in
+                        zip(batched.records, sequential.records)]}))
+
+
+def check_dp_run(torch, res, tap) -> None:
+    """SCBF with DP: ε finite and rising loop on loop, and every payload
+    carries its nonzero (noised) values on its reveal masks' coordinates —
+    weights and biases — and nowhere else, on all of them but those whose
+    noised value is exactly 0 (a normal draw of exactly 0 on a revealed
+    zero gradient: the wire ships nonzeros), which must stay below 1e-5
+    of the revealed entries."""
+    from repro_torch.comm import wire
+
+    eps = [r.epsilon for r in res.records]
+    if not all(e is not None and math.isfinite(e) for e in eps) or \
+            any(b <= a for a, b in zip(eps, eps[1:])) or \
+            res.dp_delta is None:
+        raise AssertionError(f"DP run: epsilon {eps}, delta {res.dp_delta}")
+    payloads = [(p, st) for r in tap.rounds
+                for p, st in zip(r["payloads"], r["stats"])]
+    masks = tap.client_masks()
+    revealed = zeros = 0
+    for (payload, st), mask in zip(payloads, masks):
+        for l, layer in enumerate(wire.decode(payload)):
+            for k, t in layer.items():
+                m = mask[l][k].cpu()
+                if bool(torch.any((t != 0) & ~m)):
+                    raise AssertionError(f"DP payload leaf {(l, k)} ships "
+                                         f"a value off its reveal mask")
+                zeros += int(torch.count_nonzero(m & (t == 0)))
+        revealed += st.uploaded_params
+    if len(masks) != len(payloads) or zeros > 1e-5 * revealed:
+        raise AssertionError(f"DP payloads: {zeros} revealed entries of "
+                             f"{revealed} ship no value")
+    log(f"dp: epsilon {eps} (delta {res.dp_delta}); {len(payloads)} "
+        f"payloads carry nonzero values only on their reveal masks, "
+        f"{revealed - zeros} of {revealed} revealed entries noised and "
+        f"{zeros} with a noised value of exactly 0")
+
+
+def check_dirichlet_run(res, tap) -> None:
+    """Dirichlet shards under sampling: the cohort is ragged (the masked
+    loss), each round's participants fill a power-of-two bucket of slots,
+    and only the participants' payloads leave the engine."""
+    rows = [(r["participants"], r["slots"], len(r["payloads"]))
+            for r in tap.rounds]
+    if any(r["uniform"] is not False for r in tap.rounds):
+        raise AssertionError("Dirichlet cohort ran the unweighted loss")
+    for (p, b, n), rec in zip(rows, res.records):
+        if n != p or rec.num_participants != p or b < p or \
+                b != min(1 << max(p - 1, 0).bit_length(), K_CLIENTS):
+            raise AssertionError(f"Dirichlet round: {p} participants, {b} "
+                                 f"slots, {n} payloads")
+    log("dirichlet: " + json.dumps({
+        "participants_slots_payloads": rows, "masked_loss": True}))
+
+
 def phase_profile(torch, cohort, card: str) -> None:
     """Where one loop's time goes: torch.profiler over one full-width
-    loop (evaluation included) of SCBF and of SCBFwP (reshape: one prune
-    step), device busy share and the top kernels."""
+    loop (evaluation included) of SCBF on the batched engine, SCBF on the
+    sequential engine and SCBFwP (reshape, one prune step, batched):
+    device busy share, host-device copies and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.config import ScbfConfig, TrainConfig
+    from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
     from repro_torch.core.scbf import run_federated
 
     feats = (cohort.num_features, 256, 64, 1)
-    for what, scbf in (("SCBF", {}),
-                       ("SCBFwP (reshape, one prune step)",
-                        dict(prune=True, prune_rate=PRUNE_RATE,
-                             prune_total=PRUNE_TOTAL))):
+    for what, scbf, engine in (
+            ("SCBF, batched engine", {}, "batched"),
+            ("SCBF, sequential engine", {}, "sequential"),
+            ("SCBFwP (reshape, one prune step), batched engine",
+             dict(prune=True, prune_rate=PRUNE_RATE,
+                  prune_total=PRUNE_TOTAL), "batched")):
         cfg = TrainConfig(learning_rate=0.05 / K_CLIENTS, global_loops=1,
                           local_epochs=2, local_batch_size=256, seed=0,
                           scbf=ScbfConfig(upload_rate=0.10,
-                                          num_clients=K_CLIENTS, **scbf))
+                                          num_clients=K_CLIENTS, **scbf),
+                          fed=FedConfig(engine=engine))
         run_federated(cohort, cfg, mlp_features=feats, device="cuda")  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -801,6 +1277,10 @@ def phase_profile(torch, cohort, card: str) -> None:
                 "no CUDA events)")
             return
         busy_us = sum(us for _, us in by_name.values())
+        copies = {kind: [sum(n for k, (n, _) in by_name.items() if tag in k),
+                         sum(us for k, (_, us) in by_name.items()
+                             if tag in k)]
+                  for kind, tag in (("h2d", "HtoD"), ("d2h", "DtoH"))}
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         ours = {k: v for k, v in by_name.items()
                 if any(s in k for s in ("channel_norms_kernel",
@@ -814,6 +1294,7 @@ def phase_profile(torch, cohort, card: str) -> None:
             "round_wall_s": res.records[0].wall_time,
             "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall,
+            "copies_count_us": copies,
             "kernels": {k: {"launches": n, "device_us": us,
                             "us_per_launch": us / n}
                         for k, (n, us) in ours.items()},
@@ -821,11 +1302,13 @@ def phase_profile(torch, cohort, card: str) -> None:
 
 
 def phase_agreement(torch):
-    """cuda run == cpu run of the port on one small input, same draws:
-    SCBF, and SCBFwP in mask mode with compaction."""
+    """cuda run == cpu run of the port on one small input, same draws, on
+    the batched engine: SCBF, SCBF with DP (normals injected) and SCBFwP
+    in mask mode with compaction; and SCBFwP in mask mode with compaction
+    on the sequential engine."""
     import numpy as np
 
-    from repro_torch.config import ScbfConfig, TrainConfig
+    from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
     from repro_torch.core.scbf import run_federated
     from repro_torch.data.medical import federated_split, generate_cohort
     from repro_torch.models.mlp_net import init_mlp
@@ -839,19 +1322,28 @@ def phase_agreement(torch):
     rng = np.random.default_rng(2)
     table = {(l, c, 0): rng.permutation(sizes[c])
              for l in range(loops) for c in range(k)}
-    for label, scbf in (("scbf", {}),
-                        ("scbfwp_mask", dict(prune=True, prune_rate=0.25,
-                                             prune_total=0.4,
-                                             prune_impl="mask"))):
+    def normals(loop, i, shapes):
+        r = np.random.default_rng(1000 * loop + i)
+        return [r.standard_normal(s).astype(np.float32) for s in shapes]
+
+    wp_mask = dict(prune=True, prune_rate=0.25, prune_total=0.4,
+                   prune_impl="mask", prune_compact=True)
+    for label, scbf, engine in (("scbf", {}, "batched"),
+                                ("scbf_dp", DP, "batched"),
+                                ("scbfwp_mask", wp_mask, "batched"),
+                                ("scbfwp_mask_sequential", wp_mask,
+                                 "sequential")):
         cfg = TrainConfig(learning_rate=0.05 / k, global_loops=loops,
                           local_batch_size=64, seed=0,
-                          scbf=ScbfConfig(num_clients=k, **scbf))
+                          scbf=ScbfConfig(num_clients=k, **scbf),
+                          fed=FedConfig(engine=engine))
         out = {}
         for dev in ("cuda", "cpu"):
             out[dev] = run_federated(cohort, cfg, method="scbf",
                                      mlp_features=feats, device=dev,
                                      init_params=init,
-                                     perms=lambda l, c, e: table[(l, c, e)])
+                                     perms=lambda l, c, e: table[(l, c, e)],
+                                     dp_noise=normals)
         same_bytes = all(a.sparse_bytes == b.sparse_bytes for a, b in
                          zip(out["cuda"].records, out["cpu"].records))
         for a, b in zip(out["cuda"].records, out["cpu"].records):
@@ -907,8 +1399,10 @@ def main() -> int:
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "launches": r["launches"], "shape": r["shape"],
              "card": card, **{k: v for k, v in r.items() if k in (
-                 "ms_single_leaf", "device_us", "device_us_single_leaf",
-                 "encoder", "memset_us", "memset_us_single_leaf")}}))
+                 "ms_single_leaf", "device_us", "device_us_l2_warm",
+                 "device_us_single_leaf",
+                 "encoder", "memset_us", "memset_us_single_leaf", "slots",
+                 "pass")}}))
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,13 @@ Three codecs per leaf, cheapest wins:
   ``dense``   every entry                              → size·itemsize
 
 Encoding keeps *nonzero* entries (``np.flatnonzero``) and is lossless.
-``encode_selected`` is the same encoding from the selection's operands:
-the select-compact kernel counts every weight leaf's kept *and* nonzero
-entries on the device, the counts pick the codecs, and only the coo and
-bitmap leaves are compacted (row-major, at their counts) and cross to
-the host.  Payloads hold host numpy buffers — they
+``encode_round`` is the same encoding of the clients of a round at once,
+from the selection's slot-stacked operands: the select-compact kernel
+counts every (weight leaf, slot)'s kept *and* nonzero entries on the
+device in one launch, the counts pick the codecs, and only the coo and
+bitmap pairs are compacted (row-major, at their counts, one launch) and
+cross to the host; ``encode_selected`` is a round of one slot.
+Payloads hold host numpy buffers — they
 model bytes crossing the network — as in the reference.  Where the
 reference keeps a JAX treedef, a ``Payload`` keeps its layer-key
 structure: ``(layer, name)`` pairs in the order JAX flattens a tuple of
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,19 +162,19 @@ def encode(tree: Sequence[dict], codec: str = "auto") -> Payload:
                                for l, k in keys))
 
 
-def _leaf_from_compact(leaf: torch.Tensor, nnz: int,
-                       nz: Optional[np.ndarray], values: Optional[np.ndarray]
-                       ) -> LayerPayload:
-    """``encode_leaf(leaf)`` from the leaf's nonzero count and, for coo
-    and bitmap, its ``nnz`` row-major flat indices and values (host
-    arrays); dense copies the masked leaf."""
-    size = int(leaf.numel())
-    shape = tuple(leaf.shape)
+def _leaf_from_compact(shape: Tuple[int, ...], nnz: int,
+                       nz: Optional[np.ndarray], values: Optional[np.ndarray],
+                       dense: Optional[np.ndarray]) -> LayerPayload:
+    """``encode_leaf`` of a masked fp32 leaf of ``shape`` from its nonzero
+    count and, for coo and bitmap, its ``nnz`` row-major flat indices and
+    values (host arrays); dense copies ``dense``, the masked leaf on the
+    host."""
+    size = int(np.prod(shape, dtype=np.int64))
     codec, nbytes = cheapest_bytes(nnz, size, 4)
     if codec == "dense":
         return LayerPayload(codec, shape, np.dtype(np.float32), size,
                             nbytes, idx=None, bitmap=None,
-                            values=_host(leaf).reshape(-1).copy())
+                            values=dense.reshape(-1).copy())
     if codec == "coo":
         return LayerPayload(codec, shape, np.dtype(np.float32), nnz, nbytes,
                             idx=nz, bitmap=None, values=values)
@@ -189,43 +191,83 @@ def encode_selected(masked: Sequence[dict], operands: Sequence) -> Payload:
     ``operands[l]`` is layer l's edge rule (``core.channels.EdgeOperands``
     — g, row, col, thr, rest — in the geometry of ``masked[l]["w"]``);
     its kept-and-nonzero entries are exactly ``np.flatnonzero`` of the
-    masked leaf.  One count launch of the select-compact kernel over all
-    weight leaves; the counts reach the host in one copy and pick each
-    leaf's codec; one scatter launch then compacts only the coo and bitmap
-    leaves, each at capacity = its count (no tail), and their buffers
-    reach the host in one copy.  Dense leaves copy the masked leaf.  Bias
-    leaves (vectors no kernel computes) take the host path of
-    ``encode_leaf``.  Weight leaves are fp32.
+    masked leaf.  This is ``encode_round`` of a round of one slot: one
+    count launch over the weight leaves, one host read of the counts, one
+    scatter launch of the coo and bitmap leaves at their counts.
+    """
+    one = [{k: v[None] for k, v in layer.items() if v is not None}
+           for layer in masked]
+    ops = [op._replace(g=op.g[None], col=op.col[None],
+                       thr=torch.as_tensor(op.thr, device=op.g.device)
+                       .reshape(1),
+                       rest=torch.as_tensor(op.rest, device=op.g.device)
+                       .reshape(1))
+           for op in operands]
+    return encode_round(one, ops, 1)[0]
+
+
+def encode_round(masked: Sequence[dict], operands: Sequence, num: int
+                 ) -> List[Payload]:
+    """``encode`` of slots 0 .. num-1 of a slot-stacked round (every leaf
+    ``(S, …)``, operands slot-stacked as ``core.channels.edge_operands``
+    gives them: a row of shape ``(M,)`` serves every slot): one payload a
+    slot, each byte for byte ``encode`` of that slot.
+
+    One count launch of the select-compact kernel covers every (weight
+    leaf, slot < num) pair; one host read of the counts picks every pair's
+    codec; one scatter launch compacts the coo and bitmap pairs, each at
+    capacity = its count (no tail), and its buffer reaches the host in one
+    copy.  A weight leaf with a dense pair, and every bias leaf (vectors
+    no kernel computes, encoded by ``encode_leaf`` on the host), cross to
+    the host in one copy a leaf.  Weight leaves are fp32.  Under DP the
+    operands' ``g`` is the noised leaf, so what is compacted is what the
+    mechanism released.
     """
     keys = flat_keys(masked)
     for l in range(len(operands)):
         if masked[l]["w"].dtype != torch.float32:
-            raise TypeError(f"encode_selected takes fp32 weight leaves, got "
+            raise TypeError(f"the encoder takes fp32 weight leaves, got "
                             f"{masked[l]['w'].dtype}")
-    nnzs, host = [], {}
-    if operands:
-        cc = compact_count(operands, drop_zeros=True)
-        nnzs = cc.counts.tolist()
-        sparse = [l for l, op in enumerate(operands) if nnzs[l] and
-                  cheapest_bytes(nnzs[l], int(op.g.numel()), 4)[0] != "dense"]
+    ops = [op._replace(g=op.g[:num], col=op.col[:num], thr=op.thr[:num],
+                       rest=op.rest[:num],
+                       row=op.row[:num] if op.row.ndim == 2 else op.row)
+           for op in operands]
+    shapes = [tuple(op.g.shape[1:]) for op in ops]
+    nnz, host, dense = {}, {}, {}
+    if ops:
+        cc = compact_count(ops, drop_zeros=True)
+        counts = cc.counts.tolist()
+        nnz = dict(zip(cc.pairs, counts))
+        codec = {p: cheapest_bytes(c, int(np.prod(shapes[p[0]])), 4)[0]
+                 for p, c in nnz.items()}
+        sparse = [k for k, p in enumerate(cc.pairs)
+                  if nnz[p] and codec[p] != "dense"]
         if sparse:
-            buf, views = compact_scatter(cc, [nnzs[l] for l in sparse],
+            buf, views = compact_scatter(cc, [counts[k] for k in sparse],
                                          sparse)
             flat = buf.cpu().numpy()
-        for l, (idx, vals) in zip(sparse, views if sparse else ()):
-            a, b = idx.storage_offset(), vals.storage_offset()
-            host[l] = (flat[a:a + nnzs[l]],
-                       flat[b:b + nnzs[l]].view(np.float32))
-    layers = []
-    for l, k in keys:
-        if k == "w":
-            nz, values = host.get(
-                l, (np.zeros(0, np.int32), np.zeros(0, np.float32)))
-            layers.append(_leaf_from_compact(masked[l][k], int(nnzs[l]), nz,
-                                             values))
-        else:
-            layers.append(encode_leaf(masked[l][k]))
-    return Payload(keys, tuple(layers))
+            for k, (idx, vals) in zip(sparse, views):
+                a, b = idx.storage_offset(), vals.storage_offset()
+                host[cc.pairs[k]] = (flat[a:a + counts[k]],
+                                     flat[b:b + counts[k]].view(np.float32))
+        for l in sorted({p[0] for p, c in codec.items() if c == "dense"}):
+            dense[l] = _host(masked[l]["w"][:num])
+    others = {(l, k): _host(masked[l][k][:num]) for l, k in keys if k != "w"}
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
+    payloads = []
+    for s in range(num):
+        layers = []
+        for l, k in keys:
+            if k == "w":
+                nz, values = host.get((l, s), empty)
+                d = dense.get(l)
+                layers.append(_leaf_from_compact(
+                    shapes[l], int(nnz[(l, s)]), nz, values,
+                    None if d is None else d[s]))
+            else:
+                layers.append(encode_leaf(others[(l, k)][s]))
+        payloads.append(Payload(keys, tuple(layers)))
+    return payloads
 
 
 def validate_layer(lp: LayerPayload, leaf_shape: Optional[Tuple[int, ...]]

@@ -1,11 +1,8 @@
 """Training configs for the port — an own copy of ``repro.config``'s
 SCBF/federation/training dataclasses, with the same field names and
-defaults so a config reads the same in both packages.
-
-One default differs: ``FedConfig.engine`` is ``"sequential"``.  The
-port has only the per-client loop so far (the batched cohort engine is
-ROADMAP A9); at full participation with equal shards the reference's
-two engines give identical trajectories, so this changes no result.
+defaults so a config reads the same in both packages — the engine too:
+``FedConfig.engine`` is ``"batched"``, the slot-stacked cohort engine,
+as in the reference.
 
 Fields whose feature is not ported yet are kept (so configs stay
 interchangeable) and refused by ``repro_torch.core.scbf.run_federated``
@@ -34,7 +31,7 @@ class ScbfConfig:
     factored: bool = True            # factored channel scores for big models
     compressed_exchange: bool = False  # top-k gather exchange across pods
     score_norm: bool = False         # per-layer score normalisation
-    # differential privacy on the upload path — ROADMAP A5
+    # differential privacy on the upload path (core.privacy)
     dp_noise_multiplier: float = 0.0  # 0 = off; sigma = nm * dp_clip_norm
     dp_clip_norm: float = 1.0        # L2 clip bound S on the masked delta
     dp_delta: float = 1e-5           # delta of the reported (eps, delta)
@@ -79,11 +76,17 @@ class FaultConfig:
 
 @dataclass(frozen=True)
 class FedConfig:
-    """Cross-device federation scenario knobs (``repro_torch.fed``)."""
+    """Cross-device federation scenario knobs (``repro_torch.fed``).
 
-    engine: str = "sequential"       # sequential (batched: ROADMAP A9)
+    The batched engine scores a round's slots in one ``channel_norm``
+    launch, whose partials must fit the kernel's scratch
+    (``kernels.channel_norm.SCRATCH``): about 211 slots at the paper's
+    widths (2917-256-64-1), more at narrower ones.  A round past it raises
+    ``ValueError`` naming the limit; the sequential engine has none."""
+
+    engine: str = "batched"          # batched | sequential
     fuse_rounds: int = 1             # > 1: ROADMAP A10
-    bucket: str = "pow2"             # batched-engine padding (A9)
+    bucket: str = "pow2"             # batched-engine padding: pow2 | exact
     pods: int = 1                    # pod sharding (A15)
     # --- per-round client sampling (sync mode) ---
     sample_fraction: float = 1.0     # fraction of clients invited per round

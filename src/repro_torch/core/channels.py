@@ -13,6 +13,13 @@ weight matrix: ``kernels.channel_norm`` gives the column norms behind
 ``edge_operands`` hands the same rule to the upload encoder
 (``comm.wire.encode_selected``).  The rest is plain torch.  All
 scores are fp32 regardless of gradient dtype.
+
+Slot-stacked deltas (the batched engine: S clients of a round, every
+weight ``(S, M, N)`` and bias ``(S, m)``) run the same algebra slot by
+slot in one pass: scores ``(S, m_l)`` from one channel-norm launch, one
+threshold a slot (a sort along the last axis), edge operands with
+``thr`` and ``rest`` of shape ``(S,)``, and one select-mask launch.  Slot
+s gives what the one-client functions give on it, bitwise.
 """
 from __future__ import annotations
 
@@ -31,11 +38,12 @@ MAX_MATERIALIZED = 1 << 22
 def layer_scores(grads: Sequence[dict], normalize: bool = False,
                  neuron_masks: Optional[Sequence[torch.Tensor]] = None
                  ) -> List[torch.Tensor]:
-    """Per-layer neuron scores s_l (fp32, shape (m_l,)) for an MLP delta.
+    """Per-layer neuron scores s_l (fp32, shape (m_l,), or (S, m_l) for a
+    slot-stacked delta) for an MLP delta.
 
     The weight part is the column squared norm from the channel-norm
-    kernel, one launch for every weight matrix; the bias square is added
-    after it, as in the reference.
+    kernel, one launch for every weight matrix (and every slot); the bias
+    square is added after it, as in the reference.
     ``normalize`` divides by the layer mean; ``neuron_masks`` scores
     pruned neurons ``-inf`` (mask-mode SCBFwP).
     """
@@ -50,9 +58,10 @@ def layer_scores(grads: Sequence[dict], normalize: bool = False,
             m = neuron_masks[l]
         if normalize:
             if m is None:
-                mean = torch.mean(s)
+                mean = torch.mean(s, dim=-1, keepdim=True)
             else:
-                mean = torch.sum(s * m) / torch.clamp(torch.sum(m), min=1.0)
+                mean = torch.sum(s * m, dim=-1, keepdim=True) / torch.clamp(
+                    torch.sum(m), min=1.0)
             s = s / torch.clamp(mean, min=1e-30)
         if m is not None:
             s = torch.where(m > 0, s, torch.full_like(s, float("-inf")))
@@ -61,55 +70,66 @@ def layer_scores(grads: Sequence[dict], normalize: bool = False,
 
 
 def _interpolate(vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Linear interpolation at fractional index ``pos`` of sorted ``vals``,
-    with the reference's weights: lo·(1 - frac) + hi·frac."""
-    n = vals.shape[0]
+    """Linear interpolation at fractional index ``pos`` of sorted ``vals``
+    (along the last axis; ``pos`` 0-d or one a row), with the reference's
+    weights: lo·(1 - frac) + hi·frac."""
+    n = vals.shape[-1]
+
+    def at(i: torch.Tensor) -> torch.Tensor:
+        i = i.expand(vals.shape[:-1]).unsqueeze(-1)
+        return torch.gather(vals, -1, i).squeeze(-1)
+
     lo = torch.clamp(torch.floor(pos), 0, n - 1).to(torch.int64)
     hi = torch.clamp(torch.ceil(pos), 0, n - 1).to(torch.int64)
     frac = pos - torch.floor(pos)
-    return vals[lo] * (1.0 - frac) + vals[hi] * frac
+    return at(lo) * (1.0 - frac) + at(hi) * frac
 
 
 def quantile(values: torch.Tensor, q: float) -> torch.Tensor:
-    """The q-quantile of a flat fp32 vector, linear interpolation.
+    """The q-quantile of a flat fp32 vector (of each row of a (S, n)
+    matrix), linear interpolation.
 
     The same arithmetic as ``jnp.quantile`` (position q·(n-1) in fp32,
     weights 1-frac and frac); ``torch.quantile`` lerps with another
     rounding and refuses more than 2^24 entries.
     """
-    vals = torch.sort(values).values
+    vals = torch.sort(values, dim=-1).values
     pos = torch.tensor(q, dtype=torch.float32, device=vals.device) \
-        * (vals.shape[0] - 1)
+        * (vals.shape[-1] - 1)
     return _interpolate(vals, pos)
 
 
 def masked_quantile(values: torch.Tensor, q: float) -> torch.Tensor:
-    """q-quantile over the finite entries of a flat score vector (the
-    ``-inf`` channels of pruned neurons sort to the front and are
-    skipped)."""
-    vals = torch.sort(values).values
-    n = vals.shape[0]
-    n_valid = torch.count_nonzero(torch.isfinite(vals))
+    """q-quantile over the finite entries of a flat score vector (of each
+    row) — the ``-inf`` channels of pruned neurons sort to the front and
+    are skipped."""
+    vals = torch.sort(values, dim=-1).values
+    n = vals.shape[-1]
+    n_valid = torch.count_nonzero(torch.isfinite(vals), dim=-1)
     pos = (n - n_valid) + q * torch.clamp(n_valid - 1, min=0)
     return _interpolate(vals, pos.to(torch.float32))
 
 
 def materialize_channel_tensor(scores: Sequence[torch.Tensor]
                                ) -> torch.Tensor:
-    """The exact L-dimensional channel-norm tensor T (broadcast sum)."""
+    """The exact L-dimensional channel-norm tensor T (broadcast sum);
+    slot-stacked scores (S, m_l) give (S, m_0, …, m_{L-1})."""
     L = len(scores)
-    t = torch.zeros([1] * L, dtype=torch.float32, device=scores[0].device)
+    lead = list(scores[0].shape[:-1])
+    t = torch.zeros(lead + [1] * L, dtype=torch.float32,
+                    device=scores[0].device)
     for l, s in enumerate(scores):
-        shape = [1] * L
-        shape[l] = s.shape[0]
+        shape = lead + [1] * L
+        shape[len(lead) + l] = s.shape[-1]
         t = t + s.reshape(shape)
     return t
 
 
 def num_channels(scores: Sequence[torch.Tensor]) -> int:
+    """Channels of one client's network: Π m_l."""
     n = 1
     for s in scores:
-        n *= int(s.shape[0])
+        n *= int(s.shape[-1])
     return n
 
 
@@ -122,18 +142,27 @@ def channel_quantile(scores: Sequence[torch.Tensor], upload_rate: float,
     """Threshold q such that ~``upload_rate`` of channels have T > q
     (positive selection) or ~``upload_rate`` have T < q (negative).
 
-    Exact when the channel tensor is small enough to materialise;
-    stochastic (sampled channels) otherwise.  The sampled path takes
-    ``sample_idx`` — one index vector per layer, e.g. the reference's
-    draws in a parity test — or draws them on ``generator`` (CPU):
-    uniformly, or among finite (kept) neurons when ``masked``.
+    Exact when one client's channel tensor is small enough to
+    materialise; stochastic (sampled channels) otherwise.  The sampled
+    path takes ``sample_idx`` — one index vector per layer, e.g. the
+    reference's draws in a parity test — or draws them on ``generator``
+    (CPU): uniformly, or among finite (kept) neurons when ``masked``.
+    Slot-stacked scores (S, m_l) give one threshold a slot, (S,); the
+    sampled path then runs slot by slot (``sample_idx``: one list a slot).
     """
     if selection not in ("positive", "negative"):
         raise ValueError(f"selection must be positive|negative, got {selection}")
     q = (1.0 - upload_rate) if selection == "positive" else upload_rate
+    lead = list(scores[0].shape[:-1])
     if num_channels(scores) <= MAX_MATERIALIZED:
-        t = materialize_channel_tensor(scores).reshape(-1)
+        t = materialize_channel_tensor(scores).reshape(lead + [-1])
         return masked_quantile(t, q) if masked else quantile(t, q)
+    if lead:
+        return torch.stack([channel_quantile(
+            [s[k] for s in scores], upload_rate, selection=selection,
+            sample_idx=None if sample_idx is None else sample_idx[k],
+            generator=generator, num_samples=num_samples, masked=masked)
+            for k in range(lead[0])])
     if sample_idx is None:
         if generator is None:
             raise ValueError("the sampled quantile path needs sample_idx= "
@@ -157,17 +186,18 @@ def channel_quantile(scores: Sequence[torch.Tensor], upload_rate: float,
 
 
 def max_completion(scores: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Σ_l max_i s_l[i] — the best possible channel score."""
-    total = torch.max(scores[0])
+    """Σ_l max_i s_l[i] — the best possible channel score (one a slot)."""
+    total = torch.amax(scores[0], dim=-1)
     for s in scores[1:]:
-        total = total + torch.max(s)
+        total = total + torch.amax(s, dim=-1)
     return total
 
 
 class EdgeOperands(NamedTuple):
     """One weight matrix's edge rule: keep ``g[p, q]`` iff
     ``(row[p] + col[q]) + rest > thr`` — the operands of the select-mask
-    and select-compact kernels."""
+    and select-compact kernels.  Slot-stacked: g (S, M, N), row (S, M) or
+    the shared (M,), col (S, N), thr and rest (S,)."""
 
     g: torch.Tensor
     row: torch.Tensor
@@ -181,8 +211,9 @@ def edge_operands(grads: Sequence[dict], scores: Sequence[torch.Tensor],
     """The edge rule of every weight matrix, in the reference's order of
     additions: layer 0 tests ``s_0[q] + rest`` (fed as row scores of
     zeros, since ``(0 + s) + rest`` is bitwise ``s + rest``), layer l > 0
-    tests ``(s_{l-1}[p] + s_l[q]) + rest``."""
-    maxes = [torch.max(s) for s in scores]
+    tests ``(s_{l-1}[p] + s_l[q]) + rest``.  Slot-stacked: every slot
+    shares layer 0's zero row scores."""
+    maxes = [torch.amax(s, dim=-1) for s in scores]
     total_max = max_completion(scores)
     thr = torch.as_tensor(threshold, dtype=torch.float32,
                           device=scores[0].device)
@@ -190,7 +221,7 @@ def edge_operands(grads: Sequence[dict], scores: Sequence[torch.Tensor],
     for l, g in enumerate(grads):
         w = g["w"]
         if l == 0:
-            row = torch.zeros((w.shape[0],), dtype=torch.float32,
+            row = torch.zeros((w.shape[-2],), dtype=torch.float32,
                               device=w.device)
             ops.append(EdgeOperands(w, row, scores[0], thr,
                                     total_max - maxes[0]))
@@ -213,17 +244,22 @@ def mask_by_operands(grads: Sequence[dict], ops: Sequence[EdgeOperands]
                      ) -> Tuple[list, list]:
     """``apply_channel_mask`` from its ``edge_operands``: every weight mask
     comes from one launch of the select-mask kernel over the pass's leaf
-    table; bias masks are (m_l,) vectors and stay plain torch."""
+    table; bias masks are (m_l,) vectors (one a slot) and stay plain
+    torch."""
     masked, masks = [], []
     w_masked, w_masks, _ = select_mask_leaves(ops)
     for l, (g, op, mw, w_mask) in enumerate(zip(grads, ops, w_masked,
                                                w_masks)):
+        # a slot's scalars against its (m_l,) scores
+        rest, thr = (op.rest[..., None], op.thr[..., None]) \
+            if op.col.ndim == 2 else (op.rest, op.thr)
         if l == 0:
-            b_mask = op.col + op.rest > op.thr
+            b_mask = op.col + rest > thr
         else:
             # bias of neuron q is on a selected channel iff its best
             # channel is
-            b_mask = (torch.max(op.row) + op.col + op.rest) > op.thr
+            b_mask = (torch.amax(op.row, dim=-1, keepdim=op.col.ndim == 2)
+                      + op.col + rest) > thr
         mg = {"w": mw}
         has_bias = "b" in g and g["b"] is not None
         if has_bias:

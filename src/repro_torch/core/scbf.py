@@ -3,9 +3,13 @@
 
 One global loop:
   1. the sync scheduler picks the reporting cohort;
-  2. the sequential engine trains every participant and channel-selects
-     its delta (``layer_scores`` → α-quantile → exact edge mask, the
-     score-and-mask pass running through the Hopper kernels on CUDA);
+  2. the engine (``FedConfig.engine``: ``batched`` by default, all
+     participants as one slot-stacked pass; ``sequential``, one client at
+     a time) trains every participant and channel-selects its delta
+     (``layer_scores`` → α-quantile → exact edge mask, the score-and-mask
+     pass running through the Hopper kernels on CUDA), then, with DP on
+     (``ScbfConfig.dp_noise_multiplier > 0``), clips and noises each
+     masked delta on its reveal masks before it is encoded;
   3. the strategy folds the uploads into the server:
      W <- W + Σ_k ΔW̃_k for SCBF, the example-weighted mean for FedAvg;
   4. (SCBFwP / FAwP, ``ScbfConfig.prune``) while the cumulative pruned
@@ -21,11 +25,22 @@ device the caller must ask for the CPU (``repro_torch.device``).  Matmuls
 run in full fp32 (TF32 off), as the reference computes.
 
 Randomness: one CPU ``torch.Generator`` seeded from ``TrainConfig.seed``
-draws the initial weights and every epoch permutation.  Parity tests
-inject the reference's draws instead: ``init_params`` (numpy) and
-``perms`` (``(loop, client, epoch) -> index array``).
+draws the initial weights and every epoch permutation (of the client's
+shard on the sequential engine, of the padded shard n_max on the batched
+one); with DP on, it then draws once the seed of a generator on the
+run's device, which draws the DP noise (``fed.engine`` says in what
+order).  Parity tests inject the reference's draws instead:
+``init_params`` (numpy), ``perms`` (``(loop, client, epoch) -> index
+array``) and ``dp_noise`` (``(loop, participant position, leaf shapes)
+-> standard normals``, one array a leaf in ``comm.wire.flat_keys``
+order).
 
-DP, the batched and fused engines, FedBuff, the simulated clock, fault
+DP accounting is the reference's: ε composes per *release*, so
+``run_federated`` keeps a per-client release ledger and reports the worst
+client's ε (RDP or the classic bound), or with ``dp_amplification`` the
+tighter of that and the subsampled-Gaussian bound composed over rounds.
+
+The fused engine, pod sharding, FedBuff, the simulated clock, fault
 injection, the admission gate and the flight recorder are not ported
 yet; configs that ask for them raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -40,13 +55,14 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm import wire
 from repro_torch.config import TrainConfig
-from repro_torch.core import pruning
+from repro_torch.core import privacy, pruning
 from repro_torch.core.client import epoch_perms
 from repro_torch.data.medical import (MedicalCohort, dirichlet_split,
                                       federated_split)
 from repro_torch.device import resolve_device
-from repro_torch.fed.engine import SequentialEngine
+from repro_torch.fed.engine import make_engine
 from repro_torch.fed.scheduler import SyncScheduler
 from repro_torch.fed.strategy import RoundContribution, make_strategy
 from repro_torch.metrics.auc import auc_pr, auc_roc
@@ -55,6 +71,7 @@ from repro_torch.optim import schedules
 from repro_torch.params import from_numpy, num_params
 
 PermFn = Callable[[int, int, int], np.ndarray]
+NoiseFn = Callable[[int, int, Sequence[Tuple[int, ...]]], Sequence[np.ndarray]]
 
 
 @dataclass
@@ -155,9 +172,17 @@ def check_slice(train_cfg: TrainConfig, method: str) -> None:
     cfg, fed = train_cfg.scbf, train_cfg.fed
     if method not in ("scbf", "fedavg"):
         raise ValueError(method)
+    if cfg.dp_noise_multiplier > 0 and method != "scbf":
+        raise ValueError("dp_noise_multiplier applies to the sparse scbf "
+                         "upload path; method='fedavg' ships full weights "
+                         "with no DP mechanism — refusing to run with a "
+                         "privacy guarantee silently off")
     if cfg.dp_noise_multiplier < 0:
         raise ValueError(f"dp_noise_multiplier must be >= 0, got "
-                         f"{cfg.dp_noise_multiplier}")
+                         f"{cfg.dp_noise_multiplier}: the DP gate is "
+                         f"'dp_noise_multiplier > 0', so a negative value "
+                         f"would silently run without DP while looking "
+                         f"configured")
     if cfg.prune and cfg.prune_impl not in ("reshape", "mask"):
         raise ValueError(f"unknown prune_impl {cfg.prune_impl!r}; "
                          "one of ('reshape', 'mask')")
@@ -167,9 +192,6 @@ def check_slice(train_cfg: TrainConfig, method: str) -> None:
                          "method='fedavg' (FAwP) prunes by reshaping — "
                          "use prune_impl='reshape'")
     todo = [
-        (cfg.dp_noise_multiplier > 0, "DP on the upload path is ROADMAP A5"),
-        (fed.engine != "sequential",
-         f"engine={fed.engine!r}: the batched engine is ROADMAP A9"),
         (int(fed.fuse_rounds) != 1, "fused rounds are ROADMAP A10"),
         (fed.pods != 1, "pod sharding is ROADMAP A15"),
         (fed.mode != "sync", f"mode={fed.mode!r}: fedbuff is ROADMAP A11"),
@@ -185,6 +207,18 @@ def check_slice(train_cfg: TrainConfig, method: str) -> None:
     for cond, what in todo:
         if cond:
             raise NotImplementedError(f"{what}; not ported yet")
+    if method == "scbf" and cfg.dp_noise_multiplier > 0:
+        # an unknown accountant, or a classic bound outside its eps <= 1
+        # domain, fails before training, not after it
+        privacy.epsilon_for(cfg.dp_noise_multiplier, cfg.dp_delta, loops=1,
+                            accountant=cfg.dp_accountant)
+        if cfg.dp_amplification:
+            if cfg.dp_accountant != "rdp":
+                raise ValueError(
+                    "dp_amplification is an RDP analysis; it composes on "
+                    "the subsampled RDP curve, so dp_accountant="
+                    f"{cfg.dp_accountant!r} cannot back the reported ε — "
+                    "use 'rdp'")
 
 
 def run_federated(cohort: MedicalCohort,
@@ -194,14 +228,18 @@ def run_federated(cohort: MedicalCohort,
                   verbose: bool = False,
                   device=None,
                   init_params: Optional[Sequence[dict]] = None,
-                  perms: Optional[PermFn] = None) -> RunResult:
+                  perms: Optional[PermFn] = None,
+                  dp_noise: Optional[NoiseFn] = None) -> RunResult:
     """Run one federated experiment: method "scbf" | "fedavg", with
     pruning controlled by ``train_cfg.scbf.prune`` (→ SCBFwP / FAwP).
 
     ``device``: None → cuda (raises without one); "cpu" on request.
     ``init_params``: numpy layer dicts to start from (else He init on the
     run's generator).  ``perms(loop, client, epoch)``: the permutation of
-    that client's shard for that epoch (else drawn on the generator).
+    that client's shard (batched engine: of the padded shard) for that
+    epoch (else drawn on the generator).  ``dp_noise(loop, i, shapes)``:
+    the standard normals of the round's i-th participant, one array a
+    leaf of ``shapes`` (else drawn on the run's device generator).
 
     ``LoopRecord.wall_time`` spans the round — plan, local training,
     selection, encoding (the host then holds the payloads), the server
@@ -220,8 +258,9 @@ def run_federated(cohort: MedicalCohort,
     params = from_numpy(init_params, dev) if init_params is not None \
         else init_mlp(feats, gen, dev)
     clients = _partition(cohort, train_cfg)
-    eng = SequentialEngine(clients, train_cfg.local_batch_size,
-                           train_cfg.local_epochs, dev)
+    eng = make_engine(fed.engine, clients, train_cfg.local_batch_size,
+                      train_cfg.local_epochs, dev, bucket=fed.bucket,
+                      pods=fed.pods)
     scheduler = SyncScheduler(cfg.num_clients, fed, train_cfg.seed)
     strategy = make_strategy(method)
     state = strategy.init(params)
@@ -235,7 +274,39 @@ def run_federated(cohort: MedicalCohort,
                                 prune_total=cfg.prune_total,
                                 impl=cfg.prune_impl,
                                 compact=cfg.prune_compact)
-    result = RunResult(method=method + ("wp" if cfg.prune else ""))
+    dp_on = method == "scbf" and cfg.dp_noise_multiplier > 0
+    amplify = dp_on and cfg.dp_amplification
+    # q from the scheduler's own cohort size, so the reported
+    # amplification matches the sampling performed
+    amp_q = min(1.0, scheduler.max_participants / cfg.num_clients)
+    if amplify:
+        privacy.amplified_epsilon_for(cfg.dp_noise_multiplier, amp_q,
+                                      cfg.dp_delta, rounds=1)  # fail fast
+    # ε composes per release: the spend is tracked per client and the
+    # worst (most-releasing) client reported
+    dp_releases = np.zeros(cfg.num_clients, dtype=np.int64)
+    dp_gen = None
+    if dp_on and dp_noise is None:
+        dp_gen = torch.Generator(device=dev)
+        dp_gen.manual_seed(int(torch.randint(2 ** 62, (1,), generator=gen)))
+    result = RunResult(method=method + ("wp" if cfg.prune else ""),
+                       dp_delta=cfg.dp_delta if dp_on else None)
+
+    def _epsilons(loop: int):
+        """(epsilon, epsilon_unamplified) for the record of ``loop``."""
+        if not dp_on:
+            return None, None
+        un = privacy.epsilon_for(cfg.dp_noise_multiplier, cfg.dp_delta,
+                                 loops=int(dp_releases.max()),
+                                 accountant=cfg.dp_accountant)
+        if amplify:
+            # both are valid upper bounds (amplified over rounds,
+            # unamplified over per-client releases): report the tighter
+            amp = privacy.amplified_epsilon_for(
+                cfg.dp_noise_multiplier, amp_q, cfg.dp_delta,
+                rounds=loop + 1)
+            return min(amp, un), un
+        return un, None
 
     init_model = params
     known = {"roc": None, "pr": None}
@@ -256,8 +327,15 @@ def run_federated(cohort: MedicalCohort,
         if perms is not None:
             return [[perms(loop, int(k), e)
                      for e in range(train_cfg.local_epochs)] for k in part]
-        return [epoch_perms(int(eng.counts[int(k)]), train_cfg.local_epochs,
+        return [epoch_perms(eng.perm_length(k), train_cfg.local_epochs,
                             gen) for k in part]
+
+    def _round_noise(loop: int, P: int, params_now):
+        if not dp_on or dp_noise is None:
+            return None
+        shapes = [tuple(params_now[l][k].shape)
+                  for l, k in wire.flat_keys(params_now)]
+        return [dp_noise(loop, i, shapes) for i in range(P)]
 
     for loop in range(train_cfg.global_loops):
         t0 = time.perf_counter()
@@ -272,10 +350,12 @@ def run_federated(cohort: MedicalCohort,
                 nmasks = pruner.masks if pruner is not None else None
                 keep_eff = pruner.emission_keep if pruner is not None \
                     else None
-                payloads, stats = eng.scbf_round(state.params, part, lr,
-                                                 round_perms, cfg,
-                                                 generator=gen,
-                                                 nmasks=nmasks, keep=keep_eff)
+                payloads, stats = eng.scbf_round(
+                    state.params, part, lr, round_perms, cfg, generator=gen,
+                    nmasks=nmasks, keep=keep_eff,
+                    noise=_round_noise(loop, P, state.params),
+                    dp_generator=dp_gen)
+                dp_releases[np.asarray(part)] += 1
                 expand = None
                 if keep_eff is not None:
                     expand = (lambda ps, _k=keep_eff, _ref=state.params:
@@ -323,6 +403,7 @@ def run_federated(cohort: MedicalCohort,
         else:
             n_params = num_params(params)
             hidden = hidden_sizes(params)
+        eps, eps_un = _epsilons(loop)
         rec = LoopRecord(
             loop=loop, auc_roc=roc, auc_pr=pr,
             upload_fraction=up_frac,
@@ -330,7 +411,8 @@ def run_federated(cohort: MedicalCohort,
             wall_time=wall,
             flops_proxy=float(n_params) * cohort.x_train.shape[0],
             hidden_sizes=hidden,
-            num_participants=P, evaluated=evaluated)
+            num_participants=P, epsilon=eps, evaluated=evaluated,
+            epsilon_unamplified=eps_un)
         result.records.append(rec)
         if verbose:
             print(f"[{result.method}] loop {loop:02d} "

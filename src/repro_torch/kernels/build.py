@@ -35,20 +35,24 @@ _LL = ctypes.c_longlong
 # cudaError_t of its launch (0 = success)
 SIGNATURES = {
     "channel_norm": {
-        # rows (host int64 table), L, dtype, stream
+        # rows (host int64 table of slot-stacked leaves), L, dtype, stream
         "channel_norms_launch": ([_VOID, _INT, _INT, _VOID], _INT),
     },
     "select_mask": {
-        # rows (host int64 table), L, dtype, counts, stream
+        # rows (host int64 table of slot-stacked leaves), L, dtype, counts,
+        # stream
         "select_mask_launch": ([_VOID, _INT, _INT, _VOID, _VOID], _INT),
     },
     "select_compact": {
-        # rows (host int64 table), L, dtype, drop_zeros, tile_counts,
-        # offsets, work_len, stream
+        # rows (host int64 table of slot-stacked leaves), L, dtype,
+        # drop_zeros, tile_counts, offsets, work_len, stream
         "select_compact_count_launch": ([_VOID, _INT, _INT, _INT, _VOID,
                                          _VOID, _LL, _VOID], _INT),
-        "select_compact_scatter_launch": ([_VOID, _INT, _INT, _INT, _VOID,
-                                           _VOID, _LL, _VOID], _INT),
+        # rows, L, pairs (host int64 table of (leaf, slot) pairs), P, out,
+        # dtype, drop_zeros, tile_counts, offsets, work_len, stream
+        "select_compact_scatter_launch": ([_VOID, _INT, _VOID, _INT, _VOID,
+                                           _INT, _INT, _VOID, _VOID, _LL,
+                                           _VOID], _INT),
     },
     "apoz": {
         # rows (host int64 table), L, recip, stream

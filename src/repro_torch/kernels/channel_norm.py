@@ -3,7 +3,10 @@ pass (port of ``repro.kernels.channel_norm.channel_norms_pallas``).
 
 A client's pass is one *leaf table*: every weight matrix, taken by one
 launch of ``csrc/channel_norm.cu`` (``channel_norms_leaves``); the
-single-matrix ``channel_norms`` is a one-leaf table.  Each wrapper
+single-matrix ``channel_norms`` is a one-leaf table.  A round of the
+batched engine is one table of *slot-stacked* leaves: a leaf ``(S, M, N)``
+holds the same matrix of S clients and gives ``(S, M)`` and ``(S, N)``
+norms, slot s bitwise what a one-slot launch on ``g[s]`` gives.  Each wrapper
 dispatches on the tensors' device: CPU tensors go to
 ``channel_norms_plain`` leaf by leaf; CUDA tensors launch the
 hand-written Hopper kernel or raise.  ``launches`` counts kernel launches
@@ -33,16 +36,21 @@ def reset_launches() -> None:
 
 
 def channel_norms_plain(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(row (M,), col (N,)) squared norms of g (M, N), fp32."""
+    """(row (M,), col (N,)) squared norms of g (M, N), fp32; a
+    slot-stacked g (S, M, N) gives (S, M) and (S, N), slot by slot."""
+    if g.ndim == 3:
+        rows, cols = zip(*(channel_norms_plain(gs) for gs in g))
+        return torch.stack(rows), torch.stack(cols)
     gf = g.to(torch.float32)
     sq = gf * gf
     return torch.sum(sq, dim=1), torch.sum(sq, dim=0)
 
 
 def _check(g: torch.Tensor) -> None:
-    if g.ndim != 2 or g.shape[0] == 0 or g.shape[1] == 0:
-        raise ValueError(f"channel_norms takes a non-empty (M, N) matrix, "
-                         f"got shape {tuple(g.shape)}")
+    if g.ndim not in (2, 3) or 0 in g.shape:
+        raise ValueError(f"channel_norms takes a non-empty (M, N) matrix or "
+                         f"(S, M, N) slots of one, got shape "
+                         f"{tuple(g.shape)}")
     if g.dtype not in DTYPES:
         raise TypeError(f"channel_norms takes fp32 or bf16, got {g.dtype}")
     if not g.is_contiguous():
@@ -55,29 +63,40 @@ def _cdiv(a: int, b: int) -> int:
 
 def _check_scratch(gs: Sequence[torch.Tensor]) -> None:
     """The launch's partials and tickets fit the library's: the same sums
-    as the launcher's."""
+    as the launcher's, over every slot."""
     floats = col_tk = row_tk = 0
     for g in gs:
-        m, n = g.shape
+        s, m, n = _slot_shape(g)
         nrt, nct = _cdiv(m, TILE_ROWS), _cdiv(n, STRIP)
         if nrt > 1:
-            floats, col_tk = floats + nrt * n, col_tk + nct
+            floats, col_tk = floats + s * nrt * n, col_tk + s * nct
         if nct > 1:
-            floats, row_tk = floats + nct * m, row_tk + nrt
+            floats, row_tk = floats + s * nct * m, row_tk + s * nrt
     if floats > SCRATCH or max(col_tk, row_tk) > MAX_TICKETS:
         raise ValueError(f"channel_norms: the table needs {floats} floats of "
-                         f"partials (at most {SCRATCH}) and {col_tk} + "
-                         f"{row_tk} strips (at most {MAX_TICKETS} each)")
+                         f"partials (at most SCRATCH = {SCRATCH}) and "
+                         f"{col_tk} + {row_tk} strips (at most MAX_TICKETS = "
+                         f"{MAX_TICKETS} each): too many slots for one "
+                         f"launch")
+
+
+def _slot_shape(g: torch.Tensor) -> Tuple[int, int, int]:
+    """(S, M, N) of a leaf: a 2-D matrix is one slot."""
+    return (1, *g.shape) if g.ndim == 2 else tuple(g.shape)
 
 
 def channel_norms_leaves(gs: Sequence[torch.Tensor]
                          ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Every matrix's (row (M,), col (N,)) squared norms, fp32.
+    """Every matrix's (row (M,), col (N,)) squared norms, fp32; a
+    slot-stacked leaf (S, M, N) gives (S, M) and (S, N).
 
-    The matrices share one device and one dtype (fp32 or bf16), at most
-    ``MAX_LEAVES``.  CPU: the plain version leaf by leaf.  CUDA: one
-    launch, the outputs views of one allocation; deterministic (no float
-    atomics: two launches on the same input are bitwise equal).
+    The leaves share one device and one dtype (fp32 or bf16), at most
+    ``MAX_LEAVES``.  CPU: the plain version leaf by leaf (slot by slot).
+    CUDA: one launch, the outputs views of one allocation; deterministic
+    (no float atomics: two launches on the same input are bitwise equal,
+    and slot s of a slot-stacked leaf is bitwise a one-slot launch on
+    it).  A table whose slots need more partials or tickets than the
+    library holds raises ``ValueError``.
     """
     global launches
     if not 0 < len(gs) <= MAX_LEAVES:
@@ -90,23 +109,26 @@ def channel_norms_leaves(gs: Sequence[torch.Tensor]
         raise ValueError("channel_norms: every leaf must be on one device")
     if any(g.dtype != dtype for g in gs):
         raise TypeError("channel_norms takes one dtype a table")
+    _check_scratch(gs)
     if device.type == "cpu":
         return [channel_norms_plain(g) for g in gs]
     if device.type != "cuda":
         raise ValueError(f"channel_norms runs on cpu or cuda, not {device}")
-    _check_scratch(gs)
-    # per leaf row then col, each from a 16-byte boundary
+    # per leaf rows then cols, each from a 16-byte boundary
     spans, size = [], 0
     for g in gs:
-        m, n = g.shape
-        spans.append((size, m, size + _cdiv(m, 4) * 4, n))
-        size = spans[-1][2] + _cdiv(n, 4) * 4
+        s, m, n = _slot_shape(g)
+        spans.append((size, size + _cdiv(s * m, 4) * 4))
+        size = spans[-1][1] + _cdiv(s * n, 4) * 4
     buf = torch.empty(size, dtype=torch.float32, device=device)
     base = buf.data_ptr()
     out, words = [], []
-    for g, (r_at, m, c_at, n) in zip(gs, spans):
-        out.append((buf[r_at:r_at + m], buf[c_at:c_at + n]))
-        words += [g.data_ptr(), m, n, base + 4 * r_at, base + 4 * c_at]
+    for g, (r_at, c_at) in zip(gs, spans):
+        s, m, n = _slot_shape(g)
+        row, col = buf[r_at:r_at + s * m], buf[c_at:c_at + s * n]
+        out.append((row, col) if g.ndim == 2 else
+                   (row.view(s, m), col.view(s, n)))
+        words += [g.data_ptr(), s, m, n, base + 4 * r_at, base + 4 * c_at]
     table = array("q", words)
     lib = build.libraries()["channel_norm"]
     build.check(lib.channel_norms_launch(

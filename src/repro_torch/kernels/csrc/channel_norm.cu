@@ -1,5 +1,6 @@
 // Channel norms: the row squared norms (M,) and the column squared norms
-// (N,) of every gradient matrix G (M, N) of one client's pass, in one
+// (N,) of every gradient matrix G (M, N) of one client's pass, or of the
+// S clients of a round (a leaf is then a slot-stacked G (S, M, N)), in one
 // launch, accumulated in fp32.  G is fp32 or bf16, row-major.
 //
 // Replaces the TPU kernel repro/kernels/channel_norm.py:
@@ -18,11 +19,14 @@
 // L2 (a ticket, then the partials) with no fence and no second pass.
 //
 // Design:
-// - One launch takes a table of up to MAX_LEAVES matrices (passed by
-//   value).  A leaf is cut into tiles of TILE_ROWS rows by STRIP columns
-//   (31 x 4 tiles for the main path's largest matrix); the grid is the
-//   concatenation of every leaf's tiles, and a block finds its leaf from
-//   the tiles' prefix.
+// - One launch takes a table of up to MAX_LEAVES leaves (passed by
+//   value), each S slot-stacked matrices (S = 1 for a client's pass).  A
+//   matrix is cut into tiles of TILE_ROWS rows by STRIP columns (31 x 4
+//   tiles for the main path's largest matrix); the grid is the
+//   concatenation of every leaf's S x tiles, and a block finds its leaf
+//   from the prefix, then its slot and tile.  A slot's tiles, partials,
+//   tickets and finish are its own, so slot s of an S-slot launch is
+//   bitwise the one-slot launch on slot s.
 // - A block is 16 x 16 threads: 16 lanes take 4 neighbouring columns each
 //   (one 16-byte load in fp32, 8 bytes in bf16, where N % 4 == 0 and G is
 //   aligned; 4 scalar loads elsewhere: 33 x 257, 7 x 9, 64 x 1), 16 rows
@@ -67,20 +71,20 @@ constexpr int SLICES = THREADS / STRIP;         // finish slices a column
 constexpr int FIN = 8;                          // finish loads in flight
 constexpr int SPIN_LIMIT = 1 << 24;             // re-reads of one partial
 constexpr int MAX_LEAVES = 16;
-constexpr int ROW_WORDS = 5;                    // int64 words a table row
+constexpr int ROW_WORDS = 6;                    // int64 words a table row
 constexpr long long SCRATCH = 1LL << 22;        // floats of partials
 constexpr int MAX_TICKETS = 1 << 16;            // strips a launch, each kind
 
 struct Leaf {
-  const void* g;
-  float* row;
-  float* col;
-  long long colpart;        // offset in scratch: (row tiles, N) partials
-  long long rowpart;        // offset in scratch: (column strips, M)
-  int M, N;
+  const void* g;            // (S, M, N)
+  float* row;               // (S, M)
+  float* col;               // (S, N)
+  long long colpart;        // offset in scratch: (S, row tiles, N) partials
+  long long rowpart;        // offset in scratch: (S, column strips, M)
+  int M, N, S;
   int first;                // first block of the leaf in the grid
-  int nrt, nct;             // tile rows, column strips
-  int col_tk, row_tk;       // first ticket of each kind
+  int nrt, nct;             // tile rows, column strips (a slot)
+  int col_tk, row_tk;       // first ticket of each kind (slot 0)
   int vec;                  // 16-byte (bf16: 8-byte) loads of g
 };
 
@@ -178,9 +182,17 @@ __global__ void __launch_bounds__(THREADS)
 channel_norms_kernel(const Table t) {
   __shared__ float col_sh[RLANES][STRIP];
   __shared__ int last[2];
-  const Leaf lf = t.leaf[find_leaf(t)];
-  const T* g = static_cast<const T*>(lf.g);
-  const int b = blockIdx.x - lf.first;
+  Leaf lf = t.leaf[find_leaf(t)];
+  const int tiles = lf.nrt * lf.nct;
+  const int slot = (blockIdx.x - lf.first) / tiles;
+  const int b = blockIdx.x - lf.first - slot * tiles;
+  const T* g = static_cast<const T*>(lf.g) + (size_t)slot * lf.M * lf.N;
+  lf.row += (size_t)slot * lf.M;                // this slot's outputs,
+  lf.col += (size_t)slot * lf.N;                // partials and tickets
+  lf.colpart += (long long)slot * lf.nrt * lf.N;
+  lf.rowpart += (long long)slot * lf.nct * lf.M;
+  lf.col_tk += slot * lf.nct;
+  lf.row_tk += slot * lf.nrt;
   const int rt = b / lf.nct;
   const int cs = b - rt * lf.nct;
   const int tx = threadIdx.x % LANES;
@@ -273,14 +285,16 @@ inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// One launch over a table of L matrices (1 <= L <= MAX_LEAVES).  rows
-// holds ROW_WORDS int64 words a leaf: g, M, N, row, col — device pointers
-// but M and N; row gets M floats, col N.  dtype: 0 = fp32, 1 = bf16, for
-// every leaf.  The table's partials must fit the library's scratch
-// (SCRATCH floats: a leaf of more than one tile row takes row tiles x N,
-// one of more than one column strip column strips x M).  Two launches
-// must not run at once (the scratch and the tickets are the library's):
-// keep them on one stream.  Returns a cudaError_t.
+// One launch over a table of L leaves (1 <= L <= MAX_LEAVES).  rows holds
+// ROW_WORDS int64 words a leaf: g, S, M, N, row, col — device pointers
+// but S, M and N; g is S contiguous (M, N) matrices, row gets S x M
+// floats, col S x N.  dtype: 0 = fp32, 1 = bf16, for every leaf.  The
+// table's partials must fit the library's scratch (SCRATCH floats: a
+// slot of more than one tile row takes row tiles x N, one of more than
+// one column strip column strips x M) and its strips the tickets
+// (MAX_TICKETS of each kind: S x column strips, S x tile rows).  Two
+// launches must not run at once (the scratch and the tickets are the
+// library's): keep them on one stream.  Returns a cudaError_t.
 extern "C" int channel_norms_launch(const long long* rows, int L, int dtype,
                                     void* stream) {
   if (L <= 0 || L > MAX_LEAVES || (dtype != 0 && dtype != 1))
@@ -292,15 +306,17 @@ extern "C" int channel_norms_launch(const long long* rows, int L, int dtype,
   int col_tk = 0, row_tk = 0;
   for (int l = 0; l < L; ++l) {
     const long long* r = rows + (long long)l * ROW_WORDS;
-    const long long M = r[1], N = r[2];
-    if (M <= 0 || N <= 0 || M > 0x7fffffffLL || N > 0x7fffffffLL)
+    const long long S = r[1], M = r[2], N = r[3];
+    if (S <= 0 || M <= 0 || N <= 0 || M > 0x7fffffffLL ||
+        N > 0x7fffffffLL || S > 0x7fffffffLL)
       return (int)cudaErrorInvalidValue;
     Leaf& lf = t.leaf[l];
     lf.g = reinterpret_cast<const void*>(r[0]);
+    lf.S = (int)S;
     lf.M = (int)M;
     lf.N = (int)N;
-    lf.row = reinterpret_cast<float*>(r[3]);
-    lf.col = reinterpret_cast<float*>(r[4]);
+    lf.row = reinterpret_cast<float*>(r[4]);
+    lf.col = reinterpret_cast<float*>(r[5]);
     lf.nrt = (int)cdiv(M, TILE_ROWS);
     lf.nct = (int)cdiv(N, STRIP);
     lf.vec = N % 4 == 0 && r[0] % align == 0;
@@ -310,17 +326,20 @@ extern "C" int channel_norms_launch(const long long* rows, int L, int dtype,
     lf.row_tk = row_tk;
     if (lf.nrt > 1) {
       lf.colpart = used;
-      used += (long long)lf.nrt * N;
-      col_tk += lf.nct;
+      used += S * lf.nrt * N;
+      if (col_tk + S * lf.nct > MAX_TICKETS)
+        return (int)cudaErrorInvalidValue;
+      col_tk += (int)(S * lf.nct);
     }
     if (lf.nct > 1) {
       lf.rowpart = used;
-      used += (long long)lf.nct * M;
-      row_tk += lf.nrt;
+      used += S * lf.nct * M;
+      if (row_tk + S * lf.nrt > MAX_TICKETS)
+        return (int)cudaErrorInvalidValue;
+      row_tk += (int)(S * lf.nrt);
     }
-    blocks += (long long)lf.nrt * lf.nct;
-    if (used > SCRATCH || col_tk > MAX_TICKETS || row_tk > MAX_TICKETS ||
-        blocks > 0x7fffffffLL)
+    blocks += S * lf.nrt * lf.nct;
+    if (used > SCRATCH || blocks > 0x7fffffffLL)
       return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

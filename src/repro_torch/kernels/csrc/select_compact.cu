@@ -1,6 +1,6 @@
 // Select and compact: the edge rule of SCBF's channel selection, fused with
 // the compaction of the kept entries into COO upload buffers, over every
-// weight matrix of one client's pass in one launch a pass.
+// weight matrix of one client's pass, or of the S clients of a round.
 //
 //   keep[i, j] = ((row[i] + col[j]) + rest > thr) && (!drop_zeros || g != 0)
 //   idx[0:k]   = flat indices i*N + j of the kept entries, row-major (int32)
@@ -12,18 +12,28 @@
 // select_compact_pallas (body _select_compact_kernel).  That kernel
 // appends each row block's kept entries at a running offset carried across
 // a sequential grid.  Hopper blocks run in no order, so this is two
-// launches over a table of leaves (passed by value; each launch's grid is
-// the concatenation of the leaves' tiles of TILE entries), each
-// deterministic:
-//   1. count:   block t counts the kept entries of its tile, writes the
-//               count and adds it, with one arrival, to its leaf's 64-bit
+// launches, each deterministic.  A leaf is S slot-stacked matrices g
+// (S, M, N) with their row (S, M), col (S, N), thr (S,) and rest (S,) — an
+// operand of slot stride 0 serves every slot — and a (leaf, slot) pair is
+// one matrix, cut into tiles of TILE entries:
+//   1. count:   over a table of leaves (passed by value), every pair; the
+//               grid is the concatenation of every leaf's S x tiles.
+//               Block t counts the kept entries of its tile, writes the
+//               count and adds it, with one arrival, to its pair's 64-bit
 //               ticket in one atomic; the block that brings the last
-//               arrival writes the leaf's `count` and sets the ticket back
-//               to 0.  For a leaf of more than MAX_PREFIX_TILES tiles only,
-//               that block also scans the tile counts into exclusive
+//               arrival writes the pair's `count` and sets the ticket back
+//               to 0.  For a matrix of more than MAX_PREFIX_TILES tiles
+//               only, that block also scans the tile counts into exclusive
 //               offsets (after a fence), so no block of the next launch
 //               reduces more than MAX_PREFIX_TILES counts.
-//   2. scatter: block t adds the counts of the tiles before it in its leaf
+//   2. scatter: over any subset of the pairs (the leaves passed by value,
+//               the pairs' table copied by the launcher into the library's
+//               device memory on the launch's stream), each at its own
+//               capacity and into its own idx and vals; the grid is the
+//               concatenation of the pairs' tiles.  Each warp finds its
+//               block's pair by a 32-way search of the table (one round
+//               of loads up to 32 pairs, two up to 1,024).  Block t adds
+//               the counts of the tiles before it in its pair
 //               (L2-resident; a read of offsets[t] for a large leaf) while
 //               its loads of g are in flight, ranks its kept entries
 //               row-major with warp ballots, gathers them in shared memory
@@ -35,7 +45,8 @@
 // encoder does, to size the buffers at the count) or not (the wrapper's
 // contract route launches both back to back with no host sync).  The
 // output is bitwise the plain version's: the order is fixed by the
-// indices, not by the schedule.
+// indices, not by the schedule, and a pair's tiles, counts and ticket are
+// its own, so slot s of an S-slot launch is bitwise a one-slot launch.
 //
 // The port adds two operands to the TPU kernel's test: `rest` (the best
 // completion through the other layers, repro/core/channels.py
@@ -66,36 +77,98 @@ constexpr int WARPS = THREADS / 32;
 constexpr int VPT = 2;                          // vectors a thread, a tile
 constexpr int TILE = THREADS * VPT * 4;         // entries a block
 constexpr int MAX_LEAVES = 16;
+constexpr int MAX_SLOTS = 4096;                 // pairs a launch
 constexpr int MAX_PREFIX_TILES = 1024;
-constexpr int ROW_WORDS = 12;                   // int64 words a table row
+constexpr int LEAF_WORDS = 15;                  // int64 words a leaf row
+constexpr int PAIR_WORDS = 5;                   // int64 words a pair row
 
+// a slot-stacked leaf: S matrices (M, N) and their operands
 struct Leaf {
-  const void* g;
-  const float* row;
+  const void* g;            // (S, M, N)
+  const float* row;         // slot s at row + s * row_ss
   const float* col;
   const float* thr;
   const float* rest;
+  int* count;               // (S,)
+  int M, N, S;
+  int row_ss, col_ss, thr_ss, rest_ss;          // slot strides, in floats
+  int first;                // count launch: first block of the leaf
+  int tiles;                // tiles a slot
+  int tc;                   // slot 0's first tile in tile_counts/offsets
+  int pair;                 // (leaf, slot 0)'s ticket
+  int vec;                  // 16-byte (bf16: 8-byte) loads of g
+};
+
+// a (leaf, slot) pair the scatter launch compacts: idx at out + idx_at,
+// vals at out + vals_at, cap entries each
+struct Pair {
+  int first;                // first block of the pair in the grid
+  int cap;
+  int idx_at, vals_at;      // in ints from the launch's out
+  unsigned short leaf, slot;
+};
+static_assert(sizeof(Pair) == 20, "a pair is 5 words");
+
+struct CountTable {
+  Leaf leaf[MAX_LEAVES];
+  int L;
+};
+
+struct ScatterTable {
+  Leaf leaf[MAX_LEAVES];
+  int* out;
+  int L, P;
+};
+
+// One matrix: a leaf's slot, with the operands and outputs of that slot.
+struct View {
+  const void* g;
+  const float* row;
+  const float* col;
+  float thr, rest;
   int* count;
   int* idx;
   float* vals;
   long long cap;
   int M, N;
-  int first;                // first block of the leaf in this launch's grid
   int tiles;
-  int tc;                   // the leaf's first tile in tile_counts/offsets
+  int tc;                   // the matrix's first tile in tile_counts/offsets
   int vec;                  // 16-byte (bf16: 8-byte) loads of g
   int out_vec;              // 16-byte stores of idx and vals
 };
 
-struct Table {
-  Leaf leaf[MAX_LEAVES];
-  int L;
-};
+template <typename T>
+__device__ __forceinline__ View slot_view(const Leaf& lf, int slot) {
+  View v;
+  v.g = static_cast<const T*>(lf.g) + (size_t)slot * lf.M * lf.N;
+  v.row = lf.row + (size_t)slot * lf.row_ss;
+  v.col = lf.col + (size_t)slot * lf.col_ss;
+  v.thr = lf.thr[(size_t)slot * lf.thr_ss];
+  v.rest = lf.rest[(size_t)slot * lf.rest_ss];
+  v.count = lf.count + slot;
+  v.idx = nullptr;
+  v.vals = nullptr;
+  v.cap = 0;
+  v.out_vec = 0;
+  v.M = lf.M;
+  v.N = lf.N;
+  v.tiles = lf.tiles;
+  v.tc = lf.tc + slot * lf.tiles;
+  v.vec = lf.vec;
+  return v;
+}
 
-// one ticket a leaf slot: tiles counted (high word) and their kept
+// one ticket a (leaf, slot) pair: tiles counted (high word) and their kept
 // entries (low word; M * N < 2^31, so no carry).  Zero when the library
 // loads, and every count launch leaves them zero.
-__device__ unsigned long long tickets[MAX_LEAVES];
+__device__ unsigned long long tickets[MAX_SLOTS];
+
+// the pairs of a scatter launch, copied in by its launcher on its stream
+// (so, as for the tickets, two scatter launches must not run at once)
+__device__ Pair scatter_pairs[MAX_SLOTS];
+// the launcher's host copy: a copy from pageable memory has read it when
+// cudaMemcpyToSymbolAsync returns, so the next launcher may refill it
+Pair staged_pairs[MAX_SLOTS];
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -107,10 +180,30 @@ template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-__device__ __forceinline__ int find_leaf(const Table& t) {
+__device__ __forceinline__ int find_leaf(const CountTable& t) {
   int l = 0;
   while (l + 1 < t.L && (int)blockIdx.x >= t.leaf[l + 1].first) ++l;
   return l;
+}
+
+// the pair whose blocks hold this one, the last whose first block is at
+// or below it: each round the warp's lanes read 32 evenly spaced firsts of
+// the range left and keep the span after the last at or below the block
+// (every pair has a tile, so the firsts rise; pair 0's is 0)
+__device__ __forceinline__ int find_pair(int P) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  int lo = 0, n = P;                            // the pair is in [lo, lo + n)
+  while (n > 1) {
+    const int step = (n + 31) / 32;
+    const int k = lane * step;
+    const bool at_or_below = k < n && scatter_pairs[lo + k].first <= b;
+    const unsigned m = __ballot_sync(0xffffffffu, at_or_below);
+    const int last = 31 - __clz(m);            // bit 0 is set: lo is
+    lo += last * step;
+    n = min(step, n - last * step);
+  }
+  return lo;
 }
 
 __device__ __forceinline__ void load_vec(const float* p, float v[4]) {
@@ -172,7 +265,7 @@ __device__ __forceinline__ unsigned keep4(const float* __restrict__ row,
 // issue the loads of the thread's VPT vectors of its tile (e: their first
 // flat indices)
 template <typename T>
-__device__ __forceinline__ void tile_load(const Leaf& lf, unsigned base,
+__device__ __forceinline__ void tile_load(const View& lf, unsigned base,
                                           unsigned e[VPT], T v[VPT][4]) {
   const T* g = static_cast<const T*>(lf.g);
   const unsigned total = (unsigned)lf.M * lf.N;
@@ -186,14 +279,14 @@ __device__ __forceinline__ void tile_load(const Leaf& lf, unsigned base,
 // the kept bits of those vectors: the edge rule, and g != 0 with
 // drop_zeros (-0.0 is a zero)
 template <typename T>
-__device__ __forceinline__ void tile_bits(const Leaf& lf, int drop_zeros,
+__device__ __forceinline__ void tile_bits(const View& lf, int drop_zeros,
                                           const unsigned e[VPT],
                                           const T v[VPT][4],
                                           unsigned bits[VPT]) {
   const unsigned N = lf.N;
   const unsigned total = (unsigned)lf.M * N;
-  const float thr = *lf.thr;
-  const float rest = *lf.rest;
+  const float thr = lf.thr;
+  const float rest = lf.rest;
 #pragma unroll
   for (int r = 0; r < VPT; ++r) {
     bits[r] = 0;
@@ -241,14 +334,16 @@ __device__ void leaf_offsets(const int* __restrict__ counts, int n,
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-compact_count_kernel(const Table t, int drop_zeros,
+compact_count_kernel(const CountTable t, int drop_zeros,
                      int* __restrict__ tile_counts,
                      int* __restrict__ offsets) {
   __shared__ unsigned warp_kept[WARPS];
   __shared__ bool last;
-  const int l = find_leaf(t);
-  const Leaf lf = t.leaf[l];
-  const int tile = blockIdx.x - lf.first;
+  const Leaf& leaf = t.leaf[find_leaf(t)];
+  const int slot = (blockIdx.x - leaf.first) / leaf.tiles;
+  const int tile = blockIdx.x - leaf.first - slot * leaf.tiles;
+  const int pair = leaf.pair + slot;
+  const View lf = slot_view<T>(leaf, slot);
   unsigned e[VPT], bits[VPT];
   T v[VPT][4];
   if (drop_zeros) {
@@ -275,10 +370,11 @@ compact_count_kernel(const Table t, int drop_zeros,
     // a large leaf's last block reads the tile counts: count, then ticket
     if (large) __threadfence();
     // the tile's count rides on its ticket: one atomic
-    const unsigned long long old = atomicAdd(&tickets[l], (1ull << 32) | n);
+    const unsigned long long old = atomicAdd(&tickets[pair],
+                                             (1ull << 32) | n);
     last = (unsigned)(old >> 32) == (unsigned)lf.tiles - 1u;
     if (last) {
-      tickets[l] = 0ull;                 // every block of the leaf is in
+      tickets[pair] = 0ull;              // every block of the pair is in
       *lf.count = (int)((unsigned)old + n);
     }
   }
@@ -290,7 +386,7 @@ compact_count_kernel(const Table t, int drop_zeros,
 }
 
 // out[base, stop) = the block's gathered s_idx / s_val[0, stop - base)
-__device__ void write_run(const Leaf& lf, const int* s_idx,
+__device__ void write_run(const View& lf, const int* s_idx,
                           const float* s_val, long long base,
                           long long stop) {
   long long a0 = stop, a1 = stop;               // the 16-byte-aligned body
@@ -318,7 +414,7 @@ __device__ void write_run(const Leaf& lf, const int* s_idx,
 }
 
 // idx / vals [from, cap) = -1 / 0, spread over the leaf's blocks
-__device__ void write_tail(const Leaf& lf, int tile, long long from) {
+__device__ void write_tail(const View& lf, int tile, long long from) {
   const long long cap = lf.cap;
   const long long gi = (long long)tile * THREADS + threadIdx.x;
   const long long stride = (long long)lf.tiles * THREADS;
@@ -345,7 +441,7 @@ __device__ void write_tail(const Leaf& lf, int tile, long long from) {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-compact_scatter_kernel(const Table t, int drop_zeros,
+compact_scatter_kernel(const ScatterTable t, int drop_zeros,
                        const int* __restrict__ tile_counts,
                        const int* __restrict__ offsets) {
   __shared__ int s_idx[TILE];
@@ -355,8 +451,14 @@ compact_scatter_kernel(const Table t, int drop_zeros,
   __shared__ int s_base, s_kept;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const Leaf lf = t.leaf[find_leaf(t)];
-  const int tile = blockIdx.x - lf.first;
+  const Pair pr = scatter_pairs[find_pair(t.P)];
+  View lf = slot_view<T>(t.leaf[pr.leaf], pr.slot);
+  lf.idx = t.out + pr.idx_at;
+  lf.vals = reinterpret_cast<float*>(t.out + pr.vals_at);
+  lf.cap = pr.cap;
+  lf.out_vec = (reinterpret_cast<size_t>(lf.idx) & 15) == 0 &&
+               (reinterpret_cast<size_t>(lf.vals) & 15) == 0;
+  const int tile = blockIdx.x - pr.first;
   unsigned e[VPT], bits[VPT];
   T v[VPT][4];
   tile_load<T>(lf, (unsigned)tile * TILE, e, v);
@@ -430,61 +532,71 @@ compact_scatter_kernel(const Table t, int drop_zeros,
   if (kept_total < lf.cap) write_tail(lf, tile, kept_total);
 }
 
-// Fill a Table from rows of ROW_WORDS int64 words a leaf: g, M, N, row,
-// col, thr, rest, count, tc, cap, idx, vals.  Returns the grid's blocks,
-// or -1 if a row is refused.
-long long fill_table(const long long* rows, int L, int dtype,
-                     long long work_len, Table* t) {
+// Fill the leaves from rows of LEAF_WORDS int64 words a leaf: g, S, M, N,
+// row, row_ss, col, col_ss, thr, thr_ss, rest, rest_ss, count, tc, pair.
+// Returns the count grid's blocks, or -1 if a row is refused.
+long long fill_leaves(const long long* rows, int L, int dtype,
+                      long long work_len, Leaf* leaf) {
   if (L <= 0 || L > MAX_LEAVES || (dtype != 0 && dtype != 1)) return -1;
   const long long align = dtype == 0 ? 16 : 8;
-  t->L = L;
   long long blocks = 0;
   for (int l = 0; l < L; ++l) {
-    const long long* r = rows + (long long)l * ROW_WORDS;
-    const long long M = r[1], N = r[2];
-    if (M <= 0 || N <= 0 || M * N >= (1LL << 31) || r[8] < 0 || r[9] < 0)
+    const long long* r = rows + (long long)l * LEAF_WORDS;
+    const long long S = r[1], M = r[2], N = r[3];
+    if (S <= 0 || M <= 0 || N <= 0 || M * N >= (1LL << 31) || r[13] < 0 ||
+        r[14] < 0 || r[14] + S > MAX_SLOTS)
       return -1;
-    Leaf& lf = t->leaf[l];
+    for (int k = 5; k <= 11; k += 2)           // strides: 0 or the length
+      if (r[k] < 0 || r[k] > 0x7fffffffLL) return -1;
+    Leaf& lf = leaf[l];
     lf.g = reinterpret_cast<const void*>(r[0]);
+    lf.S = (int)S;
     lf.M = (int)M;
     lf.N = (int)N;
-    lf.row = reinterpret_cast<const float*>(r[3]);
-    lf.col = reinterpret_cast<const float*>(r[4]);
-    lf.thr = reinterpret_cast<const float*>(r[5]);
-    lf.rest = reinterpret_cast<const float*>(r[6]);
-    lf.count = reinterpret_cast<int*>(r[7]);
-    lf.tc = (int)r[8];
-    lf.cap = r[9];
-    lf.idx = reinterpret_cast<int*>(r[10]);
-    lf.vals = reinterpret_cast<float*>(r[11]);
+    lf.row = reinterpret_cast<const float*>(r[4]);
+    lf.row_ss = (int)r[5];
+    lf.col = reinterpret_cast<const float*>(r[6]);
+    lf.col_ss = (int)r[7];
+    lf.thr = reinterpret_cast<const float*>(r[8]);
+    lf.thr_ss = (int)r[9];
+    lf.rest = reinterpret_cast<const float*>(r[10]);
+    lf.rest_ss = (int)r[11];
+    lf.count = reinterpret_cast<int*>(r[12]);
+    lf.tc = (int)r[13];
+    lf.pair = (int)r[14];
     lf.first = (int)blocks;
     lf.tiles = (int)((M * N + TILE - 1) / TILE);
-    if (r[8] + lf.tiles > work_len) return -1;
-    lf.vec = N % 4 == 0 && r[0] % align == 0 && r[4] % 16 == 0;
-    lf.out_vec = r[10] % 16 == 0 && r[11] % 16 == 0;
-    blocks += lf.tiles;
+    if (r[13] + S * lf.tiles > work_len) return -1;
+    // every slot's g and col then share the alignment of slot 0's
+    lf.vec = N % 4 == 0 && r[0] % align == 0 && r[6] % 16 == 0 &&
+             lf.col_ss % 4 == 0;
+    blocks += S * lf.tiles;
   }
-  return blocks;
+  return blocks > 0x7fffffffLL ? -1 : blocks;
 }
 
 }  // namespace
 
-// The count launch over a table of L leaves (1 <= L <= MAX_LEAVES).  rows:
-// ROW_WORDS int64 words a leaf — g, M, N, row, col, thr, rest, count, tc,
-// cap, idx, vals; device pointers but M, N, tc (the leaf's first tile in
-// tile_counts and offsets, which hold work_len ints each) and cap; thr and
-// rest are fp32 scalars in device memory; count gets the leaf's true kept
-// total; cap, idx and vals are not read.  dtype: 0 = fp32, 1 = bf16, for
-// every leaf.  M * N must be below 2^31 (flat indices are int32).  Two
-// count launches must not run at once (the tickets are the library's):
-// keep them on one stream.  Returns a cudaError_t.
+// The count launch over a table of L leaves (1 <= L <= MAX_LEAVES), every
+// (leaf, slot) pair.  rows: LEAF_WORDS int64 words a leaf — g, S, M, N, row,
+// row_ss, col, col_ss, thr, thr_ss, rest, rest_ss, count, tc, pair; device
+// pointers but S, M, N, the slot strides (in floats, 0 for an operand
+// every slot shares), tc (slot 0's first tile in tile_counts and offsets,
+// which hold work_len ints each; slot s follows at tc + s x tiles) and
+// pair (slot 0's ticket; pairs are below MAX_SLOTS); g holds S contiguous
+// (M, N) matrices; thr and rest are fp32 scalars in device memory; count
+// gets each slot's true kept total.  dtype: 0 = fp32, 1 = bf16, for every
+// leaf.  M * N must be below 2^31 (flat indices are int32).  Two count
+// launches must not run at once (the tickets are the library's): keep
+// them on one stream.  Returns a cudaError_t.
 extern "C" int select_compact_count_launch(const long long* rows, int L,
                                            int dtype, int drop_zeros,
                                            int* tile_counts, int* offsets,
                                            long long work_len,
                                            void* stream) {
-  Table t;
-  const long long blocks = fill_table(rows, L, dtype, work_len, &t);
+  CountTable t;
+  t.L = L;
+  const long long blocks = fill_leaves(rows, L, dtype, work_len, t.leaf);
   if (blocks < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -496,20 +608,51 @@ extern "C" int select_compact_count_launch(const long long* rows, int L,
   return (int)cudaGetLastError();
 }
 
-// The scatter launch over a table of leaves whose counts a count launch
-// with the same drop_zeros has written on this stream (the rows may be a
-// subset of its rows, each with its count and tc).  Each leaf's idx and
-// vals hold cap entries.  Returns a cudaError_t.
+// The scatter launch over P (leaf, slot) pairs (1 <= P <= MAX_SLOTS) of a
+// table whose counts a count launch with the same rows and drop_zeros has
+// written on this stream.  pairs: PAIR_WORDS int64 words a pair (host
+// memory) — leaf, slot, cap, idx_at, vals_at: the pair's idx and vals hold
+// cap entries from out + idx_at and out + vals_at (offsets in ints, below
+// 2^31).  The launcher copies the pairs to the device on the stream, then
+// launches; two scatter launches must not run at once (one stream).
+// Returns a cudaError_t.
 extern "C" int select_compact_scatter_launch(const long long* rows, int L,
-                                             int dtype, int drop_zeros,
+                                             const long long* pairs, int P,
+                                             int* out, int dtype,
+                                             int drop_zeros,
                                              const int* tile_counts,
                                              const int* offsets,
                                              long long work_len,
                                              void* stream) {
-  Table t;
-  const long long blocks = fill_table(rows, L, dtype, work_len, &t);
-  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  ScatterTable t;
+  t.L = L;
+  if (fill_leaves(rows, L, dtype, work_len, t.leaf) < 0 || P <= 0 ||
+      P > MAX_SLOTS)
+    return (int)cudaErrorInvalidValue;
+  t.P = P;
+  t.out = out;
+  long long blocks = 0;
+  for (int k = 0; k < P; ++k) {
+    const long long* r = pairs + (long long)k * PAIR_WORDS;
+    if (r[0] < 0 || r[0] >= L || r[1] < 0 || r[1] >= t.leaf[r[0]].S ||
+        r[2] < 0 || r[2] > 0x7fffffffLL || r[3] < 0 ||
+        r[3] > 0x7fffffffLL || r[4] < 0 || r[4] > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    Pair& p = staged_pairs[k];
+    p.leaf = (unsigned short)r[0];
+    p.slot = (unsigned short)r[1];
+    p.cap = (int)r[2];
+    p.idx_at = (int)r[3];
+    p.vals_at = (int)r[4];
+    p.first = (int)blocks;
+    blocks += t.leaf[r[0]].tiles;
+  }
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t copied = cudaMemcpyToSymbolAsync(
+      scatter_pairs, staged_pairs, sizeof(Pair) * P, 0,
+      cudaMemcpyHostToDevice, s);
+  if (copied != cudaSuccess) return (int)copied;
   if (dtype == 0)
     compact_scatter_kernel<float><<<(int)blocks, THREADS, 0, s>>>(
         t, drop_zeros, tile_counts, offsets);

@@ -1,5 +1,6 @@
 // Select mask: the exact edge rule of SCBF's channel selection, over every
-// weight matrix of one client's pass in one launch.
+// weight matrix of one client's pass, or of the S clients of a round, in
+// one launch.
 //
 //   keep[i, j] = (row[i] + col[j]) + rest > thr      (fp32, in that order)
 //   out[i, j]  = keep ? g[i, j] : 0                   (g's dtype, fp32 or bf16)
@@ -24,9 +25,13 @@
 // keep the bytes in flight.
 //
 // Design:
-// - One launch takes a table of up to MAX_LEAVES leaves (passed by value);
-//   its grid is the concatenation of every leaf's tiles of TILE entries,
-//   and a block finds its leaf from the tiles' prefix.
+// - One launch takes a table of up to MAX_LEAVES leaves (passed by value),
+//   each S slot-stacked matrices g (S, M, N) with their row (S, M), col
+//   (S, N), thr (S,) and rest (S,) — an operand of slot stride 0 serves
+//   every slot (layer 0's zero row scores).  The grid is the concatenation
+//   of every leaf's S x tiles of TILE entries; a block finds its leaf from
+//   the prefix, then its slot and tile.  Slot s of an S-slot launch is
+//   bitwise the one-slot launch on slot s.
 // - A thread takes VPT vectors of 4 neighbouring entries and issues all
 //   their loads before it uses any: 32 bytes of g a thread, 8 KB a block,
 //   about 22 KB an SM at the main path's largest matrix — what covers HBM
@@ -36,9 +41,9 @@
 //   bf16); elsewhere (33 x 257, 7 x 9) the 4 entries go one by one, the row
 //   stepping on where a vector crosses it.  The 4 mask bytes of a vector
 //   are one 32-bit store.
-// - Counts: each block adds its kept count and one arrival to its leaf's
-//   64-bit ticket in one atomic; the block that brings the last arrival
-//   writes the leaf's count from the sum and sets the ticket back to 0.
+// - Counts: each block adds its kept count and one arrival to its (leaf,
+//   slot)'s 64-bit ticket in one atomic; the block that brings the last
+//   arrival writes that count from the sum and sets the ticket back to 0.
 //   Integer sums: deterministic whatever the order, no memset, no fence
 //   and no second pass over partial counts.
 #include <cuda_runtime.h>
@@ -51,19 +56,22 @@ constexpr int WARPS = THREADS / 32;
 constexpr int VPT = 2;                          // vectors a thread, a tile
 constexpr int TILE = THREADS * VPT * 4;         // entries a block
 constexpr int MAX_LEAVES = 16;
-constexpr int ROW_WORDS = 9;                    // int64 words a table row
+constexpr int MAX_SLOTS = 4096;                 // (leaf, slot) pairs a launch
+constexpr int ROW_WORDS = 14;                   // int64 words a table row
 
 struct Leaf {
-  const void* g;
-  const float* row;
+  const void* g;            // (S, M, N)
+  const float* row;         // slot s at row + s * row_ss
   const float* col;
   const float* thr;
   const float* rest;
-  void* out;
-  unsigned* mask;           // 4 mask bytes a word
-  int M, N;
+  void* out;                // (S, M, N)
+  unsigned char* mask;      // (S, M, N)
+  int M, N, S;
+  int row_ss, col_ss, thr_ss, rest_ss;          // slot strides, in floats
   int first;                // first block of the leaf in the grid
-  int tiles;
+  int tiles;                // tiles a slot
+  int pair;                 // the (leaf, slot 0) pair: ticket and count
   int vec;                  // 16-byte (bf16: 8-byte) access of g and out
 };
 
@@ -72,10 +80,10 @@ struct Table {
   int L;
 };
 
-// one ticket a leaf slot: blocks arrived (high word) and their kept
-// entries (low word; M * N < 2^31, so no carry).  Zero when the library
-// loads, and every launch leaves them zero.
-__device__ unsigned long long tickets[MAX_LEAVES];
+// one ticket a (leaf, slot) pair: blocks arrived (high word) and their
+// kept entries (low word; M * N < 2^31, so no carry).  Zero when the
+// library loads, and every launch leaves them zero.
+__device__ unsigned long long tickets[MAX_SLOTS];
 
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
@@ -175,16 +183,23 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 select_mask_kernel(const Table t, int* __restrict__ counts) {
   __shared__ unsigned warp_kept[WARPS];
-  const int l = find_leaf(t);
-  const Leaf lf = t.leaf[l];
-  const T* g = static_cast<const T*>(lf.g);
-  T* out = static_cast<T*>(lf.out);
+  const Leaf lf = t.leaf[find_leaf(t)];
+  const int slot = (blockIdx.x - lf.first) / lf.tiles;
   const unsigned N = lf.N;
   const unsigned total = (unsigned)lf.M * N;
-  const unsigned base = (unsigned)(blockIdx.x - lf.first) * TILE;
+  const size_t at = (size_t)slot * total;       // this slot's matrices
+  const T* g = static_cast<const T*>(lf.g) + at;
+  T* out = static_cast<T*>(lf.out) + at;
+  unsigned char* mask = lf.mask + at;
+  const float* row = lf.row + (size_t)slot * lf.row_ss;
+  const float* col = lf.col + (size_t)slot * lf.col_ss;
+  const unsigned base =
+      (unsigned)(blockIdx.x - lf.first - slot * lf.tiles) * TILE;
   const bool vec = lf.vec;
-  const float thr = *lf.thr;
-  const float rest = *lf.rest;
+  // 4 mask bytes in one store where the slot's mask is 4-byte aligned
+  const bool mask_vec = (reinterpret_cast<size_t>(mask) & 3) == 0;
+  const float thr = lf.thr[(size_t)slot * lf.thr_ss];
+  const float rest = lf.rest[(size_t)slot * lf.rest_ss];
 
   unsigned e[VPT];
   T v[VPT][4];
@@ -197,20 +212,19 @@ select_mask_kernel(const Table t, int* __restrict__ counts) {
 #pragma unroll
   for (int r = 0; r < VPT; ++r) {
     if (e[r] >= total) continue;
-    const unsigned bits = keep4(lf.row, lf.col, N, e[r], total, vec, thr,
-                                rest);
+    const unsigned bits = keep4(row, col, N, e[r], total, vec, thr, rest);
     kept += __popc(bits);
     T o[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) o[k] = (bits >> k) & 1u ? v[r][k] : zero<T>();
     store4(out, e[r], total, vec, o);
-    if (e[r] + 4 <= total) {                    // bytes 0/1, entry order
-      lf.mask[e[r] >> 2] = (bits & 1u) | ((bits & 2u) << 7) |
-                           ((bits & 4u) << 14) | ((bits & 8u) << 21);
+    if (mask_vec && e[r] + 4 <= total) {        // bytes 0/1, entry order
+      *reinterpret_cast<unsigned*>(mask + e[r]) =
+          (bits & 1u) | ((bits & 2u) << 7) | ((bits & 4u) << 14) |
+          ((bits & 8u) << 21);
     } else {
-      unsigned char* m = reinterpret_cast<unsigned char*>(lf.mask);
-      for (unsigned k = 0; e[r] + k < total; ++k)
-        m[e[r] + k] = (bits >> k) & 1u;
+      for (unsigned k = 0; k < 4 && e[r] + k < total; ++k)
+        mask[e[r] + k] = (bits >> k) & 1u;
     }
   }
   kept = __reduce_add_sync(0xffffffffu, kept);
@@ -221,10 +235,12 @@ select_mask_kernel(const Table t, int* __restrict__ counts) {
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) n += warp_kept[w];
     // the block's partial count rides on its ticket: one atomic, no fence
-    const unsigned long long old = atomicAdd(&tickets[l], (1ull << 32) | n);
+    const int pair = lf.pair + slot;
+    const unsigned long long old = atomicAdd(&tickets[pair],
+                                             (1ull << 32) | n);
     if ((unsigned)(old >> 32) == (unsigned)lf.tiles - 1u) {
-      tickets[l] = 0ull;                 // every block of the leaf is in
-      counts[l] = (int)((unsigned)old + n);
+      tickets[pair] = 0ull;              // every block of the slot is in
+      counts[pair] = (int)((unsigned)old + n);
     }
   }
 }
@@ -232,12 +248,15 @@ select_mask_kernel(const Table t, int* __restrict__ counts) {
 }  // namespace
 
 // One launch over a table of L leaves (1 <= L <= MAX_LEAVES).  rows holds
-// ROW_WORDS int64 words a leaf: g, M, N, row, col, thr, rest, out, mask —
-// device pointers but M and N; thr and rest are fp32 scalars in device
-// memory (read by the kernel, no host sync).  dtype: 0 = fp32, 1 = bf16,
-// for every leaf.  counts gets L ints.  M * N must be below 2^31 and mask
-// 4-byte aligned.  Two launches must not run at once (the tickets are
-// the library's): keep them on one stream.  Returns a cudaError_t.
+// ROW_WORDS int64 words a leaf: g, S, M, N, row, row_ss, col, col_ss, thr,
+// thr_ss, rest, rest_ss, out, mask — device pointers but S, M, N and the
+// slot strides (in floats, 0 for an operand every slot shares); g, out and
+// mask hold S contiguous (M, N) matrices; thr and rest are fp32 scalars in
+// device memory (read by the kernel, no host sync).  dtype: 0 = fp32,
+// 1 = bf16, for every leaf.  counts gets one int a (leaf, slot), leaf by
+// leaf — at most MAX_SLOTS in all.  M * N must be below 2^31.  Two
+// launches must not run at once (the tickets are the library's): keep
+// them on one stream.  Returns a cudaError_t.
 extern "C" int select_mask_launch(const long long* rows, int L, int dtype,
                                   int* counts, void* stream) {
   if (L <= 0 || L > MAX_LEAVES || (dtype != 0 && dtype != 1))
@@ -245,28 +264,40 @@ extern "C" int select_mask_launch(const long long* rows, int L, int dtype,
   const long long align = dtype == 0 ? 16 : 8;
   Table t;
   t.L = L;
-  long long blocks = 0;
+  long long blocks = 0, pairs = 0;
   for (int l = 0; l < L; ++l) {
     const long long* r = rows + (long long)l * ROW_WORDS;
-    const long long M = r[1], N = r[2];
-    if (M <= 0 || N <= 0 || M * N >= (1LL << 31) || (r[8] & 3))
+    const long long S = r[1], M = r[2], N = r[3];
+    if (S <= 0 || M <= 0 || N <= 0 || M * N >= (1LL << 31) ||
+        pairs + S > MAX_SLOTS)
       return (int)cudaErrorInvalidValue;
+    for (int k = 5; k <= 11; k += 2)           // strides: 0 or the length
+      if (r[k] < 0 || r[k] > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     Leaf& lf = t.leaf[l];
     lf.g = reinterpret_cast<const void*>(r[0]);
+    lf.S = (int)S;
     lf.M = (int)M;
     lf.N = (int)N;
-    lf.row = reinterpret_cast<const float*>(r[3]);
-    lf.col = reinterpret_cast<const float*>(r[4]);
-    lf.thr = reinterpret_cast<const float*>(r[5]);
-    lf.rest = reinterpret_cast<const float*>(r[6]);
-    lf.out = reinterpret_cast<void*>(r[7]);
-    lf.mask = reinterpret_cast<unsigned*>(r[8]);
+    lf.row = reinterpret_cast<const float*>(r[4]);
+    lf.row_ss = (int)r[5];
+    lf.col = reinterpret_cast<const float*>(r[6]);
+    lf.col_ss = (int)r[7];
+    lf.thr = reinterpret_cast<const float*>(r[8]);
+    lf.thr_ss = (int)r[9];
+    lf.rest = reinterpret_cast<const float*>(r[10]);
+    lf.rest_ss = (int)r[11];
+    lf.out = reinterpret_cast<void*>(r[12]);
+    lf.mask = reinterpret_cast<unsigned char*>(r[13]);
     lf.first = (int)blocks;
     lf.tiles = (int)((M * N + TILE - 1) / TILE);
-    lf.vec = N % 4 == 0 && r[0] % align == 0 && r[7] % align == 0 &&
-             r[4] % 16 == 0;
-    blocks += lf.tiles;
+    lf.pair = (int)pairs;
+    // every slot's g, out and col then share the alignment of slot 0's
+    lf.vec = N % 4 == 0 && r[0] % align == 0 && r[12] % align == 0 &&
+             r[6] % 16 == 0 && lf.col_ss % 4 == 0;
+    blocks += S * lf.tiles;
+    pairs += S;
   }
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     select_mask_kernel<float><<<(int)blocks, THREADS, 0, s>>>(t, counts);

@@ -4,8 +4,10 @@
 APoZ-pruned variants SCBFwP and FAwP (``scbfwp``, ``fedavgwp``) on the
 synthetic 30,760 × 2,917 medical cohort, 5 clients — on the CUDA device
 (``--device cpu`` on request) and writes one CSV history per method,
-with the reference's columns.  ``--mode lm`` (ROADMAP A14) is not ported
-yet.
+with the reference's columns.  ``--engine`` picks the cohort engine
+(``batched``, the default, or ``sequential``) and ``--dp-noise`` the DP
+noise multiplier of the scbf uploads (0 = off), as in the reference.
+``--mode lm`` (ROADMAP A14) is not ported yet.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode medical \
@@ -58,22 +60,30 @@ def method_config(method: str, args, fed=None):
                         num_clients=args.clients,
                         prune=prune, prune_rate=args.prune_rate,
                         prune_total=args.prune_total,
-                        prune_impl=args.prune_impl),
+                        prune_impl=args.prune_impl,
+                        dp_noise_multiplier=args.dp_noise),
         fed=fed or FedConfig())
 
 
-def run_medical(args):
+def fed_config(args):
+    """The federation scenario of the command line."""
     from repro_torch.config import FedConfig
+
+    return FedConfig(engine=args.engine,
+                     sample_fraction=args.sample_fraction,
+                     dropout_rate=args.dropout_rate,
+                     straggler_rate=args.straggler_rate,
+                     partition=args.partition,
+                     dirichlet_alpha=args.dirichlet_alpha)
+
+
+def run_medical(args):
     from repro_torch.core.scbf import run_federated
     from repro_torch.data.medical import generate_cohort
 
     cohort = generate_cohort(seed=args.seed)
     os.makedirs(args.out, exist_ok=True)
-    fed = FedConfig(sample_fraction=args.sample_fraction,
-                    dropout_rate=args.dropout_rate,
-                    straggler_rate=args.straggler_rate,
-                    partition=args.partition,
-                    dirichlet_alpha=args.dirichlet_alpha)
+    fed = fed_config(args)
     results = {}
     for method in args.methods.split(","):
         base, cfg = method_config(method, args, fed)
@@ -107,12 +117,16 @@ def parse_args(argv=None):
                     choices=["reshape", "mask"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="experiments/medical_torch")
+    ap.add_argument("--engine", default="batched",
+                    choices=["batched", "sequential"])
     ap.add_argument("--sample-fraction", type=float, default=1.0)
     ap.add_argument("--dropout-rate", type=float, default=0.0)
     ap.add_argument("--straggler-rate", type=float, default=0.0)
     ap.add_argument("--partition", default="iid",
                     choices=["iid", "dirichlet"])
     ap.add_argument("--dirichlet-alpha", type=float, default=0.5)
+    ap.add_argument("--dp-noise", type=float, default=0.0,
+                    help="DP noise multiplier on scbf uploads (0 = off)")
     return ap.parse_args(argv)
 
 

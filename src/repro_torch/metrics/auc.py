@@ -57,14 +57,26 @@ def auc_pr(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def bce_elementwise(logits: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
-    """Numerically-stable per-example BCE from logits (no reduction)."""
+    """Numerically-stable per-example BCE from logits (no reduction).
+
+    At a logit of exactly 0 (an all-zero example through zero biases,
+    common at the first steps) the gradient takes the reference's
+    subgradients: ``jnp.maximum`` splits a tie in halves (as
+    ``torch.maximum`` does; ``torch.clamp`` would pass it whole) and
+    ``jnp.abs`` has slope 1 at 0 (``torch.abs`` has 0), so the slope there
+    is the reference's ``-y``.
+    """
     logits = logits.to(torch.float32)
     labels = labels.to(torch.float32)
-    return (torch.clamp(logits, min=0) - logits * labels
-            + torch.log1p(torch.exp(-torch.abs(logits))))
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    abs_logits = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, zero) - logits * labels
+            + torch.log1p(torch.exp(-abs_logits)))
 
 
 def binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                          ) -> torch.Tensor:
-    """Numerically-stable mean BCE from logits."""
-    return torch.mean(bce_elementwise(logits.reshape(-1), labels.reshape(-1)))
+    """Numerically-stable mean BCE from logits: the mean over the
+    examples (axis 0 of the flattened batch)."""
+    return torch.mean(bce_elementwise(logits.reshape(-1), labels.reshape(-1)),
+                      axis=0)

@@ -5,6 +5,12 @@ Port of ``repro.models.mlp_net``.  Params are a tuple of per-layer dicts
 channel algebra (``repro_torch.core.channels``) is defined over.  Forward
 is ReLU-activated with a single logit output.  ``neuron_masks`` (mask-mode
 SCBFwP) multiplies the post-ReLU activations, as in the reference.
+
+Slot-stacked params (the batched engine: S clients of a round at once)
+hold ``w`` as ``(S, fan_in, fan_out)`` and ``b`` as ``(S, fan_out)``; the
+input is then ``(S, batch, fan_in)``, every product is one batched
+``torch.matmul``, and the bias broadcasts as ``b[:, None, :]``.  The
+``neuron_masks`` are shared by all slots.
 """
 from __future__ import annotations
 
@@ -30,14 +36,19 @@ def init_mlp(features: Sequence[int], generator: torch.Generator,
     return tuple(params)
 
 
+def _affine(h: torch.Tensor, layer: dict) -> torch.Tensor:
+    b = layer["b"]
+    return h @ layer["w"] + (b[:, None, :] if b.ndim == 2 else b)
+
+
 def mlp_forward(params: Sequence[dict], x: torch.Tensor,
                 neuron_masks: Optional[Sequence[torch.Tensor]] = None
                 ) -> torch.Tensor:
     """Returns logits of shape (batch,) for a single-output head, else
-    (batch, fan_out)."""
+    (batch, fan_out); slot-stacked params give (S, batch[, fan_out])."""
     h = x
     for i, layer in enumerate(params):
-        h = h @ layer["w"] + layer["b"]
+        h = _affine(h, layer)
         if i < len(params) - 1:
             h = torch.relu(h)
             if neuron_masks is not None:
@@ -52,7 +63,7 @@ def mlp_activations(params: Sequence[dict], x: torch.Tensor,
     acts = []
     h = x
     for i, layer in enumerate(params):
-        h = h @ layer["w"] + layer["b"]
+        h = _affine(h, layer)
         if i < len(params) - 1:
             h = torch.relu(h)
             if neuron_masks is not None:

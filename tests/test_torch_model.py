@@ -61,6 +61,47 @@ def test_mlp_forward_and_activations_match(masked):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
 
 
+def test_slot_stacked_forward_is_per_slot_forward():
+    """Slot-stacked params (w (S, in, out), b (S, out)) and inputs
+    (S, B, in): slot s is the one-client forward on slot s, neuron masks
+    shared."""
+    p = from_numpy(_ref_params(), "cpu")
+    rng = np.random.default_rng(5)
+    stacked = tuple({k: torch.stack([v * (1 + 0.1 * s) for s in range(3)])
+                     for k, v in layer.items()} for layer in p)
+    x = torch.from_numpy((rng.random((3, 20, FEATS[0])) < 0.3)
+                         .astype(np.float32))
+    nm = [torch.from_numpy(rng.integers(0, 2, f).astype(np.float32))
+          for f in FEATS[1:-1]]
+    got = port_mlp.mlp_forward(stacked, x, nm)
+    acts = port_mlp.mlp_activations(stacked, x, nm)
+    assert got.shape == (3, 20)
+    for s in range(3):
+        one = tuple({k: v[s] for k, v in layer.items()} for layer in stacked)
+        np.testing.assert_allclose(got[s].numpy(),
+                                   port_mlp.mlp_forward(one, x[s], nm).numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        for a, b in zip(acts, port_mlp.mlp_activations(one, x[s], nm)):
+            np.testing.assert_allclose(a[s].numpy(), b.numpy(), rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_bce_gradient_at_a_zero_logit_is_the_references():
+    """At a logit of exactly 0 (an all-zero example through zero biases)
+    the loss's slope is the reference's subgradient, -y: JAX splits the
+    tie of max(x, 0) in halves and gives |x| slope 1 at 0."""
+    logits = np.array([0.0, 0.0, 0.0, 1.5, -2.0], np.float32)
+    labels = np.array([0.0, 1.0, 1.0, 0.0, 1.0], np.float32)
+    want = jax.grad(lambda z: jnp.sum(ref_auc.bce_elementwise(
+        z, jnp.asarray(labels))))(jnp.asarray(logits))
+    z = torch.from_numpy(logits).requires_grad_(True)
+    torch.sum(port_auc.bce_elementwise(z, torch.from_numpy(labels))
+              ).backward()
+    np.testing.assert_allclose(z.grad.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(z.grad.numpy()[:3], -labels[:3])
+
+
 def test_init_mlp_shapes_and_scale():
     p = port_mlp.init_mlp((300, 64, 1), torch.Generator().manual_seed(0))
     assert [tuple(l["w"].shape) for l in p] == [(300, 64), (64, 1)]
