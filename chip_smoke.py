@@ -35,7 +35,7 @@ its own failure:
 4. main path at full width — the synthetic cohort (30,760 × 2,917),
    MLP 2917-256-64-1, 5 IID clients, 2 local epochs, batch 256, upload
    rate 0.10, through ``repro_torch.core.scbf.run_federated`` on cuda,
-   on the batched engine (the default): 2 SCBF loops, 1 FedAvg loop, 8
+   on the batched engine (the default): 2 SCBF loops, 2 FedAvg loops, 8
    loops each of SCBFwP reshape and SCBFwP mask with compaction (prune
    rate 0.10, total 0.47: 150 of the 320 hidden neurons go in 7 steps);
    then on the sequential engine 2 SCBF loops, held against the batched
@@ -52,15 +52,38 @@ its own failure:
    a coo or bitmap weight leaf; a sequential run the same once a client
    pass; K4 prune steps × 2 validation batches (the codec mix is
    logged).
-5. profile — torch.profiler over one more full-width loop of SCBF on
+5. fused round loop at full width — ``fuse_rounds`` = 2 on the batched
+   engine, each round one replay of a captured CUDA graph: SCBF 4 loops
+   beside the per-round run of the same 4 loops (bytes and upload
+   fractions equal, final weights to 1e-5 with the difference and
+   whether it is bitwise logged, shipped-support flips counted), its
+   second chunk under ``torch.cuda.set_sync_debug_mode("error")``, its
+   launches asserted (2 replays a chunk of 2 rounds and no wrapper
+   launch inside it, K3's count once an emission, a run's K1 and K2 the
+   capture's warm-up calls) and one capture; FedAvg 2 loops (1e-5 of the
+   main path's per-round FedAvg run, one capture); SCBFwP
+   mask 8 loops (one-round chunks while pruning; hidden sizes the
+   per-round run's; at most 2 captures); SCBF with DP 2 loops (ε the
+   per-round run's, every revealed entry shipped noised but exact-zero
+   draws); then torch.profiler over one steady fused chunk (its replays
+   and its emission apart: busy share, copies, top kernels; its kernel
+   events must show K1 and K2 once a replay) and over one
+   per-round SCBFwP mask loop (with the host seconds of its parts).
+6. C1 — one batched round of 256 participants at the paper's widths
+   (the cohort split 256 ways, batch 32): one launch each of K1 (its
+   workspace past the 2^22 words the library once held), K2 and K3's
+   count, and every slot's selection and encoding bitwise its one-slot
+   calls.
+7. profile — torch.profiler over one more full-width loop of SCBF on
    each engine and of SCBFwP: the device's busy share, the host-device
    copies and the kernels that take its time.
-6. small-input agreement — SCBF, SCBF with DP (normals injected) and
-   SCBFwP (mask, compacted) on the batched engine, and SCBFwP (mask,
-   compacted) on the sequential one, on cuda and on the CPU (whose plain
-   path the CPU tests hold against the JAX reference), from the same
-   initial weights and permutations.
-7. the card line, the kernel report line and the final ok line.
+8. small-input agreement — SCBF, SCBF with DP (normals injected) and
+   SCBFwP (mask, compacted) on the batched engine, SCBFwP (mask,
+   compacted) on the sequential one, and fused SCBF with DP and fused
+   SCBFwP (mask, compacted), on cuda and on the CPU (whose plain path the
+   CPU tests hold against the JAX reference), from the same initial
+   weights and permutations.
+9. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -94,6 +117,8 @@ DIRICHLET = dict(partition="dirichlet", dirichlet_alpha=0.5,
                  sample_fraction=0.6)
 DIR_LOOPS = 3
 FLUSH_BYTES = 256 << 20               # written between timed calls: > L2
+FUSE_LOOPS, FUSE = 4, 2               # the fused SCBF run: 2 chunks of 2
+BIG_ROUND, BIG_BATCH = 256, 32        # C1: one round of 256 participants
 
 
 def log(msg: str) -> None:
@@ -1011,7 +1036,7 @@ def phase_main_path(torch, card: str):
     runs, taps = {}, {}
     for label, method, loops, lr, scbf, fed in (
             ("scbf", "scbf", K_LOOPS, lr_scbf, {}, {}),
-            ("fedavg", "fedavg", 1, 0.05, {}, {}),
+            ("fedavg", "fedavg", 2, 0.05, {}, {}),
             ("scbfwp_reshape", "scbf", WP_LOOPS, lr_scbf,
              dict(wp, prune_impl="reshape"), {}),
             ("scbfwp_mask", "scbf", WP_LOOPS, lr_scbf,
@@ -1235,6 +1260,509 @@ def check_dirichlet_run(res, tap) -> None:
         "participants_slots_payloads": rows, "masked_loss": True}))
 
 
+def _device_events(prof) -> dict:
+    """{kernel or copy name: (count, device us)} of a profiler window;
+    the device-side marks of annotations (a schedule's ``ProfilerStep#``)
+    span other work and are left out."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith("ProfilerStep")):
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return by_name
+
+
+# a substring of each kernel's name in a profiler trace, by launch counter
+KERNEL_EVENTS = {"channel_norm": "channel_norms_kernel",
+                 "select_mask": "select_mask_kernel",
+                 "select_compact_count": "compact_count_kernel",
+                 "select_compact_scatter": "compact_scatter_kernel",
+                 "apoz": "apoz_leaves_kernel"}
+
+
+def _kernel_events(by_name: dict) -> dict:
+    """{launch counter: launches of its kernel} in a profiler window."""
+    return {k: sum(n for name, (n, _) in by_name.items() if tag in name)
+            for k, tag in KERNEL_EVENTS.items()}
+
+
+def _window(by_name: dict, wall: float) -> dict:
+    """Busy share, host-device copies and top kernels of a window."""
+    busy_us = sum(us for _, us in by_name.values())
+    copies = {kind: [sum(n for k, (n, _) in by_name.items() if tag in k),
+                     sum(us for k, (_, us) in by_name.items() if tag in k)]
+              for kind, tag in (("h2d", "HtoD"), ("d2h", "DtoH"))}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall if wall else None,
+            "copies_count_us": copies,
+            "top_by_device_us": [[k[:70], n, us] for k, (n, us) in top],
+            "events": sum(n for n, _ in by_name.values()),
+            "kernel_launches": _kernel_events(by_name)}
+
+
+class ChunkTap:
+    """Every fused chunk a run drives, while installed: for each call of
+    the engine's chunk methods (``fused_scbf_chunk`` or
+    ``fused_fedavg_chunk``, then ``emit_fused_payloads``) the kernel
+    launches its wrappers made (a graph's replays are not among them),
+    the graph replays, its device-synchronised wall and, for the
+    emission, the payloads and stats.  Chunk ``guard`` (0-based) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside
+    it raises.  Chunk ``profile`` is profiled, its replays and its
+    emission in one torch.profiler window each, whose kernel events count
+    what the replays launched."""
+
+    def __init__(self, torch, guard=None, profile=None):
+        from repro_torch.fed import engine as fe
+        self.torch, self.cls = torch, fe.BatchedEngine
+        self.names = ("fused_scbf_chunk", "fused_fedavg_chunk",
+                      "emit_fused_payloads")
+        self.saved = {n: getattr(self.cls, n) for n in self.names}
+        self.guard, self.profile = guard, profile
+        self.calls = {n: [] for n in self.names}
+
+    def _wrap(self, name, fn):
+        torch, tap = self.torch, self
+
+        def wrapped(eng, *a, **k):
+            from torch.profiler import ProfilerActivity, profile, schedule
+
+            from repro_torch.fed import graphs
+            i = len(tap.calls[name])
+            torch.cuda.synchronize()
+            before, replays = _launch_counts(), graphs.replays
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1)) \
+                if i == tap.profile else None
+            if prof is not None:
+                # a warm-up step first: a window's first device activity
+                # can go unrecorded when tracing has just started
+                prof.start()
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+                prof.step()
+            t0 = time.perf_counter()
+            if i == tap.guard and name != "emit_fused_payloads":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(eng, *a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if prof is not None:
+                prof.stop()
+            after = _launch_counts()
+            rec = {"launches": {n: after[n] - before[n] for n in after},
+                   "replays": graphs.replays - replays, "wall_s": wall,
+                   "window": None if prof is None
+                   else _window(_device_events(prof), wall)}
+            if name == "emit_fused_payloads":
+                rec["rounds"] = out
+            tap.calls[name].append(rec)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        for n, fn in self.saved.items():
+            setattr(self.cls, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.cls, n, fn)
+
+    def payloads(self) -> list:
+        """Per (loop, participant) the emitted payloads, in order."""
+        return [p for c in self.calls["emit_fused_payloads"]
+                for payloads, _ in c["rounds"] for p in payloads]
+
+    def stats(self) -> list:
+        return [s for c in self.calls["emit_fused_payloads"]
+                for _, stats in c["rounds"] for s in stats]
+
+
+def _support_flips(torch, a, b) -> tuple:
+    """(weight entries whose shipped support differs, weight entries) over
+    two equal-length lists of payloads, leaf by leaf."""
+    from repro_torch.comm import wire
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} payloads against {len(b)}")
+    flips = entries = 0
+    for pa, pb in zip(a, b):
+        da, db = wire.decode(pa), wire.decode(pb)
+        for x, y in zip(da, db):
+            flips += int(torch.count_nonzero((x["w"] != 0) != (y["w"] != 0)))
+            entries += x["w"].numel()
+    return flips, entries
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+
+    from repro_torch.params import to_numpy
+    return max(float(np.max(np.abs(x[k] - y[k])))
+               for x, y in zip(to_numpy(a), to_numpy(b)) for k in x)
+
+
+def _scatter_pairs(payloads) -> int:
+    """1 if an upload has a coo or bitmap weight leaf that keeps an entry
+    (the emission then launches K3's scatter), else 0."""
+    return int(any(k == "w" and lp.codec != "dense" and lp.nnz
+                   for p in payloads
+                   for (_, k), lp in zip(p.keys, p.layers)))
+
+
+def phase_fused(torch, cohort, card: str, runs: dict) -> dict:
+    """The fused round loop at full width (``fuse_rounds`` = 2 on the
+    batched engine): SCBF 4 loops beside the per-round run of the same 4
+    loops (bytes and upload fractions equal, weights to 1e-5, support
+    flips counted; one chunk under sync-debug "error"; launches and one
+    capture asserted), FedAvg 2 loops against per-round (1e-5), SCBFwP
+    mask 8 loops (hidden sizes the per-round run's, at most 2 captures),
+    SCBF with DP 2 loops (ε the per-round run's, revealed entries
+    noised); then a profile of one fused chunk, whose kernel events must
+    show each replay launching K1 and K2 once, and of one per-round
+    mask-mode loop.  Adds the fused runs to ``runs`` (their wrapper
+    launches: warm-ups, emissions, K4) and returns the replays: each
+    run's count and the profiled chunk's kernel events."""
+    from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
+    from repro_torch.core.scbf import run_federated
+    from repro_torch.fed import graphs
+
+    feats = (cohort.num_features, 256, 64, 1)
+    wp = dict(prune=True, prune_rate=PRUNE_RATE, prune_total=PRUNE_TOTAL,
+              prune_impl="mask", prune_compact=True)
+
+    def cfg(method, loops, fuse, scbf=None):
+        return TrainConfig(learning_rate=0.05 / K_CLIENTS
+                           if method == "scbf" else 0.05,
+                           global_loops=loops, local_epochs=2,
+                           local_batch_size=256, seed=0,
+                           scbf=ScbfConfig(upload_rate=0.10,
+                                           num_clients=K_CLIENTS,
+                                           **(scbf or {})),
+                           fed=FedConfig(fuse_rounds=fuse))
+
+    replays = {}
+
+    def run(label, method, loops, fuse, scbf=None, tap=None):
+        graphs.reset_captures()
+        _reset_launches()
+        res = run_federated(cohort, cfg(method, loops, fuse, scbf),
+                            method=method, mlp_features=feats, device="cuda")
+        counts = _launch_counts()
+        runs[label] = (res, counts, [])
+        replays[label] = graphs.replays
+        for r in res.records:
+            log(f"[{label}] loop {r.loop} auc_roc={r.auc_roc:.4f} "
+                f"evaluated={r.evaluated} upload_fraction="
+                f"{r.upload_fraction:.4f} sparse_bytes={r.sparse_bytes} "
+                f"hidden={'x'.join(map(str, r.hidden_sizes))} "
+                f"epsilon={r.epsilon} wall_s={r.wall_time:.4f} amortized="
+                f"{r.wall_is_amortized} ({card})")
+        log(f"[{label}] kernel launches {counts}, captures "
+            f"{graphs.captures}, graph replays {graphs.replays}")
+        for layer in res.final_params:
+            for v in layer.values():
+                if v.device.type != "cuda" or not torch.isfinite(v).all():
+                    raise AssertionError(f"{label}: final params not "
+                                         "finite on cuda")
+        return res, counts, graphs.captures
+
+    # --- SCBF: fused against per-round, one chunk sync-free ------------
+    with RoundTap() as per_tap:
+        per, _, _ = run("scbf_per_round_4", "scbf", FUSE_LOOPS, 1)
+    with ChunkTap(torch, guard=1) as tap:
+        fused, counts, caps = run("scbf_fused", "scbf", FUSE_LOOPS, FUSE)
+    for a, b in zip(per.records, fused.records):
+        if (a.sparse_bytes, a.upload_fraction, a.dense_bytes) != \
+                (b.sparse_bytes, b.upload_fraction, b.dense_bytes):
+            raise AssertionError(f"fused vs per-round loop {a.loop}: {a} != "
+                                 f"{b}")
+    if [r.evaluated for r in fused.records] != [False, True, False, True] \
+            or not all(r.wall_is_amortized for r in fused.records):
+        raise AssertionError("fused SCBF records: evaluated "
+                             f"{[r.evaluated for r in fused.records]}")
+    diff = _max_diff(per.final_params, fused.final_params)
+    bitwise = all(torch.equal(x[k], y[k]) for x, y in
+                  zip(per.final_params, fused.final_params) for k in x)
+    if diff > 1e-5:
+        raise AssertionError(f"fused vs per-round weights differ by {diff}")
+    flips, entries = _support_flips(
+        torch, [p for unit in per_tap.units() for p in unit], tap.payloads())
+    none = dict.fromkeys(KERNEL_EVENTS, 0)
+    replay = tap.calls["fused_scbf_chunk"][1]["launches"]
+    chunk_replays = tap.calls["fused_scbf_chunk"][1]["replays"]
+    emit = tap.calls["emit_fused_payloads"][1]["launches"]
+    want_emit = {"channel_norm": 0, "select_mask": 0,
+                 "select_compact_count": 1,
+                 "select_compact_scatter": _scatter_pairs(
+                     [p for rnd in tap.calls["emit_fused_payloads"][1][
+                         "rounds"] for p in rnd[0]]),
+                 "apoz": 0}
+    # the capture's warm-up calls; the replays launch K1 and K2 outside
+    # the wrappers (counted from the profiler below)
+    want_run = {"channel_norm": graphs.WARMUP,
+                "select_mask": graphs.WARMUP,
+                "select_compact_count": FUSE_LOOPS // FUSE,
+                "select_compact_scatter": sum(
+                    _scatter_pairs([p for rnd in c["rounds"] for p in rnd[0]])
+                    for c in tap.calls["emit_fused_payloads"]),
+                "apoz": 0}
+    if replay != none or chunk_replays != FUSE or emit != want_emit or \
+            counts != want_run or replays["scbf_fused"] != FUSE_LOOPS or \
+            caps != 1:
+        raise AssertionError(f"fused SCBF launches: chunk {replay} (want "
+                             f"none) in {chunk_replays} replays (want "
+                             f"{FUSE}), emission {emit} (want {want_emit}), "
+                             f"run {counts} (want {want_run}) in "
+                             f"{replays['scbf_fused']} replays (want "
+                             f"{FUSE_LOOPS}), captures {caps}")
+    log("fused: " + json.dumps({
+        "run": "scbf, fuse_rounds=2, 4 loops, full width", "card": card,
+        "sync_debug_error_chunk": 1, "captures": caps,
+        "chunk_wrapper_launches": replay, "chunk_replays": chunk_replays,
+        "emission_launches": emit, "run_wrapper_launches": counts,
+        "run_replays": replays["scbf_fused"],
+        "final_weights_max_abs_diff_vs_per_round": diff,
+        "final_weights_bitwise": bitwise,
+        "support_flips": flips, "weight_entries": entries,
+        "loop_wall_s_fused": [r.wall_time for r in fused.records],
+        "loop_wall_s_per_round": [r.wall_time for r in per.records],
+        "chunk_wall_s": [c["wall_s"] for c in
+                         tap.calls["fused_scbf_chunk"]],
+        "emission_wall_s": [c["wall_s"] for c in
+                            tap.calls["emit_fused_payloads"]]}))
+
+    # --- FedAvg ---------------------------------------------------------
+    fa_per = runs["fedavg"][0]                      # per round, 2 loops
+    fa, _, fa_caps = run("fedavg_fused", "fedavg", 2, FUSE)
+    fa_diff = _max_diff(fa_per.final_params, fa.final_params)
+    if fa_diff > 1e-5 or fa_caps != 1:
+        raise AssertionError(f"fused FedAvg: weights differ by {fa_diff}, "
+                             f"captures {fa_caps}")
+    log(f"fused: fedavg 2 loops, weights max abs diff vs per-round "
+        f"{fa_diff:.3g}, bitwise "
+        f"{all(torch.equal(x[k], y[k]) for x, y in zip(fa_per.final_params, fa.final_params) for k in x)}, "
+        f"captures {fa_caps} ({card})")
+
+    # --- SCBFwP mask ----------------------------------------------------
+    mask, mask_counts, mask_caps = run("scbfwp_mask_fused", "scbf",
+                                       WP_LOOPS, FUSE, wp)
+    ref_mask = runs["scbfwp_mask"][0]
+    hidden = [r.hidden_sizes for r in mask.records]
+    if hidden != [r.hidden_sizes for r in ref_mask.records] or \
+            mask_caps > 2 or mask_counts["apoz"] != WP_STEPS * VAL_BATCHES:
+        raise AssertionError(f"fused SCBFwP mask: hidden {hidden}, captures "
+                             f"{mask_caps}, launches {mask_counts}")
+    log("fused: " + json.dumps({
+        "run": "scbfwp mask, fuse_rounds=2, 8 loops", "card": card,
+        "captures": mask_caps, "hidden": hidden,
+        "sparse_bytes_equal_per_round": [
+            a.sparse_bytes == b.sparse_bytes
+            for a, b in zip(ref_mask.records, mask.records)],
+        "final_weights_max_abs_diff_vs_per_round":
+            _max_diff(ref_mask.final_params, mask.final_params),
+        "loop_wall_s_fused": [r.wall_time for r in mask.records],
+        "loop_wall_s_per_round": [r.wall_time for r in ref_mask.records],
+        "launches": mask_counts}))
+
+    # --- SCBF with DP ---------------------------------------------------
+    with ChunkTap(torch) as dp_tap:
+        dp, _, dp_caps = run("scbf_dp_fused", "scbf", K_LOOPS, FUSE, DP)
+    ref_dp = runs["scbf_dp"][0]
+    eps, want_eps = [r.epsilon for r in dp.records], \
+        [r.epsilon for r in ref_dp.records]
+    revealed = sum(s.uploaded_params for s in dp_tap.stats())
+    shipped = sum(lp.nnz for p in dp_tap.payloads() for lp in p.layers)
+    if eps != want_eps or revealed - shipped > 1e-5 * revealed or \
+            dp_caps != 1:
+        raise AssertionError(f"fused DP: epsilon {eps} (want {want_eps}), "
+                             f"{revealed - shipped} of {revealed} revealed "
+                             f"entries unshipped, captures {dp_caps}")
+    log("fused: " + json.dumps({
+        "run": "scbf + DP (sigma 1, clip 1), fuse_rounds=2, 2 loops",
+        "card": card, "epsilon": eps, "revealed": revealed,
+        "noised_and_shipped": shipped,
+        "sparse_bytes_equal_per_round": [
+            a.sparse_bytes == b.sparse_bytes
+            for a, b in zip(ref_dp.records, dp.records)],
+        "final_weights_max_abs_diff_vs_per_round":
+            _max_diff(ref_dp.final_params, dp.final_params)}))
+
+    # --- profile: one fused chunk, one per-round mask-mode loop ---------
+    with ChunkTap(torch, profile=1) as prof_tap:
+        run("scbf_fused_profiled", "scbf", FUSE_LOOPS, FUSE)
+    runs.pop("scbf_fused_profiled")
+    chunk = prof_tap.calls["fused_scbf_chunk"][1]
+    emitted = prof_tap.calls["emit_fused_payloads"][1]
+    # what the replays launched, from the trace: K1 and K2 once a replay
+    # (a round), nothing through the wrappers; the emission's kernel
+    # events are its wrappers' launches
+    seen = chunk["window"]["kernel_launches"]
+    want_seen = dict(none, channel_norm=chunk["replays"],
+                     select_mask=chunk["replays"])
+    if chunk["replays"] != FUSE or seen != want_seen or \
+            chunk["launches"] != none or \
+            emitted["window"]["kernel_launches"] != emitted["launches"]:
+        raise AssertionError(
+            f"profiled fused chunk: {chunk['replays']} replays (want "
+            f"{FUSE}), kernel events {seen} (want {want_seen}), wrapper "
+            f"launches {chunk['launches']} (want none); emission events "
+            f"{emitted['window']['kernel_launches']} against its wrapper "
+            f"launches {emitted['launches']}; emission trace "
+            f"{emitted['window']['top_by_device_us']}")
+    log("profile: " + json.dumps({
+        "what": "one steady fused SCBF chunk (2 rounds, full width): the "
+                "replays, then the emission",
+        "card": card,
+        "amortized_loop_wall_s_unprofiled": [r.wall_time for r in
+                                             fused.records],
+        "replays": chunk["window"], "emission": emitted["window"]}))
+    mask_loop_profile(torch, cohort, card, cfg(
+        "scbf", 1, 1, wp), feats)
+    return {"measured_by": "torch.profiler kernel events of one steady "
+                           "fused SCBF chunk",
+            "chunk_replays": chunk["replays"], "chunk_kernel_launches": seen,
+            "replays_by_run": replays}
+
+
+def mask_loop_profile(torch, cohort, card, cfg, feats) -> None:
+    """One per-round mask-mode SCBFwP loop (loop 0: a round of masked
+    training, effective-geometry uploads, their expansion and the server
+    apply, then a prune step): host seconds of its parts and the device's
+    busy share, to say where the mask-mode excess over SCBF goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.comm import wire
+    from repro_torch.core import pruning
+    from repro_torch.core.scbf import run_federated
+    from repro_torch.fed import engine as fe
+
+    parts = {}
+    targets = [(pruning, "expand_payloads"), (wire, "apply_payloads"),
+               (wire, "encode_round"), (pruning.Pruner, "step"),
+               (fe.BatchedEngine, "_pass")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in targets]
+
+    def timed(name, fn):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return inner
+
+    for obj, name, fn in saved:
+        setattr(obj, name, timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = run_federated(cohort, cfg, mlp_features=feats,
+                                device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    log("profile: " + json.dumps({
+        "what": "one per-round SCBFwP mask loop (masked round + prune "
+                "step), evaluation included, host parts synchronised",
+        "card": card, "round_wall_s": res.records[0].wall_time,
+        "host_s": parts, **_window(_device_events(prof), wall)}))
+
+
+def phase_big_round(torch, cohort, card: str) -> None:
+    """C1 on the card: one batched round of 256 participants at the
+    paper's widths (the cohort split 256 ways, batch 32), past the 2^22
+    words of partials K1's library once held: one launch each of K1, K2
+    and K3's count, and slot s of the round's selection and encoding
+    bitwise the one-slot calls on slot s."""
+    import numpy as np
+
+    from repro_torch.comm import wire
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core import selection
+    from repro_torch.core.client import client_delta
+    from repro_torch.data.medical import federated_split
+    from repro_torch.fed.engine import BatchedEngine, _train_slots
+    from repro_torch.kernels import channel_norm as cn
+    from repro_torch.models.mlp_net import init_mlp
+
+    shards = federated_split(cohort.x_train, cohort.y_train, BIG_ROUND,
+                             seed=0)
+    eng = BatchedEngine(shards, BIG_BATCH, 1, "cuda")
+    feats = (cohort.num_features, 256, 64, 1)
+    params = init_mlp(feats, torch.Generator().manual_seed(3), "cuda")
+    gen = torch.Generator().manual_seed(4)
+    part = np.arange(BIG_ROUND)
+    perms = [[torch.randperm(eng.perm_length(k), generator=gen)]
+             for k in part]
+    cfg = ScbfConfig(upload_rate=0.10)
+    shapes = [(BIG_ROUND, a, b) for a, b in zip(feats[:-1], feats[1:])]
+    words = cn.workspace_words([torch.empty(s, device="meta")
+                                for s in shapes])
+    _reset_launches()
+    t0 = time.perf_counter()
+    payloads, stats = eng.scbf_round(params, part, 0.01, perms, cfg,
+                                     generator=torch.Generator()
+                                     .manual_seed(5))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    want = {"channel_norm": 1, "select_mask": 1, "select_compact_count": 1,
+            "select_compact_scatter": _scatter_pairs(payloads), "apoz": 0}
+    if counts != want or len(payloads) != BIG_ROUND or words <= 1 << 22:
+        raise AssertionError(f"C1 round: launches {counts} (want {want}), "
+                             f"{len(payloads)} payloads, {words} words")
+    # the same round's delta, then its selection a slot at a time
+    rows, valid, pm = eng._slot_inputs(part, perms, BIG_ROUND)
+    g = client_delta(*_train_slots(params, eng.cohort, rows, valid, 0.01,
+                                   pm, batch_size=BIG_BATCH, epochs=1))
+    masked, masks, _, ops = selection.select_gradients(
+        g, 0.10, generator=torch.Generator().manual_seed(5))
+    stacked = wire.encode_round(masked, ops, BIG_ROUND)
+    slot_gen = torch.Generator().manual_seed(5)
+    same = 0
+    for s in range(BIG_ROUND):
+        one = tuple({k: v[s] for k, v in layer.items()} for layer in g)
+        m1, k1, _, o1 = selection.select_gradients(one, 0.10,
+                                                   generator=slot_gen)
+        p1 = wire.encode_selected(m1, o1)
+        ok = all(torch.equal(m1[l][k], masked[l][k][s])
+                 for l in range(len(m1)) for k in m1[l]) and \
+            p1.nbytes == stacked[s].nbytes and all(
+                np.array_equal(a.values, b.values)
+                for a, b in zip(p1.layers, stacked[s].layers))
+        same += int(ok)
+    if same != BIG_ROUND:
+        raise AssertionError(f"C1: {BIG_ROUND - same} of {BIG_ROUND} slots "
+                             "differ from their one-slot calls")
+    round_same = all(a.nbytes == b.nbytes and all(
+        np.array_equal(x.values, y.values)
+        for x, y in zip(a.layers, b.layers))
+        for a, b in zip(payloads, stacked))
+    log("c1: " + json.dumps({
+        "round": f"{BIG_ROUND} participants, widths {feats}, batch "
+                 f"{BIG_BATCH}", "card": card,
+        "channel_norm_workspace_words": words, "old_scratch_words": 1 << 22,
+        "launches": counts, "round_wall_s": wall,
+        "slots_bitwise_their_one_slot_calls": same,
+        "engine_round_equals_stacked_pass": round_same,
+        "upload_fraction_mean": float(np.mean([s.upload_fraction
+                                               for s in stats]))}))
+
+
 def phase_profile(torch, cohort, card: str) -> None:
     """Where one loop's time goes: torch.profiler over one full-width
     loop (evaluation included) of SCBF on the batched engine, SCBF on the
@@ -1304,8 +1832,9 @@ def phase_profile(torch, cohort, card: str) -> None:
 def phase_agreement(torch):
     """cuda run == cpu run of the port on one small input, same draws, on
     the batched engine: SCBF, SCBF with DP (normals injected) and SCBFwP
-    in mask mode with compaction; and SCBFwP in mask mode with compaction
-    on the sequential engine."""
+    in mask mode with compaction, per round and fused (captured rounds on
+    cuda, eager on the CPU); and SCBFwP in mask mode with compaction on
+    the sequential engine."""
     import numpy as np
 
     from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
@@ -1328,15 +1857,16 @@ def phase_agreement(torch):
 
     wp_mask = dict(prune=True, prune_rate=0.25, prune_total=0.4,
                    prune_impl="mask", prune_compact=True)
-    for label, scbf, engine in (("scbf", {}, "batched"),
-                                ("scbf_dp", DP, "batched"),
-                                ("scbfwp_mask", wp_mask, "batched"),
-                                ("scbfwp_mask_sequential", wp_mask,
-                                 "sequential")):
+    for label, scbf, engine, fuse in (
+            ("scbf", {}, "batched", 1), ("scbf_dp", DP, "batched", 1),
+            ("scbfwp_mask", wp_mask, "batched", 1),
+            ("scbfwp_mask_sequential", wp_mask, "sequential", 1),
+            ("scbf_dp_fused", DP, "batched", loops),
+            ("scbfwp_mask_fused", wp_mask, "batched", 2)):
         cfg = TrainConfig(learning_rate=0.05 / k, global_loops=loops,
                           local_batch_size=64, seed=0,
                           scbf=ScbfConfig(num_clients=k, **scbf),
-                          fed=FedConfig(engine=engine))
+                          fed=FedConfig(engine=engine, fuse_rounds=fuse))
         out = {}
         for dev in ("cuda", "cpu"):
             out[dev] = run_federated(cohort, cfg, method="scbf",
@@ -1381,10 +1911,22 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log(f"build: kernels built and loaded in {build.build_seconds():.1f}s")
+    t0 = time.perf_counter()
     report = phase_kernels(torch)
+    log(f"phase kernels: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     runs, cohort = phase_main_path(torch, card)
-    phase_profile(torch, cohort, card)
-    phase_agreement(torch)
+    log(f"phase main path: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    replayed = phase_fused(torch, cohort, card, runs)
+    log(f"phase fused: {time.perf_counter() - t0:.1f}s")
+    for name, phase, args in (
+            ("c1 round", phase_big_round, (torch, cohort, card)),
+            ("profile", phase_profile, (torch, cohort, card)),
+            ("agreement", phase_agreement, (torch,))):
+        t0 = time.perf_counter()
+        phase(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
                                 "select_compact_scatter")}
     for r in report:
@@ -1393,11 +1935,21 @@ def main() -> int:
                   for label, (_, counts, _) in runs.items()}
         r["launches"] = sum(sum(c.values()) for c in by_run.values())
         r["launches_by_run"] = by_run
+        # the fused runs' graph replays, apart from the wrapper counts
+        r["graph_replay_launches"] = {
+            "measured_by": replayed["measured_by"],
+            "chunk_replays": replayed["chunk_replays"],
+            "chunk_launches": sum(replayed["chunk_kernel_launches"][k]
+                                  for k in kinds.get(r["name"],
+                                                     (r["name"],))),
+            "replays_by_run": replayed["replays_by_run"]}
         log("kernel timing: " + json.dumps(
             {"kernel": r["name"], "kernel_ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_us": r["bound_ms"] * 1e3,
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-             "launches": r["launches"], "shape": r["shape"],
+             "launches": r["launches"],
+             "graph_replay_launches": r["graph_replay_launches"],
+             "shape": r["shape"],
              "card": card, **{k: v for k, v in r.items() if k in (
                  "ms_single_leaf", "device_us", "device_us_l2_warm",
                  "device_us_single_leaf",

@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.channels import slot_groups, slot_range
 from repro_torch.kernels.select_mask import compact_count, compact_scatter
 
 INDEX_BYTES = 4                      # int32 flat index (coo)
@@ -217,21 +218,29 @@ def encode_round(masked: Sequence[dict], operands: Sequence, num: int
     leaf, slot < num) pair; one host read of the counts picks every pair's
     codec; one scatter launch compacts the coo and bitmap pairs, each at
     capacity = its count (no tail), and its buffer reaches the host in one
-    copy.  A weight leaf with a dense pair, and every bias leaf (vectors
+    copy.  A round of more pairs than one launch takes is encoded a group
+    of slots at a time (``core.channels.slot_groups``).  A weight leaf with a dense pair, and every bias leaf (vectors
     no kernel computes, encoded by ``encode_leaf`` on the host), cross to
     the host in one copy a leaf.  Weight leaves are fp32.  Under DP the
     operands' ``g`` is the noised leaf, so what is compacted is what the
     mechanism released.
     """
-    keys = flat_keys(masked)
     for l in range(len(operands)):
         if masked[l]["w"].dtype != torch.float32:
             raise TypeError(f"the encoder takes fp32 weight leaves, got "
                             f"{masked[l]['w'].dtype}")
-    ops = [op._replace(g=op.g[:num], col=op.col[:num], thr=op.thr[:num],
-                       rest=op.rest[:num],
-                       row=op.row[:num] if op.row.ndim == 2 else op.row)
-           for op in operands]
+    return [p for a, b in slot_groups(num, len(operands))
+            for p in _encode_slots(masked, operands, a, b)]
+
+
+def _encode_slots(masked: Sequence[dict], operands: Sequence, a: int,
+                  b: int) -> List[Payload]:
+    """``encode_round`` of slots [a, b), within one launch of each of
+    the select-compact kernel's passes."""
+    keys = flat_keys(masked)
+    masked = tuple({k: v[a:b] for k, v in layer.items()} for layer in masked)
+    ops = slot_range(operands, a, b)
+    num = b - a
     shapes = [tuple(op.g.shape[1:]) for op in ops]
     nnz, host, dense = {}, {}, {}
     if ops:
@@ -247,12 +256,13 @@ def encode_round(masked: Sequence[dict], operands: Sequence, num: int
                                          sparse)
             flat = buf.cpu().numpy()
             for k, (idx, vals) in zip(sparse, views):
-                a, b = idx.storage_offset(), vals.storage_offset()
-                host[cc.pairs[k]] = (flat[a:a + counts[k]],
-                                     flat[b:b + counts[k]].view(np.float32))
+                at, vat = idx.storage_offset(), vals.storage_offset()
+                host[cc.pairs[k]] = (flat[at:at + counts[k]],
+                                     flat[vat:vat + counts[k]]
+                                     .view(np.float32))
         for l in sorted({p[0] for p, c in codec.items() if c == "dense"}):
-            dense[l] = _host(masked[l]["w"][:num])
-    others = {(l, k): _host(masked[l][k][:num]) for l, k in keys if k != "w"}
+            dense[l] = _host(masked[l]["w"])
+    others = {(l, k): _host(masked[l][k]) for l, k in keys if k != "w"}
     empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
     payloads = []
     for s in range(num):

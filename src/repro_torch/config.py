@@ -78,14 +78,15 @@ class FaultConfig:
 class FedConfig:
     """Cross-device federation scenario knobs (``repro_torch.fed``).
 
-    The batched engine scores a round's slots in one ``channel_norm``
-    launch, whose partials must fit the kernel's scratch
-    (``kernels.channel_norm.SCRATCH``): about 211 slots at the paper's
-    widths (2917-256-64-1), more at narrower ones.  A round past it raises
-    ``ValueError`` naming the limit; the sequential engine has none."""
+    The batched engine runs a round of any number of participants: one
+    ``channel_norm`` launch (its workspace grows to the round), and one
+    ``select_mask`` launch and one ``select_compact`` count a group of up
+    to ``MAX_SLOTS`` (leaf, slot) pairs — 1,365 slots of the 3-layer MLP.
+    ``fuse_rounds`` > 1 runs chunks of that many rounds with the server
+    sum on the device (``core.scbf``'s fused loop, batched engine)."""
 
     engine: str = "batched"          # batched | sequential
-    fuse_rounds: int = 1             # > 1: ROADMAP A10
+    fuse_rounds: int = 1             # > 1: the fused round loop
     bucket: str = "pow2"             # batched-engine padding: pow2 | exact
     pods: int = 1                    # pod sharding (A15)
     # --- per-round client sampling (sync mode) ---

@@ -18,7 +18,9 @@ Slot-stacked deltas (the batched engine: S clients of a round, every
 weight ``(S, M, N)`` and bias ``(S, m)``) run the same algebra slot by
 slot in one pass: scores ``(S, m_l)`` from one channel-norm launch, one
 threshold a slot (a sort along the last axis), edge operands with
-``thr`` and ``rest`` of shape ``(S,)``, and one select-mask launch.  Slot
+``thr`` and ``rest`` of shape ``(S,)``, and one select-mask launch a
+group of slots that fits its ``MAX_SLOTS`` (leaf, slot) pairs
+(``slot_groups``: one group up to 1,365 slots of the 3-layer MLP).  Slot
 s gives what the one-client functions give on it, bitwise.
 """
 from __future__ import annotations
@@ -28,11 +30,13 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import select_mask as select_mask_kernel
 from repro_torch.kernels.channel_norm import channel_norms_leaves
 from repro_torch.kernels.select_mask import select_mask_leaves
 
 # Materialise T exactly up to this many channels; sample beyond it.
 MAX_MATERIALIZED = 1 << 22
+NUM_SAMPLES = 1 << 16        # channels the sampled path draws a client
 
 
 def layer_scores(grads: Sequence[dict], normalize: bool = False,
@@ -58,10 +62,10 @@ def layer_scores(grads: Sequence[dict], normalize: bool = False,
             m = neuron_masks[l]
         if normalize:
             if m is None:
-                mean = torch.mean(s, dim=-1, keepdim=True)
+                mean = torch.mean(s, axis=-1, keepdim=True)
             else:
-                mean = torch.sum(s * m, dim=-1, keepdim=True) / torch.clamp(
-                    torch.sum(m), min=1.0)
+                mean = torch.sum(s * m, axis=-1, keepdim=True) / \
+                    torch.clamp(torch.sum(m, axis=-1), min=1.0)
             s = s / torch.clamp(mean, min=1e-30)
         if m is not None:
             s = torch.where(m > 0, s, torch.full_like(s, float("-inf")))
@@ -85,27 +89,30 @@ def _interpolate(vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return at(lo) * (1.0 - frac) + at(hi) * frac
 
 
-def quantile(values: torch.Tensor, q: float) -> torch.Tensor:
+def quantile(values: torch.Tensor, q: float, axis: int = -1
+             ) -> torch.Tensor:
     """The q-quantile of a flat fp32 vector (of each row of a (S, n)
-    matrix), linear interpolation.
+    matrix: ``axis`` is the reduced one, the last), linear interpolation.
 
     The same arithmetic as ``jnp.quantile`` (position q·(n-1) in fp32,
     weights 1-frac and frac); ``torch.quantile`` lerps with another
     rounding and refuses more than 2^24 entries.
     """
-    vals = torch.sort(values, dim=-1).values
-    pos = torch.tensor(q, dtype=torch.float32, device=vals.device) \
+    vals = torch.sort(values.movedim(axis, -1), axis=-1).values
+    # a fill, not a copy from the host: nothing waits on the device
+    pos = torch.full((), q, dtype=torch.float32, device=vals.device) \
         * (vals.shape[-1] - 1)
     return _interpolate(vals, pos)
 
 
-def masked_quantile(values: torch.Tensor, q: float) -> torch.Tensor:
+def masked_quantile(values: torch.Tensor, q: float, axis: int = -1
+                    ) -> torch.Tensor:
     """q-quantile over the finite entries of a flat score vector (of each
-    row) — the ``-inf`` channels of pruned neurons sort to the front and
-    are skipped."""
-    vals = torch.sort(values, dim=-1).values
+    row; ``axis`` is the reduced one) — the ``-inf`` channels of pruned
+    neurons sort to the front and are skipped."""
+    vals = torch.sort(values.movedim(axis, -1), axis=-1).values
     n = vals.shape[-1]
-    n_valid = torch.count_nonzero(torch.isfinite(vals), dim=-1)
+    n_valid = torch.count_nonzero(torch.isfinite(vals), axis=-1)
     pos = (n - n_valid) + q * torch.clamp(n_valid - 1, min=0)
     return _interpolate(vals, pos.to(torch.float32))
 
@@ -137,7 +144,7 @@ def channel_quantile(scores: Sequence[torch.Tensor], upload_rate: float,
                      *, selection: str = "positive",
                      sample_idx: Optional[Sequence] = None,
                      generator: Optional[torch.Generator] = None,
-                     num_samples: int = 1 << 16,
+                     num_samples: int = NUM_SAMPLES,
                      masked: bool = False) -> torch.Tensor:
     """Threshold q such that ~``upload_rate`` of channels have T > q
     (positive selection) or ~``upload_rate`` have T < q (negative).
@@ -156,7 +163,8 @@ def channel_quantile(scores: Sequence[torch.Tensor], upload_rate: float,
     lead = list(scores[0].shape[:-1])
     if num_channels(scores) <= MAX_MATERIALIZED:
         t = materialize_channel_tensor(scores).reshape(lead + [-1])
-        return masked_quantile(t, q) if masked else quantile(t, q)
+        return masked_quantile(t, q, axis=-1) if masked else \
+            quantile(t, q, axis=-1)
     if lead:
         return torch.stack([channel_quantile(
             [s[k] for s in scores], upload_rate, selection=selection,
@@ -167,29 +175,48 @@ def channel_quantile(scores: Sequence[torch.Tensor], upload_rate: float,
         if generator is None:
             raise ValueError("the sampled quantile path needs sample_idx= "
                              "or a generator")
-        sample_idx = []
-        for s in scores:
-            if masked:
-                w = torch.isfinite(s).to(torch.float32).cpu()
-                sample_idx.append(torch.multinomial(
-                    w, num_samples, replacement=True, generator=generator))
-            else:
-                sample_idx.append(torch.randint(
-                    0, s.shape[0], (num_samples,), generator=generator))
-    device = scores[0].device
-    sampled = torch.zeros((num_samples,), dtype=torch.float32, device=device)
+        weights = [torch.isfinite(s).to(torch.float32).cpu()
+                   for s in scores] if masked else None
+        sample_idx = sample_channels([s.shape[0] for s in scores],
+                                     generator, num_samples, weights)
+    # the sampled channels' scores, added layer by layer (from the first
+    # layer's, which is 0 + it exactly: scores are never -0.0)
+    sampled = None
     for idx, s in zip(sample_idx, scores):
         if not isinstance(idx, torch.Tensor):
             idx = torch.from_numpy(np.array(idx, dtype=np.int64))
-        sampled = sampled + s[idx.to(device)]
-    return quantile(sampled, q)
+        picked = s.index_select(-1, idx.to(s.device))
+        sampled = picked if sampled is None else sampled + picked
+    return quantile(sampled, q, axis=-1)
+
+
+def sample_channels(sizes: Sequence[int], generator: torch.Generator,
+                    num_samples: int = NUM_SAMPLES,
+                    weights: Optional[Sequence[torch.Tensor]] = None
+                    ) -> List[torch.Tensor]:
+    """The sampled quantile path's draws for one client: an index vector
+    a layer of ``sizes``, drawn on the (CPU) ``generator`` layer by layer
+    — uniformly, or with ``weights`` (one CPU vector a layer: 1 for a
+    kept neuron, 0 for a pruned one) among the kept neurons.  The fused
+    round loop draws a chunk's indices with it before the chunk, in the
+    order a per-round run draws them."""
+    out = []
+    for l, m in enumerate(sizes):
+        if weights is not None:
+            out.append(torch.multinomial(weights[l], num_samples,
+                                         replacement=True,
+                                         generator=generator))
+        else:
+            out.append(torch.randint(0, m, (num_samples,),
+                                     generator=generator))
+    return out
 
 
 def max_completion(scores: Sequence[torch.Tensor]) -> torch.Tensor:
     """Σ_l max_i s_l[i] — the best possible channel score (one a slot)."""
-    total = torch.amax(scores[0], dim=-1)
+    total = torch.amax(scores[0], axis=-1)
     for s in scores[1:]:
-        total = total + torch.amax(s, dim=-1)
+        total = total + torch.amax(s, axis=-1)
     return total
 
 
@@ -206,6 +233,24 @@ class EdgeOperands(NamedTuple):
     rest: torch.Tensor
 
 
+def slot_groups(num_slots: int, num_leaves: int) -> List[Tuple[int, int]]:
+    """Slot ranges [a, b) of a slot-stacked table of ``num_leaves``
+    leaves, each within one launch of the select-mask and select-compact
+    kernels (``MAX_SLOTS`` (leaf, slot) pairs)."""
+    per = max(1, select_mask_kernel.MAX_SLOTS // max(num_leaves, 1))
+    return [(a, min(num_slots, a + per)) for a in range(0, num_slots, per)]
+
+
+def slot_range(ops: Sequence["EdgeOperands"], a: int, b: int
+               ) -> List["EdgeOperands"]:
+    """Slots [a, b) of slot-stacked edge operands (a row every slot shares
+    stays shared)."""
+    return [op._replace(g=op.g[a:b], col=op.col[a:b], thr=op.thr[a:b],
+                        rest=op.rest[a:b],
+                        row=op.row[a:b] if op.row.ndim == 2 else op.row)
+            for op in ops]
+
+
 def edge_operands(grads: Sequence[dict], scores: Sequence[torch.Tensor],
                   threshold: torch.Tensor) -> List[EdgeOperands]:
     """The edge rule of every weight matrix, in the reference's order of
@@ -213,7 +258,7 @@ def edge_operands(grads: Sequence[dict], scores: Sequence[torch.Tensor],
     zeros, since ``(0 + s) + rest`` is bitwise ``s + rest``), layer l > 0
     tests ``(s_{l-1}[p] + s_l[q]) + rest``.  Slot-stacked: every slot
     shares layer 0's zero row scores."""
-    maxes = [torch.amax(s, dim=-1) for s in scores]
+    maxes = [torch.amax(s, axis=-1) for s in scores]
     total_max = max_completion(scores)
     thr = torch.as_tensor(threshold, dtype=torch.float32,
                           device=scores[0].device)
@@ -244,10 +289,21 @@ def mask_by_operands(grads: Sequence[dict], ops: Sequence[EdgeOperands]
                      ) -> Tuple[list, list]:
     """``apply_channel_mask`` from its ``edge_operands``: every weight mask
     comes from one launch of the select-mask kernel over the pass's leaf
-    table; bias masks are (m_l,) vectors (one a slot) and stay plain
-    torch."""
+    table (one a group of ``slot_groups`` for a table of more slots than
+    one launch takes, the groups' outputs concatenated); bias masks are
+    (m_l,) vectors (one a slot) and stay plain torch."""
     masked, masks = [], []
-    w_masked, w_masks, _ = select_mask_leaves(ops)
+    groups = slot_groups(ops[0].g.shape[0], len(ops)) \
+        if ops[0].g.ndim == 3 else [None]
+    if len(groups) == 1:
+        w_masked, w_masks, _ = select_mask_leaves(ops)
+    else:
+        parts = [select_mask_leaves(slot_range(ops, a, b))[:2]
+                 for a, b in groups]
+        w_masked = [torch.cat([p[0][l] for p in parts])
+                    for l in range(len(ops))]
+        w_masks = [torch.cat([p[1][l] for p in parts])
+                   for l in range(len(ops))]
     for l, (g, op, mw, w_mask) in enumerate(zip(grads, ops, w_masked,
                                                w_masks)):
         # a slot's scalars against its (m_l,) scores

@@ -105,26 +105,34 @@ def masked_local_train_impl(params: Tuple[dict, ...], x: torch.Tensor,
     return tuple({k: v.detach() for k, v in layer.items()} for layer in p)
 
 
-def _sgd_step(leaves, grads, lr: float) -> None:
+def _sgd_step(leaves, grads, lr) -> None:
+    """v ← v - lr·g in place; ``lr`` a float or a 0-d fp32 tensor on the
+    leaves' device (the same fp32 product either way)."""
     with torch.no_grad():
         for v, g in zip(leaves, grads):
             v.sub_(lr * g)
 
 
 def local_train_slots(params: Tuple[dict, ...], x: torch.Tensor,
-                      y: torch.Tensor, lr: float, perms,
+                      y: torch.Tensor, lr, perms,
                       w: Optional[torch.Tensor] = None,
                       valid: Optional[torch.Tensor] = None,
                       batch_size: int = 256, epochs: int = 1,
-                      neuron_masks=None) -> Tuple[dict, ...]:
+                      neuron_masks=None,
+                      clients: Optional[torch.Tensor] = None
+                      ) -> Tuple[dict, ...]:
     """SGD for S clients at once: the counterpart of ``jax.vmap`` of
     ``local_train_impl`` (``w`` None) or ``masked_local_train_impl``.
 
     ``params``: slot-stacked layer dicts (``w`` (S, in, out), ``b``
     (S, out)); ``x`` (S, n, d), ``y`` (S, n), ``w`` (S, n) example
-    weights; ``perms`` (S, epochs, n) — slot s's permutation of
-    ``range(n)`` for each epoch, cut to ``(n // batch_size) * batch_size``.
-    Each epoch's batches are gathered once, as ``(batches, S, batch, d)``.
+    weights — or, with ``clients`` (S,) int64, the whole padded cohort
+    ``(K, n, d)`` of which slot s trains on row ``clients[s]``; ``perms``
+    (S, epochs, n) — slot s's permutation of ``range(n)`` for each epoch,
+    cut to ``(n // batch_size) * batch_size``.  ``lr``: a float, or a 0-d
+    fp32 tensor on the device (what a captured round reads; bitwise the
+    float).  Each epoch's batches are gathered once, as
+    ``(batches, S, batch, d)``.
     A step's backward pass is of the *sum* of the slots' losses: the
     slots share no parameter, so each gets exactly its own gradient; one
     in-place SGD update then covers every slot.  ``valid`` (S,) bool
@@ -134,7 +142,8 @@ def local_train_slots(params: Tuple[dict, ...], x: torch.Tensor,
     ``neuron_masks`` are shared by all slots.
     Returns the updated slot-stacked params.
     """
-    s_count, n_all = x.shape[0], x.shape[1]
+    s_count = x.shape[0] if clients is None else clients.shape[0]
+    n_all = x.shape[1]
     perms = _as_index(perms, x.device)
     if tuple(perms.shape) != (s_count, epochs, n_all):
         raise ValueError(f"perms of shape {tuple(perms.shape)}, want "
@@ -144,7 +153,8 @@ def local_train_slots(params: Tuple[dict, ...], x: torch.Tensor,
                .requires_grad_(True) for k, v in layer.items()}
               for layer in params)
     leaves = [v for layer in p for v in layer.values()]
-    slot = torch.arange(s_count, device=x.device)[None, :, None]
+    slot = (torch.arange(s_count, device=x.device) if clients is None
+            else clients)[None, :, None]
     if valid is None:
         valid = torch.ones(s_count, dtype=torch.bool, device=x.device)
     live = valid[:, None]

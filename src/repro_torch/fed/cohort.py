@@ -11,8 +11,10 @@ loss (``PaddedCohort.uniform``).
 ``bucket_size`` rounds the participant count P of a round up to a small
 set of slot counts.  The port runs eagerly, so nothing recompiles on a
 new P; the buckets are kept so that a round's slot count, and with it
-what the kernels are given, is the reference's.  ``horizon_slot_plan``
-and ``fused_chunk_len`` come with the fused round loop (ROADMAP A10).
+what the kernels are given, is the reference's.  The fused round loop
+plans a chunk of rounds into static ``(S, B)`` arrays
+(``horizon_slot_plan``) and cuts a run into chunks (``fused_chunk_len``):
+a captured round is replayed with one run-constant slot count B.
 """
 from __future__ import annotations
 
@@ -74,6 +76,47 @@ def bucket_size(num_participants: int, num_clients: int,
         return up(num_participants)
     pow2 = 1 << (num_participants - 1).bit_length()
     return min(up(pow2), up(num_clients))
+
+
+def horizon_slot_plan(participants: Sequence[np.ndarray], num_slots: int,
+                      horizon: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Static ``(S, B)`` participant-index / validity arrays for a fused
+    chunk of ``horizon`` rounds with ``num_slots`` slots each.
+
+    Row r holds round r's participant ids left-aligned; padding slots
+    repeat the round's slot 0 (as the per-round engine pads).  Rounds
+    beyond ``len(participants)`` and empty rounds are all-invalid: their
+    outputs are zeroed by the validity mask and the carry passes through
+    bitwise untouched.
+    """
+    if len(participants) > horizon:
+        raise ValueError(f"{len(participants)} planned rounds exceed the "
+                         f"fused horizon {horizon}")
+    part_idx = np.zeros((horizon, num_slots), dtype=np.int32)
+    valid = np.zeros((horizon, num_slots), dtype=bool)
+    for r, part in enumerate(participants):
+        p = np.asarray(part, dtype=np.int32)
+        if p.size > num_slots:
+            raise ValueError(f"round {r}: {p.size} participants exceed "
+                             f"{num_slots} fused slots")
+        if p.size:
+            part_idx[r, :p.size] = p
+            part_idx[r, p.size:] = p[0]
+            valid[r, :p.size] = True
+    return part_idx, valid
+
+
+def fused_chunk_len(loops_left: int, fuse_rounds: int,
+                    prune_active: bool) -> int:
+    """Rounds in the next fused chunk: one while SCBFwP pruning is still
+    removing neurons (the keep-masks change after every round, and a
+    chunk's masks are one input), else ``fuse_rounds`` up to the loops
+    left."""
+    if loops_left < 1:
+        raise ValueError(f"no loops left to chunk ({loops_left})")
+    if prune_active:
+        return 1
+    return min(int(fuse_rounds), loops_left)
 
 
 def pad_clients(clients: Sequence[Tuple[np.ndarray, np.ndarray]],

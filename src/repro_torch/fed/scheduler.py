@@ -4,12 +4,14 @@
 Each round samples ``sample_fraction`` of the K clients, loses some to
 dropout and (optionally) drops stragglers that miss the deadline.  One
 seeded numpy Generator drives every draw, in the reference's order, so a
-seed gives the reference's participation trace.  The clock and FedBuff
+seed gives the reference's participation trace; ``plan_horizon`` plans a
+fused chunk's rounds with the same draws.  The clock and FedBuff
 scheduling come with ROADMAP A11.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List
 
 import numpy as np
 
@@ -57,6 +59,15 @@ class SyncScheduler:
             sampled=sampled,
             dropped=sampled[drop],
             stragglers=sampled[strag])
+
+    def plan_horizon(self, start_round: int, horizon: int
+                     ) -> List[RoundPlan]:
+        """Plan the next ``horizon`` rounds in one call: the same draws as
+        ``plan`` called for each in turn, so a fused run and a per-round
+        run with one seed see one participation trace."""
+        if horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
+        return [self.plan(start_round + i) for i in range(horizon)]
 
     @property
     def max_participants(self) -> int:

@@ -35,8 +35,10 @@ _LL = ctypes.c_longlong
 # cudaError_t of its launch (0 = success)
 SIGNATURES = {
     "channel_norm": {
-        # rows (host int64 table of slot-stacked leaves), L, dtype, stream
-        "channel_norms_launch": ([_VOID, _INT, _INT, _VOID], _INT),
+        # rows (host int64 table of slot-stacked leaves), L, dtype,
+        # workspace, workspace words, stream
+        "channel_norms_launch": ([_VOID, _INT, _INT, _VOID, _LL, _VOID],
+                                 _INT),
     },
     "select_mask": {
         # rows (host int64 table of slot-stacked leaves), L, dtype, counts,

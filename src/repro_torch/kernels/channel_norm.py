@@ -11,11 +11,22 @@ dispatches on the tensors' device: CPU tensors go to
 ``channel_norms_plain`` leaf by leaf; CUDA tensors launch the
 hand-written Hopper kernel or raise.  ``launches`` counts kernel launches
 only.
+
+The kernel keeps its cross-block partials and tickets in a *workspace*:
+one zeroed int32 tensor a device, owned here (``workspace``), which every
+launch leaves zeroed.  It grows (a new zeroed tensor) when a table needs
+more than it holds (to at least twice its size), so a round of any number
+of slots is one launch.  A CUDA graph captures its address: size it before
+a capture (a warm-up call does), and keep a reference to it while the
+graph lives (``fed.graphs.RoundProgram`` does); an outgrown workspace is
+freed once nothing holds it.  A call under CUDA graph capture records the
+launch into the graph and launches nothing, so ``launches`` leaves it
+out; the graph's replays launch the kernel.
 """
 from __future__ import annotations
 
 from array import array
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,10 +35,9 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LEAVES = 16            # leaves a launch takes: MAX_LEAVES in the source
 TILE_ROWS, STRIP = 96, 64   # a tile of the kernel: TILE_ROWS x STRIP
-SCRATCH = 1 << 22          # floats of partials a launch: SCRATCH
-MAX_TICKETS = 1 << 16      # strips of each kind a launch: MAX_TICKETS
 
 launches = 0
+_workspaces: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -43,7 +53,7 @@ def channel_norms_plain(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return torch.stack(rows), torch.stack(cols)
     gf = g.to(torch.float32)
     sq = gf * gf
-    return torch.sum(sq, dim=1), torch.sum(sq, dim=0)
+    return torch.sum(sq, axis=-1), torch.sum(sq, axis=-2)
 
 
 def _check(g: torch.Tensor) -> None:
@@ -61,23 +71,44 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _check_scratch(gs: Sequence[torch.Tensor]) -> None:
-    """The launch's partials and tickets fit the library's: the same sums
-    as the launcher's, over every slot."""
-    floats = col_tk = row_tk = 0
+def workspace_words(gs: Sequence[torch.Tensor]) -> int:
+    """32-bit words of workspace a launch over ``gs`` takes: the same sums
+    as the launcher's, over every slot — the partials of every slot of
+    more than one tile row (row tiles x N) or column strip (strips x M),
+    and a ticket for each of their column strips and tile rows."""
+    words = 0
     for g in gs:
         s, m, n = _slot_shape(g)
         nrt, nct = _cdiv(m, TILE_ROWS), _cdiv(n, STRIP)
         if nrt > 1:
-            floats, col_tk = floats + s * nrt * n, col_tk + s * nct
+            words += s * (nrt * n + nct)
         if nct > 1:
-            floats, row_tk = floats + s * nct * m, row_tk + s * nrt
-    if floats > SCRATCH or max(col_tk, row_tk) > MAX_TICKETS:
-        raise ValueError(f"channel_norms: the table needs {floats} floats of "
-                         f"partials (at most SCRATCH = {SCRATCH}) and "
-                         f"{col_tk} + {row_tk} strips (at most MAX_TICKETS = "
-                         f"{MAX_TICKETS} each): too many slots for one "
-                         f"launch")
+            words += s * (nct * m + nrt)
+    return words
+
+
+def workspace(device) -> Optional[torch.Tensor]:
+    """The device's workspace tensor (None before the first launch)."""
+    return _workspaces.get(torch.device(device))
+
+
+def _workspace(device: torch.device, words: int) -> torch.Tensor:
+    """The device's workspace, grown to hold ``words`` (a new zeroed
+    tensor on the current stream, at least twice the old one's size).
+    Growing is refused during a CUDA graph capture, whose allocation would
+    belong to the graph."""
+    ws = _workspaces.get(device)
+    if ws is None or ws.numel() < words:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"channel_norms: the workspace holds "
+                f"{0 if ws is None else ws.numel()} words and the table "
+                f"needs {words}; size it before a CUDA graph capture (run "
+                f"the captured function once first)")
+        size = max(words, 1 if ws is None else 2 * ws.numel())
+        ws = torch.zeros(size, dtype=torch.int32, device=device)
+        _workspaces[device] = ws
+    return ws
 
 
 def _slot_shape(g: torch.Tensor) -> Tuple[int, int, int]:
@@ -95,8 +126,8 @@ def channel_norms_leaves(gs: Sequence[torch.Tensor]
     CUDA: one launch, the outputs views of one allocation; deterministic
     (no float atomics: two launches on the same input are bitwise equal,
     and slot s of a slot-stacked leaf is bitwise a one-slot launch on
-    it).  A table whose slots need more partials or tickets than the
-    library holds raises ``ValueError``.
+    it).  The device's workspace grows to the table first
+    (``workspace_words``).
     """
     global launches
     if not 0 < len(gs) <= MAX_LEAVES:
@@ -109,7 +140,6 @@ def channel_norms_leaves(gs: Sequence[torch.Tensor]
         raise ValueError("channel_norms: every leaf must be on one device")
     if any(g.dtype != dtype for g in gs):
         raise TypeError("channel_norms takes one dtype a table")
-    _check_scratch(gs)
     if device.type == "cpu":
         return [channel_norms_plain(g) for g in gs]
     if device.type != "cuda":
@@ -130,12 +160,14 @@ def channel_norms_leaves(gs: Sequence[torch.Tensor]
                    (row.view(s, m), col.view(s, n)))
         words += [g.data_ptr(), s, m, n, base + 4 * r_at, base + 4 * c_at]
     table = array("q", words)
+    ws = _workspace(device, workspace_words(gs))
     lib = build.libraries()["channel_norm"]
     build.check(lib.channel_norms_launch(
-        table.buffer_info()[0], len(gs), DTYPES[dtype],
-        torch.cuda.current_stream(device).cuda_stream),
+        table.buffer_info()[0], len(gs), DTYPES[dtype], ws.data_ptr(),
+        ws.numel(), torch.cuda.current_stream(device).cuda_stream),
         "channel_norms kernel launch")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1               # recorded into a graph: not launched
     return out
 
 

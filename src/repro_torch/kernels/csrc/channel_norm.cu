@@ -36,18 +36,23 @@
 //   lanes.  Column sums within the tile: each thread adds its rows in row
 //   order, then the 16 row lanes add in order through shared memory.
 // - Across tiles, deterministic with no float atomics: a tile writes its
-//   row and column partials to persistent scratch and takes one ticket of
+//   row and column partials to the workspace and takes one ticket of
 //   its column strip and one of its row strip (two warps, at once).  The
 //   last tile to arrive in a column strip adds that strip's column
 //   partials in tile order (4 slices of the tiles, then the slices in
 //   order); the last to arrive in a row strip adds that strip's row
 //   partials in strip order.  The finish is parallel, one block a strip.
-// - No fence: a partial is stored as its bits inverted, so the scratch's
+// - No fence: a partial is stored as its bits inverted, so the workspace's
 //   zero means "not landed yet"; the last arrival reads a zero again until
 //   the store lands (it was issued before its tile took the ticket), and
 //   sets each partial and the ticket back to 0 once read.  No memset, no
 //   allocation, no second launch, and no fence, which would wait for the
 //   partials' stores before the ticket: a third trip to L2.
+// - The workspace (partials, then the column tickets, then the row
+//   tickets) is the caller's: a zeroed device buffer that each launch
+//   leaves zeroed, passed by pointer with its length, so a table of any
+//   number of slots takes one launch, and the pointer a CUDA graph
+//   captures stays valid for as long as the caller keeps the buffer.
 // - A leaf of one strip (N <= STRIP) writes its row norms straight from
 //   the tile, one of one tile row (M <= TILE_ROWS) its column norms.  Two
 //   launches on the same input give bitwise the same output: the scores
@@ -72,15 +77,13 @@ constexpr int FIN = 8;                          // finish loads in flight
 constexpr int SPIN_LIMIT = 1 << 24;             // re-reads of one partial
 constexpr int MAX_LEAVES = 16;
 constexpr int ROW_WORDS = 6;                    // int64 words a table row
-constexpr long long SCRATCH = 1LL << 22;        // floats of partials
-constexpr int MAX_TICKETS = 1 << 16;            // strips a launch, each kind
 
 struct Leaf {
   const void* g;            // (S, M, N)
   float* row;               // (S, M)
   float* col;               // (S, N)
-  long long colpart;        // offset in scratch: (S, row tiles, N) partials
-  long long rowpart;        // offset in scratch: (S, column strips, M)
+  long long colpart;        // offset in the partials: (S, row tiles, N)
+  long long rowpart;        // offset in the partials: (S, column strips, M)
   int M, N, S;
   int first;                // first block of the leaf in the grid
   int nrt, nct;             // tile rows, column strips (a slot)
@@ -88,17 +91,17 @@ struct Leaf {
   int vec;                  // 16-byte (bf16: 8-byte) loads of g
 };
 
+// The workspace's three parts.  Zero before a launch, and every launch
+// leaves them zero.  A partial p is stored as ~bits(p), so 0 stands for
+// "not written yet": no sum of squares has the bits 0xffffffff (a NaN
+// the card never computes).
 struct Table {
   Leaf leaf[MAX_LEAVES];
+  unsigned* scratch;        // partials
+  unsigned* col_tickets;
+  unsigned* row_tickets;
   int L;
 };
-
-// Zero when the library loads; every launch leaves them zero.  A partial
-// p is stored as ~bits(p), so 0 stands for "not written yet": no sum of
-// squares has the bits 0xffffffff (a NaN the card never computes).
-__device__ unsigned scratch[SCRATCH];
-__device__ unsigned col_tickets[MAX_TICKETS];
-__device__ unsigned row_tickets[MAX_TICKETS];
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -222,7 +225,8 @@ channel_norms_kernel(const Table t) {
     if (tx == 0 && r < lf.M) {
       if (lf.nct == 1) lf.row[r] = s;
       else
-        scratch[lf.rowpart + (long long)cs * lf.M + r] = ~__float_as_uint(s);
+        t.scratch[lf.rowpart + (long long)cs * lf.M + r] =
+            ~__float_as_uint(s);
     }
   }
 #pragma unroll
@@ -236,7 +240,8 @@ channel_norms_kernel(const Table t) {
     if (cc < lf.N) {
       if (lf.nrt == 1) lf.col[cc] = s;
       else
-        scratch[lf.colpart + (long long)rt * lf.N + cc] = ~__float_as_uint(s);
+        t.scratch[lf.colpart + (long long)rt * lf.N + cc] =
+            ~__float_as_uint(s);
     }
   }
   if (lf.nrt == 1 && lf.nct == 1) return;      // uniform across the block
@@ -247,8 +252,8 @@ channel_norms_kernel(const Table t) {
   if ((threadIdx.x & 31) == 0 && threadIdx.x < 64) {
     const int kind = threadIdx.x >> 5;          // 0: columns, 1: rows
     const int n = kind ? lf.nct : lf.nrt;
-    unsigned* tk = kind ? &row_tickets[lf.row_tk + rt]
-                        : &col_tickets[lf.col_tk + cs];
+    unsigned* tk = kind ? &t.row_tickets[lf.row_tk + rt]
+                        : &t.col_tickets[lf.col_tk + cs];
     int is_last = 0;
     if (n > 1 && atomicAdd(tk, 1u) == (unsigned)n - 1u) {
       *tk = 0u;                         // every tile of the strip is in
@@ -263,7 +268,7 @@ channel_norms_kernel(const Table t) {
     const int per = (lf.nrt + SLICES - 1) / SLICES;
     float s = 0.f;
     if (cc < lf.N)
-      s = take_in_order(scratch + lf.colpart + cc, lf.N, slice * per,
+      s = take_in_order(t.scratch + lf.colpart + cc, lf.N, slice * per,
                         min(lf.nrt, slice * per + per));
     col_sh[slice][threadIdx.x % STRIP] = s;   // free since the barrier
     __syncthreads();
@@ -277,7 +282,8 @@ channel_norms_kernel(const Table t) {
   if (last[1] && threadIdx.x < TILE_ROWS) {    // this strip's rows
     const int r = rt * TILE_ROWS + threadIdx.x;
     if (r < lf.M)
-      lf.row[r] = take_in_order(scratch + lf.rowpart + r, lf.M, 0, lf.nct);
+      lf.row[r] = take_in_order(t.scratch + lf.rowpart + r, lf.M, 0,
+                                lf.nct);
   }
 }
 
@@ -288,14 +294,15 @@ inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 // One launch over a table of L leaves (1 <= L <= MAX_LEAVES).  rows holds
 // ROW_WORDS int64 words a leaf: g, S, M, N, row, col — device pointers
 // but S, M and N; g is S contiguous (M, N) matrices, row gets S x M
-// floats, col S x N.  dtype: 0 = fp32, 1 = bf16, for every leaf.  The
-// table's partials must fit the library's scratch (SCRATCH floats: a
-// slot of more than one tile row takes row tiles x N, one of more than
-// one column strip column strips x M) and its strips the tickets
-// (MAX_TICKETS of each kind: S x column strips, S x tile rows).  Two
-// launches must not run at once (the scratch and the tickets are the
-// library's): keep them on one stream.  Returns a cudaError_t.
+// floats, col S x N.  dtype: 0 = fp32, 1 = bf16, for every leaf.  ws is
+// the workspace, ws_words 32-bit words, zero: the partials (a slot of
+// more than one tile row takes row tiles x N, one of more than one column
+// strip column strips x M), then a ticket for each column strip and for
+// each tile row of such slots; a table that needs more returns
+// cudaErrorInvalidValue.  Two launches must not share a workspace at
+// once: keep them on one stream.  Returns a cudaError_t.
 extern "C" int channel_norms_launch(const long long* rows, int L, int dtype,
+                                    void* ws, long long ws_words,
                                     void* stream) {
   if (L <= 0 || L > MAX_LEAVES || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -327,21 +334,25 @@ extern "C" int channel_norms_launch(const long long* rows, int L, int dtype,
     if (lf.nrt > 1) {
       lf.colpart = used;
       used += S * lf.nrt * N;
-      if (col_tk + S * lf.nct > MAX_TICKETS)
+      if (col_tk + S * lf.nct > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
       col_tk += (int)(S * lf.nct);
     }
     if (lf.nct > 1) {
       lf.rowpart = used;
       used += S * lf.nct * M;
-      if (row_tk + S * lf.nrt > MAX_TICKETS)
+      if (row_tk + S * lf.nrt > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
       row_tk += (int)(S * lf.nrt);
     }
     blocks += S * lf.nrt * lf.nct;
-    if (used > SCRATCH || blocks > 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   }
+  const long long words = used + col_tk + row_tk;
+  if (words > ws_words || (words && !ws)) return (int)cudaErrorInvalidValue;
+  t.scratch = static_cast<unsigned*>(ws);
+  t.col_tickets = t.scratch + used;
+  t.row_tickets = t.col_tickets + col_tk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     channel_norms_kernel<float><<<(unsigned)blocks, THREADS, 0, s>>>(t);

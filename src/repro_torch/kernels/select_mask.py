@@ -34,7 +34,9 @@ the hand-written Hopper kernel or raise.  A table past what one launch
 takes (``MAX_LEAVES`` leaves, ``MAX_SLOTS`` (leaf, slot) pairs) raises
 ``ValueError`` on either device.
 ``mask_launches``, ``compact_count_launches`` and
-``compact_scatter_launches`` count kernel launches only.
+``compact_scatter_launches`` count kernel launches only: a
+``select_mask_leaves`` call under CUDA graph capture records its launch
+into the graph and is not counted (the graph's replays launch it).
 """
 from __future__ import annotations
 
@@ -252,7 +254,8 @@ def select_mask_leaves(leaves: Sequence[Leaf]
         table.buffer_info()[0], len(leaves), DTYPES[dtype],
         base + counts_at, _stream(device)), "select_mask kernel launch")
     counts = buf.view(torch.int32)[counts_at // 4:counts_at // 4 + pairs]
-    mask_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        mask_launches += 1          # recorded into a graph: not launched
     return outs, masks, counts
 
 

@@ -6,6 +6,7 @@ so weights move across as numpy arrays and tests compare like with like.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -26,5 +27,6 @@ def to_numpy(params: Sequence[dict]) -> Tuple[dict, ...]:
 
 
 def num_params(params: Sequence[dict]) -> int:
-    return sum(int(layer["w"].numel()) + int(layer["b"].numel())
+    """Parameter count, from the leaves' shapes only."""
+    return sum(math.prod(layer["w"].shape) + math.prod(layer["b"].shape)
                for layer in params)

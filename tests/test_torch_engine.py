@@ -159,12 +159,13 @@ def test_slot_plain_forms_are_per_slot_calls_bitwise(s_count):
 
 
 def test_slot_wrappers_refuse_past_their_limits():
-    """A slot table past what one launch takes raises ValueError naming
-    the limit — no chunking into several launches; the scatter has no
-    limit of its own."""
-    with pytest.raises(ValueError, match="SCRATCH"):
-        cn._check_scratch([torch.empty(300, 2917, 256, device="meta")])
-    cn._check_scratch([torch.empty(200, 2917, 256, device="meta")])
+    """K2 and K3's count take at most MAX_SLOTS (leaf, slot) pairs a
+    launch and refuse more with ValueError (their callers split a bigger
+    round into groups); the scatter has no limit of its own, and K1 has
+    none either: 300 slots at the paper's widths need more than the 2^22
+    words of partials the library once held, and size its workspace."""
+    assert cn.workspace_words(
+        [torch.empty(300, 2917, 256, device="meta")]) > 1 << 22
     leaf = (torch.zeros(sm.MAX_SLOTS + 1, 2, 2), torch.zeros(2),
             torch.zeros(2), 0.0, 0.0)
     with pytest.raises(ValueError, match="MAX_SLOTS"):
@@ -332,29 +333,58 @@ def test_batched_fedavg_round_matches_reference():
                 np.testing.assert_allclose(lg[k], lw[k], atol=1e-5, rtol=0)
 
 
-def test_batched_round_past_the_channel_norm_scratch_is_refused(
-        monkeypatch):
-    """The default engine scores a round in one channel_norm launch: a
-    round whose slots' partials pass the kernel's scratch raises
-    ValueError naming SCRATCH (on the CPU as on the card), and a round
-    within it runs."""
-    c = ref_cohort(num_admissions=1200, num_medicines=200, seed=0)
-    shards = ref_split(c.x_train, c.y_train, 5, seed=0)
-    p0 = from_numpy(np_tree(init_mlp((200, 16, 8, 1),
-                                     jax.random.PRNGKey(0))), "cpu")
-    eng = engine.BatchedEngine(shards, 64, 1, "cpu")
-    # W0 (200, 16) spans 3 row tiles: 3 x 16 floats of partials a slot
-    monkeypatch.setattr(cn, "SCRATCH", 2 * 3 * 16)
+def _same_payloads(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys == w.keys
+        for a, b in zip(g.layers, w.layers):
+            assert (a.codec, a.nnz, a.nbytes) == (b.codec, b.nnz, b.nbytes)
+            np.testing.assert_array_equal(a.values, b.values)
+            for f in ("idx", "bitmap"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert (x is None) == (y is None)
+                if x is not None:
+                    np.testing.assert_array_equal(x, y)
 
-    def round_of(part):
-        perms = [epoch_perms(jax.random.PRNGKey(int(k)), eng.perm_length(k),
-                             1) for k in part]
-        return eng.scbf_round(p0, np.asarray(part), 0.01, perms,
-                              tcfg.ScbfConfig())
 
-    assert len(round_of([0, 1])[0]) == 2           # 2 slots: 96 floats
-    with pytest.raises(ValueError, match="SCRATCH"):
-        round_of([0, 1, 2])                        # a bucket of 4 slots
+@pytest.mark.parametrize("dp", [0.0, 0.5], ids=["no-dp", "dp"])
+def test_batched_round_past_the_old_slot_caps_runs(monkeypatch, dp):
+    """A round of more (leaf, slot) pairs than one K2 or K3 launch takes
+    runs, split into groups of slots (MAX_SLOTS cut to 4 here: 6 slots x 3
+    weight leaves are 6 groups of one slot).  The split round is bitwise
+    the round in one group, and on a slot-stacked delta the split
+    selection and encoder give each slot bitwise what one-slot calls give:
+    masked delta, masks, payload and upload stats."""
+    shards = _shards("iid") + _shards("iid")[:1]      # 6 clients
+    p0 = from_numpy(np_tree(init_mlp(FEATS, jax.random.PRNGKey(0))), "cpu")
+    eng = engine.BatchedEngine(shards, 64, 1, "cpu", bucket="exact")
+    cfg = tcfg.ScbfConfig(upload_rate=0.15, dp_noise_multiplier=dp)
+    shapes = [tuple(p0[l][k].shape) for l, k in wire.flat_keys(p0)]
+    rng = np.random.default_rng(3)
+    part = np.arange(6)
+    perms = [[rng.permutation(eng.perm_length(k))] for k in part]
+    noise = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in part]
+    whole, whole_stats = eng.scbf_round(p0, part, 0.01, perms, cfg,
+                                        noise=noise)
+    monkeypatch.setattr(sm, "MAX_SLOTS", 4)
+    assert channels.slot_groups(6, 3) == [(k, k + 1) for k in range(6)]
+    split, split_stats = eng.scbf_round(p0, part, 0.01, perms, cfg,
+                                        noise=noise)
+    _same_payloads(split, whole)
+    assert split_stats == whole_stats
+    g = _slot_delta(6, seed=11)
+    masked, masks, _, ops = selection.select_gradients(g, 0.2)
+    payloads = wire.encode_round(masked, ops, 6)
+    stats = selection.UploadStats.from_slot_masks(masks, 6)
+    for k in range(6):
+        m1, k1, _, o1 = selection.select_gradients(_slot_of(g, k), 0.2)
+        for a, b in zip(_slot_of(masked, k), m1):
+            assert all(torch.equal(a[n], b[n]) for n in b)
+        for a, b in zip(_slot_of(masks, k), k1):
+            assert all(torch.equal(a[n], b[n]) for n in b)
+        _same_payloads([payloads[k]], [wire.encode(m1)])
+        assert stats[k] == selection.UploadStats.from_masks(k1)
 
 
 def test_empty_round_launches_nothing():

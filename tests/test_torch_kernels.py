@@ -453,9 +453,25 @@ def test_table_wrappers_refuse_what_a_launch_does_not_take(bad):
     assert cn.launches == 0 and az.launches == 0
 
 
-def test_channel_norms_refuses_a_table_beyond_its_scratch():
-    """The launch's partials live in the library's fixed scratch: a table
-    that needs more is refused before it is launched."""
-    cn._check_scratch([torch.empty(2917, 256, device="meta")])
-    with pytest.raises(ValueError, match="partials"):
-        cn._check_scratch([torch.empty(2 ** 14, 2 ** 14, device="meta")])
+def test_channel_norms_refuses_a_table_beyond_its_scratch(monkeypatch):
+    """The launch's partials and tickets live in a workspace the wrapper
+    owns: a table beyond the fixed scratch the library once held (2^22
+    floats) is no longer refused; the device's workspace grows to it (a
+    new zeroed tensor, at least twice the old size), a smaller table
+    reuses it, and an outgrown one is not kept by the wrapper."""
+    one = cn.workspace_words([torch.empty(2917, 256, device="meta")])
+    assert one == 31 * 256 + 4 + 4 * 2917 + 31       # partials + tickets
+    big = [torch.empty(2 ** 14, 2 ** 14, device="meta")]
+    assert cn.workspace_words(big) > 1 << 22
+    assert cn.workspace_words([torch.empty(64, 1, device="meta")]) == 0
+    dev = torch.device("meta")
+    monkeypatch.setattr(cn, "_workspaces", {})
+    ws = cn._workspace(dev, one)
+    assert ws.numel() == one and ws.dtype == torch.int32
+    assert cn._workspace(dev, 10) is ws and cn.workspace(dev) is ws
+    grown = cn._workspace(dev, cn.workspace_words(big))
+    assert grown is not ws and grown.numel() == cn.workspace_words(big)
+    assert cn.workspace(dev) is grown
+    doubled = cn._workspace(dev, grown.numel() + 1)
+    assert doubled.numel() == 2 * grown.numel()
+    assert cn._workspace(dev, grown.numel() + 1) is doubled

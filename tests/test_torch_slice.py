@@ -160,19 +160,35 @@ def test_device_none_without_cuda_raises():
     dict(fed=tcfg.FedConfig(pods=2)),
     dict(debug_checks=True),
     dict(obs=tcfg.ObsConfig(device_metrics=True)),
-    dict(fed=tcfg.FedConfig(fuse_rounds=4)),
     dict(fed=tcfg.FedConfig(mode="fedbuff")),
     dict(fed=tcfg.FedConfig(clock=tcfg.ClockConfig(enabled=True))),
     dict(fed=tcfg.FedConfig(faults=tcfg.FaultConfig(enabled=True))),
     dict(fed=tcfg.FedConfig(max_update_norm=1.0)),
     dict(fed=tcfg.FedConfig(min_valid_participants=2)),
-], ids=["pods", "debug_checks", "device_metrics", "fused", "fedbuff",
+], ids=["pods", "debug_checks", "device_metrics", "fedbuff",
         "clock", "faults", "admission", "quorum"])
 def test_out_of_slice_configs_refused(change):
     cohort = generate_cohort(num_admissions=200, num_medicines=16, seed=0)
     cfg = tcfg.TrainConfig(global_loops=1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_federated(cohort, cfg, mlp_features=(16, 8, 4, 1), device="cpu")
+
+
+@pytest.mark.parametrize("fuse", [0, -2])
+def test_fuse_rounds_below_one_raises_value_error(fuse):
+    """Both packages refuse ``fuse_rounds < 1`` with the reference's
+    ValueError, before anything runs."""
+    with pytest.raises(ValueError, match="fuse_rounds must be >= 1"):
+        ref_run(ref_cohort(num_admissions=200, num_medicines=16, seed=0),
+                RefTrainConfig(global_loops=1,
+                               fed=RefFedConfig(fuse_rounds=fuse)),
+                mlp_features=(16, 8, 4, 1))
+    with pytest.raises(ValueError, match="fuse_rounds must be >= 1"):
+        run_federated(generate_cohort(num_admissions=200, num_medicines=16,
+                                      seed=0),
+                      tcfg.TrainConfig(global_loops=1,
+                                       fed=tcfg.FedConfig(fuse_rounds=fuse)),
+                      mlp_features=(16, 8, 4, 1), device="cpu")
 
 
 def test_mask_pruning_with_fedavg_raises_in_both_packages():
