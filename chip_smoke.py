@@ -69,21 +69,34 @@ its own failure:
    and its emission apart: busy share, copies, top kernels; its kernel
    events must show K1 and K2 once a replay) and over one
    per-round SCBFwP mask loop (with the host seconds of its parts).
-6. C1 — one batched round of 256 participants at the paper's widths
+6. cross-device at full width — FedBuff of 50 IID clients (concurrency
+   20, buffer 10, stragglers 0.2, dropout 0.05): SCBF 6 rounds and
+   mask-mode SCBFwP 4 rounds, K1, K2 and K3's count once a round whose
+   participants start from different stale versions, one
+   ``fedbuff_flush`` a full buffer; the storm (every fault kind, 5
+   clients, the reject gate at ``MAX_UPDATE_NORM``) 6 loops per round
+   and fused at ``fuse_rounds`` = 2, bitwise equal with the same
+   rejection counters, a rejection each of checksum, duplicate,
+   nonfinite and norm, one capture, the honest updates' norms and the
+   CRC-32's host cost a round; deadline drop and spill at quantile 0.8,
+   4 loops each; a quorum of 4 that retries.  Its lines start with
+   ``cross-device:``.
+7. C1 — one batched round of 256 participants at the paper's widths
    (the cohort split 256 ways, batch 32): one launch each of K1 (its
    workspace past the 2^22 words the library once held), K2 and K3's
    count, and every slot's selection and encoding bitwise its one-slot
    calls.
-7. profile — torch.profiler over one more full-width loop of SCBF on
+8. profile — torch.profiler over one more full-width loop of SCBF on
    each engine and of SCBFwP: the device's busy share, the host-device
    copies and the kernels that take its time.
-8. small-input agreement — SCBF, SCBF with DP (normals injected) and
+9. small-input agreement — SCBF, SCBF with DP (normals injected) and
    SCBFwP (mask, compacted) on the batched engine, SCBFwP (mask,
-   compacted) on the sequential one, and fused SCBF with DP and fused
-   SCBFwP (mask, compacted), on cuda and on the CPU (whose plain path the
-   CPU tests hold against the JAX reference), from the same initial
-   weights and permutations.
-9. the card line, the kernel report line and the final ok line.
+   compacted) on the sequential one, fused SCBF with DP and fused
+   SCBFwP (mask, compacted), FedBuff, and the storm per round and
+   fused, on cuda and on the CPU (whose plain path the CPU tests hold
+   against the JAX reference), from the same initial weights and
+   permutations; the rejection counters and flushes equal.
+10. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -95,6 +108,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -119,13 +133,29 @@ DIR_LOOPS = 3
 FLUSH_BYTES = 256 << 20               # written between timed calls: > L2
 FUSE_LOOPS, FUSE = 4, 2               # the fused SCBF run: 2 chunks of 2
 BIG_ROUND, BIG_BATCH = 256, 32        # C1: one round of 256 participants
+# the cross-device phase: FedBuff of 50 IID hospitals (~615 rows each),
+# the every-fault storm at 5 clients under the reject gate, the clock and
+# a round quorum
+XD_CLIENTS, XD_ROUNDS, XD_WP_ROUNDS = 50, 6, 4
+XD_FEDBUFF = dict(mode="fedbuff", concurrency=20, buffer_size=10,
+                  straggler_rate=0.2, dropout_rate=0.05)
+STORM = dict(enabled=True, seed=7, crash_rate=0.15, net_fail_rate=0.15,
+             duplicate_rate=0.2, bitflip_rate=0.15, nan_rate=0.15,
+             poison_rate=0.15)
+STORM_LOOPS = 6
+# the reject gate's bound: 41x the largest honest update norm the storm
+# phase measured at full width on an H100 (0.0241); a poisoned update is
+# 16x the bound
+MAX_UPDATE_NORM = 1.0
+CLOCK_LOOPS, DEADLINE_Q = 4, 0.8
+QUORUM_LOOPS = 3
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+def cuda_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     """Mean device milliseconds per call, by CUDA events over ``iters``."""
     import torch
     for _ in range(warmup):
@@ -570,7 +600,7 @@ def check_apoz(torch, gen) -> float:
     return 0.0
 
 
-def device_us(torch, fn, names, launches: int, iters: int = 50,
+def device_us(torch, fn, names, launches: int, iters: int = 20,
               flush: bool = False) -> tuple:
     """(device µs per call in the kernels whose names hold one of
     ``names``, device µs per call in memsets), from torch.profiler over
@@ -858,6 +888,7 @@ def time_kernels(torch, gen, errs: dict) -> list:
 
 
 def phase_kernels(torch) -> list:
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
     errs = {}
     errs["channel_norm"], errs["select_mask"] = \
@@ -869,6 +900,7 @@ def phase_kernels(torch) -> list:
     errs["channel_norm"] = max(errs["channel_norm"],
                                check_slot_tables(torch, gen))
     errs["apoz"] = check_apoz(torch, gen)
+    log(f"kernels vs plain: checked in {time.perf_counter() - t0:.1f}s")
     return time_kernels(torch, gen, errs)
 
 
@@ -1340,12 +1372,16 @@ class ChunkTap:
                            schedule=schedule(wait=0, warmup=1, active=1)) \
                 if i == tap.profile else None
             if prof is not None:
-                # a warm-up step first: a window's first device activity
-                # can go unrecorded when tracing has just started
+                # a warm-up step first, and a first kernel of the active
+                # step that is none of ours: a window's first device
+                # activity can go unrecorded when tracing has just started
+                # or stepped (the emission's first kernel was lost so)
                 prof.start()
                 torch.ones(1, device="cuda").add_(1)
                 torch.cuda.synchronize()
                 prof.step()
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             if i == tap.guard and name != "emit_fused_payloads":
                 torch.cuda.set_sync_debug_mode("error")
@@ -1682,6 +1718,210 @@ def mask_loop_profile(torch, cohort, card, cfg, feats) -> None:
         "host_s": parts, **_window(_device_events(prof), wall)}))
 
 
+def _round_events(rec) -> list:
+    return [e for e in rec.events if e["ev"] == "round"]
+
+
+def _rejections(rec) -> dict:
+    return {k: v for k, v in sorted(rec.counters.items())
+            if k.startswith(("rejected_", "payloads_", "rounds_",
+                             "quorum_"))}
+
+
+def _verdicts(rec) -> dict:
+    """The rejection counters with a bit flip's two verdicts merged: the
+    flipped byte's position depends on the payload's size, and a flip in
+    a length or index field is ``malformed`` where one in a value is
+    ``checksum`` (the reference's oracle accepts either)."""
+    out = _rejections(rec)
+    out["rejected_bitflip"] = out.pop("rejected_checksum", 0) + \
+        out.pop("rejected_malformed", 0)
+    return out
+
+
+def _payload_norm(payload) -> float:
+    """The admission gate's L2 norm of one payload (float64 sum)."""
+    import numpy as np
+    return float(np.sqrt(sum(float(np.sum(np.square(
+        np.asarray(lp.values), dtype=np.float64))) for lp in payload.layers)))
+
+
+def phase_cross_device(torch, cohort, card: str, runs: dict) -> None:
+    """The cross-device scenarios at full width (the cohort of the main
+    path, MLP 2917-256-64-1, batched engine), each run with the launch
+    counts set to 0 before it and read after it, and its flight-recorder
+    events:
+
+    - FedBuff: 50 IID clients, concurrency 20, buffer 10, stragglers 0.2,
+      dropout 0.05, SCBF 6 rounds, then mask-mode SCBFwP 4 rounds: K1,
+      K2 and K3's count once a round (a round whose participants start
+      from different stale versions among them), one ``fedbuff_flush``
+      a full buffer, K4 once a validation batch of a prune step;
+    - the storm (every fault kind at once, 5 clients, the reject gate at
+      ``MAX_UPDATE_NORM``) for 6 loops per round and fused at
+      ``fuse_rounds`` = 2: final weights bitwise equal, the same
+      rejection counters, a rejection each of checksum, duplicate,
+      nonfinite and norm, one capture; the honest payloads' norms (all
+      below the bound) and the host cost of sealing a round's payloads
+      (CRC-32) logged;
+    - the simulated clock: deadline ``drop`` and ``spill`` at quantile
+      0.8, 4 loops each (spill delivers a late upload trained from an
+      earlier round's model);
+    - a round quorum of 4 with crash rate 0.3: at least one
+      ``round_retried``."""
+    import numpy as np
+
+    from repro_torch.comm import wire
+    from repro_torch.config import (ClockConfig, FaultConfig, FedConfig,
+                                    ScbfConfig, TrainConfig)
+    from repro_torch.core.scbf import run_federated
+    from repro_torch.fed import graphs
+    from repro_torch.obs import Recorder, recording
+
+    feats = (cohort.num_features, 256, 64, 1)
+    wp = dict(prune=True, prune_rate=PRUNE_RATE, prune_total=PRUNE_TOTAL,
+              prune_impl="mask")
+
+    def xlog(msg: str) -> None:
+        log(f"cross-device: {msg}")
+
+    def cfg(loops, clients=K_CLIENTS, scbf=None, **fed):
+        return TrainConfig(learning_rate=0.05 / K_CLIENTS,
+                           global_loops=loops, local_epochs=2,
+                           local_batch_size=256, seed=0,
+                           scbf=ScbfConfig(upload_rate=0.10,
+                                           num_clients=clients,
+                                           **(scbf or {})),
+                           fed=FedConfig(**fed))
+
+    def run(label, c, prune_steps=0):
+        rec = Recorder()
+        graphs.reset_captures()
+        with RoundTap() as tap, recording(recorder=rec):
+            _reset_launches()
+            res = run_federated(cohort, c, method="scbf",
+                                mlp_features=feats, device="cuda")
+            counts = _launch_counts()
+        runs[label] = (res, counts, [])
+        for r, e in zip(res.records, _round_events(rec)):
+            xlog(f"[{label}] loop {r.loop} clients={r.num_participants} "
+                f"staleness_mean={e['staleness_mean']:.3f} "
+                f"staleness_max={e['staleness_max']} "
+                f"deadline_s={e.get('deadline_s')} "
+                f"spilled={e.get('spilled')} auc_roc={r.auc_roc:.4f} "
+                f"sparse_bytes={r.sparse_bytes} "
+                f"hidden={'x'.join(map(str, r.hidden_sizes))} "
+                f"wall_s={r.wall_time:.4f} amortized={r.wall_is_amortized} "
+                f"({card})")
+        xlog(f"[{label}] kernel launches {counts}, captures "
+            f"{graphs.captures}, counters {_rejections(rec)}")
+        for r in res.records:
+            for v in (r.auc_roc, r.auc_pr):
+                if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+                    raise AssertionError(f"{label} loop {r.loop}: AUC {v}")
+        for layer in res.final_params:
+            for v in layer.values():
+                if v.device.type != "cuda" or not torch.isfinite(v).all():
+                    raise AssertionError(f"{label}: final params not "
+                                         "finite on cuda")
+        if not c.fed.fuse_rounds > 1:
+            units = len(tap.units())
+            want = {"channel_norm": units, "select_mask": units,
+                    "select_compact_count": units,
+                    "select_compact_scatter": tap.scatter_units(),
+                    "apoz": prune_steps * VAL_BATCHES}
+            if counts != want:
+                raise AssertionError(f"{label} kernel launches {counts}, "
+                                     f"want {want}")
+        return res, rec, tap
+
+    # ---- FedBuff: hospitals report when their local job finishes ----
+    for label, loops, scbf in (("fedbuff", XD_ROUNDS, None),
+                               ("fedbuff_scbfwp_mask", XD_WP_ROUNDS, wp)):
+        res, rec, tap = run(label, cfg(loops, XD_CLIENTS, scbf,
+                                       **XD_FEDBUFF),
+                            prune_steps=loops if scbf else 0)
+        rounds = _round_events(rec)
+        mixed = [e["loop"] for e in rounds if e["participants"] > 1
+                 and e["staleness_mean"] < e["staleness_max"]]
+        if not mixed:
+            raise AssertionError(f"{label}: no round trained from mixed "
+                                 "stale versions")
+        flushes = [e for e in rec.events if e["ev"] == "fedbuff_flush"]
+        uploads = sum(e["participants"] for e in rounds)
+        if len(flushes) != uploads // XD_FEDBUFF["buffer_size"] or any(
+                f["buffered"] != XD_FEDBUFF["buffer_size"] for f in flushes):
+            raise AssertionError(f"{label}: {len(flushes)} flushes for "
+                                 f"{uploads} uploads")
+        slots = [r["slots"] for r in tap.rounds]
+        xlog(f"[{label}] rounds from mixed stale versions {mixed} (one K1, "
+            f"K2 and K3 count launch each), {len(flushes)} flushes of "
+            f"{XD_FEDBUFF['buffer_size']} for {uploads} uploads, slots a "
+            f"round {slots}, versions "
+            f"{[f['version'] for f in flushes]} ({card})")
+
+    # ---- the storm: per round and fused, under the reject gate ----
+    storm = dict(faults=FaultConfig(**STORM),
+                 max_update_norm=MAX_UPDATE_NORM)
+    per, per_rec, per_tap = run("storm", cfg(STORM_LOOPS, **storm))
+    fused, fused_rec, _ = run("storm_fused", cfg(STORM_LOOPS, fuse_rounds=2,
+                                                  **storm))
+    if graphs.captures != 1:
+        raise AssertionError(f"storm fused: {graphs.captures} captures")
+    if not all(torch.equal(a[k], b[k]) for a, b in
+               zip(per.final_params, fused.final_params) for k in a):
+        raise AssertionError("storm: fused weights differ from per-round")
+    if _rejections(per_rec) != _rejections(fused_rec):
+        raise AssertionError(f"storm counters {_rejections(per_rec)} != "
+                             f"fused {_rejections(fused_rec)}")
+    reasons = {e["reason"] for e in per_rec.events
+               if e["ev"] == "payload_rejected"}
+    if not {"checksum", "duplicate", "nonfinite", "norm"} <= reasons:
+        raise AssertionError(f"storm rejected only {sorted(reasons)}")
+    honest = [_payload_norm(p) for unit in per_tap.units() for p in unit]
+    if max(honest) >= MAX_UPDATE_NORM:
+        raise AssertionError(f"an honest update's norm {max(honest)} is "
+                             f"past the bound {MAX_UPDATE_NORM}")
+    seal_ms = []
+    for unit in per_tap.units():
+        t0 = time.perf_counter()
+        for i, p in enumerate(unit):
+            wire.seal(p, i, 0)
+        seal_ms.append((time.perf_counter() - t0) * 1e3)
+    mb = [sum(p.nbytes for p in unit) / 1e6 for unit in per_tap.units()]
+    xlog("storm " + json.dumps({
+        "card": card, "bitwise_fused_vs_per_round": True,
+        "counters": _rejections(per_rec), "reasons": sorted(reasons),
+        "honest_norm_min": min(honest),
+        "honest_norm_median": float(np.median(honest)),
+        "honest_norm_max": max(honest), "max_update_norm": MAX_UPDATE_NORM,
+        "seal_ms_a_round": seal_ms, "payload_mb_a_round": mb,
+        "loop_wall_s": [r.wall_time for r in per.records],
+        "fused_loop_wall_s": [r.wall_time for r in fused.records]}))
+
+    # ---- the simulated clock: deadline drop and spill ----
+    for action in ("drop", "spill"):
+        res, rec, _ = run(f"clock_{action}", cfg(
+            CLOCK_LOOPS, clock=ClockConfig(enabled=True,
+                                           deadline_quantile=DEADLINE_Q,
+                                           deadline_action=action)))
+        rounds = _round_events(rec)
+        if not all(e.get("deadline_s", 0) > 0 for e in rounds) or \
+                not any(e["participants"] < K_CLIENTS for e in rounds):
+            raise AssertionError(f"clock {action}: no deadline cut")
+        late = [e["loop"] for e in rounds if e["staleness_max"] > 0]
+        if (action == "spill") != bool(late):
+            raise AssertionError(f"clock {action}: late arrivals {late}")
+
+    # ---- a round quorum that needs a retry ----
+    res, rec, _ = run("quorum", cfg(QUORUM_LOOPS, faults=FaultConfig(
+        enabled=True, seed=0, crash_rate=0.3), min_valid_participants=4,
+        round_retries=3))
+    if not rec.counters.get("rounds_retried", 0) or \
+            rec.counters.get("quorum_misses", 0):
+        raise AssertionError(f"quorum: counters {_rejections(rec)}")
+
+
 def phase_big_round(torch, cohort, card: str) -> None:
     """C1 on the card: one batched round of 256 participants at the
     paper's widths (the cohort split 256 ways, batch 32), past the 2^22
@@ -1786,7 +2026,7 @@ def phase_profile(torch, cohort, card: str) -> None:
                           scbf=ScbfConfig(upload_rate=0.10,
                                           num_clients=K_CLIENTS, **scbf),
                           fed=FedConfig(engine=engine))
-        run_federated(cohort, cfg, mlp_features=feats, device="cuda")  # warm
+        # no warm-up run: the main path ran this configuration already
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1833,14 +2073,17 @@ def phase_agreement(torch):
     """cuda run == cpu run of the port on one small input, same draws, on
     the batched engine: SCBF, SCBF with DP (normals injected) and SCBFwP
     in mask mode with compaction, per round and fused (captured rounds on
-    cuda, eager on the CPU); and SCBFwP in mask mode with compaction on
-    the sequential engine."""
+    cuda, eager on the CPU); SCBFwP in mask mode with compaction on the
+    sequential engine; FedBuff, and the storm per round and fused (the
+    same rejection counters and flushes on both devices)."""
     import numpy as np
 
-    from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
+    from repro_torch.config import (FaultConfig, FedConfig, ScbfConfig,
+                                    TrainConfig)
     from repro_torch.core.scbf import run_federated
     from repro_torch.data.medical import federated_split, generate_cohort
     from repro_torch.models.mlp_net import init_mlp
+    from repro_torch.obs import Recorder, recording
     from repro_torch.params import to_numpy
 
     feats, k, loops = (64, 32, 16, 1), 3, 3
@@ -1857,23 +2100,40 @@ def phase_agreement(torch):
 
     wp_mask = dict(prune=True, prune_rate=0.25, prune_total=0.4,
                    prune_impl="mask", prune_compact=True)
-    for label, scbf, engine, fuse in (
-            ("scbf", {}, "batched", 1), ("scbf_dp", DP, "batched", 1),
-            ("scbfwp_mask", wp_mask, "batched", 1),
-            ("scbfwp_mask_sequential", wp_mask, "sequential", 1),
-            ("scbf_dp_fused", DP, "batched", loops),
-            ("scbfwp_mask_fused", wp_mask, "batched", 2)):
+    fedbuff = dict(mode="fedbuff", concurrency=3, buffer_size=2,
+                   straggler_rate=0.3)
+    storm = dict(faults=FaultConfig(**STORM), max_update_norm=100.0)
+    for label, scbf, engine, fuse, fed in (
+            ("scbf", {}, "batched", 1, {}), ("scbf_dp", DP, "batched", 1, {}),
+            ("scbfwp_mask", wp_mask, "batched", 1, {}),
+            ("scbfwp_mask_sequential", wp_mask, "sequential", 1, {}),
+            ("scbf_dp_fused", DP, "batched", loops, {}),
+            ("scbfwp_mask_fused", wp_mask, "batched", 2, {}),
+            ("fedbuff", {}, "batched", 1, fedbuff),
+            ("storm", {}, "batched", 1, storm),
+            ("storm_fused", {}, "batched", 2, storm)):
         cfg = TrainConfig(learning_rate=0.05 / k, global_loops=loops,
                           local_batch_size=64, seed=0,
                           scbf=ScbfConfig(num_clients=k, **scbf),
-                          fed=FedConfig(engine=engine, fuse_rounds=fuse))
-        out = {}
+                          fed=FedConfig(engine=engine, fuse_rounds=fuse,
+                                        **fed))
+        out, recs = {}, {}
         for dev in ("cuda", "cpu"):
-            out[dev] = run_federated(cohort, cfg, method="scbf",
-                                     mlp_features=feats, device=dev,
-                                     init_params=init,
-                                     perms=lambda l, c, e: table[(l, c, e)],
-                                     dp_noise=normals)
+            recs[dev] = Recorder()
+            with recording(recorder=recs[dev]):
+                out[dev] = run_federated(
+                    cohort, cfg, method="scbf", mlp_features=feats,
+                    device=dev, init_params=init,
+                    perms=lambda l, c, e: table[(l, c, e)],
+                    dp_noise=normals)
+        if _verdicts(recs["cuda"]) != _verdicts(recs["cpu"]) or [
+                e["version"] for e in recs["cuda"].events
+                if e["ev"] == "fedbuff_flush"] != [
+                e["version"] for e in recs["cpu"].events
+                if e["ev"] == "fedbuff_flush"]:
+            raise AssertionError(f"{label} cuda vs cpu: counters "
+                                 f"{_rejections(recs['cuda'])} != "
+                                 f"{_rejections(recs['cpu'])} or flushes")
         same_bytes = all(a.sparse_bytes == b.sparse_bytes for a, b in
                          zip(out["cuda"].records, out["cpu"].records))
         for a, b in zip(out["cuda"].records, out["cpu"].records):
@@ -1892,7 +2152,8 @@ def phase_agreement(torch):
                                  f"by {diff}")
         log(f"cuda vs cpu ({label}, small input): final params max abs diff "
             f"{diff:.3g}, sparse bytes identical: {same_bytes}, hidden "
-            f"{out['cuda'].records[-1].hidden_sizes}")
+            f"{out['cuda'].records[-1].hidden_sizes}, counters "
+            f"{_rejections(recs['cuda'])}")
 
 
 def main() -> int:
@@ -1909,7 +2170,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; started in "
+        f"{time.perf_counter() - T_START:.1f}s")
     log(f"build: kernels built and loaded in {build.build_seconds():.1f}s")
     t0 = time.perf_counter()
     report = phase_kernels(torch)
@@ -1920,6 +2182,9 @@ def main() -> int:
     t0 = time.perf_counter()
     replayed = phase_fused(torch, cohort, card, runs)
     log(f"phase fused: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_cross_device(torch, cohort, card, runs)
+    log(f"phase cross-device: {time.perf_counter() - t0:.1f}s")
     for name, phase, args in (
             ("c1 round", phase_big_round, (torch, cohort, card)),
             ("profile", phase_profile, (torch, cohort, card)),
@@ -1955,6 +2220,7 @@ def main() -> int:
                  "device_us_single_leaf",
                  "encoder", "memset_us", "memset_us_single_leaf", "slots",
                  "pass")}}))
+    log(f"total: {time.perf_counter() - T_START:.1f}s")
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -19,12 +19,18 @@ model bytes crossing the network — as in the reference.  Where the
 reference keeps a JAX treedef, a ``Payload`` keeps its layer-key
 structure: ``(layer, name)`` pairs in the order JAX flattens a tuple of
 dicts (layers in order, keys sorted), so leaf i is the same leaf in both
-packages.  Integrity sealing and
-checksums come with the faults slice (ROADMAP A11).
+packages.  ``seal`` attaches the integrity envelope (``PayloadMeta``: a
+CRC-32 over the header fields and buffers, and the (client, round)
+nonce) that the server's admission gate checks
+(``fed.strategy.admit_payloads``); the buffers keep the reference's
+dtypes and layout (``idx`` int32, ``values`` fp32, ``bitmap`` uint8), so
+the same payload seals to the reference's checksum.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import zlib
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -104,11 +110,31 @@ class LayerPayload:
 
 
 @dataclass(frozen=True)
+class PayloadMeta:
+    """Integrity envelope of a sealed payload: ``checksum`` is the CRC-32
+    of ``payload_checksum``, computed when the sender seals it, and
+    ``(client_id, round_index)`` the nonce the server admits at most
+    once."""
+
+    client_id: int
+    round_index: int
+    checksum: int
+
+    @property
+    def nonce(self) -> Tuple[int, int]:
+        return (self.client_id, self.round_index)
+
+
+@dataclass(frozen=True)
 class Payload:
-    """One client's upload: its leaves in ``keys`` order."""
+    """One client's upload: its leaves in ``keys`` order.  ``meta`` is the
+    optional integrity envelope (``seal``); an unsealed payload still
+    passes structural validation but skips the checksum and dedup
+    gates."""
 
     keys: Tuple[Key, ...]
     layers: Tuple[LayerPayload, ...]
+    meta: Optional[PayloadMeta] = None
 
     @property
     def nbytes(self) -> int:
@@ -281,12 +307,17 @@ def _encode_slots(masked: Sequence[dict], operands: Sequence, a: int,
 
 
 def validate_layer(lp: LayerPayload, leaf_shape: Optional[Tuple[int, ...]]
-                   = None) -> None:
+                   = None, unique: bool = True) -> None:
     """Structural validation of one wire leaf; raises ``PayloadError``.
 
     Checks codec name, nnz against buffer sizes, index dtype and bounds
     ``[0, size)``, bitmap length and popcount, and (when ``leaf_shape``
     is given) the declared shape against the server's parameter leaf.
+    ``unique`` also refuses repeated coo indices, which ``apply_payloads``
+    needs; the admission gate validates with ``unique=False`` — the
+    reference's checks — so that a bit flip into a repeated index is
+    rejected by the checksum, as in the reference, and never reaches the
+    apply.
     """
     if lp.codec not in CODECS:
         raise PayloadError(f"unknown codec {lp.codec!r}")
@@ -322,7 +353,7 @@ def validate_layer(lp: LayerPayload, leaf_shape: Optional[Tuple[int, ...]]
             raise PayloadError(
                 f"coo index out of bounds: [{int(idx.min())}, "
                 f"{int(idx.max())}] not within [0, {size})")
-        if np.unique(idx).size != idx.size:
+        if unique and np.unique(idx).size != idx.size:
             raise PayloadError("coo indices repeat")
         return
     bitmap = lp.bitmap                                    # codec == bitmap
@@ -339,9 +370,11 @@ def validate_layer(lp: LayerPayload, leaf_shape: Optional[Tuple[int, ...]]
                            f"!= nnz {lp.nnz}")
 
 
-def validate_payload(payload: Payload, params=None) -> None:
+def validate_payload(payload: Payload, params=None,
+                     unique: bool = True) -> None:
     """Validate every leaf of a payload (``PayloadError`` on failure);
-    with ``params``, also the leaf count and shapes against them."""
+    with ``params``, also the leaf count and shapes against them
+    (``unique``: see ``validate_layer``)."""
     shapes = None
     if params is not None:
         keys = flat_keys(params)
@@ -352,9 +385,44 @@ def validate_payload(payload: Payload, params=None) -> None:
         shapes = [tuple(params[l][k].shape) for l, k in keys]
     for i, lp in enumerate(payload.layers):
         try:
-            validate_layer(lp, shapes[i] if shapes else None)
+            validate_layer(lp, shapes[i] if shapes else None, unique)
         except PayloadError as e:
             raise PayloadError(f"leaf {i}: {e}") from None
+
+
+def payload_checksum(payload: Payload) -> int:
+    """CRC-32 over every layer's header fields and wire buffers (the
+    reference's byte sequence)."""
+    crc = 0
+    for lp in payload.layers:
+        header = f"{lp.codec}|{tuple(lp.shape)}|{np.dtype(lp.dtype)}|" \
+                 f"{lp.nnz}".encode()
+        crc = zlib.crc32(header, crc)
+        if lp.idx is not None:
+            crc = zlib.crc32(np.ascontiguousarray(lp.idx), crc)
+        if lp.bitmap is not None:
+            crc = zlib.crc32(np.ascontiguousarray(lp.bitmap), crc)
+        crc = zlib.crc32(np.ascontiguousarray(lp.values), crc)
+    return crc
+
+
+def seal(payload: Payload, client_id: int, round_index: int) -> Payload:
+    """Attach the integrity envelope: checksum and (client, round) nonce.
+    The sender seals after any client-side fault and before the bytes
+    cross the network, so wire corruption is detectable and replays are
+    deduplicated by the server."""
+    meta = PayloadMeta(client_id=int(client_id),
+                       round_index=int(round_index),
+                       checksum=payload_checksum(payload))
+    return dataclasses.replace(payload, meta=meta)
+
+
+def verify_checksum(payload: Payload) -> bool:
+    """True iff the sealed checksum matches the buffers (an unsealed
+    payload has nothing to verify against: True)."""
+    if payload.meta is None:
+        return True
+    return payload_checksum(payload) == payload.meta.checksum
 
 
 def decode_leaf(lp: LayerPayload, device="cpu") -> torch.Tensor:

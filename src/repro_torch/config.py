@@ -41,7 +41,9 @@ class ScbfConfig:
 
 @dataclass(frozen=True)
 class ClockConfig:
-    """Simulated wall-clock model — ROADMAP A11 (not ported yet)."""
+    """Simulated wall-clock model (``fed.clock.SimClock``): per-client
+    lognormal latencies, diurnal availability and deadline cuts that drop
+    or spill."""
 
     enabled: bool = False
     compute_med_s: float = 10.0
@@ -59,7 +61,9 @@ class ClockConfig:
 
 @dataclass(frozen=True)
 class FaultConfig:
-    """Seeded fault injection — ROADMAP A11 (not ported yet)."""
+    """Seeded fault injection (``fed.faults.FaultInjector``): crashes,
+    network failures with retries, replays, bit flips, NaN and poisoned
+    updates."""
 
     enabled: bool = False
     seed: int = 0
@@ -95,7 +99,7 @@ class FedConfig:
     straggler_rate: float = 0.0      # P(client is slow this round)
     drop_stragglers: bool = True     # sync: stragglers miss the deadline
     # --- round scheduling mode ---
-    mode: str = "sync"               # sync (fedbuff: ROADMAP A11)
+    mode: str = "sync"               # sync | fedbuff
     buffer_size: int = 10
     concurrency: int = 20
     staleness_exponent: float = 0.5
@@ -103,7 +107,7 @@ class FedConfig:
     # --- data partition across clients ---
     partition: str = "iid"           # iid (equal shards) | dirichlet
     dirichlet_alpha: float = 0.5     # label-skew concentration (lower=worse)
-    # --- chaos hardening and admission (ROADMAP A11) ---
+    # --- chaos hardening and admission (fed.faults, fed.strategy) ---
     clock: ClockConfig = field(default_factory=ClockConfig)
     faults: FaultConfig = field(default_factory=FaultConfig)
     max_update_norm: float = 0.0
@@ -115,7 +119,9 @@ class FedConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """Flight-recorder knobs — ROADMAP A12 (not ported yet)."""
+    """Flight-recorder knobs: ``device_metrics`` (on-device telemetry) is
+    ROADMAP A12 and refused; ``annotate`` marks the fused chunk span in a
+    ``torch.profiler`` trace while recording (``repro_torch.obs``)."""
 
     device_metrics: bool = False
     annotate: bool = True

@@ -49,14 +49,25 @@ The chunk's randomness is drawn before it in the per-round order, so the
 trajectory is the per-round run's.  It falls back to the per-round loop
 where the reference does: the sequential engine and reshape pruning.
 
-Pod sharding, FedBuff, the simulated clock, fault injection, the
-admission gate and the flight recorder are not ported yet; configs that
-ask for them raise ``NotImplementedError`` naming their ROADMAP item.
+Cross-device scenarios, as in the reference: ``FedConfig.mode="fedbuff"``
+(buffered async rounds, each participant training from the server
+version it started at), the simulated clock (deadline cuts that drop or
+spill), seeded fault injection (client faults → ``seal`` → wire faults →
+the admission gate), a norm bound that rejects or clips, and a round
+quorum with retries — all planned on the host by
+``fed.faults.Resilience``.  The fused loop folds the planned verdicts
+into an admit mask and, after each chunk, runs the real gate on the
+emitted payloads; a disagreement is a ``RuntimeError``.  A run under
+``repro_torch.obs.recording`` logs the reference's events
+(``run_start``, ``round``, ``fault_injected``, ``payload_rejected``,
+``round_retried``, ``quorum_miss``, ``fedbuff_flush``, ``prune``,
+``run_end``) and counters.  Pod sharding (A15), ``debug_checks`` and
+device metrics (A12) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -70,12 +81,17 @@ from repro_torch.core.client import epoch_perms
 from repro_torch.data.medical import (MedicalCohort, dirichlet_split,
                                       federated_split)
 from repro_torch.device import resolve_device
+from repro_torch.fed.clock import SimClock
 from repro_torch.fed.cohort import fused_chunk_len
 from repro_torch.fed.engine import make_engine
-from repro_torch.fed.scheduler import SyncScheduler
-from repro_torch.fed.strategy import RoundContribution, make_strategy
+from repro_torch.fed.faults import (FaultInjector, Resilience,
+                                    apply_payload_faults)
+from repro_torch.fed.scheduler import make_scheduler
+from repro_torch.fed.strategy import (AdmissionPolicy, RoundContribution,
+                                      admit_payloads, make_strategy)
 from repro_torch.metrics.auc import auc_pr, auc_roc
 from repro_torch.models.mlp_net import hidden_sizes, init_mlp, mlp_forward
+from repro_torch.obs import trace as obstrace
 from repro_torch.optim import schedules
 from repro_torch.params import from_numpy, num_params
 
@@ -176,8 +192,9 @@ def _should_eval(loop: int, total_loops: int, eval_every: int) -> bool:
 
 
 def check_slice(train_cfg: TrainConfig, method: str) -> None:
-    """Refuse what the reference refuses, and what the port does not run
-    yet, naming its ROADMAP item."""
+    """Refuse, before anything is built, what the reference refuses (its
+    exception types and order), and what the port does not run yet,
+    naming its ROADMAP item."""
     cfg, fed = train_cfg.scbf, train_cfg.fed
     if int(fed.fuse_rounds) < 1:
         raise ValueError(f"fuse_rounds must be >= 1, got {fed.fuse_rounds}")
@@ -188,47 +205,167 @@ def check_slice(train_cfg: TrainConfig, method: str) -> None:
                          "upload path; method='fedavg' ships full weights "
                          "with no DP mechanism — refusing to run with a "
                          "privacy guarantee silently off")
-    if cfg.dp_noise_multiplier < 0:
-        raise ValueError(f"dp_noise_multiplier must be >= 0, got "
-                         f"{cfg.dp_noise_multiplier}: the DP gate is "
-                         f"'dp_noise_multiplier > 0', so a negative value "
-                         f"would silently run without DP while looking "
-                         f"configured")
     if cfg.prune and cfg.prune_impl not in ("reshape", "mask"):
         raise ValueError(f"unknown prune_impl {cfg.prune_impl!r}; "
                          "one of ('reshape', 'mask')")
-    if cfg.prune and cfg.prune_impl == "mask" and method != "scbf":
+    mask_prune = cfg.prune and cfg.prune_impl == "mask"
+    if mask_prune and method != "scbf":
         raise ValueError("prune_impl='mask' threads neuron keep-masks "
                          "through the sparse scbf pipeline; "
                          "method='fedavg' (FAwP) prunes by reshaping — "
                          "use prune_impl='reshape'")
+    if fed.mode == "fedbuff":
+        if method != "scbf":
+            raise ValueError("fedbuff buffers sparse scbf uploads; "
+                             "method must be 'scbf'")
+        if cfg.prune and not mask_prune:
+            raise ValueError("reshape pruning changes shapes under "
+                             "in-flight clients; fedbuff needs "
+                             "prune_impl='mask' (run-constant geometry)")
+    faults_on = fed.faults.enabled
+    spill_mode = fed.clock.enabled and fed.clock.deadline_action == "spill"
+    if faults_on and method != "scbf":
+        raise ValueError(
+            "fault injection corrupts the sparse scbf upload pipeline; "
+            "method='fedavg' ships full weight pytrees with no wire "
+            "payload to corrupt — refusing a silently-inert fault plan")
+    if fed.max_update_norm > 0 and method != "scbf":
+        raise ValueError(
+            "max_update_norm bounds sparse scbf payload norms; the "
+            "fedavg path has no payload to gate — refusing to run with "
+            "a configured bound silently off")
+    if fed.min_valid_participants > 0 and fed.mode == "fedbuff":
+        raise ValueError(
+            "round-level quorum retries re-plan the round; fedbuff "
+            "planning mutates in-flight client state on every plan "
+            "call, so a replanned attempt would corrupt it — "
+            "min_valid_participants needs sync mode")
+    if spill_mode and cfg.prune:
+        raise ValueError(
+            "deadline spilling delivers payloads emitted against an "
+            "earlier round's keep-masks; pruning changes the masks "
+            "between emission and arrival, so the spilled indices "
+            "would remap wrong — use deadline_action='drop' with "
+            "pruning")
     todo = [
         (fed.pods != 1, "pod sharding is ROADMAP A15"),
-        (fed.mode != "sync", f"mode={fed.mode!r}: fedbuff is ROADMAP A11"),
-        (fed.clock.enabled, "the simulated clock is ROADMAP A11"),
-        (fed.faults.enabled, "fault injection is ROADMAP A11"),
-        (fed.max_update_norm > 0, "the admission gate is ROADMAP A11"),
-        (fed.min_valid_participants > 0,
-         "min_valid_participants (round quorum) is ROADMAP A11"),
         (train_cfg.debug_checks, "debug_checks is ROADMAP A12"),
         (train_cfg.obs.device_metrics,
-         "device metrics (the flight recorder) are ROADMAP A12"),
+         "device metrics (the flight recorder's on-device layer) are "
+         "ROADMAP A12"),
     ]
     for cond, what in todo:
         if cond:
             raise NotImplementedError(f"{what}; not ported yet")
-    if method == "scbf" and cfg.dp_noise_multiplier > 0:
-        # an unknown accountant, or a classic bound outside its eps <= 1
-        # domain, fails before training, not after it
-        privacy.epsilon_for(cfg.dp_noise_multiplier, cfg.dp_delta, loops=1,
-                            accountant=cfg.dp_accountant)
-        if cfg.dp_amplification:
-            if cfg.dp_accountant != "rdp":
-                raise ValueError(
-                    "dp_amplification is an RDP analysis; it composes on "
-                    "the subsampled RDP curve, so dp_accountant="
-                    f"{cfg.dp_accountant!r} cannot back the reported ε — "
-                    "use 'rdp'")
+
+
+def _check_dp(train_cfg: TrainConfig, method: str, scheduler) -> float:
+    """The reference's DP refusals, once the scheduler exists; returns
+    the amplification's sampling rate q (1.0 without amplification)."""
+    cfg, fed = train_cfg.scbf, train_cfg.fed
+    if cfg.dp_noise_multiplier < 0:
+        raise ValueError(
+            f"dp_noise_multiplier must be >= 0, got "
+            f"{cfg.dp_noise_multiplier}: the DP gate is "
+            f"'dp_noise_multiplier > 0', so a negative value would "
+            f"silently run without DP while looking configured")
+    if not (method == "scbf" and cfg.dp_noise_multiplier > 0):
+        return 1.0
+    # an unknown accountant, or a classic bound outside its eps <= 1
+    # domain, fails before training, not after it
+    privacy.epsilon_for(cfg.dp_noise_multiplier, cfg.dp_delta, loops=1,
+                        accountant=cfg.dp_accountant)
+    if not cfg.dp_amplification:
+        return 1.0
+    if fed.clock.enabled:
+        raise ValueError(
+            "subsampled amplification assumes a uniform i.i.d. "
+            "per-round sample; the simulated clock restricts "
+            "sampling to currently-available clients (diurnal "
+            "churn), which is not one — refusing to report a "
+            "silently-wrong amplified ε")
+    if fed.mode == "fedbuff":
+        raise ValueError(
+            "subsampled amplification assumes an i.i.d. per-round "
+            "sample; fedbuff participation is not one — refusing to "
+            "report a silently-wrong amplified ε")
+    if cfg.dp_accountant != "rdp":
+        raise ValueError("dp_amplification is an RDP analysis; it "
+                         f"composes on the subsampled RDP curve, so "
+                         f"dp_accountant={cfg.dp_accountant!r} cannot "
+                         "back the reported ε — use 'rdp'")
+    # q from the scheduler's own cohort size, so the reported
+    # amplification matches the sampling performed
+    q = min(1.0, scheduler.max_participants / cfg.num_clients)
+    privacy.amplified_epsilon_for(cfg.dp_noise_multiplier, q, cfg.dp_delta,
+                                  rounds=1)  # fail fast
+    return q
+
+
+def _check_fused(fed, faults_on: bool) -> None:
+    """The reference's refusals of the fused loop: admission verdicts it
+    cannot plan would diverge from what the device folded in."""
+    if fed.max_update_norm > 0 and not faults_on:
+        raise ValueError(
+            "the fused path cannot run a host-side norm gate over "
+            "its on-device aggregation; arm the fault model "
+            "(FaultConfig.enabled) so admission is planned, or use "
+            "fuse_rounds=1")
+    if faults_on and fed.max_update_norm > 0 \
+            and fed.norm_action == "clip":
+        raise ValueError(
+            "norm_action='clip' rescales admitted payloads on the "
+            "host; the fused path aggregates the raw on-device "
+            "deltas, so clipping cannot take effect — use "
+            "norm_action='reject' or fuse_rounds=1")
+    if faults_on and fed.faults.poison_rate > 0 \
+            and not (fed.max_update_norm > 0
+                     and fed.norm_action == "reject"):
+        raise ValueError(
+            "poisoned (norm-inflated) updates are only excludable "
+            "at plan time when a reject-mode norm gate is armed "
+            "(max_update_norm > 0, norm_action='reject'); without "
+            "one the fused path would fold poison into the model — "
+            "arm the gate or use fuse_rounds=1")
+
+
+def _finish_telemetry(result: "RunResult") -> None:
+    """Fold the recorder's counters into ``result.telemetry`` and emit
+    the closing ``run_end`` event (nothing when not recording)."""
+    rec = obstrace.get_recorder()
+    if rec is None:
+        return
+    tel = dict(rec.counters)
+    result.telemetry = tel
+    rec.event("run_end", **tel)
+
+
+def _round_event_fields(rec: LoopRecord, plan, pruner,
+                        eps_step=None) -> dict:
+    """The ``round`` event's fields (the reference's schema), one function
+    for both loop shapes: the record's scalars, the scheduler's telemetry
+    and the keep-mask density.  The device-metric fields (``train_loss``,
+    ``selected``, ``codec_bytes``) are ROADMAP A12 and absent, as in a
+    reference run without collection."""
+    out = {
+        "loop": rec.loop, "participants": rec.num_participants,
+        "upload_fraction": round(rec.upload_fraction, 6),
+        "sparse_bytes": rec.sparse_bytes, "dense_bytes": rec.dense_bytes,
+        "wall": round(rec.wall_time, 6),
+        "wall_is_amortized": rec.wall_is_amortized,
+        "hidden": list(rec.hidden_sizes),
+        "evaluated": rec.evaluated,
+    }
+    if rec.epsilon is not None:
+        out["epsilon"] = rec.epsilon
+        if eps_step is not None:
+            out["epsilon_step"] = eps_step
+    if pruner is not None:
+        out["keep_density"] = round(
+            sum(pruner.hidden_sizes()) / max(pruner.original_hidden, 1), 6)
+    if plan is not None:
+        out.update(plan.telemetry())
+    return out
 
 
 def run_federated(cohort: MedicalCohort,
@@ -254,11 +391,12 @@ def run_federated(cohort: MedicalCohort,
     ``engine`` overrides ``train_cfg.fed.engine`` ("batched" |
     "sequential").
 
-    ``LoopRecord.wall_time`` spans the round — plan, local training,
-    selection, encoding (the host then holds the payloads), the server
-    update and the prune step, synchronised with the device — and leaves
-    evaluation out; a fused run records each round of a chunk as the
-    chunk's wall over its rounds (``wall_is_amortized``).
+    ``LoopRecord.wall_time`` is the round span — plan, local training,
+    selection, encoding (the host then holds the payloads), the fault
+    pipeline and the gate, the server update and the prune step,
+    synchronised with the device — and leaves evaluation out; a fused
+    run records each round of a chunk as the chunk's wall over its
+    rounds (``wall_is_amortized``).
     """
     check_slice(train_cfg, method)
     dev = resolve_device(device)
@@ -266,6 +404,8 @@ def run_federated(cohort: MedicalCohort,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, fed = train_cfg.scbf, train_cfg.fed
+    clock_on, faults_on = fed.clock.enabled, fed.faults.enabled
+    spill_mode = clock_on and fed.clock.deadline_action == "spill"
     gen = torch.Generator().manual_seed(train_cfg.seed)
 
     feats = mlp_features or (cohort.num_features, 256, 64, 1)
@@ -276,27 +416,47 @@ def run_federated(cohort: MedicalCohort,
                       train_cfg.local_batch_size,
                       train_cfg.local_epochs, dev, bucket=fed.bucket,
                       pods=fed.pods)
-    scheduler = SyncScheduler(cfg.num_clients, fed, train_cfg.seed)
-    strategy = make_strategy(method)
+    clock = SimClock(cfg.num_clients, fed.clock, seed=train_cfg.seed) \
+        if clock_on else None
+    scheduler = make_scheduler(fed, cfg.num_clients, train_cfg.seed,
+                               clock=clock)
+    injector = FaultInjector(cfg.num_clients, fed.faults) \
+        if faults_on else None
+    # the gate arms whenever payloads can be hostile (fault injection) or
+    # a norm bound is configured; otherwise the fault-free path runs
+    policy = AdmissionPolicy(max_update_norm=fed.max_update_norm,
+                             norm_action=fed.norm_action) \
+        if (faults_on or fed.max_update_norm > 0) else None
+    strategy = make_strategy(method, cfg, fed, policy=policy)
+    resil = Resilience(scheduler, clock, injector, fed)
+    if fed.min_valid_participants > 0 and \
+            fed.min_valid_participants > scheduler.max_participants:
+        raise ValueError(
+            f"min_valid_participants={fed.min_valid_participants} can "
+            f"never be met: the scheduler samples at most "
+            f"{scheduler.max_participants} clients per round — every "
+            "round would exhaust its retries and miss quorum")
     state = strategy.init(params)
+    # fedbuff: the versions in-flight clients train from; spill: the
+    # rounds spilled clients were sampled in (pruned to those referenced)
+    history = {0: params} if fed.mode == "fedbuff" else None
+    round_history = {0: params} if spill_mode else None
     lrs = _lr_table(train_cfg)
+    amp_q = _check_dp(train_cfg, method, scheduler)
     x_test = torch.as_tensor(cohort.x_test).to(dev)
     y_test = torch.as_tensor(cohort.y_test).to(dev)
     pruner = None
     if cfg.prune:
+        # fedbuff keeps full-geometry stale versions alive for its
+        # in-flight clients, so mask mode's one-shot compaction is off
         pruner = pruning.Pruner(params, cohort.x_val,
                                 prune_rate=cfg.prune_rate,
                                 prune_total=cfg.prune_total,
                                 impl=cfg.prune_impl,
-                                compact=cfg.prune_compact)
+                                compact=cfg.prune_compact
+                                and fed.mode != "fedbuff")
     dp_on = method == "scbf" and cfg.dp_noise_multiplier > 0
     amplify = dp_on and cfg.dp_amplification
-    # q from the scheduler's own cohort size, so the reported
-    # amplification matches the sampling performed
-    amp_q = min(1.0, scheduler.max_participants / cfg.num_clients)
-    if amplify:
-        privacy.amplified_epsilon_for(cfg.dp_noise_multiplier, amp_q,
-                                      cfg.dp_delta, rounds=1)  # fail fast
     # ε composes per release: the spend is tracked per client and the
     # worst (most-releasing) client reported
     dp_releases = np.zeros(cfg.num_clients, dtype=np.int64)
@@ -306,6 +466,13 @@ def run_federated(cohort: MedicalCohort,
         dp_gen.manual_seed(int(torch.randint(2 ** 62, (1,), generator=gen)))
     result = RunResult(method=method + ("wp" if cfg.prune else ""),
                        dp_delta=cfg.dp_delta if dp_on else None)
+    obstrace.event(
+        "run_start", method=result.method, loops=train_cfg.global_loops,
+        clients=cfg.num_clients, engine=eng.name,
+        fuse_rounds=int(fed.fuse_rounds), mode=fed.mode,
+        dp_sigma=(cfg.dp_noise_multiplier * cfg.dp_clip_norm)
+        if dp_on else None,
+        prune=cfg.prune, prune_impl=cfg.prune_impl if cfg.prune else None)
 
     def _epsilons(loop: int):
         """(epsilon, epsilon_unamplified) for the record of ``loop``."""
@@ -338,17 +505,23 @@ def run_federated(cohort: MedicalCohort,
             known["roc"], known["pr"] = _evaluate(init_model, x_test, y_test)
         return known["roc"], known["pr"], False
 
-    def _record(loop: int, P: int, emitted, up_params, params_now,
-                wall: float, do_eval: bool, amortized: bool = False):
-        """Append loop ``loop``'s record (and print it when verbose): its
-        P participants' uploads (scbf: ``emitted``, the (payloads,
-        stats); fedavg: ``up_params`` whole from each), the model after
-        the loop and the loop's wall."""
+    prev_eps = 0.0
+
+    def _record(loop: int, plan, emitted, wire_payloads, up_params,
+                params_now, wall: float, do_eval: bool,
+                amortized: bool = False):
+        """Append loop ``loop``'s record and ``round`` event (and print it
+        when verbose): its uploads (scbf: ``emitted``, the (payloads,
+        stats), and ``wire_payloads``, what crossed the network, replays
+        included; fedavg: ``up_params`` whole from each participant), the
+        model after the loop and the loop's wall."""
+        nonlocal prev_eps
+        P = plan.num_participants
         if method == "scbf":
             payloads, stats = emitted
             up_frac = float(np.mean([st.upload_fraction for st in stats])) \
                 if stats else 0.0
-            sparse_bytes = int(sum(p.nbytes for p in payloads))
+            sparse_bytes = int(sum(p.nbytes for p in wire_payloads))
             dense_bytes = int(sum(p.dense_nbytes for p in payloads))
         else:
             up_frac = 1.0 if P else 0.0
@@ -364,14 +537,19 @@ def run_federated(cohort: MedicalCohort,
             n_params = num_params(params_now)
             hidden = hidden_sizes(params_now)
         eps, eps_un = _epsilons(loop)
-        result.records.append(LoopRecord(
+        rec = LoopRecord(
             loop=loop, auc_roc=roc, auc_pr=pr, upload_fraction=up_frac,
             sparse_bytes=sparse_bytes, dense_bytes=dense_bytes,
             wall_time=wall,
             flops_proxy=float(n_params) * cohort.x_train.shape[0],
             hidden_sizes=hidden, num_participants=P, epsilon=eps,
             evaluated=evaluated, epsilon_unamplified=eps_un,
-            wall_is_amortized=amortized))
+            wall_is_amortized=amortized)
+        result.records.append(rec)
+        obstrace.event("round", **_round_event_fields(
+            rec, plan, pruner,
+            eps_step=(eps - prev_eps) if eps is not None else None))
+        prev_eps = eps if eps is not None else 0.0
         if verbose:
             print(f"[{result.method}] loop {loop:02d} "
                   f"auc_roc={roc:.4f} auc_pr={pr:.4f} "
@@ -380,72 +558,133 @@ def run_federated(cohort: MedicalCohort,
                   + ("" if evaluated else " (metrics carried)"))
 
     draws = _RunDraws(train_cfg, eng, gen, dp_gen, perms, dp_noise)
-    use_fused = (int(fed.fuse_rounds) > 1 and eng.name == "batched"
-                 and (not cfg.prune or cfg.prune_impl == "mask"))
+    # the fused loop needs sync planning, run-constant shapes (no reshape
+    # pruning), the batched engine and no spilling; else per round
+    use_fused = (int(fed.fuse_rounds) > 1 and fed.mode == "sync"
+                 and (not cfg.prune or cfg.prune_impl == "mask")
+                 and eng.name == "batched" and not spill_mode)
     if use_fused:
+        _check_fused(fed, faults_on)
         result.final_params = _run_fused(
-            train_cfg, method, eng, scheduler, state, lrs, draws,
-            dp_releases, _record, pruner)
+            train_cfg, method, eng, resil, state, lrs, draws,
+            dp_releases, _record, pruner, injector, policy)
+        _finish_telemetry(result)
         return result
 
     for loop in range(train_cfg.global_loops):
-        t0 = time.perf_counter()
-        lr = float(lrs[loop])
-        plan = scheduler.plan(loop)
-        part = plan.participants
-        P = plan.num_participants
-        round_perms = draws.round_perms(loop, part)
-        payloads, stats = [], []
-        if P:
+        with obstrace.span("round", loop=loop) as sp:
+            lr = float(lrs[loop])
+            ar = resil.plan_round(loop, state.version)
+            plan = ar.plan
+            part = plan.participants
+            P = plan.num_participants
             if method == "scbf":
-                nmasks = pruner.masks if pruner is not None else None
-                keep_eff = pruner.emission_keep if pruner is not None \
-                    else None
-                # the batched engine takes the round's sampled-quantile
-                # draws as the fused loop does; the sequential engine
-                # draws them a client at a time on the same generator
-                sampled = {} if eng.name != "batched" or not \
-                    _sampled(method, state.params) else dict(
-                        sample_idx=draws.sample_idx(
-                            state.params, P,
-                            None if nmasks is None else pruner.keep))
-                payloads, stats = eng.scbf_round(
-                    state.params, part, lr, round_perms, cfg, generator=gen,
-                    nmasks=nmasks, keep=keep_eff,
-                    noise=draws.injected_noise(loop, state.params, P)
-                    if dp_on else None,
-                    dp_generator=dp_gen, **sampled)
-                dp_releases[np.asarray(part)] += 1
-                expand = None
-                if keep_eff is not None:
-                    expand = (lambda ps, _k=keep_eff, _ref=state.params:
-                              pruning.expand_payloads(ps, _k, _ref))
-                contrib = RoundContribution(
-                    num_examples=eng.counts[np.asarray(part)],
-                    payloads=payloads, expand=expand)
-            else:
-                client_params, counts = eng.fedavg_round(
-                    state.params, part, lr, round_perms)
-                contrib = RoundContribution(num_examples=counts,
-                                            client_params=client_params)
-            state = strategy.aggregate(state, contrib)
-        params = up_params = state.params
+                # aborted quorum attempts trained and uploaded before the
+                # server discarded them: each is a distinct release, and
+                # charging it errs the way DP accounting must
+                for aborted in ar.aborted_arrivers:
+                    if aborted.size:
+                        dp_releases[np.asarray(aborted)] += 1  # privlint: disable=PL004
+            round_perms = draws.round_perms(loop, part)
+            payloads, stats, wire_payloads = [], [], []
+            if P:
+                if fed.mode == "fedbuff":
+                    params_for = [history[state.version - int(tau)]
+                                  for tau in plan.staleness]
+                elif spill_mode:
+                    # a spilled arrival trained from the round it was
+                    # sampled in (staleness = rounds in flight)
+                    params_for = [round_history[loop - int(tau)]
+                                  for tau in plan.staleness]
+                else:
+                    params_for = state.params
+                if method == "scbf":
+                    nmasks = pruner.masks if pruner is not None else None
+                    keep_eff = pruner.emission_keep if pruner is not None \
+                        else None
+                    # the batched engine takes the round's sampled-
+                    # quantile draws as the fused loop does; the
+                    # sequential engine draws them a client at a time on
+                    # the same generator
+                    sampled = {} if eng.name != "batched" or not \
+                        _sampled(method, state.params) else dict(
+                            sample_idx=draws.sample_idx(
+                                state.params, P,
+                                None if nmasks is None else pruner.keep))
+                    payloads, stats = eng.scbf_round(
+                        params_for, part, lr, round_perms, cfg,
+                        generator=gen, nmasks=nmasks, keep=keep_eff,
+                        noise=draws.injected_noise(loop, state.params, P)
+                        if dp_on else None,
+                        dp_generator=dp_gen, **sampled)
+                    dp_releases[np.asarray(part)] += 1
+                    wire_payloads = payloads
+                    nx = eng.counts[np.asarray(part)]
+                    stal = np.asarray(plan.staleness)
+                    cl = np.asarray(part)
+                    if injector is not None and payloads:
+                        # client faults → seal → wire faults → replays
+                        wire_payloads, dup_src = apply_payload_faults(
+                            payloads, cl, ar.corrupt, ar.duplicated,
+                            loop, ar.attempts - 1, fed.faults,
+                            fed.max_update_norm)
+                        if dup_src:
+                            nx = np.concatenate([nx, nx[dup_src]])
+                            stal = np.concatenate([stal, stal[dup_src]])
+                            cl = np.concatenate([cl, cl[dup_src]])
+                    # mask mode: the gate admits the effective-geometry
+                    # wire payloads, which are expanded to the server's
+                    # geometry just before they are applied
+                    expand = None
+                    if keep_eff is not None:
+                        expand = (lambda ps, _k=keep_eff,
+                                  _ref=state.params:
+                                  pruning.expand_payloads(ps, _k, _ref))
+                    contrib = RoundContribution(
+                        num_examples=nx, staleness=stal,
+                        payloads=wire_payloads, clients=cl, expand=expand)
+                else:
+                    client_params, counts = eng.fedavg_round(
+                        params_for, part, lr, round_perms)
+                    contrib = RoundContribution(
+                        num_examples=counts, staleness=plan.staleness,
+                        client_params=client_params,
+                        clients=np.asarray(part))
+                if ar.quorum_ok:
+                    state = strategy.aggregate(state, contrib)
+                # a terminal quorum miss: the cohort trained and uploaded,
+                # but the server does not step on a sub-quorum round
+            params = up_params = state.params
+            if fed.mode == "fedbuff":
+                history[state.version] = params
+                live = scheduler.referenced_versions() | {state.version}
+                history = {v: p for v, p in history.items() if v in live}
+            elif spill_mode:
+                round_history[loop + 1] = params
+                live = scheduler.referenced_rounds() | {loop + 1}
+                round_history = {r: p for r, p in round_history.items()
+                                 if r in live}
 
-        # ---- pruning (SCBFwP / FAwP), inside the loop's wall clock ----
-        if pruner is not None and pruner.active:
-            # reshape: returns the sliced params; mask: updates the
-            # keep-masks and returns params unchanged
-            params = pruner.step(params)
-        if pruner is not None and pruner.should_compact:
-            params = pruner.compact(params)   # mask mode, budget spent
-        state = dataclasses.replace(state, params=params)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        _record(loop, P, (payloads, stats), up_params, params, wall,
+            # ---- pruning (SCBFwP / FAwP), inside the loop's wall ----
+            if pruner is not None and pruner.active:
+                # reshape: returns the sliced params; mask: updates the
+                # keep-masks and returns params unchanged
+                params = pruner.step(params)
+                obstrace.event("prune", loop=loop,
+                               hidden=list(pruner.hidden_sizes()))
+            if pruner is not None and pruner.should_compact:
+                params = pruner.compact(params)   # mask mode, budget spent
+                obstrace.event("compact", loop=loop,
+                               hidden=list(pruner.hidden_sizes()))
+            state = dataclasses.replace(state, params=params)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        _record(loop, plan, (payloads, stats), wire_payloads, up_params,
+                params, sp.elapsed,
                 _should_eval(loop, train_cfg.global_loops,
                              train_cfg.eval_every))
-    result.final_params = params
+    result.final_params = state.params
+    _finish_telemetry(result)
     return result
 
 
@@ -518,23 +757,29 @@ class _RunDraws:
                                    self.dp_gen)
 
 
-def _run_fused(train_cfg: TrainConfig, method: str, eng, scheduler, state,
-               lrs: np.ndarray, draws: _RunDraws, dp_releases: np.ndarray,
-               record, pruner=None):
+def _run_fused(train_cfg: TrainConfig, method: str, eng, resil: Resilience,
+               state, lrs: np.ndarray, draws: _RunDraws,
+               dp_releases: np.ndarray, record, pruner=None, injector=None,
+               policy=None):
     """The fused round loop: chunks of S sync rounds with no host sync
     inside (port of the reference's ``_run_fused``).
 
-    Each chunk is planned (``scheduler.plan_horizon``), its randomness
-    drawn in the per-round order (``_RunDraws``) and its lr values sliced
-    from the table, and every host→device copy made, in
-    ``eng.prepare_fused_plan``; then each round — train → delta → select
-    → DP → validity zeroing → ``scbf_sum_step`` (or ``fedavg_step``) —
-    replays the captured round on the device.  The uploads are encoded
-    once a chunk, after it (``eng.emit_fused_payloads``), so the per-round
-    byte accounting is the per-round path's.  Evaluation happens at chunk
-    boundaries only; the other records carry the last-known AUC with
-    ``evaluated=False``, and every record's wall is the chunk's over its
-    rounds (``wall_is_amortized``).
+    Each chunk is planned by ``resil.plan_round`` a round at a time (the
+    per-round loop's sequence: the same participation, faults, clock and
+    quorum), its randomness drawn in the per-round order (``_RunDraws``)
+    and its lr values sliced from the table, and every host→device copy
+    made, in ``eng.prepare_fused_plan`` — with the plan's admit mask, the
+    slots the gate will admit; then each round — train → delta → select
+    → DP → validity zeroing → the admitted slots' ``scbf_sum_step`` (or
+    ``fedavg_step``) — replays the captured round on the device.  The
+    uploads are encoded once a chunk, after it
+    (``eng.emit_fused_payloads``), so the per-round byte accounting is
+    the per-round path's; then the fault pipeline and the real admission
+    gate run on them, and a verdict that differs from the plan is a
+    ``RuntimeError``.  Evaluation happens at chunk boundaries only; the
+    other records carry the last-known AUC with ``evaluated=False``, and
+    every record's wall is the chunk's over its rounds
+    (``wall_is_amortized``).
 
     Mask-mode SCBFwP (``pruner``): the keep-masks are an input of the
     round; while pruning is still removing neurons the chunks are one
@@ -545,65 +790,121 @@ def _run_fused(train_cfg: TrainConfig, method: str, eng, scheduler, state,
     loop's record (``run_federated``'s ``_record``); returns the final
     params.
     """
-    cfg = train_cfg.scbf
+    cfg, fed = train_cfg.scbf, train_cfg.fed
     dev = eng.device
-    S = int(train_cfg.fed.fuse_rounds)
-    B = eng.fused_num_slots(scheduler.max_participants)
+    S = int(fed.fuse_rounds)
+    B = eng.fused_num_slots(resil.scheduler.max_participants)
     total_loops = train_cfg.global_loops
     dp_on = method == "scbf" and cfg.dp_noise_multiplier > 0
     loop0 = 0
     while loop0 < total_loops:
         prune_active = pruner is not None and pruner.active
         chunk = fused_chunk_len(total_loops - loop0, S, prune_active)
-        t0 = time.perf_counter()
-        plans = scheduler.plan_horizon(loop0, chunk)
-        params = state.params
-        nmasks = pruner.masks if pruner is not None else None
-        sampled = _sampled(method, params)
-        parts, rperms, wts, noise, samples = [], [], [], [], []
-        for r, plan in enumerate(plans):
-            part, P = plan.participants, plan.num_participants
-            parts.append(part)
-            rperms.append(draws.round_perms(loop0 + r, part) if P else [])
-            if sampled:
-                samples.append(draws.sample_idx(
-                    params, P, None if nmasks is None else pruner.keep))
-            if dp_on:
-                noise.append(draws.noise(loop0 + r, params, P))
-            if method == "fedavg":
-                n = eng.counts[np.asarray(part)].astype(np.float64)
-                wts.append((n / n.sum()).astype(np.float32) if P
-                           else np.zeros(0, np.float32))
-        fplan = eng.prepare_fused_plan(
-            parts, lrs[loop0:loop0 + chunk], rperms, horizon=chunk,
-            num_slots=B, weights=wts if method == "fedavg" else None,
-            noise=noise if dp_on else None,
-            sample_idx=samples if sampled else None)
-        new_params, emitted = eng.run_fused_chunk(
-            method, params, fplan, cfg, nmasks=nmasks,
-            keep=pruner.emission_keep if pruner is not None else None)
-        applied = sum(1 for plan in plans if plan.num_participants)
-        state = dataclasses.replace(state, params=new_params,
-                                    version=state.version + applied)
-        if prune_active:
-            # a one-round chunk: APoZ on the device, the mask update on
-            # the host, at the per-round cadence
-            pruner.step(state.params)
-            if pruner.should_compact:
-                state = dataclasses.replace(
-                    state, params=pruner.compact(state.params))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall_each = (time.perf_counter() - t0) / chunk
+        with obstrace.span("fused_chunk", annotate=train_cfg.obs.annotate,
+                           loop0=loop0, rounds=chunk) as sp:
+            ars = [resil.plan_round(loop0 + i, state.version)
+                   for i in range(chunk)]
+            plans = [ar.plan for ar in ars]
+            params = state.params
+            nmasks = pruner.masks if pruner is not None else None
+            sampled = _sampled(method, params)
+            parts, rperms, wts, noise, samples = [], [], [], [], []
+            for r, (ar, plan) in enumerate(zip(ars, plans)):
+                part, P = plan.participants, plan.num_participants
+                parts.append(part)
+                rperms.append(draws.round_perms(loop0 + r, part) if P
+                              else [])
+                if sampled:
+                    samples.append(draws.sample_idx(
+                        params, P, None if nmasks is None else pruner.keep))
+                if dp_on:
+                    noise.append(draws.noise(loop0 + r, params, P))
+                if method == "fedavg":
+                    if P and ar.quorum_ok:
+                        n = eng.counts[np.asarray(part)].astype(np.float64)
+                        wts.append((n / n.sum()).astype(np.float32))
+                    else:
+                        # a quorum-missed round must not step: all-zero
+                        # weights pass the model through bitwise
+                        wts.append(np.zeros(P, np.float32))
+            fplan = eng.prepare_fused_plan(
+                parts, lrs[loop0:loop0 + chunk], rperms, horizon=chunk,
+                num_slots=B, weights=wts if method == "fedavg" else None,
+                noise=noise if dp_on else None,
+                sample_idx=samples if sampled else None,
+                admit=[ar.admit_mask() for ar in ars] if resil.active
+                else None)
+            new_params, emitted = eng.run_fused_chunk(
+                method, params, fplan, cfg, nmasks=nmasks,
+                keep=pruner.emission_keep if pruner is not None else None)
+            # a round bumps the version iff it met quorum and admitted a
+            # slot: the per-round gate's rule
+            applied = sum(1 for ar in ars
+                          if ar.quorum_ok and bool(ar.admit_mask().any()))
+            state = dataclasses.replace(state, params=new_params,
+                                        version=state.version + applied)
+            if prune_active:
+                # a one-round chunk: APoZ on the device, the mask update
+                # on the host, at the per-round cadence
+                pruner.step(state.params)
+                obstrace.event("prune", loop=loop0,
+                               hidden=list(pruner.hidden_sizes()))
+                if pruner.should_compact:
+                    state = dataclasses.replace(
+                        state, params=pruner.compact(state.params))
+                    obstrace.event("compact", loop=loop0,
+                                   hidden=list(pruner.hidden_sizes()))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        wall_each = sp.elapsed / chunk
 
-        for r, plan in enumerate(plans):
+        for r, (ar, plan) in enumerate(zip(ars, plans)):
             loop = loop0 + r
             P = plan.num_participants
-            if method == "scbf" and P:
-                dp_releases[np.asarray(plan.participants)] += 1
-            record(loop, P, emitted[r], state.params, state.params,
-                   wall_each, r == chunk - 1 and _should_eval(
+            payloads, _ = emitted[r]
+            wire_payloads = payloads
+            if method == "scbf":
+                # aborted quorum attempts are distinct uploads
+                for aborted in ar.aborted_arrivers:
+                    if aborted.size:
+                        dp_releases[np.asarray(aborted)] += 1  # privlint: disable=PL004
+                if injector is not None and payloads:
+                    wire_payloads = _gate_emitted(state, ar, payloads, loop,
+                                                  fed, policy)
+                if P:
+                    dp_releases[np.asarray(plan.participants)] += 1
+            record(loop, plan, emitted[r], wire_payloads, state.params,
+                   state.params, wall_each, r == chunk - 1 and _should_eval(
                        loop, total_loops, train_cfg.eval_every),
                    amortized=True)
         loop0 += chunk
     return state.params
+
+
+def _gate_emitted(state, ar, payloads, loop: int, fed, policy):
+    """The fault pipeline and the real admission gate on a fused round's
+    emitted payloads: the events and counters of the per-round path, and
+    the gate's verdicts held against the plan the device folded in (a
+    difference is a ``RuntimeError``).  Returns the wire payloads."""
+    cl = np.asarray(ar.plan.participants)
+    wire_payloads, dup_src = apply_payload_faults(
+        payloads, cl, ar.corrupt, ar.duplicated, loop, ar.attempts - 1,
+        fed.faults, fed.max_update_norm)
+    if ar.quorum_ok:
+        if dup_src:
+            cl = np.concatenate([cl, cl[dup_src]])
+        gate = RoundContribution(
+            num_examples=np.zeros(len(wire_payloads), np.int64),
+            staleness=np.zeros(len(wire_payloads), np.int64),
+            payloads=wire_payloads, clients=cl)
+        _, kept_idx = admit_payloads(state, gate, policy)
+        planned = {i for i in range(ar.plan.num_participants)
+                   if not ar.will_reject[i]}
+        if set(kept_idx) != planned:
+            raise RuntimeError(
+                f"fused admission mismatch at loop {loop}: the device "
+                f"folded slots {sorted(planned)} but the admission gate "
+                f"admitted {sorted(kept_idx)} — an update failed a gate "
+                "the planner could not predict (e.g. a natural nonfinite "
+                "or norm violation); rerun with fuse_rounds=1")
+    return wire_payloads

@@ -54,6 +54,17 @@ the batched engine one ``(P, *leaf)`` tensor a leaf a round
 (``draw_noise``, which the fused loop calls a round at a time before
 the chunk).
 
+Stale starting points (FedBuff, and spilled arrivals of the simulated
+clock): ``scbf_round`` takes a list of per-participant params instead of
+one shared model; the batched engine stacks them (a padded slot repeats
+slot 0's) and the slot pass trains, differences and selects every slot
+from its own start, still one launch of each kernel a round.
+
+The fused round's server sum folds in only the slots of the plan's
+``(S, B)`` admit mask (``torch.where(admit, Δ, 0)``: a rejected slot adds
+exact zeros, whatever it holds); a fault-free plan admits the valid
+slots, which changes no bit.
+
 Both engines are pure round executors: ``core.scbf.run_federated`` owns
 the random draws — each participant's epoch permutations arrive in
 ``perms`` — so the trajectory does not depend on how the engine runs.
@@ -177,14 +188,17 @@ class SequentialEngine:
                    ) -> Tuple[List[wire.Payload], List[sel.UploadStats]]:
         """Train, select, (noise) and encode every participant; ``perms[i]``
         holds participant i's per-epoch permutations, ``noise[i]`` its DP
-        normals.  ``nmasks``/``keep``: mask-mode SCBFwP (see the module
-        docstring)."""
+        normals.  ``params``: one model, or a list of one a participant
+        (stale starts).  ``nmasks``/``keep``: mask-mode SCBFwP (see the
+        module docstring)."""
         keep_t = index_tensors(keep, self.device) if keep is not None \
             else None
+        stacked = isinstance(params, list)
         payloads, stats = [], []
         for i, k in enumerate(participants):
-            new_p = self._train(params, k, lr, perms[i], nmasks)
-            g = client_delta(tuple(params), new_p)
+            p0 = tuple(params[i]) if stacked else tuple(params)
+            new_p = self._train(p0, k, lr, perms[i], nmasks)
+            g = client_delta(p0, new_p)
             masked, masks, _, ops = sel.select_gradients(
                 g, cfg.upload_rate, cfg.selection,
                 score_norm=cfg.score_norm, generator=generator,
@@ -224,7 +238,9 @@ def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
     the real slots, ``perms`` (B, epochs, n_max), ``noise`` the (B, *leaf)
     DP normals in ``wire.flat_keys`` order (zero on padded slots),
     ``sample_idx`` the sampled quantile path's indices (one list a slot;
-    else drawn on ``generator``).  Returns (masked, masks, edge operands),
+    else drawn on ``generator``).  ``params``: one model shared by every
+    slot, or a slot-stacked ``(B, …)`` one, each slot's own start (stale
+    versions; ``_train_slots``).  Returns (masked, masks, edge operands),
     slot-stacked; a padded slot's masked delta and masks are zero.
     """
     start, new_p = _train_slots(params, cohort, rows, valid, lr, perms,
@@ -251,12 +267,15 @@ def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
 def _train_slots(params, cohort: PaddedCohort, rows: torch.Tensor,
                  valid: torch.Tensor, lr, perms: torch.Tensor, *,
                  batch_size: int, epochs: int, nmasks=None):
-    """(the B slots' starting params — ``params`` broadcast — and their
-    trained params): slot s trains on cohort row ``rows[s]``, the masked
-    loss on a ragged cohort."""
+    """(the B slots' starting params and their trained params): slot s
+    trains on cohort row ``rows[s]``, the masked loss on a ragged cohort.
+    ``params`` is one model, broadcast to the B slots, or already slot-
+    stacked (its weights one dimension up)."""
     b = valid.shape[0]
-    start = tuple({k: v.unsqueeze(0).expand(b, *v.shape)
-                   for k, v in layer.items()} for layer in params)
+    stacked = params[0]["w"].ndim == 3
+    start = params if stacked else tuple(
+        {k: v.unsqueeze(0).expand(b, *v.shape) for k, v in layer.items()}
+        for layer in params)
     return start, local_train_slots(
         start, cohort.x, cohort.y, lr, perms,
         w=None if cohort.uniform else cohort.w, valid=valid,
@@ -284,6 +303,9 @@ class FusedPlan:
     valid: torch.Tensor               # (S, B) bool slot validity
     lrs: torch.Tensor                 # (S,) fp32 lr table slice
     perms: torch.Tensor               # (S, B, epochs, n_max) int64
+    # (S, B) bool: the slots the server sum folds in (fed.faults' plan-
+    # time verdicts); a fault-free plan admits the valid slots
+    admit: torch.Tensor
     weights: Optional[torch.Tensor] = None   # (S, B) fp32 — fedavg only
     noise: Optional[List[torch.Tensor]] = None   # (S, B, *leaf) DP normals
     sample_idx: Optional[List[torch.Tensor]] = None  # (S, B, n) a layer
@@ -382,6 +404,8 @@ class BatchedEngine:
               noise=None, generator=None, sample_idx=None):
         b = self.round_slots(len(participants))
         rows, valid, pm = self._slot_inputs(participants, perms, b)
+        if isinstance(params, list):
+            params = _stack_params(params, b)
         if noise is not None:
             noise = [torch.cat([z, z.new_zeros((b - z.shape[0],
                                                 *z.shape[1:]))])
@@ -405,12 +429,14 @@ class BatchedEngine:
         pass: train → delta → select → DP → validity zeroing → (keep
         compaction) → one round encode.  ``sample_idx`` (B, layers, n)
         int64: the sampled quantile path's indices of the round's slots
-        (else drawn on ``generator``).  An empty round returns
-        ``([], [])`` without launching anything."""
+        (else drawn on ``generator``).  ``params``: one model, or a list of
+        one a participant (stale starts, stacked into one pass).  An empty
+        round returns ``([], [])`` without launching anything."""
         p_count = len(participants)
         if not p_count:
             return [], []
-        z = self.draw_noise(params, p_count, noise, dp_generator) \
+        shapes = params[0] if isinstance(params, list) else params
+        z = self.draw_noise(shapes, p_count, noise, dp_generator) \
             if cfg.dp_noise_multiplier > 0.0 else None
         masked, masks, ops = self._pass(params, participants, lr, perms, cfg,
                                         nmasks, z, generator, sample_idx)
@@ -457,7 +483,8 @@ class BatchedEngine:
     def prepare_fused_plan(self, participants: Sequence[np.ndarray],
                            lrs: Sequence[float], perms: Sequence,
                            horizon: int, num_slots: int, weights=None,
-                           noise=None, sample_idx=None) -> FusedPlan:
+                           noise=None, sample_idx=None,
+                           admit=None) -> FusedPlan:
         """Assemble one chunk's static (S, B) plan on the device — every
         host→device copy of the chunk happens here, one a tensor.
 
@@ -467,8 +494,10 @@ class BatchedEngine:
         P_r = 0 for an empty round); ``sample_idx[r]`` (k_r, layers, n)
         int64: the sampled quantile path's indices of the k_r slots the
         per-round pass draws for (``core.channels.sample_channels``).
-        Padded slots repeat slot 0's row, get the identity permutation
-        and zero noise; rounds past the real ones are all-invalid.
+        ``admit[r]`` (P_r,) bool: the slots round r's server sum folds in
+        (None: every valid slot).  Padded slots repeat slot 0's row, get
+        the identity permutation and zero noise; rounds past the real
+        ones are all-invalid.
         """
         parts = [np.asarray(p) for p in participants]
         part_idx, valid = horizon_slot_plan(parts, num_slots, horizon)
@@ -480,12 +509,19 @@ class BatchedEngine:
                           self.epochs, self.cohort.n_max)
         lr_arr = np.zeros(horizon, np.float32)
         lr_arr[:len(lrs)] = np.asarray(lrs, np.float32)
+        admit_arr = np.asarray(valid, dtype=bool)
+        if admit is not None:
+            admit_arr = np.zeros((horizon, num_slots), dtype=bool)
+            for r, row in enumerate(admit):
+                row = np.asarray(row, dtype=bool)
+                admit_arr[r, :row.shape[0]] = row
         plan = FusedPlan(
             rounds=len(parts), num_slots=num_slots, participants=parts,
             part_idx=torch.from_numpy(part_idx.astype(np.int64)).to(dev),
             valid=torch.from_numpy(valid).to(dev),
             lrs=torch.from_numpy(lr_arr).to(dev),
-            perms=torch.from_numpy(pm).to(dev))
+            perms=torch.from_numpy(pm).to(dev),
+            admit=torch.from_numpy(admit_arr).to(dev))
         if weights is not None:
             wts = np.zeros((horizon, num_slots), np.float32)
             for r, w in enumerate(weights):
@@ -526,23 +562,29 @@ class BatchedEngine:
         round's rows of the plan copied into its inputs on the device.
         No host sync.  Returns (new params, the chunk's stacked masked
         deltas, masks and edge operands for ``emit_fused_payloads``).
+        The server sum folds in the plan's admitted slots only; the
+        emitted deltas are every valid slot's, as computed.
         ``nmasks`` (mask-mode SCBFwP): the chunk's keep-masks, an input."""
-        def body(p, rows, valid, lr, perms, noise, sample, nm):
+        def body(p, rows, valid, admit, lr, perms, noise, sample, nm):
             sample = None if sample is None else \
                 [[s[k] for s in sample] for k in range(rows.shape[0])]
             masked, masks, ops = _slot_pass(
                 p, self.cohort, rows, valid, lr, perms, cfg,
                 batch_size=self.batch_size, epochs=self.epochs, nmasks=nm,
                 noise=noise, sample_idx=sample)
-            return scbf_sum_step(p, masked, neuron_masks=nm), masked, \
+            admitted = tuple({k: _zero_invalid(t, admit)
+                              for k, t in layer.items()}
+                             for layer in masked)
+            return scbf_sum_step(p, admitted, neuron_masks=nm), masked, \
                 masks, ops
 
         p = tuple(params)
         nm = None if nmasks is None else tuple(nmasks)
         out = None
         for r in range(plan.part_idx.shape[0]):
-            rows, valid, lr, perms = (plan.part_idx[r], plan.valid[r],
-                                      plan.lrs[r], plan.perms[r])
+            rows, valid, admit, lr, perms = (
+                plan.part_idx[r], plan.valid[r], plan.admit[r], plan.lrs[r],
+                plan.perms[r])
             noise = None if plan.noise is None else \
                 [z[r] for z in plan.noise]
             sample = None if plan.sample_idx is None else \
@@ -550,9 +592,9 @@ class BatchedEngine:
             prog = body if self.device.type != "cuda" else self._program(
                 graphs.program_key("scbf", cfg, p, rows, perms, noise,
                                    sample, nm),
-                body, (p, rows, valid, lr, perms, noise, sample, nm))
-            p, masked, masks, ops = prog(p, rows, valid, lr, perms, noise,
-                                         sample, nm)
+                body, (p, rows, valid, admit, lr, perms, noise, sample, nm))
+            p, masked, masks, ops = prog(p, rows, valid, admit, lr, perms,
+                                         noise, sample, nm)
             if out is None:
                 out = _stacked_like(plan.part_idx.shape[0], masked, masks,
                                     ops)
@@ -648,6 +690,15 @@ def _perm_block(perms) -> np.ndarray:
     return np.stack([np.stack([p.numpy() if isinstance(p, torch.Tensor)
                                else np.asarray(p) for p in row])
                      for row in perms]).astype(np.int64)
+
+
+def _stack_params(params: Sequence, num_slots: int) -> Tuple[dict, ...]:
+    """One ``(num_slots, …)`` model from a list of per-participant models,
+    a padded slot repeating slot 0's (it takes no step and is zeroed)."""
+    rows = list(params) + [params[0]] * (num_slots - len(params))
+    return tuple({k: torch.stack([r[l][k] for r in rows])
+                  for k in layer}
+                 for l, layer in enumerate(params[0]))
 
 
 def _stacked_like(s_count: int, masked, masks, ops) -> FusedOutputs:

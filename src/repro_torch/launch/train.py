@@ -7,7 +7,13 @@ synthetic 30,760 × 2,917 medical cohort, 5 clients — on the CUDA device
 with the reference's columns.  ``--engine`` picks the cohort engine
 (``batched``, the default, or ``sequential``) and ``--dp-noise`` the DP
 noise multiplier of the scbf uploads (0 = off), as in the reference.
-``--mode lm`` (ROADMAP A14) is not ported yet.
+The chaos flags are the reference's: ``--fault-trace`` (a seeded fault
+spec, ``fed.faults.parse_fault_trace``), ``--deadline-quantile`` and
+``--deadline-action`` (the simulated clock), ``--min-valid-participants``
+(round quorum), ``--max-update-norm`` and ``--norm-action`` (the norm
+gate); ``--events`` writes ``<out>/<method>.events.jsonl``, which
+``python -m repro.obs.report`` reads.  ``--mode lm`` (ROADMAP A14) is not
+ported yet.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode medical \
@@ -17,7 +23,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
+import dataclasses
 import os
 
 CSV_COLUMNS = ["loop", "auc_roc", "auc_pr", "upload_fraction",
@@ -66,20 +74,36 @@ def method_config(method: str, args, fed=None):
 
 
 def fed_config(args):
-    """The federation scenario of the command line."""
-    from repro_torch.config import FedConfig
+    """The federation scenario of the command line: a ``--fault-trace``
+    arms fault injection (its seed defaults to ``--seed``), a
+    ``--deadline-quantile`` above 0 the simulated clock."""
+    from repro_torch.config import ClockConfig, FedConfig
+    from repro_torch.fed.faults import parse_fault_trace
 
-    return FedConfig(engine=args.engine,
-                     sample_fraction=args.sample_fraction,
-                     dropout_rate=args.dropout_rate,
-                     straggler_rate=args.straggler_rate,
-                     partition=args.partition,
-                     dirichlet_alpha=args.dirichlet_alpha)
+    kw = dict(engine=args.engine, sample_fraction=args.sample_fraction,
+              dropout_rate=args.dropout_rate,
+              straggler_rate=args.straggler_rate,
+              partition=args.partition,
+              dirichlet_alpha=args.dirichlet_alpha,
+              min_valid_participants=args.min_valid_participants,
+              max_update_norm=args.max_update_norm,
+              norm_action=args.norm_action)
+    if args.fault_trace:
+        faults = parse_fault_trace(args.fault_trace)
+        if "seed=" not in args.fault_trace:
+            faults = dataclasses.replace(faults, seed=args.seed)
+        kw["faults"] = faults
+    if args.deadline_quantile > 0:
+        kw["clock"] = ClockConfig(enabled=True,
+                                  deadline_quantile=args.deadline_quantile,
+                                  deadline_action=args.deadline_action)
+    return FedConfig(**kw)
 
 
 def run_medical(args):
     from repro_torch.core.scbf import run_federated
     from repro_torch.data.medical import generate_cohort
+    from repro_torch.obs import recording
 
     cohort = generate_cohort(seed=args.seed)
     os.makedirs(args.out, exist_ok=True)
@@ -87,8 +111,12 @@ def run_medical(args):
     results = {}
     for method in args.methods.split(","):
         base, cfg = method_config(method, args, fed)
-        res = run_federated(cohort, cfg, method=base, verbose=True,
-                            device=args.device)
+        rec_ctx = recording(os.path.join(args.out,
+                                         f"{method}.events.jsonl")) \
+            if args.events else contextlib.nullcontext()
+        with rec_ctx:
+            res = run_federated(cohort, cfg, method=base, verbose=True,
+                                device=args.device)
         results[method] = res
         write_csv(os.path.join(args.out, f"{res.method}.csv"), res)
         print(f"[{res.method}] best auc_roc={res.best('auc_roc'):.4f} "
@@ -127,6 +155,31 @@ def parse_args(argv=None):
     ap.add_argument("--dirichlet-alpha", type=float, default=0.5)
     ap.add_argument("--dp-noise", type=float, default=0.0,
                     help="DP noise multiplier on scbf uploads (0 = off)")
+    ap.add_argument("--fault-trace", default=None,
+                    help="seeded fault-injection spec, comma-separated "
+                         "key=value pairs (e.g. 'crash=0.05,net_fail=0.1,"
+                         "bitflip=0.02,nan=0.01'); keys: seed, crash, "
+                         "net_fail, retries, backoff, duplicate, bitflip, "
+                         "nan, poison, poison_scale")
+    ap.add_argument("--deadline-quantile", type=float, default=0.0,
+                    help="enable the simulated wall clock and cut each "
+                         "cohort at this latency quantile (0 = off)")
+    ap.add_argument("--deadline-action", default="drop",
+                    choices=["drop", "spill"],
+                    help="what happens to deadline misses: drop, or spill "
+                         "into a staleness-weighted buffer")
+    ap.add_argument("--min-valid-participants", type=int, default=0,
+                    help="round quorum: retry with backoff when fewer "
+                         "valid updates arrive (0 = off)")
+    ap.add_argument("--max-update-norm", type=float, default=0.0,
+                    help="server-side L2 norm bound on admitted updates "
+                         "(0 = off)")
+    ap.add_argument("--norm-action", default="reject",
+                    choices=["reject", "clip"],
+                    help="over-norm updates are rejected or clipped")
+    ap.add_argument("--events", action="store_true",
+                    help="write <out>/<method>.events.jsonl flight-recorder "
+                         "logs (read them with python -m repro.obs.report)")
     return ap.parse_args(argv)
 
 

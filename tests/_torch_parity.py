@@ -85,3 +85,17 @@ def reference_draws(seed: int, feats, shard_sizes, loops: int, epochs: int,
         return reference_normals(dp_keys[loop][i], shapes)
 
     return init, perms, dp_noise
+
+
+def reference_config(cfg):
+    """The reference's config of a port config: the same dataclass of
+    ``repro.config`` field for field (the two packages' configs share
+    names and defaults)."""
+    import dataclasses
+
+    import repro.config as ref_config
+    if not dataclasses.is_dataclass(cfg):
+        return cfg
+    kind = getattr(ref_config, type(cfg).__name__)
+    return kind(**{f.name: reference_config(getattr(cfg, f.name))
+                   for f in dataclasses.fields(cfg)})

@@ -1,5 +1,8 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package ``repro``."""
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py``, ``examples/torch_quickstart.py`` or a
+``benchmarks/torch_*.py`` script imports JAX, the reference package
+``repro`` or a benchmark module of the reference (``benchmarks.common``
+imports JAX)."""
 import ast
 from pathlib import Path
 
@@ -7,13 +10,18 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py"] + \
+    sorted((REPO / "benchmarks").glob("torch_*.py"))
 CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
 KERNELS = ("channel_norm", "select_mask", "select_compact", "apoz")
 
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
+    if top == "benchmarks":
+        # only the port's own scripts: ``benchmarks.common`` and the
+        # reference's benchmarks import JAX
+        return not name.split(".")[-1].startswith("torch_")
     return top in ("jax", "jaxlib", "repro")
 
 
@@ -61,7 +69,11 @@ def test_no_jax_or_reference_imports(path):
 
 def test_the_check_tells_the_packages_apart():
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
+    assert _forbidden("benchmarks.common")
+    assert _forbidden("benchmarks.fig2_scbf_vs_fa")
     assert not _forbidden("repro_torch.core")
+    assert not _forbidden("benchmarks.torch_fig2_scbf_vs_fa")
+    assert any(p.name == "torch_table_time.py" for p in FILES)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

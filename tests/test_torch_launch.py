@@ -39,3 +39,59 @@ def test_engine_and_dp_noise_reach_the_config():
     assert cfg.scbf.dp_noise_multiplier == 1.5
     with pytest.raises(SystemExit):
         parse_args(["--engine", "fused"])
+
+
+def test_chaos_flags_reach_the_config():
+    """The reference's chaos flags: ``--fault-trace`` arms injection (its
+    seed defaults to ``--seed``), ``--deadline-quantile`` the clock with
+    ``--deadline-action``, and the quorum and norm-gate flags reach
+    ``FedConfig``; ``--events`` asks for the event logs."""
+    args = parse_args([])
+    fed = fed_config(args)
+    assert not fed.faults.enabled and not fed.clock.enabled
+    assert (fed.min_valid_participants, fed.max_update_norm,
+            fed.norm_action) == (0, 0.0, "reject")
+    assert args.events is False
+    args = parse_args(["--fault-trace", "crash=0.1,bitflip=0.05",
+                       "--seed", "3", "--deadline-quantile", "0.8",
+                       "--deadline-action", "spill",
+                       "--min-valid-participants", "3",
+                       "--max-update-norm", "50", "--norm-action", "clip",
+                       "--events"])
+    fed = fed_config(args)
+    assert fed.faults.enabled and fed.faults.seed == 3
+    assert (fed.faults.crash_rate, fed.faults.bitflip_rate) == (0.1, 0.05)
+    assert fed.clock.enabled and fed.clock.deadline_quantile == 0.8
+    assert fed.clock.deadline_action == "spill"
+    assert (fed.min_valid_participants, fed.max_update_norm,
+            fed.norm_action) == (3, 50.0, "clip")
+    assert args.events is True
+    assert fed_config(parse_args(["--fault-trace", "seed=9,nan=0.2"])
+                      ).faults.seed == 9
+    with pytest.raises(SystemExit):
+        parse_args(["--norm-action", "halve"])
+    with pytest.raises(SystemExit):
+        parse_args(["--deadline-action", "wait"])
+
+
+def test_events_flag_writes_a_log_per_method(tmp_path, monkeypatch):
+    """``--events`` on a tiny CPU run (a small cohort in place of the
+    paper's) writes ``<out>/<method>.events.jsonl``, which the reference's
+    report reader loads, with the fault trace's rejections in it."""
+    from repro.obs import report
+
+    import repro_torch.data.medical as medical
+    from repro_torch.launch import train
+
+    real = medical.generate_cohort
+    monkeypatch.setattr(medical, "generate_cohort", lambda seed=0: real(
+        num_admissions=600, num_medicines=24, seed=seed))
+    args = parse_args(["--methods", "scbf", "--loops", "1", "--clients",
+                       "2", "--device", "cpu", "--events", "--out",
+                       str(tmp_path), "--local-epochs", "1",
+                       "--fault-trace", "duplicate=1.0"])
+    train.run_medical(args)
+    events = report.read_events(str(tmp_path / "scbf.events.jsonl"))
+    kinds = [e["ev"] for e in events]
+    assert kinds[0] == "meta" and kinds[-1] == "run_end"
+    assert kinds.count("payload_rejected") == 2

@@ -160,13 +160,7 @@ def test_device_none_without_cuda_raises():
     dict(fed=tcfg.FedConfig(pods=2)),
     dict(debug_checks=True),
     dict(obs=tcfg.ObsConfig(device_metrics=True)),
-    dict(fed=tcfg.FedConfig(mode="fedbuff")),
-    dict(fed=tcfg.FedConfig(clock=tcfg.ClockConfig(enabled=True))),
-    dict(fed=tcfg.FedConfig(faults=tcfg.FaultConfig(enabled=True))),
-    dict(fed=tcfg.FedConfig(max_update_norm=1.0)),
-    dict(fed=tcfg.FedConfig(min_valid_participants=2)),
-], ids=["pods", "debug_checks", "device_metrics", "fedbuff",
-        "clock", "faults", "admission", "quorum"])
+], ids=["pods", "debug_checks", "device_metrics"])
 def test_out_of_slice_configs_refused(change):
     cohort = generate_cohort(num_admissions=200, num_medicines=16, seed=0)
     cfg = tcfg.TrainConfig(global_loops=1, **change)
