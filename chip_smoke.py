@@ -69,7 +69,21 @@ its own failure:
    and its emission apart: busy share, copies, top kernels; its kernel
    events must show K1 and K2 once a replay) and over one
    per-round SCBFwP mask loop (with the host seconds of its parts).
-6. cross-device at full width — FedBuff of 50 IID clients (concurrency
+6. obs (the flight recorder's device layer) at full width, under
+   ``recording``: per-round SCBF 2 loops (the round events' loss,
+   selected channels and bytes by codec; the carry's bytes those of the
+   payloads; one offload a round; weights bitwise the main path's run;
+   the loss finite and falling), fused SCBF 4 loops at ``fuse_rounds`` =
+   2 (bitwise the fused phase's run, one offload a chunk, one capture,
+   its chunk 1 under sync-debug "error", the losses the per-round run's
+   to 1e-5, and one steady chunk profiled whole: K1 and K2 once a
+   replay, one DtoH copy more than the collect-off chunk), fused FedAvg 2
+   loops and mask-mode SCBFwP 8 loops (bitwise; the effective-geometry
+   bytes the emitted payloads' each loop), ``debug_checks`` bitwise and a
+   NaN in W0 named; every run's launches those of its collect-off run;
+   then the collection's cost a fused loop, 3 alternating repeats.  Its
+   lines start with ``obs:``.
+7. cross-device at full width — FedBuff of 50 IID clients (concurrency
    20, buffer 10, stragglers 0.2, dropout 0.05): SCBF 6 rounds and
    mask-mode SCBFwP 4 rounds, K1, K2 and K3's count once a round whose
    participants start from different stale versions, one
@@ -81,22 +95,22 @@ its own failure:
    CRC-32's host cost a round; deadline drop and spill at quantile 0.8,
    4 loops each; a quorum of 4 that retries.  Its lines start with
    ``cross-device:``.
-7. C1 — one batched round of 256 participants at the paper's widths
+8. C1 — one batched round of 256 participants at the paper's widths
    (the cohort split 256 ways, batch 32): one launch each of K1 (its
    workspace past the 2^22 words the library once held), K2 and K3's
    count, and every slot's selection and encoding bitwise its one-slot
    calls.
-8. profile — torch.profiler over one more full-width loop of SCBF on
+9. profile — torch.profiler over one more full-width loop of SCBF on
    each engine and of SCBFwP: the device's busy share, the host-device
    copies and the kernels that take its time.
-9. small-input agreement — SCBF, SCBF with DP (normals injected) and
+10. small-input agreement — SCBF, SCBF with DP (normals injected) and
    SCBFwP (mask, compacted) on the batched engine, SCBFwP (mask,
    compacted) on the sequential one, fused SCBF with DP and fused
    SCBFwP (mask, compacted), FedBuff, and the storm per round and
    fused, on cuda and on the CPU (whose plain path the CPU tests hold
    against the JAX reference), from the same initial weights and
    permutations; the rejection counters and flushes equal.
-10. the card line, the kernel report line and the final ok line.
+11. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -149,6 +163,7 @@ STORM_LOOPS = 6
 MAX_UPDATE_NORM = 1.0
 CLOCK_LOOPS, DEADLINE_Q = 4, 0.8
 QUORUM_LOOPS = 3
+OBS_COST_LOOPS = 8                    # a run of the collection's cost
 
 
 def log(msg: str) -> None:
@@ -952,7 +967,10 @@ class RoundTap:
         from repro_torch.fed.cohort import bucket_size
         for cls, fn in self.saved.items():
             def tapped(eng, params, participants, *a, _fn=fn, **k):
-                payloads, stats = _fn(eng, params, participants, *a, **k)
+                # (payloads, stats), and the round's telemetry when the
+                # run collects (under a recorder)
+                out = _fn(eng, params, participants, *a, **k)
+                payloads, stats = out[:2]
                 p = len(participants)
                 batched = eng.name == "batched"
                 self.rounds.append({
@@ -961,7 +979,7 @@ class RoundTap:
                     if batched and p else p,
                     "uniform": eng.cohort.uniform if batched else None,
                     "payloads": payloads, "stats": stats})
-                return payloads, stats
+                return out
             cls.scbf_round = tapped
         if self.want_masks:
             def select(*a, **k):
@@ -1666,7 +1684,315 @@ def phase_fused(torch, cohort, card: str, runs: dict) -> dict:
     return {"measured_by": "torch.profiler kernel events of one steady "
                            "fused SCBF chunk",
             "chunk_replays": chunk["replays"], "chunk_kernel_launches": seen,
-            "replays_by_run": replays}
+            "replays_by_run": replays,
+            # the collect-off side of the obs phase's profiled chunk
+            "chunk_windows": [chunk["window"], emitted["window"]]}
+
+
+class ChunkWindow:
+    """One torch.profiler window over the whole of fused chunk ``profile``
+    (0-based) of a run — ``BatchedEngine.run_fused_chunk``: its replays,
+    its emission and its telemetry's offload — with the wrapper launches
+    and graph replays inside it."""
+
+    def __init__(self, torch, profile: int = 1):
+        from repro_torch.fed import engine as fe
+        self.torch, self.cls, self.profile = torch, fe.BatchedEngine, profile
+        self.saved = self.cls.run_fused_chunk
+        self.calls = 0
+        self.window = None
+
+    def __enter__(self):
+        torch, tap, fn = self.torch, self, self.saved
+
+        def wrapped(eng, *a, **k):
+            from torch.profiler import ProfilerActivity, profile, schedule
+
+            from repro_torch.fed import graphs
+            i, tap.calls = tap.calls, tap.calls + 1
+            if i != tap.profile:
+                return fn(eng, *a, **k)
+            torch.cuda.synchronize()
+            before, replays = _launch_counts(), graphs.replays
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1))
+            # a warm-up step, and a first kernel of the active step that is
+            # none of ours (as ChunkTap: a window's first device activity
+            # can go unrecorded)
+            prof.start()
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(eng, *a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.stop()
+            after = _launch_counts()
+            tap.window = dict(_window(_device_events(prof), wall),
+                              launches={n: after[n] - before[n]
+                                        for n in after},
+                              replays=graphs.replays - replays)
+            return out
+
+        self.cls.run_fused_chunk = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run_fused_chunk = self.saved
+
+
+def obs_profile_check(torch, window: dict, off: list, card: str) -> dict:
+    """The profiled collect-on chunk: K1 and K2 once a replay from its
+    kernel events, K3 as its wrappers launched, and exactly one DtoH copy
+    more than the collect-off chunk's replays and emission (``off``, the
+    fused phase's two windows) — the telemetry's one offload.  Also the
+    device events and busy time against the collect-off chunk's."""
+    seen = window["kernel_launches"]
+    want = dict(window["launches"], channel_norm=window["replays"],
+                select_mask=window["replays"])
+    d2h = window["copies_count_us"]["d2h"][0]
+    off_d2h = [w["copies_count_us"]["d2h"][0] for w in off]
+    if window["replays"] != FUSE or seen != want or \
+            d2h != sum(off_d2h) + 1:
+        raise AssertionError(
+            f"obs: profiled collect-on chunk: {window['replays']} replays "
+            f"(want {FUSE}), kernel events {seen} (want {want}), {d2h} DtoH "
+            f"copies (want {sum(off_d2h)} + 1); trace "
+            f"{window['top_by_device_us']}")
+    return {"replays": window["replays"], "kernel_events": seen,
+            "d2h_copies_collect_on": d2h,
+            "d2h_copies_collect_off": off_d2h,
+            "device_events_collect_on": window["events"],
+            "device_events_collect_off": [w["events"] for w in off],
+            "device_busy_s_collect_on": window["device_busy_s"],
+            "device_busy_s_collect_off": [w["device_busy_s"] for w in off],
+            "card": card}
+
+
+def phase_obs(torch, cohort, card: str, runs: dict, fused: dict) -> None:
+    """The flight recorder's device layer at full width (the paper's
+    setting, cuda, under ``recording``): per-round SCBF 2 loops (the round
+    events' device fields, the carry's bytes against the payloads', one
+    offload a round, weights bitwise the main path's collect-off run, the
+    loss finite and falling); fused SCBF S = 2, 4 loops (bitwise the fused
+    phase's run, one offload a chunk, one capture, a sync-free chunk, the
+    losses the per-round run's to 1e-5, and a profiled chunk: K1 and K2
+    once a replay, one DtoH copy more than collect-off); fused FedAvg 2
+    loops and mask-mode SCBFwP 8 loops (bitwise; the effective-geometry
+    bytes the emitted payloads' every loop); ``debug_checks`` bitwise, and
+    a NaN in W0 named; the launch counts of every run those of its
+    collect-off run; the collection's cost a fused loop, measured (3
+    alternating repeats, the minimum), not gated."""
+    import numpy as np
+
+    from repro_torch.config import FedConfig, ObsConfig, ScbfConfig, \
+        TrainConfig
+    from repro_torch.core.scbf import run_federated
+    from repro_torch.fed import graphs
+    from repro_torch.obs import checks
+    from repro_torch.obs import metrics as obsm
+    from repro_torch.obs import trace
+
+    t_phase = time.perf_counter()
+    feats = (cohort.num_features, 256, 64, 1)
+    wp = dict(prune=True, prune_rate=PRUNE_RATE, prune_total=PRUNE_TOTAL,
+              prune_impl="mask", prune_compact=True)
+
+    def cfg(method, loops, fuse, scbf=None, **kw):
+        return TrainConfig(learning_rate=0.05 / K_CLIENTS
+                           if method == "scbf" else 0.05,
+                           global_loops=loops, local_epochs=2,
+                           local_batch_size=256, seed=0,
+                           scbf=ScbfConfig(upload_rate=0.10,
+                                           num_clients=K_CLIENTS,
+                                           **(scbf or {})),
+                           fed=FedConfig(fuse_rounds=fuse), **kw)
+
+    offloads = []
+    real_offload = obsm.offload
+
+    def tapped(carry, rounds=None):
+        out = real_offload(carry, rounds=rounds)
+        offloads.append(out)
+        return out
+
+    def run(label, method, loops, fuse, scbf=None, **kw):
+        """A recorded run of the port; its result, launches, captures,
+        replays, recorder and offloaded telemetry dicts (flat, a round
+        each)."""
+        graphs.reset_captures()
+        _reset_launches()
+        offloads.clear()
+        with trace.recording() as rec:
+            res = run_federated(cohort, cfg(method, loops, fuse, scbf, **kw),
+                                method=method, mlp_features=feats,
+                                device="cuda")
+        counts = _launch_counts()
+        dms = [d for o in offloads for d in (o if isinstance(o, list)
+                                             else [o])]
+        runs[label] = (res, counts, [])
+        rounds = [e for e in rec.events if e["ev"] == "round"]
+        for r, e in zip(res.records, rounds):
+            log(f"[{label}] loop {r.loop} train_loss={r.train_loss} "
+                f"selected={e.get('selected')} codec_bytes="
+                f"{e.get('codec_bytes')} sparse_bytes={r.sparse_bytes} "
+                f"wall_s={r.wall_time:.4f} ({card})")
+        log(f"[{label}] kernel launches {counts}, captures "
+            f"{graphs.captures}, replays {graphs.replays}, counters "
+            f"{rec.counters}")
+        return res, counts, graphs.captures, graphs.replays, rec, dms
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+    def check(label, ok, what):
+        if not ok:
+            raise AssertionError(f"obs: {label}: {what}")
+
+    obsm.offload = tapped
+    try:
+        # --- per-round SCBF, 2 loops --------------------------------------
+        per, counts, _, _, rec, dms = run("obs_scbf_per_round", "scbf",
+                                          K_LOOPS, 1)
+        rounds = [e for e in rec.events if e["ev"] == "round"]
+        losses = [r.train_loss for r in per.records]
+        check("per-round", all({"train_loss", "selected", "codec_bytes"}
+                               <= set(e) for e in rounds),
+              f"round events {rounds}")
+        check("per-round", [d["sparse_bytes"] for d in dms] ==
+              [r.sparse_bytes for r in per.records] ==
+              [sum(e["codec_bytes"].values()) for e in rounds],
+              f"carry bytes {dms} against records "
+              f"{[r.sparse_bytes for r in per.records]}")
+        check("per-round", rec.counters["host_offloads"] == K_LOOPS,
+              f"host_offloads {rec.counters['host_offloads']}")
+        check("per-round", same(per.final_params,
+                                runs["scbf"][0].final_params),
+              "final weights differ from the collect-off run's")
+        check("per-round", all(math.isfinite(x) for x in losses)
+              and losses[1] < losses[0], f"train_loss {losses}")
+        check("per-round", counts == runs["scbf"][1],
+              f"launches {counts} against {runs['scbf'][1]}")
+
+        # --- fused SCBF, S = 2, 4 loops, its chunk 1 sync-free -------------
+        with ChunkTap(torch, guard=1) as tap:
+            fz, fz_counts, caps, reps, rec, fz_dms = run(
+                "obs_scbf_fused", "scbf", FUSE_LOOPS, FUSE)
+        off = runs["scbf_fused"]
+        loss_diff = max(abs(a.train_loss - b.train_loss)
+                        for a, b in zip(fz.records, per.records))
+        check("fused", same(fz.final_params, off[0].final_params),
+              "final weights differ from the collect-off fused run's")
+        check("fused", rec.counters["host_offloads"] == FUSE_LOOPS // FUSE
+              and caps == 1 and reps == FUSE_LOOPS
+              and fz_counts == off[1] and
+              tap.calls["fused_scbf_chunk"][1]["replays"] == FUSE,
+              f"host_offloads {rec.counters['host_offloads']}, captures "
+              f"{caps}, replays {reps}, launches {fz_counts} against "
+              f"{off[1]}")
+        check("fused", [d["sparse_bytes"] for d in fz_dms] ==
+              [r.sparse_bytes for r in fz.records], f"carry bytes {fz_dms}")
+        check("fused", loss_diff <= 1e-5,
+              f"train_loss {[r.train_loss for r in fz.records]} against "
+              f"per round {losses}")
+        with ChunkWindow(torch) as win:
+            run("obs_scbf_fused_profiled", "scbf", FUSE_LOOPS, FUSE)
+        runs.pop("obs_scbf_fused_profiled")
+        prof = obs_profile_check(torch, win.window,
+                                 fused["chunk_windows"], card)
+        log("obs: " + json.dumps({
+            "run": "fused scbf, fuse_rounds=2, 4 loops, collect on",
+            "card": card, "captures": caps, "replays": reps,
+            "host_offloads": rec.counters["host_offloads"],
+            "sync_debug_error_chunk": 1,
+            "train_loss": [r.train_loss for r in fz.records],
+            "train_loss_max_abs_diff_vs_per_round": loss_diff,
+            "final_weights_bitwise_collect_off": True,
+            "profiled_chunk": prof,
+            "profiled_chunk_wall_s": win.window["wall_s"]}))
+
+        # --- fused FedAvg 2 loops, fused SCBFwP mask 8 loops --------------
+        fa, fa_counts, fa_caps, _, rec, fa_dms = run(
+            "obs_fedavg_fused", "fedavg", 2, FUSE)
+        check("fused fedavg", same(fa.final_params,
+                                   runs["fedavg_fused"][0].final_params)
+              and fa_caps == 1 and rec.counters["host_offloads"] == 1
+              and fa_counts == runs["fedavg_fused"][1]
+              and all(math.isfinite(r.train_loss) for r in fa.records),
+              f"captures {fa_caps}, counters {rec.counters}, launches "
+              f"{fa_counts}, losses {[r.train_loss for r in fa.records]}")
+        wpr, wp_counts, wp_caps, _, rec, wp_dms = run(
+            "obs_scbfwp_mask_fused", "scbf", WP_LOOPS, FUSE, wp)
+        ref = runs["scbfwp_mask_fused"]
+        check("fused scbfwp mask", same(wpr.final_params,
+                                        ref[0].final_params)
+              and [r.hidden_sizes for r in wpr.records] ==
+              [r.hidden_sizes for r in ref[0].records]
+              and wp_caps <= 2 and wp_counts == ref[1],
+              f"captures {wp_caps}, launches {wp_counts} against {ref[1]}")
+        check("fused scbfwp mask", [d["sparse_bytes"] for d in wp_dms] ==
+              [r.sparse_bytes for r in wpr.records],
+              f"carry bytes {[d['sparse_bytes'] for d in wp_dms]} against "
+              f"the payloads' {[r.sparse_bytes for r in wpr.records]}")
+        log("obs: " + json.dumps({
+            "run": "fused fedavg 2 loops and scbfwp mask 8 loops, collect "
+                   "on", "card": card,
+            "fedavg_train_loss": [r.train_loss for r in fa.records],
+            "scbfwp_carry_sparse_bytes": [d["sparse_bytes"]
+                                          for d in wp_dms],
+            "scbfwp_payload_sparse_bytes": [r.sparse_bytes
+                                            for r in wpr.records],
+            "scbfwp_hidden": [r.hidden_sizes for r in wpr.records],
+            "scbfwp_captures": wp_caps,
+            "final_weights_bitwise_collect_off": True}))
+
+        # --- debug_checks -------------------------------------------------
+        chk, chk_counts, _, _, _, _ = run("obs_scbf_fused_checked", "scbf",
+                                          FUSE_LOOPS, FUSE,
+                                          debug_checks=True)
+        check("debug_checks", same(chk.final_params, off[0].final_params)
+              and chk_counts == off[1],
+              "a checked fused run differs from its unchecked run")
+        bad = tuple({k: v.clone() for k, v in layer.items()}
+                    for layer in chk.final_params)
+        bad[0]["w"][3, 7] = float("nan")
+        try:
+            checks.verify_round(bad, None, where="smoke")
+            raise AssertionError("obs: verify_round passed a NaN in W0")
+        except checks.DebugCheckError as e:
+            msg = str(e)
+        check("debug_checks", "'0/w'" in msg and "1 nan / 0 inf" in msg,
+              msg)
+        log(f"obs: debug_checks fused run bitwise its unchecked run; a NaN "
+            f"in W0 on cuda: {msg} ({card})")
+    finally:
+        obsm.offload = real_offload
+
+    # --- the collection's cost a fused loop (recorded, not gated) ----------
+    walls = {"off": [], "on": []}
+    for _ in range(3):
+        for side in ("off", "on"):
+            res = run_federated(cohort, cfg(
+                "scbf", OBS_COST_LOOPS, FUSE,
+                obs=ObsConfig(device_metrics=side == "on")),
+                method="scbf", mlp_features=feats, device="cuda")
+            # the steady chunks' loops (chunk 0 holds the capture)
+            walls[side].append(float(np.mean([r.wall_time for r in
+                                              res.records[FUSE:]])))
+    best = {k: min(v) for k, v in walls.items()}
+    log("obs: " + json.dumps({
+        "what": f"fused SCBF loop wall (mean of {OBS_COST_LOOPS - FUSE} "
+                "steady loops, amortised), device metrics off and on, 3 "
+                "alternating repeats", "card": card,
+        "loop_wall_s": walls, "min_loop_wall_s": best,
+        "collection_overhead_s_a_loop": best["on"] - best["off"],
+        "collection_overhead_share": (best["on"] - best["off"])
+        / best["off"]}))
+    log(f"obs: phase wall {time.perf_counter() - t_phase:.1f}s ({card})")
 
 
 def mask_loop_profile(torch, cohort, card, cfg, feats) -> None:
@@ -2182,6 +2508,9 @@ def main() -> int:
     t0 = time.perf_counter()
     replayed = phase_fused(torch, cohort, card, runs)
     log(f"phase fused: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_obs(torch, cohort, card, runs, replayed)
+    log(f"phase obs: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_cross_device(torch, cohort, card, runs)
     log(f"phase cross-device: {time.perf_counter() - t0:.1f}s")

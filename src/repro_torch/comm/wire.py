@@ -306,6 +306,17 @@ def _encode_slots(masked: Sequence[dict], operands: Sequence, a: int,
     return payloads
 
 
+def codec_breakdown(payloads) -> dict:
+    """Total wire bytes by winning codec over a batch of ``Payload``s,
+    every ``CODECS`` name a key (zero-filled) — the telemetry's stable
+    schema."""
+    out = {c: 0 for c in CODECS}
+    for p in payloads:
+        for lp in p.layers:
+            out[lp.codec] += lp.nbytes
+    return out
+
+
 def validate_layer(lp: LayerPayload, leaf_shape: Optional[Tuple[int, ...]]
                    = None, unique: bool = True) -> None:
     """Structural validation of one wire leaf; raises ``PayloadError``.

@@ -119,9 +119,10 @@ class FedConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """Flight-recorder knobs: ``device_metrics`` (on-device telemetry) is
-    ROADMAP A12 and refused; ``annotate`` marks the fused chunk span in a
-    ``torch.profiler`` trace while recording (``repro_torch.obs``)."""
+    """Flight-recorder knobs (``repro_torch.obs``): ``device_metrics``
+    turns the on-device telemetry on without a recorder (a run under
+    ``recording`` collects whatever it says); ``annotate`` marks the fused
+    chunk span in a ``torch.profiler`` trace while recording."""
 
     device_metrics: bool = False
     annotate: bool = True
@@ -143,7 +144,7 @@ class TrainConfig:
     local_batch_size: int = 256
     seed: int = 0
     remat: bool = True
-    debug_checks: bool = False       # ROADMAP A12
+    debug_checks: bool = False       # host-side checks (obs.checks)
     scbf: ScbfConfig = field(default_factory=ScbfConfig)
     fed: FedConfig = field(default_factory=FedConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)

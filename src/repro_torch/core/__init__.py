@@ -1,1 +1,33 @@
+"""The paper's contribution: Stochastic Channel-Based Federated Learning
+(port of ``repro.core``).
 
+The reference's exports, resolved on first use: ``core.scbf`` imports the
+engines, which import this package's modules, so an eager import here
+would be circular whenever an engine is imported first.
+"""
+import importlib
+
+_EXPORTS = {
+    "LoopRecord": ("repro_torch.core.scbf", "LoopRecord"),
+    "RunResult": ("repro_torch.core.scbf", "RunResult"),
+    "run_federated": ("repro_torch.core.scbf", "run_federated"),
+    "run_fedavg": ("repro_torch.core.fedavg", "run_fedavg"),
+    "fedavg_update": ("repro_torch.core.server", "fedavg_update"),
+    "scbf_update": ("repro_torch.core.server", "scbf_update"),
+    "client_delta": ("repro_torch.core.client", "client_delta"),
+    "local_train": ("repro_torch.core.client", "local_train_impl"),
+    "channels": ("repro_torch.core.channels", None),
+    "privacy": ("repro_torch.core.privacy", None),
+    "pruning": ("repro_torch.core.pruning", None),
+    "selection": ("repro_torch.core.selection", None),
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module, attr = _EXPORTS[name]
+    mod = importlib.import_module(module)
+    return mod if attr is None else getattr(mod, attr)

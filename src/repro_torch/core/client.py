@@ -18,6 +18,12 @@ permutations in parity tests; without it each epoch draws
 padded cohort of ``fed.cohort``), and ``local_train_slots`` trains the S
 clients of a round at once on slot-stacked params — the counterpart of
 the reference's ``jax.vmap`` of the two bodies (``repro.fed.engine``).
+
+``with_loss=True`` (the device telemetry, ``repro_torch.obs``) also
+returns the mean training loss: the forward value each step's backward
+pass already computes, accumulated detached on the device (no host
+read, so it runs under capture), so the parameter trajectory is bitwise
+the one without it.
 """
 from __future__ import annotations
 
@@ -59,18 +65,21 @@ def local_train_impl(params: Tuple[dict, ...], x: torch.Tensor,
                      perms: Optional[Sequence] = None,
                      generator: Optional[torch.Generator] = None,
                      batch_size: int = 256, epochs: int = 1,
-                     neuron_masks=None) -> Tuple[dict, ...]:
+                     neuron_masks=None, with_loss: bool = False):
     """SGD over the client shard; returns the updated params.
 
     ``perms``: one permutation of ``range(len(x))`` per epoch (numpy or
     tensor); each is cut to the ``(len(x) // batch_size) * batch_size``
     examples the epoch uses, dropping the ragged tail as the reference
     does.  ``None`` draws them with ``epoch_perms`` on ``generator``.
+    ``with_loss``: returns ``(params, mean loss)``, the mean over the
+    steps taken (a 0-d fp32 tensor on the device).
     """
     return masked_local_train_impl(params, x, y, None, lr, perms=perms,
                                    generator=generator,
                                    batch_size=batch_size, epochs=epochs,
-                                   neuron_masks=neuron_masks)
+                                   neuron_masks=neuron_masks,
+                                   with_loss=with_loss)
 
 
 def masked_local_train_impl(params: Tuple[dict, ...], x: torch.Tensor,
@@ -78,11 +87,13 @@ def masked_local_train_impl(params: Tuple[dict, ...], x: torch.Tensor,
                             lr: float, perms: Optional[Sequence] = None,
                             generator: Optional[torch.Generator] = None,
                             batch_size: int = 256, epochs: int = 1,
-                            neuron_masks=None) -> Tuple[dict, ...]:
+                            neuron_masks=None, with_loss: bool = False):
     """``local_train_impl`` with per-example weights ``w`` (1 real, 0
     padding; ``None``: the unweighted loss).  Batches come from the
     padded shard and the weighted mean renormalises by the real examples
-    of each batch, ``max(Σw, 1)``: a batch of pure padding is a no-op."""
+    of each batch, ``max(Σw, 1)``: a batch of pure padding is a no-op.
+    ``with_loss``: returns ``(params, mean loss)``; with ``w`` the mean is
+    example-weighted over the steps, Σ loss·Σw / max(ΣΣw, 1)."""
     if perms is None:
         if generator is None:
             raise ValueError("pass perms= or a generator to draw them")
@@ -93,6 +104,7 @@ def masked_local_train_impl(params: Tuple[dict, ...], x: torch.Tensor,
     p = tuple({k: v.detach().clone().requires_grad_(True)
                for k, v in layer.items()} for layer in params)
     leaves = [v for layer in p for v in layer.values()]
+    num = den = torch.zeros((), dtype=torch.float32, device=x.device)
     for perm in perms:
         perm = _as_index(perm, x.device)[:n]
         xb = x[perm].reshape(-1, batch_size, x.shape[1])
@@ -102,7 +114,19 @@ def masked_local_train_impl(params: Tuple[dict, ...], x: torch.Tensor,
             loss = bce_loss(p, xb[i], yb[i], neuron_masks) if wb is None \
                 else masked_bce_loss(p, xb[i], yb[i], wb[i], neuron_masks)
             _sgd_step(leaves, torch.autograd.grad(loss, leaves), lr)
-    return tuple({k: v.detach() for k, v in layer.items()} for layer in p)
+            if with_loss:
+                if wb is None:
+                    num = num + loss.detach()
+                else:
+                    wsum = torch.sum(wb[i], axis=0)
+                    num = num + loss.detach() * wsum
+                    den = den + wsum
+    out = tuple({k: v.detach() for k, v in layer.items()} for layer in p)
+    if not with_loss:
+        return out
+    if w is None:
+        return out, num / max((n // batch_size) * epochs, 1)
+    return out, num / torch.clamp(den, min=1.0)
 
 
 def _sgd_step(leaves, grads, lr) -> None:
@@ -119,8 +143,8 @@ def local_train_slots(params: Tuple[dict, ...], x: torch.Tensor,
                       valid: Optional[torch.Tensor] = None,
                       batch_size: int = 256, epochs: int = 1,
                       neuron_masks=None,
-                      clients: Optional[torch.Tensor] = None
-                      ) -> Tuple[dict, ...]:
+                      clients: Optional[torch.Tensor] = None,
+                      with_loss: bool = False):
     """SGD for S clients at once: the counterpart of ``jax.vmap`` of
     ``local_train_impl`` (``w`` None) or ``masked_local_train_impl``.
 
@@ -140,7 +164,11 @@ def local_train_slots(params: Tuple[dict, ...], x: torch.Tensor,
     zeroed, so it takes no step (its output is dropped all the same).
     Reductions name their axis: the examples' (1), never the slots'.
     ``neuron_masks`` are shared by all slots.
-    Returns the updated slot-stacked params.
+    Returns the updated slot-stacked params; with ``with_loss``,
+    ``(params, (S,) mean losses)``: each slot's loss is taken detached
+    before the sum that is backpropagated and accumulated on the device,
+    its mean as ``local_train_impl``'s (``w`` None) or
+    ``masked_local_train_impl``'s.
     """
     s_count = x.shape[0] if clients is None else clients.shape[0]
     n_all = x.shape[1]
@@ -158,6 +186,7 @@ def local_train_slots(params: Tuple[dict, ...], x: torch.Tensor,
     if valid is None:
         valid = torch.ones(s_count, dtype=torch.bool, device=x.device)
     live = valid[:, None]
+    num = den = torch.zeros(s_count, dtype=torch.float32, device=x.device)
     for e in range(epochs):
         # (batches, S, batch): batch i of every slot is one contiguous block
         idx = perms[:, e, :n].reshape(s_count, -1, batch_size).transpose(0, 1)
@@ -167,13 +196,26 @@ def local_train_slots(params: Tuple[dict, ...], x: torch.Tensor,
             per = torch.where(live, bce_elementwise(
                 mlp_forward(p, xb[i], neuron_masks), yb[i]), 0.0)
             if wb is None:
-                loss = torch.sum(torch.mean(per, axis=1))
+                slot_loss = torch.mean(per, axis=1)
             else:
                 wi = torch.where(live, wb[i], 0.0)
-                loss = torch.sum(torch.sum(per * wi, axis=1) / torch.clamp(
-                    torch.sum(wi, axis=1), min=1.0))
+                wsum = torch.sum(wi, axis=1)
+                slot_loss = torch.sum(per * wi, axis=1) / torch.clamp(
+                    wsum, min=1.0)
+            loss = torch.sum(slot_loss)
             _sgd_step(leaves, torch.autograd.grad(loss, leaves), lr)
-    return tuple({k: v.detach() for k, v in layer.items()} for layer in p)
+            if with_loss:
+                if wb is None:
+                    num = num + slot_loss.detach()
+                else:
+                    num = num + slot_loss.detach() * wsum
+                    den = den + wsum
+    out = tuple({k: v.detach() for k, v in layer.items()} for layer in p)
+    if not with_loss:
+        return out
+    if w is None:
+        return out, num / max((n // batch_size) * epochs, 1)
+    return out, num / torch.clamp(den, min=1.0)
 
 
 def client_delta(params_before, params_after):

@@ -57,13 +57,22 @@ the admission gate), a norm bound that rejects or clips, and a round
 quorum with retries — all planned on the host by
 ``fed.faults.Resilience``.  The fused loop folds the planned verdicts
 into an admit mask and, after each chunk, runs the real gate on the
-emitted payloads; a disagreement is a ``RuntimeError``.  A run under
-``repro_torch.obs.recording`` logs the reference's events
-(``run_start``, ``round``, ``fault_injected``, ``payload_rejected``,
-``round_retried``, ``quorum_miss``, ``fedbuff_flush``, ``prune``,
-``run_end``) and counters.  Pod sharding (A15), ``debug_checks`` and
-device metrics (A12) raise ``NotImplementedError`` naming their ROADMAP
-item.
+emitted payloads; a disagreement is a ``RuntimeError``.
+
+The flight recorder, as in the reference: a run under
+``repro_torch.obs.recording`` logs the reference's events (``run_start``,
+``round``, ``fault_injected``, ``payload_rejected``, ``round_retried``,
+``quorum_miss``, ``fedbuff_flush``, ``prune``, ``compact``, ``run_end``),
+spans (``round``, ``fused_chunk``, ``encode``, ``eval``) and counters, and
+collects the device telemetry (``ObsConfig.device_metrics`` collects it
+without a recorder): each ``round`` event and ``LoopRecord.train_loss``
+then carry the round's mean training loss, and the event its selected
+channels and bytes by codec (``repro_torch.obs.metrics``), computed on the
+device (inside the captured round when fused) and offloaded once a round
+or a chunk.  ``TrainConfig.debug_checks`` runs the host-side checks of
+``repro_torch.obs.checks`` on the offloaded values after each loop or
+chunk.  Neither changes a parameter bit.  Pod sharding (A15) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -91,6 +100,8 @@ from repro_torch.fed.strategy import (AdmissionPolicy, RoundContribution,
                                       admit_payloads, make_strategy)
 from repro_torch.metrics.auc import auc_pr, auc_roc
 from repro_torch.models.mlp_net import hidden_sizes, init_mlp, mlp_forward
+from repro_torch.obs import checks as obschecks
+from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obstrace
 from repro_torch.optim import schedules
 from repro_torch.params import from_numpy, num_params
@@ -114,6 +125,8 @@ class LoopRecord:
     epsilon: Optional[float] = None   # cumulative DP ε (None: DP off)
     evaluated: bool = True
     epsilon_unamplified: Optional[float] = None
+    # mean training loss a participant, from the device telemetry (None
+    # when collection was off this run)
     train_loss: Optional[float] = None
     wall_is_amortized: bool = False
 
@@ -147,9 +160,9 @@ class RunResult:
 def _evaluate(params, x: torch.Tensor, y: torch.Tensor, batch: int = 8192,
               neuron_masks=None) -> Tuple[float, float]:
     """(AUC-ROC, AUC-PR) of the model on (x, y), both on the run's device;
-    one host copy at the end.  ``neuron_masks`` scores the masked model
-    (mask-mode SCBFwP)."""
-    with torch.no_grad():
+    one host copy at the end, inside the ``eval`` span.  ``neuron_masks``
+    scores the masked model (mask-mode SCBFwP)."""
+    with obstrace.span("eval", examples=int(x.shape[0])), torch.no_grad():
         scores = torch.cat([mlp_forward(params, x[s:s + batch],
                                         neuron_masks)
                             for s in range(0, x.shape[0], batch)])
@@ -249,10 +262,6 @@ def check_slice(train_cfg: TrainConfig, method: str) -> None:
             "pruning")
     todo = [
         (fed.pods != 1, "pod sharding is ROADMAP A15"),
-        (train_cfg.debug_checks, "debug_checks is ROADMAP A12"),
-        (train_cfg.obs.device_metrics,
-         "device metrics (the flight recorder's on-device layer) are "
-         "ROADMAP A12"),
     ]
     for cond, what in todo:
         if cond:
@@ -340,13 +349,13 @@ def _finish_telemetry(result: "RunResult") -> None:
     rec.event("run_end", **tel)
 
 
-def _round_event_fields(rec: LoopRecord, plan, pruner,
+def _round_event_fields(rec: LoopRecord, plan, pruner, dm=None,
                         eps_step=None) -> dict:
     """The ``round`` event's fields (the reference's schema), one function
-    for both loop shapes: the record's scalars, the scheduler's telemetry
-    and the keep-mask density.  The device-metric fields (``train_loss``,
-    ``selected``, ``codec_bytes``) are ROADMAP A12 and absent, as in a
-    reference run without collection."""
+    for both loop shapes: the record's scalars, the scheduler's telemetry,
+    the keep-mask density and, when collection was on, the round's device
+    metrics ``dm`` (``train_loss``, ``selected``, ``codec_bytes`` where
+    the engine gives them)."""
     out = {
         "loop": rec.loop, "participants": rec.num_participants,
         "upload_fraction": round(rec.upload_fraction, 6),
@@ -365,6 +374,10 @@ def _round_event_fields(rec: LoopRecord, plan, pruner,
             sum(pruner.hidden_sizes()) / max(pruner.original_hidden, 1), 6)
     if plan is not None:
         out.update(plan.telemetry())
+    if dm:
+        for k in ("train_loss", "selected", "codec_bytes"):
+            if dm.get(k) is not None:
+                out[k] = dm[k]
     return out
 
 
@@ -466,6 +479,9 @@ def run_federated(cohort: MedicalCohort,
         dp_gen.manual_seed(int(torch.randint(2 ** 62, (1,), generator=gen)))
     result = RunResult(method=method + ("wp" if cfg.prune else ""),
                        dp_delta=cfg.dp_delta if dp_on else None)
+    # the device telemetry collects under an active recorder or on request
+    collect = train_cfg.obs.device_metrics or \
+        obstrace.get_recorder() is not None
     obstrace.event(
         "run_start", method=result.method, loops=train_cfg.global_loops,
         clients=cfg.num_clients, engine=eng.name,
@@ -509,12 +525,14 @@ def run_federated(cohort: MedicalCohort,
 
     def _record(loop: int, plan, emitted, wire_payloads, up_params,
                 params_now, wall: float, do_eval: bool,
-                amortized: bool = False):
+                amortized: bool = False, dm=None, check_at=None):
         """Append loop ``loop``'s record and ``round`` event (and print it
         when verbose): its uploads (scbf: ``emitted``, the (payloads,
         stats), and ``wire_payloads``, what crossed the network, replays
         included; fedavg: ``up_params`` whole from each participant), the
-        model after the loop and the loop's wall."""
+        model after the loop, the loop's wall and its device metrics
+        ``dm`` (None: not collected).  ``check_at``: the debug checks'
+        boundary label, run after the record is appended."""
         nonlocal prev_eps
         P = plan.num_participants
         if method == "scbf":
@@ -544,10 +562,15 @@ def run_federated(cohort: MedicalCohort,
             flops_proxy=float(n_params) * cohort.x_train.shape[0],
             hidden_sizes=hidden, num_participants=P, epsilon=eps,
             evaluated=evaluated, epsilon_unamplified=eps_un,
+            train_loss=dm.get("train_loss") if dm else None,
             wall_is_amortized=amortized)
         result.records.append(rec)
+        if check_at is not None:
+            # host-side, on values already offloaded: the device program
+            # is the same with the checks on or off
+            obschecks.verify_round(params_now, dm, where=check_at)
         obstrace.event("round", **_round_event_fields(
-            rec, plan, pruner,
+            rec, plan, pruner, dm,
             eps_step=(eps - prev_eps) if eps is not None else None))
         prev_eps = eps if eps is not None else 0.0
         if verbose:
@@ -565,9 +588,14 @@ def run_federated(cohort: MedicalCohort,
                  and eng.name == "batched" and not spill_mode)
     if use_fused:
         _check_fused(fed, faults_on)
+        if min(int(fed.fuse_rounds), train_cfg.global_loops) > 1:
+            # the first chunk's records carry the initial model's
+            # metrics: evaluate it now, as the reference does
+            _metrics(params, True,
+                     pruner.masks if pruner is not None else None)
         result.final_params = _run_fused(
             train_cfg, method, eng, resil, state, lrs, draws,
-            dp_releases, _record, pruner, injector, policy)
+            dp_releases, _record, pruner, injector, policy, collect)
         _finish_telemetry(result)
         return result
 
@@ -586,7 +614,7 @@ def run_federated(cohort: MedicalCohort,
                     if aborted.size:
                         dp_releases[np.asarray(aborted)] += 1  # privlint: disable=PL004
             round_perms = draws.round_perms(loop, part)
-            payloads, stats, wire_payloads = [], [], []
+            payloads, stats, wire_payloads, dm = [], [], [], None
             if P:
                 if fed.mode == "fedbuff":
                     params_for = [history[state.version - int(tau)]
@@ -611,12 +639,14 @@ def run_federated(cohort: MedicalCohort,
                             sample_idx=draws.sample_idx(
                                 state.params, P,
                                 None if nmasks is None else pruner.keep))
-                    payloads, stats = eng.scbf_round(
+                    out = eng.scbf_round(
                         params_for, part, lr, round_perms, cfg,
                         generator=gen, nmasks=nmasks, keep=keep_eff,
                         noise=draws.injected_noise(loop, state.params, P)
                         if dp_on else None,
-                        dp_generator=dp_gen, **sampled)
+                        dp_generator=dp_gen, collect=collect, **sampled)
+                    payloads, stats = out[:2]
+                    dm = out[2] if collect else None
                     dp_releases[np.asarray(part)] += 1
                     wire_payloads = payloads
                     nx = eng.counts[np.asarray(part)]
@@ -644,8 +674,10 @@ def run_federated(cohort: MedicalCohort,
                         num_examples=nx, staleness=stal,
                         payloads=wire_payloads, clients=cl, expand=expand)
                 else:
-                    client_params, counts = eng.fedavg_round(
-                        params_for, part, lr, round_perms)
+                    out = eng.fedavg_round(params_for, part, lr,
+                                           round_perms, collect=collect)
+                    client_params, counts = out[:2]
+                    dm = out[2] if collect else None
                     contrib = RoundContribution(
                         num_examples=counts, staleness=plan.staleness,
                         client_params=client_params,
@@ -682,7 +714,9 @@ def run_federated(cohort: MedicalCohort,
         _record(loop, plan, (payloads, stats), wire_payloads, up_params,
                 params, sp.elapsed,
                 _should_eval(loop, train_cfg.global_loops,
-                             train_cfg.eval_every))
+                             train_cfg.eval_every), dm=dm,
+                check_at=f"loop {loop}" if train_cfg.debug_checks
+                else None)
     result.final_params = state.params
     _finish_telemetry(result)
     return result
@@ -760,7 +794,7 @@ class _RunDraws:
 def _run_fused(train_cfg: TrainConfig, method: str, eng, resil: Resilience,
                state, lrs: np.ndarray, draws: _RunDraws,
                dp_releases: np.ndarray, record, pruner=None, injector=None,
-               policy=None):
+               policy=None, collect: bool = False):
     """The fused round loop: chunks of S sync rounds with no host sync
     inside (port of the reference's ``_run_fused``).
 
@@ -786,9 +820,16 @@ def _run_fused(train_cfg: TrainConfig, method: str, eng, resil: Resilience,
     round long (``fused_chunk_len``), so APoZ and the mask update at each
     chunk boundary land at the per-round cadence, and compaction follows
     the last step.  A run captures at most two rounds a shape: the
-    masked full geometry and the compacted one.  ``record`` appends a
-    loop's record (``run_federated``'s ``_record``); returns the final
-    params.
+    masked full geometry and the compacted one.
+
+    ``collect``: each captured round also computes its telemetry carry
+    (the effective leaf sizes of mask mode a device input of the plan),
+    and the chunk's carries reach the host in one copy after the
+    emission; a collecting run captures its own rounds (``collect`` is
+    part of the program's key).  ``debug_checks`` verifies the params
+    and the offloaded metrics after each chunk, on the host.  ``record``
+    appends a loop's record (``run_federated``'s ``_record``); returns
+    the final params.
     """
     cfg, fed = train_cfg.scbf, train_cfg.fed
     dev = eng.device
@@ -827,22 +868,30 @@ def _run_fused(train_cfg: TrainConfig, method: str, eng, resil: Resilience,
                         # a quorum-missed round must not step: all-zero
                         # weights pass the model through bitwise
                         wts.append(np.zeros(P, np.float32))
+            keep_eff = pruner.emission_keep if pruner is not None else None
             fplan = eng.prepare_fused_plan(
                 parts, lrs[loop0:loop0 + chunk], rperms, horizon=chunk,
                 num_slots=B, weights=wts if method == "fedavg" else None,
                 noise=noise if dp_on else None,
                 sample_idx=samples if sampled else None,
                 admit=[ar.admit_mask() for ar in ars] if resil.active
+                else None,
+                eff_sizes=obsm.effective_leaf_sizes(params, keep_eff)
+                if collect and method == "scbf" and keep_eff is not None
                 else None)
-            new_params, emitted = eng.run_fused_chunk(
-                method, params, fplan, cfg, nmasks=nmasks,
-                keep=pruner.emission_keep if pruner is not None else None)
+            new_params, emitted, round_metrics = eng.run_fused_chunk(
+                method, params, fplan, cfg, nmasks=nmasks, keep=keep_eff,
+                collect=collect)
             # a round bumps the version iff it met quorum and admitted a
             # slot: the per-round gate's rule
             applied = sum(1 for ar in ars
                           if ar.quorum_ok and bool(ar.admit_mask().any()))
             state = dataclasses.replace(state, params=new_params,
                                         version=state.version + applied)
+            if train_cfg.debug_checks:
+                # host-side, on the values the chunk already offloaded
+                obschecks.verify_round(state.params, round_metrics,
+                                       where=f"chunk@loop {loop0}")
             if prune_active:
                 # a one-round chunk: APoZ on the device, the mask update
                 # on the host, at the per-round cadence
@@ -873,10 +922,12 @@ def _run_fused(train_cfg: TrainConfig, method: str, eng, resil: Resilience,
                                                   fed, policy)
                 if P:
                     dp_releases[np.asarray(plan.participants)] += 1
+            dm = round_metrics[r] if round_metrics is not None and P \
+                else None
             record(loop, plan, emitted[r], wire_payloads, state.params,
                    state.params, wall_each, r == chunk - 1 and _should_eval(
                        loop, total_loops, train_cfg.eval_every),
-                   amortized=True)
+                   amortized=True, dm=dm)
         loop0 += chunk
     return state.params
 

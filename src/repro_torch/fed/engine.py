@@ -65,6 +65,16 @@ The fused round's server sum folds in only the slots of the plan's
 exact zeros, whatever it holds); a fault-free plan admits the valid
 slots, which changes no bit.
 
+Device telemetry (``collect=True``, ``repro_torch.obs``): the trainers
+return each slot's loss with the parameters (``with_loss``), and the
+batched engine's round returns its ``MetricsCarry`` (loss, selected
+channels, bytes by codec, priced on the masked deltas the round
+uploads), offloaded in one copy a round — or, fused, stored into an
+``(S,)`` stack inside each captured round and offloaded once a chunk
+after the emission.  The sequential engine reads the same numbers from
+its encoded payloads (``_host_round_metrics``).  Collection changes no
+parameter bit.
+
 Both engines are pure round executors: ``core.scbf.run_federated`` owns
 the random draws — each participant's epoch permutations arrive in
 ``perms`` — so the trajectory does not depend on how the engine runs.
@@ -89,6 +99,8 @@ from repro_torch.fed import graphs
 from repro_torch.fed.cohort import (PaddedCohort, bucket_size,
                                     horizon_slot_plan, pad_clients)
 from repro_torch.fed.strategy import fedavg_step, scbf_sum_step
+from repro_torch.obs import metrics as obsm
+from repro_torch.obs import trace as obstrace
 
 
 def _reveal_masks(masked, masks):
@@ -153,6 +165,33 @@ def _noised_operands(ops: Sequence[EdgeOperands], masked
     return [op._replace(g=masked[l]["w"]) for l, op in enumerate(ops)]
 
 
+def _host_round_metrics(payloads, stats, losses):
+    """The sequential engine's round telemetry, ``obsm.offload``'s dict:
+    the bytes from the encoded payloads (the wire is the byte source of
+    truth), the mean of the clients' losses."""
+    return {
+        "participants": len(payloads),
+        "train_loss": (sum(losses) / len(losses)) if losses else 0.0,
+        "sparse_bytes": int(sum(p.nbytes for p in payloads)),
+        "codec_bytes": wire.codec_breakdown(payloads),
+    }
+
+
+def _host_fedavg_metrics(losses, num: int):
+    """The sequential engine's FedAvg round telemetry: the cohort's mean
+    loss only — a declared aggregation point of the privacy lint, so no
+    per-client value joins the dict."""
+    return {
+        "participants": num,
+        "train_loss": (sum(losses) / len(losses)) if losses else 0.0,
+    }
+
+
+def _host_losses(losses: Sequence[torch.Tensor]) -> List[float]:
+    """The clients' 0-d loss tensors as floats, in one host copy."""
+    return torch.stack(list(losses)).cpu().tolist() if losses else []
+
+
 class SequentialEngine:
     """The per-client Python loop."""
 
@@ -174,30 +213,36 @@ class SequentialEngine:
         """The length of client k's epoch permutations: its shard."""
         return int(self.counts[int(k)])
 
-    def _train(self, params, k: int, lr: float, perms, nmasks=None):
+    def _train(self, params, k: int, lr: float, perms, nmasks=None,
+               with_loss: bool = False):
         xc, yc = self.clients[int(k)]
         return local_train_impl(tuple(params), xc, yc, lr, perms=perms,
                                 batch_size=self.batch_size,
-                                epochs=self.epochs, neuron_masks=nmasks)
+                                epochs=self.epochs, neuron_masks=nmasks,
+                                with_loss=with_loss)
 
     def scbf_round(self, params, participants, lr: float,
                    perms: Sequence[Sequence], cfg: ScbfConfig,
                    generator: Optional[torch.Generator] = None,
                    nmasks=None, keep=None, noise=None,
-                   dp_generator: Optional[torch.Generator] = None
-                   ) -> Tuple[List[wire.Payload], List[sel.UploadStats]]:
+                   dp_generator: Optional[torch.Generator] = None,
+                   collect: bool = False):
         """Train, select, (noise) and encode every participant; ``perms[i]``
         holds participant i's per-epoch permutations, ``noise[i]`` its DP
         normals.  ``params``: one model, or a list of one a participant
         (stale starts).  ``nmasks``/``keep``: mask-mode SCBFwP (see the
-        module docstring)."""
+        module docstring).  Returns (payloads, stats), and with
+        ``collect`` the round's telemetry dict (``_host_round_metrics``)."""
         keep_t = index_tensors(keep, self.device) if keep is not None \
             else None
         stacked = isinstance(params, list)
-        payloads, stats = [], []
+        payloads, stats, losses = [], [], []
         for i, k in enumerate(participants):
             p0 = tuple(params[i]) if stacked else tuple(params)
-            new_p = self._train(p0, k, lr, perms[i], nmasks)
+            new_p = self._train(p0, k, lr, perms[i], nmasks, collect)
+            if collect:
+                new_p, loss = new_p
+                losses.append(loss)        # on the device; read once below
             g = client_delta(p0, new_p)
             masked, masks, _, ops = sel.select_gradients(
                 g, cfg.upload_rate, cfg.selection,
@@ -216,20 +261,30 @@ class SequentialEngine:
                 ops = _compact_operands(ops, keep_t)
             payloads.append(wire.encode_selected(masked, ops))
             stats.append(sel.UploadStats.from_masks(masks))
+        if collect:
+            return payloads, stats, _host_round_metrics(
+                payloads, stats, _host_losses(losses))
         return payloads, stats
 
     def fedavg_round(self, params, participants, lr: float,
-                     perms: Sequence[Sequence]):
-        outs = [self._train(params, k, lr, perms[i])
+                     perms: Sequence[Sequence], collect: bool = False):
+        """Every participant's trained params and example counts (and with
+        ``collect`` the round's telemetry dict)."""
+        outs = [self._train(params, k, lr, perms[i], with_loss=collect)
                 for i, k in enumerate(participants)]
-        return outs, self.counts[np.asarray(participants)]
+        counts = self.counts[np.asarray(participants)]
+        if collect:
+            return [o for o, _ in outs], counts, _host_fedavg_metrics(
+                _host_losses([l for _, l in outs]), len(outs))
+        return outs, counts
 
 
 def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
                valid: torch.Tensor, lr, perms: torch.Tensor,
                cfg: ScbfConfig, *, batch_size: int, epochs: int,
                nmasks=None, noise=None, sample_idx=None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               collect: bool = False, eff_sizes=None):
     """Train → delta → select → (DP) → validity zeroing for the B slots of
     one round: the body shared by the per-round pass and the fused round,
     which keeps the two bitwise equal.
@@ -241,11 +296,17 @@ def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
     else drawn on ``generator``).  ``params``: one model shared by every
     slot, or a slot-stacked ``(B, …)`` one, each slot's own start (stale
     versions; ``_train_slots``).  Returns (masked, masks, edge operands),
-    slot-stacked; a padded slot's masked delta and masks are zero.
+    slot-stacked; a padded slot's masked delta and masks are zero.  With
+    ``collect``, also the slots' ``(B,)``-stacked ``MetricsCarry``
+    (``obsm.slot_metrics``: the loss from training, the counts from the
+    zeroed uploads, ``eff_sizes`` the mask-mode byte pricing, a device
+    input); the parameter arithmetic is the same bitwise.
     """
     start, new_p = _train_slots(params, cohort, rows, valid, lr, perms,
                                 batch_size=batch_size, epochs=epochs,
-                                nmasks=nmasks)
+                                nmasks=nmasks, with_loss=collect)
+    if collect:
+        new_p, loss = new_p
     g = client_delta(start, new_p)
     masked, masks, _, ops = sel.select_gradients(
         g, cfg.upload_rate, cfg.selection, score_norm=cfg.score_norm,
@@ -261,16 +322,25 @@ def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
         {k: (None if m is None else torch.logical_and(
             m, valid.reshape((-1,) + (1,) * (m.ndim - 1))))
          for k, m in layer.items()} for layer in masks)
+    if collect:
+        # a declared aggregation point: the slots' losses are gated by
+        # validity and summed over the cohort on the device
+        # (``obsm.reduce_slots``) before anything is offloaded
+        # privlint: disable=PL006
+        return masked, masks, ops, obsm.slot_metrics(loss, masked, masks,
+                                                     valid, eff_sizes)
     return masked, masks, ops
 
 
 def _train_slots(params, cohort: PaddedCohort, rows: torch.Tensor,
                  valid: torch.Tensor, lr, perms: torch.Tensor, *,
-                 batch_size: int, epochs: int, nmasks=None):
+                 batch_size: int, epochs: int, nmasks=None,
+                 with_loss: bool = False):
     """(the B slots' starting params and their trained params): slot s
     trains on cohort row ``rows[s]``, the masked loss on a ragged cohort.
     ``params`` is one model, broadcast to the B slots, or already slot-
-    stacked (its weights one dimension up)."""
+    stacked (its weights one dimension up).  ``with_loss``: the trained
+    params are ``(params, (B,) losses)``."""
     b = valid.shape[0]
     stacked = params[0]["w"].ndim == 3
     start = params if stacked else tuple(
@@ -280,7 +350,7 @@ def _train_slots(params, cohort: PaddedCohort, rows: torch.Tensor,
         start, cohort.x, cohort.y, lr, perms,
         w=None if cohort.uniform else cohort.w, valid=valid,
         batch_size=batch_size, epochs=epochs, neuron_masks=nmasks,
-        clients=rows)
+        clients=rows, with_loss=with_loss)
 
 
 def _zero_invalid(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -309,6 +379,9 @@ class FusedPlan:
     weights: Optional[torch.Tensor] = None   # (S, B) fp32 — fedavg only
     noise: Optional[List[torch.Tensor]] = None   # (S, B, *leaf) DP normals
     sample_idx: Optional[List[torch.Tensor]] = None  # (S, B, n) a layer
+    # (n_leaves,) int32: the effective leaf sizes the telemetry prices
+    # (mask-mode SCBFwP while not compacted)
+    eff_sizes: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -319,6 +392,7 @@ class FusedOutputs:
     masked: Tuple[dict, ...]
     masks: Tuple[dict, ...]
     ops: List[EdgeOperands]           # a shared (M,) row stays (M,)
+    metrics: Optional[obsm.MetricsCarry] = None   # (S,)-stacked, collect
 
 
 def _stack_perms(blocks: Sequence[np.ndarray], num_slots: int,
@@ -401,7 +475,8 @@ class BatchedEngine:
                 .to(self.device) for j in range(len(noise[0]))]
 
     def _pass(self, params, participants, lr, perms, cfg, nmasks=None,
-              noise=None, generator=None, sample_idx=None):
+              noise=None, generator=None, sample_idx=None,
+              collect: bool = False, eff_sizes=None):
         b = self.round_slots(len(participants))
         rows, valid, pm = self._slot_inputs(participants, perms, b)
         if isinstance(params, list):
@@ -416,34 +491,47 @@ class BatchedEngine:
         return _slot_pass(params, self.cohort, rows, valid, lr, pm, cfg,
                           batch_size=self.batch_size, epochs=self.epochs,
                           nmasks=nmasks, noise=noise, sample_idx=sample_idx,
-                          generator=generator)
+                          generator=generator, collect=collect,
+                          eff_sizes=eff_sizes)
 
     def scbf_round(self, params, participants, lr: float,
                    perms: Sequence[Sequence], cfg: ScbfConfig,
                    generator: Optional[torch.Generator] = None,
                    nmasks=None, keep=None, noise=None,
                    dp_generator: Optional[torch.Generator] = None,
-                   sample_idx: Optional[np.ndarray] = None
-                   ) -> Tuple[List[wire.Payload], List[sel.UploadStats]]:
+                   sample_idx: Optional[np.ndarray] = None,
+                   collect: bool = False):
         """Masked sparse uploads for every participant, one slot-stacked
         pass: train → delta → select → DP → validity zeroing → (keep
         compaction) → one round encode.  ``sample_idx`` (B, layers, n)
         int64: the sampled quantile path's indices of the round's slots
         (else drawn on ``generator``).  ``params``: one model, or a list of
-        one a participant (stale starts, stacked into one pass).  An empty
-        round returns ``([], [])`` without launching anything."""
+        one a participant (stale starts, stacked into one pass).  Returns
+        (payloads, stats) and with ``collect`` the round's offloaded
+        telemetry dict (``keep`` priced as the effective geometry).  An
+        empty round returns ``([], [])`` (``([], [], None)``) without
+        launching anything."""
         p_count = len(participants)
         if not p_count:
-            return [], []
+            return ([], [], None) if collect else ([], [])
         shapes = params[0] if isinstance(params, list) else params
         z = self.draw_noise(shapes, p_count, noise, dp_generator) \
             if cfg.dp_noise_multiplier > 0.0 else None
-        masked, masks, ops = self._pass(params, participants, lr, perms, cfg,
-                                        nmasks, z, generator, sample_idx)
-        return self._emit(masked, masks, ops, p_count, keep)
+        eff = None
+        if collect and keep is not None:
+            eff = torch.from_numpy(obsm.effective_leaf_sizes(
+                shapes, keep)).to(self.device)
+        out = self._pass(params, participants, lr, perms, cfg, nmasks, z,
+                         generator, sample_idx, collect, eff)
+        with obstrace.span("encode", clients=p_count):
+            payloads, stats = self._emit(*out[:3], p_count, keep)
+        if collect:
+            return payloads, stats, obsm.offload(obsm.reduce_slots(out[3]))
+        return payloads, stats
 
     def _emit(self, masked, masks, ops, num: int, keep=None):
-        """Encode slots [:num] (after keep compaction): (payloads, stats)."""
+        """Encode slots [:num] (after keep compaction): (payloads, stats);
+        its device→host copies are those of ``wire.encode_round``."""
         if keep is not None:
             keep_t = index_tensors(keep, self.device)
             masked = _compact_layers(masked, keep_t)
@@ -453,22 +541,31 @@ class BatchedEngine:
                 sel.UploadStats.from_slot_masks(masks, num))
 
     def fedavg_round(self, params, participants, lr: float,
-                     perms: Sequence[Sequence]):
+                     perms: Sequence[Sequence], collect: bool = False):
         """Full-weight training, slot-stacked; returns (per-client params
-        — views into the stacked output's real slots — and counts)."""
+        — views into the stacked output's real slots — and counts), and
+        with ``collect`` the round's offloaded loss dict (padded slots
+        excluded by validity)."""
         p_count = len(participants)
         if not p_count:
-            return [], self.counts[:0]
+            return ([], self.counts[:0], None) if collect \
+                else ([], self.counts[:0])
         b = self.round_slots(p_count)
         rows, valid, pm = self._slot_inputs(participants, perms, b)
         _, new_p = _train_slots(params, self.cohort, rows, valid, lr, pm,
                                 batch_size=self.batch_size,
-                                epochs=self.epochs)
+                                epochs=self.epochs, with_loss=collect)
+        if collect:
+            new_p, losses = new_p
         real = tuple({k: v[:p_count] for k, v in layer.items()}
                      for layer in new_p)
         res = [tuple({k: v[i] for k, v in layer.items()} for layer in real)
                for i in range(p_count)]
-        return res, self.counts[np.asarray(participants)]
+        counts = self.counts[np.asarray(participants)]
+        if collect:
+            return res, counts, obsm.offload(obsm.fedavg_metrics(losses,
+                                                                 valid))
+        return res, counts
 
     # ------------------------------------------------------------------
     # the fused round loop: S rounds a chunk, a captured round each
@@ -484,7 +581,7 @@ class BatchedEngine:
                            lrs: Sequence[float], perms: Sequence,
                            horizon: int, num_slots: int, weights=None,
                            noise=None, sample_idx=None,
-                           admit=None) -> FusedPlan:
+                           admit=None, eff_sizes=None) -> FusedPlan:
         """Assemble one chunk's static (S, B) plan on the device — every
         host→device copy of the chunk happens here, one a tensor.
 
@@ -495,9 +592,11 @@ class BatchedEngine:
         int64: the sampled quantile path's indices of the k_r slots the
         per-round pass draws for (``core.channels.sample_channels``).
         ``admit[r]`` (P_r,) bool: the slots round r's server sum folds in
-        (None: every valid slot).  Padded slots repeat slot 0's row, get
-        the identity permutation and zero noise; rounds past the real
-        ones are all-invalid.
+        (None: every valid slot).  ``eff_sizes`` (n_leaves,) int32: the
+        effective leaf sizes the chunk's telemetry prices (mask-mode
+        SCBFwP; ``obsm.effective_leaf_sizes``), an input of each round.
+        Padded slots repeat slot 0's row, get the identity permutation
+        and zero noise; rounds past the real ones are all-invalid.
         """
         parts = [np.asarray(p) for p in participants]
         part_idx, valid = horizon_slot_plan(parts, num_slots, horizon)
@@ -543,6 +642,9 @@ class BatchedEngine:
             plan.sample_idx = [torch.from_numpy(
                 np.ascontiguousarray(idx[:, :, l])).to(dev)
                 for l in range(idx.shape[2])]
+        if eff_sizes is not None:
+            plan.eff_sizes = torch.from_numpy(
+                np.asarray(eff_sizes, np.int32)).to(dev)
         return plan
 
     def _program(self, key, fn, example: tuple) -> graphs.RoundProgram:
@@ -554,8 +656,8 @@ class BatchedEngine:
         return prog
 
     def fused_scbf_chunk(self, params, plan: FusedPlan, cfg: ScbfConfig,
-                         nmasks=None) -> Tuple[Tuple[dict, ...],
-                                               FusedOutputs]:
+                         nmasks=None, collect: bool = False
+                         ) -> Tuple[Tuple[dict, ...], FusedOutputs]:
         """Run one fused SCBF chunk: for each round of the plan, the round
         body — slot pass, validity zeroing and ``scbf_sum_step`` — as one
         replay of a captured graph (an eager call on the CPU), with the
@@ -564,22 +666,30 @@ class BatchedEngine:
         deltas, masks and edge operands for ``emit_fused_payloads``).
         The server sum folds in the plan's admitted slots only; the
         emitted deltas are every valid slot's, as computed.
-        ``nmasks`` (mask-mode SCBFwP): the chunk's keep-masks, an input."""
-        def body(p, rows, valid, admit, lr, perms, noise, sample, nm):
+        ``nmasks`` (mask-mode SCBFwP): the chunk's keep-masks, an input.
+        ``collect``: each round also computes its ``MetricsCarry`` inside
+        the captured round (priced on ``plan.eff_sizes`` when given),
+        stored into the outputs' ``(S,)`` stack ``metrics`` on the
+        device."""
+        def body(p, rows, valid, admit, lr, perms, noise, sample, nm, es):
             sample = None if sample is None else \
                 [[s[k] for s in sample] for k in range(rows.shape[0])]
-            masked, masks, ops = _slot_pass(
+            res = _slot_pass(
                 p, self.cohort, rows, valid, lr, perms, cfg,
                 batch_size=self.batch_size, epochs=self.epochs, nmasks=nm,
-                noise=noise, sample_idx=sample)
+                noise=noise, sample_idx=sample, collect=collect,
+                eff_sizes=es)
+            masked, masks, ops = res[:3]
             admitted = tuple({k: _zero_invalid(t, admit)
                               for k, t in layer.items()}
                              for layer in masked)
+            met = obsm.reduce_slots(res[3]) if collect else None
             return scbf_sum_step(p, admitted, neuron_masks=nm), masked, \
-                masks, ops
+                masks, ops, met
 
         p = tuple(params)
         nm = None if nmasks is None else tuple(nmasks)
+        es = plan.eff_sizes if collect else None
         out = None
         for r in range(plan.part_idx.shape[0]):
             rows, valid, admit, lr, perms = (
@@ -591,58 +701,79 @@ class BatchedEngine:
                 [s[r] for s in plan.sample_idx]
             prog = body if self.device.type != "cuda" else self._program(
                 graphs.program_key("scbf", cfg, p, rows, perms, noise,
-                                   sample, nm),
-                body, (p, rows, valid, admit, lr, perms, noise, sample, nm))
-            p, masked, masks, ops = prog(p, rows, valid, admit, lr, perms,
-                                         noise, sample, nm)
+                                   sample, nm, collect, es),
+                body, (p, rows, valid, admit, lr, perms, noise, sample, nm,
+                       es))
+            p, masked, masks, ops, met = prog(p, rows, valid, admit, lr,
+                                              perms, noise, sample, nm, es)
             if out is None:
                 out = _stacked_like(plan.part_idx.shape[0], masked, masks,
-                                    ops)
-            _store_round(out, r, masked, masks, ops)
+                                    ops, met)
+            _store_round(out, r, masked, masks, ops, met)
         return tuple({k: v.clone() for k, v in layer.items()}
                      for layer in p), out
 
-    def fused_fedavg_chunk(self, params, plan: FusedPlan
-                           ) -> Tuple[dict, ...]:
+    def fused_fedavg_chunk(self, params, plan: FusedPlan,
+                           collect: bool = False):
         """Run one fused FedAvg chunk (a captured round each: slot-stacked
         training, then ``fedavg_step`` with the plan's weights); returns
-        the final params."""
+        the final params, and with ``collect`` the chunk's ``(S,)``-stacked
+        ``FedAvgMetrics`` on the device (a slot counts where its weight is
+        positive, as in the reference)."""
         if plan.weights is None:
             raise ValueError("fused fedavg needs the plan built with "
                              "per-slot example weights")
 
         def body(p, rows, valid, lr, perms, wts):
-            _, trained = _train_slots(p, self.cohort, rows, valid, lr,
-                                      perms, batch_size=self.batch_size,
-                                      epochs=self.epochs)
+            trained = _train_slots(p, self.cohort, rows, valid, lr, perms,
+                                   batch_size=self.batch_size,
+                                   epochs=self.epochs, with_loss=collect)[1]
+            met = None
+            if collect:
+                trained, losses = trained
+                met = obsm.fedavg_metrics(losses, wts > 0.0)
             # a padded slot (weight 0) adds exact zeros
             return fedavg_step(p, tuple(
                 {k: _zero_invalid(t, valid) for k, t in layer.items()}
-                for layer in trained), wts)
+                for layer in trained), wts), met
 
         p = tuple(params)
+        stack = None
         for r in range(plan.part_idx.shape[0]):
             rows, valid, lr, perms, wts = (
                 plan.part_idx[r], plan.valid[r], plan.lrs[r], plan.perms[r],
                 plan.weights[r])
             prog = body if self.device.type != "cuda" else self._program(
-                graphs.program_key("fedavg", p, rows, perms),
+                graphs.program_key("fedavg", p, rows, perms, collect),
                 body, (p, rows, valid, lr, perms, wts))
-            p = prog(p, rows, valid, lr, perms, wts)
-        return tuple({k: v.clone() for k, v in layer.items()}
-                     for layer in p)
+            p, met = prog(p, rows, valid, lr, perms, wts)
+            if collect:
+                if stack is None:
+                    stack = _carry_stack(plan.part_idx.shape[0], met)
+                _store_carry(stack, r, met)
+        p = tuple({k: v.clone() for k, v in layer.items()} for layer in p)
+        return (p, stack) if collect else p
 
     def run_fused_chunk(self, method: str, params, plan: FusedPlan,
-                        cfg: ScbfConfig, nmasks=None, keep=None):
-        """One fused chunk of ``method`` and its uploads: (new params,
-        ``[(payloads, stats), …]`` a real round — empty for FedAvg, which
-        ships dense weights)."""
+                        cfg: ScbfConfig, nmasks=None, keep=None,
+                        collect: bool = False):
+        """One fused chunk of ``method``, its uploads and telemetry: (new
+        params, ``[(payloads, stats), …]`` a real round — empty for
+        FedAvg, which ships dense weights — and with ``collect`` the
+        rounds' telemetry dicts, offloaded in one copy after the emission,
+        else None)."""
         if method == "fedavg":
-            return self.fused_fedavg_chunk(params, plan), \
-                [([], []) for _ in range(plan.rounds)]
-        new_params, out = self.fused_scbf_chunk(params, plan, cfg,
-                                                nmasks=nmasks)
-        return new_params, self.emit_fused_payloads(out, plan, keep=keep)
+            out = self.fused_fedavg_chunk(params, plan, collect=collect)
+            new_params, met = out if collect else (out, None)
+            emitted = [([], []) for _ in range(plan.rounds)]
+        else:
+            new_params, res = self.fused_scbf_chunk(params, plan, cfg,
+                                                    nmasks=nmasks,
+                                                    collect=collect)
+            emitted = self.emit_fused_payloads(res, plan, keep=keep)
+            met = res.metrics
+        dms = obsm.offload(met, rounds=plan.rounds) if collect else None
+        return new_params, emitted, dms
 
     def emit_fused_payloads(self, out: FusedOutputs, plan: FusedPlan,
                             keep=None
@@ -656,6 +787,10 @@ class BatchedEngine:
         ``keep`` (mask-mode SCBFwP) compacts every slot to the effective
         geometry first.  Returns ``[(payloads, stats), …]`` a real round;
         padded slots and rounds ship nothing."""
+        with obstrace.span("encode", rounds=plan.rounds):
+            return self._emit_chunk(out, plan, keep)
+
+    def _emit_chunk(self, out: FusedOutputs, plan: FusedPlan, keep=None):
         sizes = [int(p.size) for p in plan.participants]
         s_count, b = plan.part_idx.shape
         flat = [r * b + i for r, n in enumerate(sizes) for i in range(n)]
@@ -701,13 +836,26 @@ def _stack_params(params: Sequence, num_slots: int) -> Tuple[dict, ...]:
                  for l, layer in enumerate(params[0]))
 
 
-def _stacked_like(s_count: int, masked, masks, ops) -> FusedOutputs:
+def _carry_stack(s_count: int, met):
+    """An empty (S, …) stack of a round's telemetry carry."""
+    return type(met)(*(t.new_empty((s_count, *t.shape)) for t in met))
+
+
+def _store_carry(stack, r: int, met) -> None:
+    """Copy round r's carry into the chunk's stack (on the device)."""
+    for d, s in zip(stack, met):
+        d[r].copy_(s)
+
+
+def _stacked_like(s_count: int, masked, masks, ops, met=None
+                  ) -> FusedOutputs:
     """Empty (S, …) stacks shaped like one round's outputs (EdgeOperands
     keep only row, col, thr and rest: the emission compacts the masked
     weights, which under the same rule hold the same kept entries)."""
     def stack(t):
         return None if t is None else t.new_empty((s_count, *t.shape))
     return FusedOutputs(
+        metrics=None if met is None else _carry_stack(s_count, met),
         masked=tuple({k: stack(v) for k, v in layer.items()}
                      for layer in masked),
         masks=tuple({k: stack(v) for k, v in layer.items()}
@@ -718,8 +866,11 @@ def _stacked_like(s_count: int, masked, masks, ops) -> FusedOutputs:
                          else op.row.clone()) for op in ops])
 
 
-def _store_round(out: FusedOutputs, r: int, masked, masks, ops) -> None:
+def _store_round(out: FusedOutputs, r: int, masked, masks, ops,
+                 met=None) -> None:
     """Copy round r's outputs into the chunk's stacks (on the device)."""
+    if met is not None:
+        _store_carry(out.metrics, r, met)
     for dst, src in ((out.masked, masked), (out.masks, masks)):
         for d, s in zip(dst, src):
             for k, v in s.items():

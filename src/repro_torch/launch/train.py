@@ -12,7 +12,7 @@ spec, ``fed.faults.parse_fault_trace``), ``--deadline-quantile`` and
 ``--deadline-action`` (the simulated clock), ``--min-valid-participants``
 (round quorum), ``--max-update-norm`` and ``--norm-action`` (the norm
 gate); ``--events`` writes ``<out>/<method>.events.jsonl``, which
-``python -m repro.obs.report`` reads.  ``--mode lm`` (ROADMAP A14) is not
+``python -m repro_torch.obs.report`` reads.  ``--mode lm`` (ROADMAP A14) is not
 ported yet.
 
 Usage:
@@ -179,7 +179,7 @@ def parse_args(argv=None):
                     help="over-norm updates are rejected or clipped")
     ap.add_argument("--events", action="store_true",
                     help="write <out>/<method>.events.jsonl flight-recorder "
-                         "logs (read them with python -m repro.obs.report)")
+                         "logs (read them with python -m repro_torch.obs.report)")
     return ap.parse_args(argv)
 
 

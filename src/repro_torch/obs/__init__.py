@@ -1,10 +1,17 @@
 """Flight recorder of the port (counterpart of ``repro.obs``).
 
-``repro_torch.obs.trace`` holds the host spans and the JSONL run event
-log, in the reference's ``events.jsonl`` schema, so
-``python -m repro.obs.report`` reads a log of the port unchanged.  The
-device metrics and the debug checks (``repro.obs.metrics``,
-``repro.obs.checks``) are ROADMAP A12 and not ported yet.
+Three layers, as in the reference:
+
+* ``repro_torch.obs.trace``   — host spans and the JSONL run event log,
+  in the reference's ``events.jsonl`` schema;
+* ``repro_torch.obs.metrics`` — ``MetricsCarry``, the per-round
+  telemetry computed on the device (inside the captured round of the
+  fused loop) and offloaded in one copy a round or a chunk;
+* ``repro_torch.obs.report``  — ``python -m repro_torch.obs.report
+  events.jsonl``: per-round tables and the machine-readable summary.
+
+``repro_torch.obs.checks`` holds the host-side checks of
+``TrainConfig.debug_checks``.
 """
 from repro_torch.obs.trace import (EMITTER, EVENT_SCHEMA, Recorder, count,
                                    event, get_recorder, recording, span,

@@ -95,3 +95,42 @@ def test_events_flag_writes_a_log_per_method(tmp_path, monkeypatch):
     kinds = [e["ev"] for e in events]
     assert kinds[0] == "meta" and kinds[-1] == "run_end"
     assert kinds.count("payload_rejected") == 2
+
+
+def test_full_scale_example_passes_its_flags(monkeypatch):
+    """``examples/torch_federated_medical.py``: its flags (the reference
+    example's and ``--device``) reach ``run_medical`` (monkeypatched) with
+    the paper's local training, and the launcher builds its configs."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.launch import train
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_federated_medical.py"
+    spec = importlib.util.spec_from_file_location("torch_fed_med", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    seen = []
+    monkeypatch.setattr(train, "run_medical", seen.append)
+    example.main(["--loops", "3", "--methods", "scbf,fedavgwp", "--lr",
+                  "0.1", "--clients", "4", "--engine", "sequential",
+                  "--sample-fraction", "0.5", "--dropout-rate", "0.1",
+                  "--partition", "dirichlet", "--dirichlet-alpha", "0.3",
+                  "--dp-noise", "0.7", "--seed", "2", "--out", "x",
+                  "--device", "cpu"])
+    args, = seen
+    assert (args.loops, args.methods, args.lr, args.clients, args.engine,
+            args.sample_fraction, args.dropout_rate, args.partition,
+            args.dirichlet_alpha, args.dp_noise, args.seed, args.out,
+            args.device) == (3, "scbf,fedavgwp", 0.1, 4, "sequential", 0.5,
+                             0.1, "dirichlet", 0.3, 0.7, 2, "x", "cpu")
+    assert (args.local_epochs, args.batch_size, args.upload_rate,
+            args.prune_rate, args.prune_total) == (2, 256, 0.10, 0.10, 0.47)
+    base, cfg = train.method_config("fedavgwp", args, train.fed_config(args))
+    assert base == "fedavg" and cfg.scbf.prune and cfg.global_loops == 3
+    assert cfg.fed.partition == "dirichlet" and cfg.fed.engine == \
+        "sequential"
+    defaults = example.launcher_args(example.parse_args([]))
+    assert defaults.device is None and defaults.loops == 30 and \
+        defaults.methods == "scbf,fedavg,scbfwp,fedavgwp"

@@ -158,14 +158,55 @@ def test_device_none_without_cuda_raises():
 
 @pytest.mark.parametrize("change", [
     dict(fed=tcfg.FedConfig(pods=2)),
-    dict(debug_checks=True),
-    dict(obs=tcfg.ObsConfig(device_metrics=True)),
-], ids=["pods", "debug_checks", "device_metrics"])
+], ids=["pods"])
 def test_out_of_slice_configs_refused(change):
     cohort = generate_cohort(num_admissions=200, num_medicines=16, seed=0)
     cfg = tcfg.TrainConfig(global_loops=1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_federated(cohort, cfg, mlp_features=(16, 8, 4, 1), device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["sequential", "batched"])
+@pytest.mark.parametrize("change", [
+    dict(debug_checks=True),
+    dict(obs=dict(device_metrics=True)),
+], ids=["debug_checks", "device_metrics"])
+def test_observability_configs_run_as_the_reference(change, engine):
+    """``debug_checks`` and ``ObsConfig.device_metrics`` (once refused)
+    run as the reference runs them: per loop the reference's bytes and
+    upload fractions, AUC to 1e-3, the train loss (collected by both with
+    device metrics on, by neither without) to 1e-5, weights to 1e-5."""
+    cohort = ref_cohort(num_admissions=1500, num_medicines=64, seed=SEED)
+    shards = ref_split(cohort.x_train, cohort.y_train, CLIENTS, seed=SEED)
+    init, perms, _ = reference_draws(
+        SEED, FEATS, [len(y) for _, y in shards], LOOPS, EPOCHS)
+    ref_cfg, port_cfg = _cfgs("scbf", LOOPS, engine)
+    if "obs" in change:
+        from repro.config import ObsConfig as RefObsConfig
+        ref_cfg = dataclasses.replace(ref_cfg,
+                                      obs=RefObsConfig(**change["obs"]))
+        port_cfg = dataclasses.replace(port_cfg,
+                                       obs=tcfg.ObsConfig(**change["obs"]))
+    else:
+        ref_cfg = dataclasses.replace(ref_cfg, **change)
+        port_cfg = dataclasses.replace(port_cfg, **change)
+    want = ref_run(cohort, ref_cfg, method="scbf", mlp_features=FEATS)
+    got = run_federated(
+        generate_cohort(num_admissions=1500, num_medicines=64, seed=SEED),
+        port_cfg, method="scbf", mlp_features=FEATS, device="cpu",
+        init_params=init, perms=perms)
+    for g, w in zip(got.records, want.records):
+        assert (g.sparse_bytes, g.upload_fraction) == \
+            (w.sparse_bytes, w.upload_fraction)
+        np.testing.assert_allclose(g.auc_roc, w.auc_roc, atol=1e-3)
+        assert (g.train_loss is None) == (w.train_loss is None) == \
+            ("obs" not in change)
+        if w.train_loss is not None:
+            np.testing.assert_allclose(g.train_loss, w.train_loss,
+                                       atol=1e-5)
+    for lg, lw in zip(np_tree(got.final_params), np_tree(want.final_params)):
+        for k in lw:
+            np.testing.assert_allclose(lg[k], lw[k], atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("fuse", [0, -2])

@@ -70,7 +70,8 @@ def test_chrome_trace_is_the_references():
 
 def test_recording_writes_a_log_the_report_reads(tmp_path):
     """A run of the port under ``recording(path)`` writes events.jsonl
-    that ``repro.obs.report`` loads, summarises and tabulates."""
+    that ``repro.obs.report`` loads, summarises and tabulates, with the
+    reference's spans and device metrics."""
     path = str(tmp_path / "events.jsonl")
     cohort = generate_cohort(num_admissions=600, num_medicines=24, seed=0)
     cfg = tcfg.TrainConfig(learning_rate=0.05, global_loops=2,
@@ -94,5 +95,13 @@ def test_recording_writes_a_log_the_report_reads(tmp_path):
     assert res.telemetry == {k: v for k, v in end.items()
                              if k not in ("ev", "ts")}
     assert rec.counters["events"] == res.telemetry["events"] + 1
+    # the reference's spans: a batched round encodes inside its round span,
+    # and evaluation follows it
     spans = [e for e in events if e["ev"] == "span"]
-    assert [s["name"] for s in spans] == ["round", "round"]
+    assert [s["name"] for s in spans] == ["encode", "round", "eval"] * 2
+    # a recorded run collects the device metrics, as the reference's does
+    for e, r in zip(rounds, res.records):
+        assert e["train_loss"] == r.train_loss and r.train_loss > 0
+        assert len(e["selected"]) == 3
+        assert sum(e["codec_bytes"].values()) == e["sparse_bytes"]
+    assert end["host_offloads"] == 2
