@@ -110,7 +110,33 @@ its own failure:
    fused, on cuda and on the CPU (whose plain path the CPU tests hold
    against the JAX reference), from the same initial weights and
    permutations; the rejection counters and flushes equal.
-11. the card line, the kernel report line and the final ok line.
+11. lm — the dense LM zoo at full width: qwen2-0.5b (24 layers, d_model
+   896, 14 heads on 2 KV heads, d_ff 4864, vocab 151,936, QKV bias,
+   bf16, 630,167,424 params drawn on the card from a seed) through
+   ``repro_torch.models.model_zoo``.  Serving through
+   ``launch.serve.generate``: batch 4, prompt 32, 32 greedy tokens,
+   cache 128 (prefill and decode ms, decode tok/s, peak memory), the
+   first 4 decode steps' logits held against a cache-less forward over
+   the same tokens (max |dlogit| <= LM_LOGIT_MAX, mean <= LM_LOGIT_MEAN)
+   and every id in [0, V); one 1 x 1024 prefill over the query-chunked
+   path (chunks of 512) against an unchunked forward.  Then 3 federated
+   SCBF steps through ``core.distributed.make_federated_train_step`` (5
+   clients x 4 sequences x 64 tokens, rate 0.10, lr 0.05): losses
+   finite, K1 and K2 launched once a step and nothing else (one table of
+   14 leaves x 5 slots), the step wall and peak memory, the kept
+   fraction a client; on the last step's own gradient table K1's column
+   norms within rtol 1e-5 of the plain version with no absolute floor,
+   the channels its scores keep those the plain scores keep but at the
+   threshold, K2's values, masks and counts bitwise (and its maskless
+   mode's, which the step runs), the step's masked leaves the plain
+   version's; then K1 and K2 timed on that table (one launch by CUDA
+   events with the queue held ahead, and profiler device µs, beside
+   their byte bounds); then torch.profiler over 3 steady decode steps
+   and one more federated step (busy share, device events, top kernels;
+   K1 and K2 once in the step, and a window with no event fails).  Its
+   lines start with ``lm:``; the kernel report adds its launches to K1's
+   and K2's and its timings as ``lm``.
+12. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -145,6 +171,7 @@ DIRICHLET = dict(partition="dirichlet", dirichlet_alpha=0.5,
                  sample_fraction=0.6)
 DIR_LOOPS = 3
 FLUSH_BYTES = 256 << 20               # written between timed calls: > L2
+WINDOW_TAIL_S = 0.05                  # a profile window's idle tail a retry
 FUSE_LOOPS, FUSE = 4, 2               # the fused SCBF run: 2 chunks of 2
 BIG_ROUND, BIG_BATCH = 256, 32        # C1: one round of 256 participants
 # the cross-device phase: FedBuff of 50 IID hospitals (~615 rows each),
@@ -349,9 +376,14 @@ def check_leaf_tables(torch, gen) -> None:
                       for k, (g, (srow, scol, thrs)) in
                       enumerate(zip(gs, parts))]
             outs, masks, counts = sm.select_mask_leaves(leaves)
+            bare, nomask, bare_counts = sm.select_mask_leaves(leaves,
+                                                              masks=False)
             for k, leaf in enumerate(leaves):
                 want = sm.select_mask_plain(*leaf)
-                if not _same(torch, (outs[k], masks[k], counts[k]), want):
+                if not _same(torch, (outs[k], masks[k], counts[k]), want) \
+                        or nomask[k] is not None or not _same(
+                            torch, (bare[k], masks[k], bare_counts[k]),
+                            want):
                     raise AssertionError(f"select_mask table differs from "
                                          f"plain at leaf {k} "
                                          f"{tuple(leaf[0].shape)} {dtype}")
@@ -624,8 +656,10 @@ def device_us(torch, fn, names, launches: int, iters: int = 20,
     (a fill kernel, not counted), so each call meets its inputs in HBM and
     not in the 50 MB L2, as the main path's round does after a round's
     training.  A window whose count of those kernels falls short (the
-    profiler lost events) is measured again, four times at most; then, or
-    if the profiler records no CUDA event, (None, None): not measured."""
+    profiler lost events) is measured again, four times at most, each
+    time with the host idle for WINDOW_TAIL_S more before the window
+    closes; then, or if the profiler records no CUDA event, (None, None):
+    not measured.  A short window logs every CUDA event it holds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -634,7 +668,7 @@ def device_us(torch, fn, names, launches: int, iters: int = 20,
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -642,15 +676,26 @@ def device_us(torch, fn, names, launches: int, iters: int = 20,
                     scratch.fill_(0.0)
                 fn()
             torch.cuda.synchronize()
+            time.sleep(attempt * WINDOW_TAIL_S)
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
         ours = [e for e in events if any(s in e.name for s in names)]
         if len(ours) == launches * iters:
+            if attempt:
+                log(f"profile window of {names}: all {len(ours)} kernel "
+                    f"events with the host idle "
+                    f"{attempt * WINDOW_TAIL_S * 1e3:.0f} ms before it "
+                    f"closed")
             return (sum(e.time_range.elapsed_us() for e in ours) / iters,
                     sum(e.time_range.elapsed_us() for e in events
                         if "Memset" in e.name) / iters)
-        log(f"profile window of {names}: {len(ours)} kernel events, want "
-            f"{launches * iters}; measuring again")
+        kinds = {}
+        for e in events:
+            kinds[e.name[:60]] = kinds.get(e.name[:60], 0) + 1
+        log(f"profile window of {names} (host idle "
+            f"{attempt * WINDOW_TAIL_S * 1e3:.0f} ms before it closed): "
+            f"{len(ours)} kernel events, want {launches * iters}, of "
+            f"{len(events)} CUDA events {kinds}; measuring again")
     return None, None
 
 
@@ -2482,6 +2527,432 @@ def phase_agreement(torch):
             f"{_rejections(recs['cuda'])}")
 
 
+# the lm phase: qwen2-0.5b at full width, bf16, random weights from a seed
+LM_ARCH = "qwen2-0.5b"
+LM_SERVE = dict(batch=4, prompt=32, gen=32, cache=128)
+LM_LONG = 1024                        # one prefill over the chunked path
+LM_CLIENTS, LM_BATCH, LM_SEQ, LM_RATE, LM_LR = 5, 4, 64, 0.10, 0.05
+LM_STEPS = 3
+LM_DECODE_CHECKED = 4                 # decode steps held to the forward
+# bf16 logits through the cache against the cache-less forward: both round
+# every activation to bf16 (an ulp is 2^-6 at |logit| 2-4), on GEMMs of
+# other shapes, so the sums differ in order
+LM_LOGIT_MAX, LM_LOGIT_MEAN = 0.25, 0.02
+# K1 against its plain version on the LM table, relative and with no
+# absolute floor: both sum fp32 squares of the same bf16 entries in other
+# orders
+LM_K1_RTOL = 1e-5
+# cycles the stream sleeps ahead of a timed launch: about 10 ms at the
+# H100's 1.98 GHz boost clock, longer than the host takes to launch K1 or K2
+LM_QUEUE_CYCLES = 20_000_000
+
+
+def _peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def lm_serve(torch, bundle, params, card: str) -> dict:
+    """Serving at full width through ``launch.serve.generate``: a warm-up
+    call, the timed batch (greedy), its first decode steps held against a
+    cache-less forward over the same tokens, and one 1 x LM_LONG prefill
+    (query-chunked) held against an unchunked forward."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    cfg = bundle.cfg
+    sv = LM_SERVE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (sv["batch"], sv["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    generate(bundle, params, prompts, 2, sv["cache"])          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res = generate(bundle, params, prompts, sv["gen"], sv["cache"])
+    toks = res.tokens
+    if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"lm: token ids outside [0, {cfg.vocab_size})")
+    decoded = sv["batch"] * (sv["gen"] - 1)
+    out = {"prefill_ms": res.prefill_s * 1e3, "decode_ms": res.decode_s * 1e3,
+           "decode_tok_s": decoded / res.decode_s,
+           "prefill_tok_s": sv["batch"] * sv["prompt"] / res.prefill_s,
+           "peak_gb": _peak_gb(torch)}
+    # the first decode steps against a cache-less forward: logits[i] is the
+    # prediction at position prompt - 1 + i
+    seq = torch.cat([prompts, toks[:, :LM_DECODE_CHECKED]], axis=1)
+    with torch.no_grad():
+        h, _ = T.forward_hidden(params, cfg, seq, bundle.ctx)
+        full = T.logits_from_hidden(params, cfg, h).float()
+    diffs = [(res.logits[i].float() - full[:, sv["prompt"] - 1 + i]).abs()
+             for i in range(LM_DECODE_CHECKED + 1)]
+    out["logit_max_abs"] = max(float(d.max()) for d in diffs)
+    out["logit_mean_abs"] = max(float(d.mean()) for d in diffs)
+    out["greedy_agree"] = sum(int(torch.equal(
+        torch.argmax(full[:, sv["prompt"] - 1 + i], -1).to(torch.int32),
+        toks[:, i])) for i in range(LM_DECODE_CHECKED + 1))
+    if not (out["logit_max_abs"] <= LM_LOGIT_MAX
+            and out["logit_mean_abs"] <= LM_LOGIT_MEAN):
+        raise AssertionError(f"lm: decode through the cache against the "
+                             f"full forward: {out}")
+    # one long prompt: 1 x LM_LONG tokens take the query-chunked path
+    long = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    if not (LM_LONG > bundle.ctx.q_chunk and LM_LONG % bundle.ctx.q_chunk
+            == 0):
+        raise AssertionError("lm: the long prefill must take the chunked "
+                             "path")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, _ = bundle.prefill_step(params, {
+        "tokens": long, "caches": bundle.make_cache(1, LM_LONG)})
+    torch.cuda.synchronize()
+    out["long_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    whole = dataclasses.replace(bundle.ctx, q_chunk=2 * LM_LONG)
+    with torch.no_grad():
+        h, _ = T.forward_hidden(params, cfg, long, whole)
+        ref = T.logits_from_hidden(params, cfg, h[:, -1]).float()
+    out["long_max_abs"] = float((lg.float() - ref).abs().max())
+    if not (torch.isfinite(lg).all() and out["long_max_abs"]
+            <= LM_LOGIT_MAX):
+        raise AssertionError(f"lm: the chunked long prefill: {out}")
+    log(f"lm: serve {cfg.name} batch {sv['batch']} prompt {sv['prompt']} "
+        f"gen {sv['gen']} cache {sv['cache']}: prefill "
+        f"{out['prefill_ms']:.2f} ms, decode {out['decode_ms']:.1f} ms "
+        f"({out['decode_tok_s']:.1f} tok/s), peak {out['peak_gb']:.2f} GB; "
+        f"decode vs full forward over {LM_DECODE_CHECKED + 1} positions: max "
+        f"|dlogit| {out['logit_max_abs']:.4g}, mean {out['logit_mean_abs']:.3g}"
+        f", greedy ids equal at {out['greedy_agree']} of "
+        f"{LM_DECODE_CHECKED + 1}; 1 x {LM_LONG} prefill (chunked by "
+        f"{bundle.ctx.q_chunk}) {out['long_prefill_ms']:.1f} ms, max "
+        f"|dlogit| vs unchunked {out['long_max_abs']:.4g} ({card})")
+    return out
+
+
+def _lm_table(torch, grads_k):
+    """A federated step's K1 column scores and K2 table, as
+    ``core.channels.factored_mask_slots`` builds it: every scored leaf as
+    (clients, M, N), zero row scores shared by the clients, the column
+    scores, the float below each client's threshold and rest 0.  Returns
+    (leaf indices, scores, thresholds, table)."""
+    from repro_torch.core import channels as ch
+
+    leaves, scores = ch.factored_scores_slots(grads_k)
+    thr = ch.factored_threshold(scores, LM_RATE)
+    below = torch.nextafter(thr, torch.full_like(thr, float("-inf")))
+    rest = torch.zeros((), device="cuda")
+    idx = [i for i, s in enumerate(scores) if s is not None]
+    table = []
+    for i in idx:
+        mats = ch._matrices(leaves[i])
+        table.append((mats, torch.zeros(mats.shape[1], device="cuda"),
+                      scores[i], below, rest))
+    return idx, scores, thr, table
+
+
+def lm_table_checks(torch, grads_k, masked, frac) -> dict:
+    """On one federated step's own gradient table (14 leaves x 5 clients,
+    bf16): K1's column norms within rtol LM_K1_RTOL of the plain version,
+    with no absolute floor (the unembedding's scores sit near 1e-9, below
+    any floor of the MLP checks); the channels kept from K1's scores and
+    their threshold against those kept from the plain scores and a
+    threshold of their own, a flip allowed only where the plain score ties
+    the plain threshold within 2 x LM_K1_RTOL; K2's values, masks and
+    counts bitwise its plain version's, and its maskless mode's (the
+    step's) values and counts bitwise too; the step's masked leaves the
+    plain version's."""
+    from repro_torch.core import channels as ch
+    from repro_torch.kernels import channel_norm as cn
+    from repro_torch.kernels import select_mask as sm
+
+    idx, scores, thr, table = _lm_table(torch, grads_k)
+    plain, rel = {}, 0.0
+    for i, (mats, *_) in zip(idx, table):
+        _, pcol = cn.channel_norms_plain(mats)
+        torch.testing.assert_close(scores[i], pcol, rtol=LM_K1_RTOL, atol=0.0)
+        rel = max(rel, float(((scores[i] - pcol).abs()
+                              / pcol.abs().clamp_min(1e-38)).max()))
+        plain[i] = pcol
+    pthr = ch.factored_threshold([plain.get(i) for i in range(len(scores))],
+                                 LM_RATE)
+    flips = 0
+    for i in idx:
+        diff = (scores[i] >= thr[:, None]) != (plain[i] >= pthr[:, None])
+        tie = (plain[i] - pthr[:, None]).abs() <= \
+            2 * LM_K1_RTOL * pthr.abs()[:, None]
+        if bool(torch.any(diff & ~tie)):
+            raise AssertionError(f"lm: K1's scores keep other channels of "
+                                 f"leaf {i} than the plain scores do, away "
+                                 f"from the threshold")
+        flips += int(torch.count_nonzero(diff))
+    median = ch.quantile(torch.cat([plain[i] for i in idx], axis=-1), 0.5,
+                         axis=-1)
+    unembed = idx[-1]               # the last leaf in flatten order
+    outs, kmasks, counts = sm.select_mask_leaves(table)
+    bare, _, bare_counts = sm.select_mask_leaves(table, masks=False)
+    if not torch.equal(bare_counts, counts):
+        raise AssertionError("lm: select_mask counts differ without masks")
+    counts = counts.view(len(idx), LM_CLIENTS)
+    for j, (i, leaf) in enumerate(zip(idx, table)):
+        pout, pmask, pcnt = sm.select_mask_plain(*leaf)
+        if not (torch.equal(outs[j], pout) and torch.equal(kmasks[j], pmask)
+                and torch.equal(counts[j], pcnt)
+                and torch.equal(bare[j], pout)):
+            raise AssertionError(f"lm: select_mask differs from plain on "
+                                 f"leaf {i} {tuple(leaf[0].shape)}")
+        step_leaf = masked[i]
+        if not torch.equal(step_leaf.reshape(pout.shape), pout):
+            raise AssertionError(f"lm: the step's masked leaf {i} is not "
+                                 f"the plain version's")
+        del pout, pmask
+    torch.cuda.synchronize()
+    return {"leaves": len(idx), "slots": LM_CLIENTS, "k1_max_rel_err": rel,
+            "threshold": [float(t) for t in thr.cpu()],
+            "plain_threshold": [float(t) for t in pthr.cpu()],
+            "median_score": [float(m) for m in median.cpu()],
+            "unembed_median_score": float(plain[unembed].median()),
+            "channel_flips": flips,
+            "kept_fraction": [float(f) for f in frac.cpu()]}
+
+
+def queued_ms(torch, fn, iters: int = 7) -> float:
+    """Device ms of one call of ``fn``: CUDA events around the call with
+    the stream held busy ahead of it (``torch.cuda._sleep``), so that the
+    host's work to launch it stays off the clock; the median of
+    ``iters`` calls after a warm-up.  Needs no profiler."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(LM_QUEUE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[iters // 2]
+
+
+def _free_gb(torch) -> tuple:
+    """(free device GB, GB the caching allocator reserves)."""
+    return (torch.cuda.mem_get_info()[0] / 1e9,
+            torch.cuda.memory_reserved() / 1e9)
+
+
+def lm_time_table(torch, grads_k, card: str) -> dict:
+    """K1 and K2 timed on the LM table (one launch each, 14 leaves x 5
+    clients, bf16), as the step calls them (K2 without masks): CUDA-event
+    ms a call beside the plain version (in turns); the device ms of one
+    launch by CUDA events with the queue held ahead (``queued_ms``); and
+    profiler device µs, its window opened after the caching allocator
+    hands its free blocks back (the device's free memory logged before
+    it).  The 6.3 GB table is over a hundred times the 50 MB L2, so each
+    call meets it in HBM and no flush is needed.  Byte bounds: K1 reads
+    every entry once (2 B); K2 reads it and writes its masked value (4 B
+    an entry).  K2 with masks (the medical path's mode, 1 B more an entry)
+    is timed beside it for the record."""
+    from repro_torch.kernels import channel_norm as cn
+    from repro_torch.kernels import select_mask as sm
+
+    *_, table = _lm_table(torch, grads_k)
+    mats = [leaf[0] for leaf in table]
+    entries = sum(m.numel() for m in mats)
+    # K1 writes row and column norms a slot; K2 reads the shared zero rows,
+    # a column score a slot, a threshold a slot and rest, and writes a
+    # count a (leaf, slot)
+    norms_f32 = 4 * sum(m.shape[0] * (m.shape[1] + m.shape[2]) for m in mats)
+    operands = 4 * sum(m.shape[1] + m.shape[0] * m.shape[2] for m in mats) \
+        + 4 * LM_CLIENTS + 4 + 4 * len(mats) * LM_CLIENTS
+    units = {
+        "channel_norm": (lambda: [cn.channel_norms_plain(m) for m in mats],
+                         lambda: cn.channel_norms_leaves(mats),
+                         ("channel_norms_kernel",),
+                         2 * entries + norms_f32, 3 * entries),
+        "select_mask": (lambda: [sm.select_mask_plain(*leaf)
+                                 for leaf in table],
+                        lambda: sm.select_mask_leaves(table, masks=False),
+                        ("select_mask_kernel",),
+                        4 * entries + operands, 3 * entries),
+    }
+    out = {}
+    for name, (plain, kernel, names, nbytes, flops) in units.items():
+        p1, k1, k2, p2 = (cuda_ms(f, iters=5, warmup=1)
+                          for f in (plain, kernel, kernel, plain))
+        bound, by = bound_ms(nbytes, flops)
+        queued = queued_ms(torch, kernel)
+        torch.cuda.empty_cache()
+        free, reserved = _free_gb(torch)
+        dev = device_us(torch, kernel, names, 1, iters=5)[0]
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "queued_ms": queued, "device_us": dev,
+                     "free_gb_before_profile": free,
+                     "reserved_gb_before_profile": reserved,
+                     "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                     "entries": entries, "leaves": len(mats),
+                     "slots": LM_CLIENTS}
+        if name == "select_mask":
+            masked = lambda: sm.select_mask_leaves(table)
+            out[name]["with_masks_queued_ms"] = queued_ms(torch, masked)
+        log(f"lm: {name} on the LM table ({len(mats)} leaves x "
+            f"{LM_CLIENTS} clients, {entries:,} bf16 entries): one launch "
+            f"{queued:.4f} ms by events ({bound / queued:.1%} of the bound), "
+            f"profiler device {dev} µs (free {free:.1f} GB, reserved "
+            f"{reserved:.1f} GB before the window), {out[name]['ms']:.3f} ms "
+            f"a call, plain {out[name]['plain_ms']:.3f} ms; bound "
+            f"{bound:.3f} ms ({by}, {nbytes / 1e9:.2f} GB)"
+            + (f"; with masks {out[name]['with_masks_queued_ms']:.4f} ms"
+               if name == "select_mask" else "") + f" ({card})")
+    return out
+
+
+def lm_profile(torch, bundle, params, step, batch, card: str) -> dict:
+    """Where the LM's time goes: torch.profiler over 3 steady decode steps
+    (batch 4 against a cache of 128 holding a 32-token prompt) and over
+    one steady federated step (its kernel events must show K1 and K2 once
+    each): wall, device busy share, device events and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sv = LM_SERVE
+    prompts = torch.randint(0, bundle.cfg.vocab_size,
+                            (sv["batch"], sv["prompt"]), dtype=torch.int32,
+                            device="cuda")
+    logits, caches = bundle.prefill_step(params, {
+        "tokens": prompts, "caches": bundle.make_cache(sv["batch"],
+                                                       sv["cache"])})
+    token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    def decode3():
+        nonlocal caches, token
+        for t in range(3):
+            pos = torch.full((sv["batch"], 1), sv["prompt"] + t,
+                             dtype=torch.int32, device="cuda")
+            lg, caches = bundle.decode_step(params, {
+                "token": token, "pos": pos, "caches": caches})
+            token = torch.argmax(lg, -1)[:, None].to(torch.int32)
+
+    out = {}
+    torch.cuda.empty_cache()
+    for what, fn in (("3 decode steps", decode3),
+                     ("1 federated step", lambda: step(params, batch))):
+        free, reserved = _free_gb(torch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = _device_events(prof)
+        if not by_name:
+            raise AssertionError(f"lm: the profile of {what} holds no CUDA "
+                                 f"event (free {free:.1f} GB, reserved "
+                                 f"{reserved:.1f} GB before it)")
+        out[what] = {**_window(by_name, wall), "free_gb_before": free,
+                     "reserved_gb_before": reserved}
+        log(f"lm: profile of {what}: " + json.dumps({**out[what],
+                                                    "card": card}))
+    fed = out["1 federated step"]
+    if (fed["kernel_launches"]["channel_norm"],
+            fed["kernel_launches"]["select_mask"]) != (1, 1):
+        raise AssertionError(f"lm: a profiled federated step launched "
+                             f"{fed['kernel_launches']}")
+    return out
+
+
+def phase_lm(torch, card: str) -> dict:
+    """qwen2-0.5b at full width, bf16, weights drawn on the card from a
+    seed: serving, then LM_STEPS federated SCBF steps through
+    ``make_federated_train_step`` (K1 and K2 once a step, asserted from
+    the wrapper counts), the step's own table against the plain versions,
+    and K1 and K2 timed on it.  Returns the launches and the timings."""
+    from repro_torch import configs
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core import channels as ch
+    from repro_torch.core.distributed import make_federated_train_step
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import model_zoo
+    from repro_torch.params import tree_leaves
+
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    bundle = model_zoo.build(cfg, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    if n != cfg.param_count():
+        raise AssertionError(f"lm: {n} params, want {cfg.param_count()}")
+    log(f"lm: {cfg.name} ({cfg.num_layers}L d={cfg.d_model} {cfg.num_heads}"
+        f"H/{cfg.num_kv_heads}KV d_ff={cfg.d_ff} vocab={cfg.vocab_size}, "
+        f"{cfg.dtype}, {n:,} params) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    out = {"serve": lm_serve(torch, bundle, params, card)}
+
+    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=LM_CLIENTS)
+    step = make_federated_train_step(bundle.loss_fn, scbf, lr=LM_LR)
+    stream = SyntheticTokenStream(LM_CLIENTS * LM_BATCH, LM_SEQ,
+                                  cfg.vocab_size, seed=0)
+    seen = {}
+    real = ch.apply_factored_mask_slots
+
+    def tap(grads_k, rate, selection):
+        masked, frac = real(grads_k, rate, selection)
+        seen.update(grads=grads_k, masked=masked, frac=frac)
+        return masked, frac
+
+    ch.apply_factored_mask_slots = tap
+    losses, walls, counts = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i, nb in zip(range(LM_STEPS), stream):
+            batch = {k: torch.from_numpy(v).cuda().reshape(
+                LM_CLIENTS, LM_BATCH, LM_SEQ) for k, v in nb.items()}
+            torch.cuda.synchronize()
+            _reset_launches()
+            t1 = time.perf_counter()
+            loss, params = step(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            counts.append(_launch_counts())
+            losses.append(float(loss))
+    finally:
+        ch.apply_factored_mask_slots = real
+    peak = _peak_gb(torch)
+    for c in counts:
+        if (c["channel_norm"], c["select_mask"]) != (1, 1) or any(
+                c[k] for k in c if k not in ("channel_norm", "select_mask")):
+            raise AssertionError(f"lm: a federated step launched {c}; want "
+                                 f"K1 and K2 once each and nothing else")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lm: losses {losses}")
+    masked = tree_leaves(seen["masked"])
+    checks = lm_table_checks(torch, seen["grads"], masked, seen["frac"])
+    log(f"lm: {LM_STEPS} federated steps ({LM_CLIENTS} clients x "
+        f"{LM_BATCH} x {LM_SEQ} tokens, rate {LM_RATE}, lr {LM_LR}): losses "
+        f"{losses}, step walls {[round(w, 4) for w in walls]} s, peak "
+        f"{peak:.2f} GB; K1 and K2 once a step ({checks['leaves']} leaves x "
+        f"{checks['slots']} slots, one table); kept fraction a client "
+        f"{checks['kept_fraction']}; on the last step's table K1 within "
+        f"rtol {LM_K1_RTOL} and no absolute floor (max rel err "
+        f"{checks['k1_max_rel_err']:.3g}; thresholds "
+        f"{checks['threshold']}, plain {checks['plain_threshold']}; median "
+        f"score {checks['median_score']}, unembedding's "
+        f"{checks['unembed_median_score']:.3g}; {checks['channel_flips']} "
+        f"channels flipped against the plain scores, all at the "
+        f"threshold) and K2 bitwise (values, masks, counts; and without "
+        f"masks, as the step calls it) of their plain versions ({card})")
+    timing = lm_time_table(torch, seen["grads"], card)
+    del seen
+    profiles = lm_profile(torch, bundle, params, step, batch, card)
+    out.update(losses=losses, step_walls=walls, peak_gb=peak,
+               checks=checks, timing=timing, profiles=profiles,
+               launches={"channel_norm": sum(c["channel_norm"]
+                                             for c in counts),
+                         "select_mask": sum(c["select_mask"]
+                                            for c in counts)})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2521,12 +2992,19 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(*args)
         log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    lm = phase_lm(torch, card)
+    log(f"phase lm: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
                                 "select_compact_scatter")}
     for r in report:
         by_run = {label: {k: counts[k] for k in kinds.get(r["name"],
                                                          (r["name"],))}
                   for label, (_, counts, _) in runs.items()}
+        if r["name"] in lm["launches"]:
+            by_run["lm_federated_steps"] = {r["name"]:
+                                            lm["launches"][r["name"]]}
+            r["lm"] = lm["timing"][r["name"]]
         r["launches"] = sum(sum(c.values()) for c in by_run.values())
         r["launches_by_run"] = by_run
         # the fused runs' graph replays, apart from the wrapper counts
@@ -2548,7 +3026,7 @@ def main() -> int:
                  "ms_single_leaf", "device_us", "device_us_l2_warm",
                  "device_us_single_leaf",
                  "encoder", "memset_us", "memset_us_single_leaf", "slots",
-                 "pass")}}))
+                 "pass", "lm")}}))
     log(f"total: {time.perf_counter() - T_START:.1f}s")
     print(card)
     print(json.dumps({"kernels": report}))

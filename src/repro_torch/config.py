@@ -1,8 +1,8 @@
-"""Training configs for the port — an own copy of ``repro.config``'s
-SCBF/federation/training dataclasses, with the same field names and
-defaults so a config reads the same in both packages — the engine too:
-``FedConfig.engine`` is ``"batched"``, the slot-stacked cohort engine,
-as in the reference.
+"""Configs for the port — an own copy of ``repro.config``'s architecture,
+input-shape and SCBF/federation/training dataclasses, with the same field
+names and defaults so a config reads the same in both packages — the
+engine too: ``FedConfig.engine`` is ``"batched"``, the slot-stacked
+cohort engine, as in the reference.
 
 Fields whose feature is not ported yet are kept (so configs stay
 interchangeable) and refused by ``repro_torch.core.scbf.run_federated``
@@ -12,7 +12,209 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Mapping, Tuple
 
+
+# ---------------------------------------------------------------------------
+# Architecture
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """A single architecture, as assigned from the public pool.
+
+    ``family`` is one of dense | moe | ssm | hybrid | audio | vlm | mlp.
+    Fields default to "off" so dense configs stay short.
+    """
+
+    name: str
+    family: str
+    source: str                      # citation (arXiv / model card)
+
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # --- attention flavour ---
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0       # chatglm3: 0.5 (2d RoPE on half the dims)
+    sliding_window: int = 0          # 0 = full attention
+    attention_every: int = 1         # jamba: 8 -> 1 attention layer per 8
+    cross_attn_every: int = 0        # llama-3.2-vision: 5
+
+    # --- MLA (DeepSeek-V2) ---
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 64
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1               # apply MoE every k-th layer
+    first_dense_layers: int = 0      # deepseek: first layer is dense
+    moe_capacity_factor: float = 1.25
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+
+    # --- encoder / decoder ---
+    encoder_layers: int = 0          # whisper: 24
+    encoder_seq: int = 1500          # whisper frame count after conv stub
+
+    # --- modality frontend stubs ---
+    frontend: str = "none"           # none | audio | vision
+    num_patch_tokens: int = 1024     # vision stub patch count
+
+    # --- plain-MLP family (the paper's own model) ---
+    mlp_features: Tuple[int, ...] = ()   # e.g. (2917, 256, 64, 1)
+
+    # --- misc ---
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    activation: str = "silu"         # silu | gelu
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    # ------------------------------------------------------------------
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def num_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_decode_natively(self) -> bool:
+        """Sub-quadratic decode without the sliding-window variant."""
+        return self.family in ("ssm", "hybrid")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. all experts)."""
+        if self.family == "mlp":
+            n = 0
+            for fin, fout in zip(self.mlp_features[:-1], self.mlp_features[1:]):
+                n += fin * fout + fout
+            return n
+        d, L = self.d_model, self.num_layers
+        n = self.vocab_size * d                      # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d                 # unembed
+        for layer in range(L):
+            n += self._layer_params(layer)
+        if self.encoder_layers:
+            for layer in range(self.encoder_layers):
+                n += self._enc_layer_params()
+        n += d                                        # final norm
+        return n
+
+    def _attn_params(self) -> int:
+        d, H, KV, hd = self.d_model, self.num_heads, self.num_kv_heads, self.head_dim
+        if self.use_mla:
+            r, rd = self.kv_lora_rank, self.qk_rope_dim
+            n = d * H * (hd + rd)                    # q proj (nope+rope)
+            n += d * (r + rd)                        # kv down (+ shared k_rope)
+            n += r * H * (hd + hd)                   # kv up (k_nope + v)
+            n += H * hd * d                          # out
+            return n
+        n = d * H * hd + 2 * d * KV * hd + H * hd * d
+        if self.qkv_bias:
+            n += H * hd + 2 * KV * hd
+        return n
+
+    def _mlp_params(self, d_ff: int) -> int:
+        return 3 * self.d_model * d_ff               # gated (wi, wg, wo)
+
+    def _is_moe_layer(self, layer: int) -> bool:
+        if not self.num_experts:
+            return False
+        if layer < self.first_dense_layers:
+            return False
+        return (layer % self.moe_every) == (self.moe_every - 1) \
+            if self.moe_every > 1 else True
+
+    def _is_attn_layer(self, layer: int) -> bool:
+        if self.family == "ssm":
+            return False
+        if self.attention_every > 1:
+            return (layer % self.attention_every) == (self.attention_every - 1)
+        return True
+
+    def _layer_params(self, layer: int) -> int:
+        d = self.d_model
+        n = 2 * d                                    # two norms
+        if self._is_attn_layer(layer):
+            n += self._attn_params()
+        elif self.family in ("ssm", "hybrid"):
+            di, s = self.d_inner, self.ssm_state
+            nh = di // self.ssm_head_dim
+            n += d * (2 * di + 2 * s + nh)           # in_proj (x,z,B,C,dt)
+            n += self.ssm_conv_width * (di + 2 * s)  # conv
+            n += nh * 2                              # A_log, D
+            n += di * d                              # out_proj
+        if self.cross_attn_every and (layer % self.cross_attn_every
+                                      == self.cross_attn_every - 1):
+            n += self._attn_params() + d
+        if self._is_moe_layer(layer):
+            n += self.num_experts * self._mlp_params(self.d_ff)
+            n += self.num_shared_experts * self._mlp_params(self.d_ff)
+            n += d * self.num_experts                # router
+        else:
+            n += self._mlp_params(self.d_ff)
+        return n
+
+    def _enc_layer_params(self) -> int:
+        return 2 * self.d_model + self._attn_params() + self._mlp_params(self.d_ff)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        n = self.param_count()
+        for layer in range(L):
+            if self._is_moe_layer(layer):
+                inactive = self.num_experts - self.experts_per_token
+                n -= inactive * self._mlp_params(self.d_ff)
+        return n
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+INPUT_SHAPES: Mapping[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# SCBF / training config
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ScbfConfig:

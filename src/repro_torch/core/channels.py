@@ -22,6 +22,11 @@ threshold a slot (a sort along the last axis), edge operands with
 group of slots that fits its ``MAX_SLOTS`` (leaf, slot) pairs
 (``slot_groups``: one group up to 1,365 slots of the 3-layer MLP).  Slot
 s gives what the one-client functions give on it, bitwise.
+
+The LM scenario (``core.distributed``) scores any param tree by
+*factored* channel scores (``factored_scores``, ``factored_threshold``,
+``apply_factored_mask``): the same two kernels, one launch each a table
+of at most ``MAX_LEAVES`` leaves (``leaf_tables``) of every client.
 """
 from __future__ import annotations
 
@@ -30,9 +35,11 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import channel_norm as channel_norm_kernel
 from repro_torch.kernels import select_mask as select_mask_kernel
 from repro_torch.kernels.channel_norm import channel_norms_leaves
 from repro_torch.kernels.select_mask import select_mask_leaves
+from repro_torch.params import tree_leaves, tree_unflatten
 
 # Materialise T exactly up to this many channels; sample beyond it.
 MAX_MATERIALIZED = 1 << 22
@@ -325,3 +332,152 @@ def mask_by_operands(grads: Sequence[dict], ops: Sequence[EdgeOperands]
         # upload accounting does not count phantom entries
         masks.append({"w": w_mask, "b": b_mask if has_bias else None})
     return masked, masks
+
+
+# ---------------------------------------------------------------------------
+# Factored channel scores for arbitrary param trees (the at-scale form the
+# LM scenario uses).  Channel == output feature of each weight tensor: a
+# leaf with ndim >= 2 is scored as the matrix (prod(shape[:-1]),
+# shape[-1]), its score the column squared norm (K1); the mask keeps the
+# columns whose score is >= the threshold (K2 with zero row scores).
+# Slot-stacked trees (every leaf (K, ...): the K clients of a federated
+# step) take one table a group of leaves (``leaf_tables``), one threshold
+# a client.
+# ---------------------------------------------------------------------------
+
+def leaf_tables(num_leaves: int, num_slots: int = 1
+                ) -> List[Tuple[int, int]]:
+    """Leaf ranges [a, b) of ``num_leaves`` leaves of ``num_slots`` slots
+    each, each range one launch of the channel-norm and select-mask
+    kernels: at most ``MAX_LEAVES`` leaves and ``MAX_SLOTS`` (leaf, slot)
+    pairs."""
+    if num_slots > select_mask_kernel.MAX_SLOTS:
+        raise ValueError(f"a leaf table takes at most MAX_SLOTS = "
+                         f"{select_mask_kernel.MAX_SLOTS} slots, got "
+                         f"{num_slots}")
+    per = min(select_mask_kernel.MAX_LEAVES, channel_norm_kernel.MAX_LEAVES,
+              select_mask_kernel.MAX_SLOTS // max(num_slots, 1))
+    return [(a, min(num_leaves, a + per)) for a in range(0, num_leaves, per)]
+
+
+def _matrices(leaf: torch.Tensor) -> torch.Tensor:
+    """A slot-stacked leaf (K, ..., N) as K matrices (K, M, N)."""
+    return leaf.reshape(leaf.shape[0], -1, leaf.shape[-1])
+
+
+def factored_scores_slots(grads_k) -> Tuple[list, list]:
+    """(leaves, scores) of a slot-stacked tree: every leaf (K, ...); a leaf
+    whose client part has ndim >= 2 gets its fp32 channel scores (K, N)
+    from the channel-norm kernel (one launch a leaf table), the others
+    ``None`` (always uploaded)."""
+    leaves = tree_leaves(grads_k)
+    scores: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    idx = [i for i, leaf in enumerate(leaves) if leaf.ndim >= 3]
+    slots = leaves[idx[0]].shape[0] if idx else 1
+    for a, b in leaf_tables(len(idx), slots):
+        norms = channel_norms_leaves([_matrices(leaves[i])
+                                      for i in idx[a:b]])
+        for i, (_, col) in zip(idx[a:b], norms):
+            scores[i] = col
+    return leaves, scores
+
+
+def factored_scores(grads) -> Tuple[list, list]:
+    """Per-tensor output-channel scores for any gradient tree.
+
+    Returns (leaves, scores): for every leaf with ndim >= 2, the fp32
+    squared norm over all axes except the last (the output-feature axis);
+    ``None`` for the others (always uploaded — the norm/bias vectors).
+    """
+    leaves = tree_leaves(grads)
+    _, scores = factored_scores_slots([leaf[None] for leaf in leaves])
+    return leaves, [None if s is None else s[0] for s in scores]
+
+
+def factored_threshold(scores: Sequence, upload_rate: float,
+                       selection: str = "positive") -> torch.Tensor:
+    """Global α-quantile across every tensor's channel-score pool (one a
+    slot for slot-stacked scores (K, N)), with ``jnp.quantile``'s
+    arithmetic (``quantile``)."""
+    pool = [s for s in scores if s is not None]
+    if upload_rate >= 1.0 or not pool:
+        # upload everything (and with no >= 2-D leaf, nothing to rank)
+        lead = pool[0].shape[:-1] if pool else ()
+        return torch.full(lead, float("-inf"), dtype=torch.float32,
+                          device=pool[0].device if pool else None)
+    q = (1.0 - upload_rate) if selection == "positive" else upload_rate
+    return quantile(torch.cat(pool, axis=-1), q, axis=-1)
+
+
+def factored_mask_slots(leaves: Sequence[torch.Tensor],
+                        scores: Sequence[Optional[torch.Tensor]],
+                        threshold: torch.Tensor
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Mask slot-stacked leaves (K, ...) to the channels whose score is
+    ``>= threshold`` (0-d, or one a slot); returns (masked leaves,
+    uploaded fraction (K,)).
+
+    One select-mask launch a leaf table, with zero row scores shared by
+    every slot and ``rest = 0``: the kernel tests ``(0 + s) + 0 > t``,
+    which is ``s > t`` exactly, so ``t`` is the float just below the
+    threshold and ``s > t`` holds exactly when ``s >= threshold`` (ties
+    keep their channels, as in the reference; a -inf threshold keeps
+    every channel).  The fraction is the reference's: kept entries over
+    all entries, summed in fp32 leaf by leaf in tree order.
+    """
+    masked = list(leaves)
+    kept_of = {}
+    idx = [i for i, s in enumerate(scores) if s is not None]
+    if idx:
+        dev = leaves[idx[0]].device
+        thr = torch.as_tensor(threshold, dtype=torch.float32, device=dev)
+        below = torch.nextafter(thr, torch.full_like(thr, float("-inf")))
+        zeros = torch.zeros(max(_matrices(leaves[i]).shape[1] for i in idx),
+                            dtype=torch.float32, device=dev)
+        rest = torch.zeros((), dtype=torch.float32, device=dev)
+        slots = leaves[idx[0]].shape[0]
+        for a, b in leaf_tables(len(idx), slots):
+            group = idx[a:b]
+            table = [(_matrices(leaves[i]), zeros[:_matrices(leaves[i])
+                                                  .shape[1]],
+                      scores[i], below, rest) for i in group]
+            outs, _, counts = select_mask_leaves(table, masks=False)
+            counts = counts.view(len(group), slots)
+            for j, i in enumerate(group):
+                masked[i] = outs[j].view(leaves[i].shape)
+                kept_of[i] = counts[j]
+    slots, dev = leaves[0].shape[0], leaves[0].device
+    kept = torch.zeros(slots, dtype=torch.float32, device=dev)
+    total = 0
+    for i, leaf in enumerate(leaves):
+        size = leaf.numel() // slots
+        kept = kept + (kept_of[i].to(torch.float32) if i in kept_of else
+                       torch.full((), size, dtype=torch.float32, device=dev))
+        total += size
+    frac = kept / torch.full((), float(total), dtype=torch.float32,
+                             device=dev)
+    return masked, frac
+
+
+def apply_factored_mask_slots(grads_k, upload_rate: float,
+                              selection: str = "positive"):
+    """``apply_factored_mask`` of K clients at once: every leaf of
+    ``grads_k`` is (K, ...); one channel-norm and one select-mask launch a
+    leaf table.  Returns (masked tree, uploaded fraction (K,))."""
+    leaves, scores = factored_scores_slots(grads_k)
+    thr = factored_threshold(scores, upload_rate, selection)
+    masked, frac = factored_mask_slots(leaves, scores, thr)
+    return tree_unflatten(grads_k, masked), frac
+
+
+def apply_factored_mask(grads, upload_rate: float,
+                        selection: str = "positive"):
+    """Mask a gradient tree to its top-``upload_rate`` output channels.
+
+    Channel scores pool globally across tensors, so busier layers upload
+    more.  Returns (masked_grads, uploaded_fraction).
+    """
+    leaves = tree_leaves(grads)
+    masked, frac = apply_factored_mask_slots(
+        [leaf[None] for leaf in leaves], upload_rate, selection)
+    return tree_unflatten(grads, [m[0] for m in masked]), frac[0]

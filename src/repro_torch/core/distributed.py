@@ -1,0 +1,137 @@
+"""SCBF's federated train step over a param tree — the LM scenario (port
+of ``repro.core.distributed``).
+
+One federated train step is:
+
+  1. each client computes its gradients on its own batch shard (the
+     reference's ``vmap`` over a leading client axis is a loop over
+     clients writing into preallocated ``(K, ...)`` buffers, so each
+     leaf's K gradients are K slots of one tensor);
+  2. each client's gradient tree is masked to its top-α output channels
+     by *factored channel scores* (``core.channels``): one launch of the
+     channel-norm kernel (K1) and one of the select-mask kernel (K2) a
+     leaf table of every client — the paper's "Process Gradients" step;
+  3. the server sums the masked gradients over the clients and takes the
+     SGD step ``W <- W - lr · Σ_k ΔW̃_k``.
+
+With ``compressed_exchange`` each client's top-k channels by factored
+score are gathered into an (α·rows)-sized buffer and the dense sum is
+rebuilt by a scatter-add, plain torch as the reference's is plain
+``jnp``.  Pods (the reference's ``spmd_axis_name``) are ROADMAP A15.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from repro_torch.config import ScbfConfig
+from repro_torch.core import channels
+from repro_torch.models.model_zoo import sgd_update, value_and_grad
+from repro_torch.params import tree_leaves, tree_unflatten
+
+
+def client_gradients(loss_fn: Callable, params, batch):
+    """(losses (K,), gradient tree with every leaf (K, *leaf.shape)) of the
+    K clients whose batches are the slots of ``batch``'s leaves (K, ...).
+    Client k's gradient is written into slot k of one buffer a leaf, in
+    the leaf's dtype; params are left without ``requires_grad``."""
+    k_clients = next(iter(batch.values())).shape[0]
+    grads = [torch.empty((k_clients,) + tuple(p.shape), dtype=p.dtype,
+                         device=p.device) for p in tree_leaves(params)]
+    losses = []
+    for k in range(k_clients):
+        loss, g = value_and_grad(loss_fn, params,
+                                 {name: v[k] for name, v in batch.items()})
+        for buf, leaf in zip(grads, tree_leaves(g)):
+            buf[k].copy_(leaf)
+        losses.append(loss)
+    return torch.stack(losses), tree_unflatten(params, grads)
+
+
+def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
+                              lr: float = 1e-3) -> Callable:
+    """Returns step(params, batch) -> (mean_loss, new_params).
+
+    ``batch`` leaves carry a leading client axis (K, ...).
+    """
+
+    def step(params, batch):
+        losses, grads_k = client_gradients(loss_fn, params, batch)
+        if scbf.compressed_exchange:
+            summed = _compressed_sum(grads_k, scbf.upload_rate)
+        else:
+            masked_k, _ = channels.apply_factored_mask_slots(
+                grads_k, scbf.upload_rate, scbf.selection)
+            summed = tree_unflatten(masked_k, [
+                torch.sum(g, axis=0) for g in tree_leaves(masked_k)])
+        return torch.mean(losses), sgd_update(params, summed, lr)
+
+    return step
+
+
+def _compressed_sum(grads_k, rate: float):
+    """Σ_k of top-α-channel compressed client gradients.
+
+    Every leaf carries a leading client axis (K, ..., n).  Per client the
+    top-k output channels by factored score are taken and only (indices
+    (K,k), values (K,...,k)) exchanged; the dense sum is reassembled by
+    one scatter-add over the stacked (K·k) buffers (``index_add_`` sums
+    clients that selected the same channel).
+    """
+    out = []
+    for leaf in tree_leaves(grads_k):
+        K = leaf.shape[0]
+        if leaf.ndim - 1 < 2:
+            out.append(torch.sum(leaf, axis=0))
+            continue
+        n = leaf.shape[-1]
+        k = max(1, int(rate * n))
+        lf = leaf.to(torch.float32)
+        dims = tuple(range(1, leaf.ndim - 1))
+        scores = torch.sum(lf * lf, axis=dims)             # (K, n)
+        idx = torch.topk(scores, k, axis=-1).indices       # (K, k)
+        idx_b = idx.reshape((K,) + (1,) * (leaf.ndim - 2) + (k,))
+        vals = torch.gather(lf, -1, idx_b.expand(leaf.shape[:-1] + (k,)))
+        flat_idx = idx.reshape(K * k)
+        flat_vals = torch.movedim(vals, 0, -2).reshape(
+            vals.shape[1:-1] + (K * k,))
+        dense = torch.zeros(leaf.shape[1:], dtype=torch.float32,
+                            device=leaf.device)
+        dense.index_add_(dense.ndim - 1, flat_idx, flat_vals)
+        out.append(dense.to(leaf.dtype))
+    return tree_unflatten(grads_k, out)
+
+
+def _compressed_masked(grads, rate: float):
+    """Top-k channel gather/scatter of one client's gradient tree: zeros
+    outside the top-α channels like the dense mask, with the values
+    carried as an (α·rows) buffer — top_k and gather before, scatter
+    after.  The same selected set as ``apply_factored_mask`` when no
+    scores tie."""
+    leaves, scores = channels.factored_scores(grads)
+    out = []
+    for leaf, s in zip(leaves, scores):
+        if s is None:
+            out.append(leaf)
+            continue
+        k = max(1, int(rate * s.shape[0]))
+        idx = torch.topk(s, k).indices                     # (k,) channels
+        vals = torch.index_select(leaf, leaf.ndim - 1, idx)  # (..., k)
+        out.append(_scatter_last(torch.zeros_like(leaf), idx, vals))
+    return tree_unflatten(grads, out)
+
+
+def _scatter_last(dense, idx, vals):
+    """Scatter vals (..., k) into dense (..., n) at last-axis idx (k,)."""
+    out = dense.clone()
+    out[..., idx] = vals
+    return out
+
+
+def client_batch_shape(global_batch: int, num_clients: int, seq: int
+                       ) -> Tuple[int, int, int]:
+    if global_batch % num_clients:
+        raise ValueError(f"global batch {global_batch} does not split over "
+                         f"{num_clients} clients")
+    return (num_clients, global_batch // num_clients, seq)

@@ -10,11 +10,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.comm import wire
-
-
-def _tree_map(fn, *trees):
-    return tuple({k: fn(*(t[i][k] for t in trees)) for k in trees[0][i]}
-                 for i in range(len(trees[0])))
+from repro_torch.params import tree_map
 
 
 def scbf_update(server_params, masked_deltas: Optional[Sequence] = None,
@@ -30,8 +26,8 @@ def scbf_update(server_params, masked_deltas: Optional[Sequence] = None,
         return wire.apply_payloads(server_params, payloads)
     total = masked_deltas[0]
     for d in masked_deltas[1:]:
-        total = _tree_map(torch.add, total, d)
-    return _tree_map(torch.add, server_params, total)
+        total = tree_map(torch.add, total, d)
+    return tree_map(torch.add, server_params, total)
 
 
 def fedavg_update(client_params: Sequence, weights: Sequence = None):
@@ -44,15 +40,15 @@ def fedavg_update(client_params: Sequence, weights: Sequence = None):
         n = float(len(client_params))
         summed = client_params[0]
         for p in client_params[1:]:
-            summed = _tree_map(torch.add, summed, p)
-        return _tree_map(lambda s: s / n, summed)
+            summed = tree_map(torch.add, summed, p)
+        return tree_map(lambda s: s / n, summed)
     if len(weights) != len(client_params):
         raise ValueError("one weight per client required")
     w0 = float(weights[0])
-    summed = _tree_map(lambda x: x.to(torch.float32) * w0, client_params[0])
+    summed = tree_map(lambda x: x.to(torch.float32) * w0, client_params[0])
     for w, p in zip(weights[1:], client_params[1:]):
         wf = float(w)
-        summed = _tree_map(lambda s, x: s + x.to(torch.float32) * wf,
+        summed = tree_map(lambda s, x: s + x.to(torch.float32) * wf,
                            summed, p)
-    return _tree_map(lambda s, ref: s.to(ref.dtype), summed,
+    return tree_map(lambda s, ref: s.to(ref.dtype), summed,
                      client_params[0])

@@ -7,6 +7,8 @@
 //   mask[i, j] = keep                                 (bool, one byte)
 //   count      = number of kept entries               (int32)
 //
+// A leaf whose mask pointer is 0 gets no mask: out and count only.
+//
 // Replaces the TPU kernel repro/kernels/select_mask.py:
 // select_mask_pallas (body _select_mask_kernel).  That kernel tests
 // row[i] + col[j] > thr; the port adds the `rest` operand — the best
@@ -15,10 +17,11 @@
 // does.  Folding rest into thr would change which ties pass; rest = 0 is
 // the TPU kernel's rule bitwise.  Scores of -inf (pruned or padded
 // neurons) never pass.  The mask output is what upload accounting and DP
-// need beside the masked values.
+// need beside the masked values; the LM's factored mask (apply_factored_mask)
+// needs only out and count, and passes no mask.
 //
 // Bound on an H100: bytes — one read of g, one write of out and of the
-// mask (9 bytes an entry in fp32).  A pass over the main path's matrices,
+// mask (9 bytes an entry in fp32; 4 in bf16 with no mask).  A pass over the main path's matrices,
 // (2917, 256) + (256, 64) + (64, 1) fp32, moves about 6.9 MB: about 2 us at
 // 3.35 TB/s.  It is compare-and-move work with no products, so tensor
 // cores buy nothing, and TMA buys nothing over 16-byte loads that already
@@ -190,7 +193,7 @@ select_mask_kernel(const Table t, int* __restrict__ counts) {
   const size_t at = (size_t)slot * total;       // this slot's matrices
   const T* g = static_cast<const T*>(lf.g) + at;
   T* out = static_cast<T*>(lf.out) + at;
-  unsigned char* mask = lf.mask + at;
+  unsigned char* mask = lf.mask ? lf.mask + at : nullptr;
   const float* row = lf.row + (size_t)slot * lf.row_ss;
   const float* col = lf.col + (size_t)slot * lf.col_ss;
   const unsigned base =
@@ -218,6 +221,7 @@ select_mask_kernel(const Table t, int* __restrict__ counts) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) o[k] = (bits >> k) & 1u ? v[r][k] : zero<T>();
     store4(out, e[r], total, vec, o);
+    if (!mask) continue;
     if (mask_vec && e[r] + 4 <= total) {        // bytes 0/1, entry order
       *reinterpret_cast<unsigned*>(mask + e[r]) =
           (bits & 1u) | ((bits & 2u) << 7) | ((bits & 4u) << 14) |
@@ -251,7 +255,7 @@ select_mask_kernel(const Table t, int* __restrict__ counts) {
 // ROW_WORDS int64 words a leaf: g, S, M, N, row, row_ss, col, col_ss, thr,
 // thr_ss, rest, rest_ss, out, mask — device pointers but S, M, N and the
 // slot strides (in floats, 0 for an operand every slot shares); g, out and
-// mask hold S contiguous (M, N) matrices; thr and rest are fp32 scalars in
+// mask hold S contiguous (M, N) matrices, and a mask of 0 is not written; thr and rest are fp32 scalars in
 // device memory (read by the kernel, no host sync).  dtype: 0 = fp32,
 // 1 = bf16, for every leaf.  counts gets one int a (leaf, slot), leaf by
 // leaf — at most MAX_SLOTS in all.  M * N must be below 2^31.  Two

@@ -215,39 +215,44 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def select_mask_leaves(leaves: Sequence[Leaf]
-                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+def select_mask_leaves(leaves: Sequence[Leaf], masks: bool = True
+                       ) -> Tuple[List[torch.Tensor],
+                                  List[Optional[torch.Tensor]],
                                   torch.Tensor]:
     """Every leaf's (g̃ like g, mask bool like g) and the int32 kept
     counts, one a (leaf, slot) pair, leaf by leaf (``(L,)`` for a table of
     matrices); on CUDA one launch, and the outputs are views of one
-    allocation."""
+    allocation.  With ``masks=False`` no mask is made (each is ``None``):
+    on CUDA the kernel writes g̃ and the counts only."""
     global mask_launches
     leaves, device = _leaves(leaves, "select_mask")
     if device.type == "cpu":
         outs = [select_mask_plain(*leaf) for leaf in leaves]
-        return ([o for o, _, _ in outs], [m for _, m, _ in outs],
+        return ([o for o, _, _ in outs],
+                [m if masks else None for _, m, _ in outs],
                 torch.cat([c.reshape(-1) for _, _, c in outs]))
     dtype = leaves[0][0].dtype
     item = dtype.itemsize
-    # per leaf g̃ then its mask, then the counts
+    # per leaf g̃ then its mask (if any), then the counts
     offsets, size = [], 0
     for g, *_ in leaves:
         offsets.append((size, size + _pad(g.numel() * item)))
-        size = offsets[-1][1] + _pad(g.numel())
+        size = offsets[-1][1] + (_pad(g.numel()) if masks else 0)
     counts_at = size
     pairs = sum(_slots(leaf) for leaf in leaves)
     buf = torch.empty(counts_at + _pad(4 * pairs), dtype=torch.uint8,
                       device=device)
     as_vals, as_flags = buf.view(dtype), buf.view(torch.bool)
     base = buf.data_ptr()
-    outs, masks, words = [], [], []
+    outs, made, words = [], [], []
     for leaf, (out_at, mask_at) in zip(leaves, offsets):
         g = leaf[0]
         outs.append(as_vals[out_at // item:out_at // item + g.numel()]
                     .view(g.shape))
-        masks.append(as_flags[mask_at:mask_at + g.numel()].view(g.shape))
-        words += _words(leaf) + [base + out_at, base + mask_at]
+        made.append(as_flags[mask_at:mask_at + g.numel()].view(g.shape)
+                    if masks else None)
+        words += _words(leaf) + [base + out_at,
+                                 base + mask_at if masks else 0]
     table = _table(words)
     lib = build.libraries()["select_mask"]
     build.check(lib.select_mask_launch(
@@ -256,7 +261,7 @@ def select_mask_leaves(leaves: Sequence[Leaf]
     counts = buf.view(torch.int32)[counts_at // 4:counts_at // 4 + pairs]
     if not torch.cuda.is_current_stream_capturing():
         mask_launches += 1          # recorded into a graph: not launched
-    return outs, masks, counts
+    return outs, made, counts
 
 
 def select_mask(g: torch.Tensor, row: torch.Tensor, col: torch.Tensor,

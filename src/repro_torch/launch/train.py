@@ -12,13 +12,21 @@ spec, ``fed.faults.parse_fault_trace``), ``--deadline-quantile`` and
 ``--deadline-action`` (the simulated clock), ``--min-valid-participants``
 (round quorum), ``--max-update-norm`` and ``--norm-action`` (the norm
 gate); ``--events`` writes ``<out>/<method>.events.jsonl``, which
-``python -m repro_torch.obs.report`` reads.  ``--mode lm`` (ROADMAP A14) is not
-ported yet.
+``python -m repro_torch.obs.report`` reads.
+
+``--mode lm`` is federated SCBF fine-tuning of a reduced assigned dense
+architecture (``configs.smoke_variant``, as the reference) on the
+synthetic token stream, through ``core.distributed.
+make_federated_train_step``: ``--clients`` clients (5), ``--batch-size``
+sequences each (4 when left at 256), ``--seq-len`` tokens (64),
+``--upload-rate`` (0.10), ``--lr`` (0.05), ``--steps`` steps.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode medical \
         --methods scbf,fedavg,scbfwp,fedavgwp --loops 30 \
         --out experiments/medical_torch
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+        --arch qwen2-0.5b --steps 200 --clients 4
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import contextlib
 import csv
 import dataclasses
 import os
+import time
 
 CSV_COLUMNS = ["loop", "auc_roc", "auc_pr", "upload_fraction",
                "sparse_bytes", "dense_bytes", "wall_time",
@@ -126,6 +135,34 @@ def run_medical(args):
     return results
 
 
+def run_lm(args):
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core.distributed import make_federated_train_step
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models import model_zoo
+
+    cfg = configs.smoke_variant(configs.get(args.arch))
+    bundle = model_zoo.build(cfg, device=args.device)
+    params, _ = bundle.init(args.seed)
+    scbf = ScbfConfig(upload_rate=args.upload_rate, num_clients=args.clients)
+    step = make_federated_train_step(bundle.loss_fn, scbf, lr=args.lr)
+
+    K, B, S = args.clients, args.batch_size, args.seq_len
+    stream = SyntheticTokenStream(K * B, S, cfg.vocab_size, seed=args.seed)
+    t0 = time.time()
+    for i, nb in zip(range(args.steps), stream):
+        batch = {k: torch.from_numpy(v).to(bundle.device).reshape(K, B, S)
+                 for k, v in nb.items()}
+        loss, params = step(params, batch)
+        if i % max(1, args.steps // 20) == 0 or i == args.steps - 1:
+            print(f"step {i:4d} loss {float(loss):.4f} "
+                  f"({(time.time()-t0):.1f}s)", flush=True)
+    return params
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["medical", "lm"], default="medical")
@@ -180,14 +217,19 @@ def parse_args(argv=None):
     ap.add_argument("--events", action="store_true",
                     help="write <out>/<method>.events.jsonl flight-recorder "
                          "logs (read them with python -m repro_torch.obs.report)")
+    # lm mode
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=64)
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError("--mode lm (the LM zoo) is ROADMAP A14; "
-                                  "not ported yet")
+        if args.batch_size == 256:
+            args.batch_size = 4
+        return run_lm(args)
     return run_medical(args)
 
 

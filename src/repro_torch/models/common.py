@@ -1,0 +1,94 @@
+"""Param construction helpers (port of ``repro.models.common``).
+
+Every init function builds TWO parallel trees with identical structure:
+``params`` (the tensors) and ``axes`` (logical axis names per tensor
+dimension, a comma-joined string leaf), in the reference's nested-dict
+layout, so a port tree flattens to the reference's leaves in the same
+order (``repro_torch.params.tree_paths``).  The axis names are the
+reference's vocabulary (``layers``, ``vocab``, ``embed``, ``heads``,
+``kv``, ``mlp``, ...); nothing in the port shards by them yet.
+
+Randomness comes from one ``torch.Generator``, drawn leaf after leaf in
+init order; the tensors land on the generator's device.  ``gen=None``
+builds the tree on the ``meta`` device: shapes and dtypes only.  JAX's
+threefry stream cannot be reproduced, so parity tests carry the
+reference's initial params across (``params.from_numpy_tree``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.params import tree_map
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# Φ(-2) and Φ(2): the standard normal's mass below the truncation points
+_PHI_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+_PHI_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+
+
+def split_ax(axes: str):
+    return tuple(axes.split(",")) if axes else ()
+
+
+def device_of(gen: Optional[torch.Generator]) -> torch.device:
+    """Where an init drawn from ``gen`` puts its tensors."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def trunc_normal(gen: Optional[torch.Generator], shape, scale: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Normal on [-2, 2], times ``scale``, drawn in fp32 by the inverse CDF
+    (as ``torch.nn.init.trunc_normal_`` draws it), cast to ``dtype``."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    p = _PHI_LO + (_PHI_HI - _PHI_LO) * u
+    x = torch.erfinv(2.0 * p - 1.0) * math.sqrt(2.0)
+    return (torch.clamp(x, -2.0, 2.0) * scale).to(dtype)
+
+
+def dense_init(gen, fin: int, fout: int, axes: str, dtype,
+               bias: bool = False, scale: Optional[float] = None):
+    """(params, axes) for a dense layer.  fan-in scaled init.
+
+    ``axes`` e.g. "embed,mlp".
+    """
+    scale = scale if scale is not None else 1.0 / math.sqrt(fin)
+    p = {"w": trunc_normal(gen, (fin, fout), scale, dtype)}
+    a = {"w": axes}
+    if bias:
+        p["b"] = torch.zeros((fout,), dtype=dtype, device=device_of(gen))
+        a["b"] = split_ax(axes)[1]
+    return p, a
+
+
+def norm_init(dim: int, dtype, bias: bool = False, *, device):
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    a = {"scale": "embed"}
+    if bias:
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+        a["bias"] = "embed"
+    return p, a
+
+
+def stack_inits(init_fn, gen, repeats: int):
+    """``init_fn(gen)`` ``repeats`` times, each leaf stacked on a leading
+    'layers' axis (the reference vmaps its init over a key batch)."""
+    units = [init_fn(gen) for _ in range(repeats)]
+    params = tree_map(lambda *xs: torch.stack(xs), units[0][0],
+                      *(u[0] for u in units[1:]))
+    axes = tree_map(lambda a: "layers," + a if a else "layers", units[0][1])
+    return params, axes
+
+
+def merge(*pairs_named):
+    """merge(("attn", (p,a)), ("mlp", (p,a)), ...) -> (params, axes)."""
+    params, axes = {}, {}
+    for name, (p, a) in pairs_named:
+        params[name], axes[name] = p, a
+    return params, axes

@@ -1,0 +1,329 @@
+"""Core transformer layers, dense part: norms, RoPE, GQA self- and
+cross-attention, MLPs (port of ``repro.models.layers``).
+
+Conventions, as in the reference:
+* every ``*_init`` returns ``(params, axes)`` (see models/common.py);
+* every ``*_apply`` takes ``(params, x, ctx, ...)`` and returns either
+  ``y`` or ``(y, new_cache)``;
+* attention is *query-chunked* when ``Sq > q_chunk`` and ``Sq`` is a
+  multiple of it, so a long prefill keeps its score block bounded;
+* decode caches are ring buffers ``{"k","v","kpos"}`` — ``kpos`` holds the
+  absolute position per slot (−1 = empty), which makes full-cache,
+  sliding-window and prefix-filled caches all mask uniformly.
+
+All softmax/norm math runs in fp32; activations stay in the model dtype.
+The attention is the reference's arithmetic (fp32 scores, ``NEG_INF`` on
+masked slots, probabilities cast to ``v``'s dtype before the second
+product), not ``scaled_dot_product_attention``, whose numerics differ.
+MLA (DeepSeek-V2) is ROADMAP A14b.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ArchConfig
+from repro_torch.models.common import dense_init, merge
+
+NEG_INF = -1e30
+
+
+@dataclass
+class ModelCtx:
+    cfg: ArchConfig
+    dtype: torch.dtype
+    q_chunk: int = 512                           # attention query chunk
+    kv_quant: bool = False                       # int8 KV cache
+
+
+# ---------------------------------------------------------------------------
+# int8 KV-cache quantization: k/v as int8 + a per-(token, head) fp32 scale
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x):
+    """x (B,S,KV,hd) -> (int8 values, (B,S,KV) scales)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), axis=-1)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    # torch.round, as jnp.round, rounds half to even
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127
+                    ).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_apply(p, x):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, axis=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + 1e-6)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_apply(p, x):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, axis=-1, keepdim=True)
+    var = torch.var(xf, axis=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + 1e-6)
+    y = y * p["scale"].to(torch.float32)
+    if "bias" in p:
+        y = y + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def norm_apply(p, x, kind: str):
+    return rmsnorm_apply(p, x) if kind == "rmsnorm" else layernorm_apply(p, x)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (full / partial-dim "2d" / none)
+# ---------------------------------------------------------------------------
+
+def _inv_freq(half: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-i / half) in fp32.  ``theta`` stays a Python number (a
+    kernel argument): a tensor made from it on the device would be a
+    host-to-device copy, which waits for the device's queue."""
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(theta, exps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         fraction: float = 1.0) -> torch.Tensor:
+    """Apply RoPE to x (..., S, H, hd) with positions (..., S).
+
+    The rotation pairs dim i with dim i + rot/2 (half split, not
+    interleaved).  fraction < 1 rotates only the first ``fraction*hd``
+    dims (ChatGLM's 2d RoPE); theta == 0 disables RoPE entirely (whisper).
+    """
+    if theta == 0.0:
+        return x
+    hd = x.shape[-1]
+    rot = int(hd * fraction)
+    rot -= rot % 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freq = _inv_freq(half, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freq      # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = xr[..., :half].to(torch.float32)
+    x2 = xr[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], axis=-1)
+    return torch.cat([out.to(x.dtype), xp], axis=-1)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal absolute position embedding (whisper-style stub)."""
+    half = dim // 2
+    freq = _inv_freq(half, 10000.0, positions.device)
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention core — query-chunked, fp32 softmax, window/causal masks
+# ---------------------------------------------------------------------------
+
+def _attend(q, k, v, kpos, qpos, causal: bool, window: int):
+    """q (B,Sq,KV,G,hd); k,v (B,T,KV,hd); kpos (B,T) abs position or -1.
+
+    Returns (B,Sq,KV,G,hd).
+    """
+    hd = q.shape[-1]
+    scale = hd ** -0.5
+    s = torch.einsum("bqkgh,btkh->bkgqt", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    valid = kpos[:, None, None, None, :] >= 0
+    if causal:
+        rel = qpos[:, None, None, :, None] - kpos[:, None, None, None, :]
+        valid = valid & (rel >= 0)
+        if window:
+            valid = valid & (rel < window)
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, axis=-1)
+    return torch.einsum("bkgqt,btkh->bqkgh", p.to(v.dtype), v)
+
+
+def attention_core(q, k, v, kpos, qpos, ctx: ModelCtx,
+                   causal: bool = True, window: int = 0):
+    """Query-chunked attention.  q (B,Sq,H,hd) grouped to KV heads.
+
+    A query longer than ``ctx.q_chunk`` (and a multiple of it) runs one
+    chunk at a time against the whole of k/v, so the score block is
+    (chunk x T) — the reference's scan over chunks.
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    chunk = ctx.q_chunk
+    if Sq <= chunk or Sq % chunk:
+        o = _attend(qg, k, v, kpos, qpos, causal, window)
+        return o.reshape(B, Sq, H, hd)
+    outs = [_attend(qg[:, i:i + chunk], k, v, kpos, qpos[:, i:i + chunk],
+                    causal, window) for i in range(0, Sq, chunk)]
+    return torch.cat(outs, axis=1).reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# GQA self-attention (with optional cross-attention mode)
+# ---------------------------------------------------------------------------
+
+def gqa_init(gen, cfg: ArchConfig, dtype):
+    H, KV, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    return merge(
+        ("q", dense_init(gen, D, H * hd, "embed,heads", dtype, cfg.qkv_bias)),
+        ("k", dense_init(gen, D, KV * hd, "embed,kv", dtype, cfg.qkv_bias)),
+        ("v", dense_init(gen, D, KV * hd, "embed,kv", dtype, cfg.qkv_bias)),
+        ("o", dense_init(gen, H * hd, D, "heads,embed", dtype)),
+    )
+
+
+def _dense(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def gqa_apply(p, x, ctx: ModelCtx, positions, *, kv_x=None, kv_positions=None,
+              cache=None, causal=True, window: int = 0):
+    """Self- or cross-attention.
+
+    cache: {"k": (B,T,KV,hd), "v": ..., "kpos": (B,T)} ring buffer; when
+    given, x is the new token block written at ``positions``.
+    Returns (y, new_cache) (new_cache None for cache-less calls).
+    """
+    cfg = ctx.cfg
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
+    q = _dense(p["q"], x).reshape(B, S, H, hd)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+
+    if cache is not None and kv_x is not None and S == 1:
+        # cross-attention DECODE: reuse the K/V computed at prefill
+        k, v, kpos = cache["k"], cache["v"], cache["kpos"]
+        o = attention_core(q, k, v, kpos, positions, ctx, causal=False,
+                           window=0)
+        new_cache = cache
+    elif cache is None or kv_x is not None:
+        Skv = src.shape[1]
+        kpos = (torch.arange(Skv, device=x.device)[None].expand(B, Skv)
+                if kv_positions is None else kv_positions)
+        k = _dense(p["k"], src).reshape(B, Skv, KV, hd)
+        v = _dense(p["v"], src).reshape(B, Skv, KV, hd)
+        if kv_x is None:                      # self-attention gets RoPE
+            k = rope(k, kpos, cfg.rope_theta, cfg.rope_fraction)
+        o = attention_core(q, k, v, kpos, positions, ctx, causal, window)
+        # cross-attention PREFILL with a cache: store K/V for decode
+        new_cache = ({"k": k.to(cache["k"].dtype),
+                      "v": v.to(cache["v"].dtype), "kpos": kpos}
+                     if (cache is not None and kv_x is not None) else None)
+    else:
+        k_new = _dense(p["k"], src).reshape(B, S, KV, hd)
+        v_new = _dense(p["v"], src).reshape(B, S, KV, hd)
+        k_new = rope(k_new, positions, cfg.rope_theta, cfg.rope_fraction)
+        T = cache["k"].shape[1]
+        slot = positions % T                                  # ring buffer
+        if ctx.kv_quant:
+            kq, ks = quantize_kv(k_new)
+            vq, vs = quantize_kv(v_new)
+            kc = _ring_write(cache["k"], kq, slot)
+            vc = _ring_write(cache["v"], vq, slot)
+            ksc = _ring_write(cache["k_scale"], ks, slot)
+            vsc = _ring_write(cache["v_scale"], vs, slot)
+            kpos = _ring_write(cache["kpos"], positions, slot)
+            k = dequantize_kv(kc, ksc, x.dtype)
+            v = dequantize_kv(vc, vsc, x.dtype)
+            new_cache = {"k": kc, "v": vc, "k_scale": ksc,
+                         "v_scale": vsc, "kpos": kpos}
+        else:
+            k = _ring_write(cache["k"], k_new, slot)
+            v = _ring_write(cache["v"], v_new, slot)
+            kpos = _ring_write(cache["kpos"], positions, slot)
+            new_cache = {"k": k, "v": v, "kpos": kpos}
+        o = attention_core(q, k, v, kpos, positions, ctx, causal, window)
+
+    y = _dense(p["o"], o.reshape(B, S, H * hd))
+    return y, new_cache
+
+
+def _ring_write(buf, new, slot):
+    """Write new (B,S,...) into a copy of buf (B,T,...) at per-token slots
+    (B,S)."""
+    B, S = slot.shape
+    bidx = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    out = buf.clone()
+    out[bidx, slot.to(torch.int64)] = new.to(buf.dtype)
+    return out
+
+
+def attn_cache_init(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+                    device):
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, cache_len, KV, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, cache_len, KV, hd), dtype=dtype,
+                         device=device),
+        "kpos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                           device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2): ROADMAP A14b
+# ---------------------------------------------------------------------------
+
+def _mla_refused(*_, **__):
+    raise NotImplementedError("MLA (Multi-head Latent Attention, "
+                              "DeepSeek-V2) is ROADMAP A14b; not ported yet")
+
+
+mla_init = mla_apply = mla_cache_init = _mla_refused
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg: ArchConfig, dtype, d_ff: Optional[int] = None):
+    D = cfg.d_model
+    Fd = d_ff or cfg.d_ff
+    if cfg.activation != "gelu":                     # gated
+        return merge(
+            ("wi", dense_init(gen, D, Fd, "embed,mlp", dtype)),
+            ("wg", dense_init(gen, D, Fd, "embed,mlp", dtype)),
+            ("wo", dense_init(gen, Fd, D, "mlp,embed", dtype)),
+        )
+    return merge(
+        ("wi", dense_init(gen, D, Fd, "embed,mlp", dtype, bias=True)),
+        ("wo", dense_init(gen, Fd, D, "mlp,embed", dtype, bias=True)),
+    )
+
+
+def _gelu(x):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p, x, ctx: ModelCtx):
+    """``act(wi·x) * (wg·x)`` when gated (the activation is on ``wi``),
+    else ``act(wi·x)``; then ``wo``."""
+    act = F.silu if ctx.cfg.activation != "gelu" else _gelu
+    h = _dense(p["wi"], x)
+    if "wg" in p:
+        h = act(h) * _dense(p["wg"], x)
+    else:
+        h = act(h)
+    return _dense(p["wo"], h)

@@ -1,0 +1,273 @@
+"""Generic decoder transformer over a repeating layer pattern, dense part
+(port of ``repro.models.transformer``).
+
+Every architecture is expressed as:
+
+    prefix layers (unrolled)  +  R repeats of a layer *unit*
+
+where a unit is the architecture's repeating pattern — 1 layer for dense
+models.  Unit params are stacked on a leading "layers" axis, as in the
+reference, so the param tree (and the leaves SCBF scores and masks: a
+per-layer bias ``(N,)`` is a 2-D ``(R, N)`` leaf) is the reference's.  The
+reference's ``lax.scan`` over the repeats is a Python loop over ``R``
+over the stacked params and caches, each leaf split once into its units
+(``_unstack``); ``remat`` runs each unit
+under ``torch.utils.checkpoint`` (the backward recomputes the unit's
+activations), which changes no result.
+
+Caches mirror the param structure: a tree per unit, stacked on the same
+leading axis.  Mamba, MoE, cross-attention layers and the encoder are
+ROADMAP A14b.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.config import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import (DTYPES, dense_init, device_of, merge,
+                                       norm_init, stack_inits, trunc_normal)
+from repro_torch.models.layers import ModelCtx
+from repro_torch.params import tree_leaves, tree_map, tree_unflatten
+
+A14B = "ROADMAP A14b; not ported yet"
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    kind: str            # "attn" | "mamba"
+    moe: bool = False
+    cross: bool = False  # extra cross-attention sublayer
+
+
+def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
+    specs = []
+    for l in range(cfg.num_layers):
+        kind = "attn" if cfg._is_attn_layer(l) else "mamba"
+        cross = bool(cfg.cross_attn_every) and \
+            (l % cfg.cross_attn_every == cfg.cross_attn_every - 1)
+        specs.append(LayerSpec(kind, cfg._is_moe_layer(l), cross))
+    return specs
+
+
+def unit_pattern(cfg: ArchConfig) -> Tuple[List[LayerSpec], List[LayerSpec], int]:
+    """(prefix_specs, unit_specs, repeats)."""
+    specs = layer_specs(cfg)
+    prefix = specs[:cfg.first_dense_layers]
+    rest = specs[cfg.first_dense_layers:]
+    period = 1
+    for k in (cfg.attention_every, cfg.moe_every if cfg.num_experts else 1,
+              cfg.cross_attn_every or 1):
+        period = math.lcm(period, k)
+    if len(rest) % period:
+        raise ValueError(f"{cfg.name}: {len(rest)} layers not divisible by "
+                         f"pattern period {period}")
+    unit = rest[:period]
+    for r in range(0, len(rest), period):
+        if rest[r:r + period] != unit:
+            raise ValueError(f"{cfg.name}: layer pattern is not periodic")
+    return prefix, unit, len(rest) // period
+
+
+def _refuse(spec: LayerSpec) -> None:
+    if spec.kind != "attn":
+        raise NotImplementedError(f"Mamba2/SSD layers are {A14B}")
+    if spec.moe:
+        raise NotImplementedError(f"MoE layers are {A14B}")
+    if spec.cross:
+        raise NotImplementedError(f"cross-attention layers are {A14B}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype):
+    _refuse(spec)
+    dev = device_of(gen)
+    ln = cfg.norm == "layernorm"
+    pairs = [("norm1", norm_init(cfg.d_model, dtype, bias=ln, device=dev))]
+    attn = L.mla_init(gen, cfg, dtype) if cfg.use_mla \
+        else L.gqa_init(gen, cfg, dtype)
+    pairs.append(("attn", attn))
+    if cfg.d_ff:
+        pairs.append(("norm2", norm_init(cfg.d_model, dtype, bias=ln,
+                                         device=dev)))
+        pairs.append(("mlp", L.mlp_init(gen, cfg, dtype)))
+    return merge(*pairs)
+
+
+def _unit_init(gen, cfg: ArchConfig, unit: List[LayerSpec], dtype):
+    return merge(*[(f"l{i}", _layer_init(gen, cfg, s, dtype))
+                   for i, s in enumerate(unit)])
+
+
+def init_model(cfg: ArchConfig, gen: Optional[torch.Generator]
+               ) -> Tuple[Dict, Dict]:
+    """Returns (params, logical_axes) for the full model, drawn from
+    ``gen`` on its device (``gen=None``: on the meta device)."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(f"the encoder (whisper) is {A14B}")
+    dtype = DTYPES[cfg.dtype]
+    prefix, unit, repeats = unit_pattern(cfg)
+    dev = device_of(gen)
+
+    params: Dict[str, Any] = {}
+    axes: Dict[str, Any] = {}
+    scale = 1.0 / math.sqrt(cfg.d_model)
+    params["embed"] = {"w": trunc_normal(gen, (cfg.vocab_size, cfg.d_model),
+                                         scale, dtype)}
+    axes["embed"] = {"w": "vocab,embed"}
+
+    if prefix:
+        params["prefix"], axes["prefix"] = merge(
+            *[(f"p{i}", _layer_init(gen, cfg, s, dtype))
+              for i, s in enumerate(prefix)])
+
+    params["stack"], axes["stack"] = stack_inits(
+        lambda g: _unit_init(g, cfg, unit, dtype), gen, repeats)
+
+    params["final_norm"], axes["final_norm"] = norm_init(
+        cfg.d_model, dtype, bias=cfg.norm == "layernorm", device=dev)
+
+    if not cfg.tie_embeddings:
+        params["unembed"], axes["unembed"] = dense_init(
+            gen, cfg.d_model, cfg.vocab_size, "embed,vocab", dtype)
+    return params, axes
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _layer_forward(lp, spec: LayerSpec, h, ctx: ModelCtx, positions,
+                   aux: Optional[torch.Tensor], cache, window: int):
+    """One layer; returns (h, new_cache)."""
+    _refuse(spec)
+    cfg = ctx.cfg
+    new_cache = {}
+    xin = L.norm_apply(lp["norm1"], h, cfg.norm)
+    if cfg.use_mla:
+        a, c = L.mla_apply(lp["attn"], xin, ctx, positions,
+                           cache=None if cache is None
+                           else cache.get("attn"))
+    else:
+        a, c = L.gqa_apply(lp["attn"], xin, ctx, positions,
+                           cache=None if cache is None
+                           else cache.get("attn"),
+                           causal=True, window=window)
+    h = h + a
+    if c is not None:
+        new_cache["attn"] = c
+    if "mlp" in lp:
+        xin = L.norm_apply(lp["norm2"], h, cfg.norm)
+        h = h + L.mlp_apply(lp["mlp"], xin, ctx)
+    return h, (new_cache or None)
+
+
+def _unit_forward(unit_p, unit_specs, h, ctx, positions, aux, unit_cache,
+                  window):
+    new_caches = {}
+    for i, spec in enumerate(unit_specs):
+        cache_i = None if unit_cache is None else unit_cache[f"l{i}"]
+        h, nc = _layer_forward(unit_p[f"l{i}"], spec, h, ctx, positions,
+                               aux, cache_i, window)
+        new_caches[f"l{i}"] = nc if nc is not None else {}
+    return h, new_caches
+
+
+def forward_hidden(params, cfg: ArchConfig, tokens, ctx: ModelCtx,
+                   positions=None, aux=None, caches=None,
+                   remat: bool = False, window: int = 0):
+    """Token ids -> final hidden states.
+
+    caches: {"prefix": [...], "stack": stacked tree} or None.
+    Returns (hidden (B,S,D), new_caches-or-None).
+    """
+    prefix, unit, repeats = unit_pattern(cfg)
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    h = params["embed"]["w"][tokens.to(torch.int64)]
+    if cfg.rope_theta == 0.0:             # whisper: sinusoidal abs positions
+        h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+
+    new_caches: Dict[str, Any] = {}
+    if prefix:
+        pc = []
+        for i, spec in enumerate(prefix):
+            cache_i = None if caches is None else caches["prefix"][i]
+            h, nc = _layer_forward(params["prefix"][f"p{i}"], spec, h, ctx,
+                                   positions, aux, cache_i, window)
+            pc.append(nc if nc is not None else {})
+        new_caches["prefix"] = pc
+
+    def unit_fn(h_, up, uc):
+        return _unit_forward(up, tuple(unit), h_, ctx, positions, aux, uc,
+                             window)
+
+    # each stacked leaf split once into its R units: one backward (a
+    # stack) a leaf, where indexing it R times would make R full-size
+    # gradients to add up
+    units_p = _unstack(params["stack"], repeats)
+    units_c = None if caches is None else _unstack(caches["stack"], repeats)
+    outs = []
+    for r in range(repeats):
+        unit_p = units_p[r]
+        unit_c = None if units_c is None else units_c[r]
+        if remat and torch.is_grad_enabled():
+            h, nc = checkpoint(unit_fn, h, unit_p, unit_c,
+                               use_reentrant=False)
+        else:
+            h, nc = unit_fn(h, unit_p, unit_c)
+        outs.append(nc)
+    if caches is not None:
+        new_caches["stack"] = tree_map(lambda *xs: torch.stack(xs), outs[0],
+                                       *outs[1:])
+
+    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    return h, (new_caches if caches is not None else None)
+
+
+def _unstack(stacked, repeats: int) -> List[Any]:
+    """A tree of leaves stacked on a leading R axis -> R trees."""
+    parts = [leaf.unbind(0) for leaf in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [p[r] for p in parts])
+            for r in range(repeats)]
+
+
+def encode(*_, **__):
+    raise NotImplementedError(f"the encoder (whisper) is {A14B}")
+
+
+def _unembed(params, cfg: ArchConfig):
+    return params["embed"]["w"].T if cfg.tie_embeddings \
+        else params["unembed"]["w"]
+
+
+def logits_from_hidden(params, cfg: ArchConfig, h):
+    return h @ _unembed(params, cfg)
+
+
+def chunked_ce_loss(params, cfg: ArchConfig, h, targets, ctx: ModelCtx,
+                    chunk: int = 512):
+    """Cross-entropy over the vocab, one sequence chunk at a time, so the
+    (B,S,V) logits tensor never materialises whole."""
+    B, S, D = h.shape
+    w = _unembed(params, cfg)
+    if S % chunk:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        logits = (h[:, i:i + chunk] @ w).to(torch.float32)
+        lse = torch.logsumexp(logits, axis=-1)
+        ti = targets[:, i:i + chunk].to(torch.int64)
+        gold = torch.gather(logits, -1, ti[..., None])[..., 0]
+        total = total + torch.sum(lse - gold)
+    return total / (B * S)

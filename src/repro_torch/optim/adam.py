@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.optim.sgd import Optimizer, _f32_zeros, _lr_fn, _step0, \
-    tree_map
+from repro_torch.optim.sgd import Optimizer, _f32_zeros, _lr_fn, _step0
+from repro_torch.params import tree_map
 
 
 def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,

@@ -15,26 +15,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.params import tree_map
+
 
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (and the same places of
-    ``rest``): tuples, lists and dicts are containers, ``None`` stays
-    ``None``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest))
-               for i, v in enumerate(tree)]
-        return type(tree)(out)
-    return fn(tree, *rest)
 
 
 def apply_updates(params, updates):

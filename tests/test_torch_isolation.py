@@ -1,6 +1,5 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py``, ``examples/torch_quickstart.py``,
-``examples/torch_federated_medical.py`` or a
+``chip_smoke.py``, an ``examples/torch_*.py`` example or a
 ``benchmarks/torch_*.py`` script imports JAX, the reference package
 ``repro`` or a benchmark module of the reference (``benchmarks.common``
 imports JAX)."""
@@ -11,8 +10,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "examples" / "torch_quickstart.py",
-     REPO / "examples" / "torch_federated_medical.py"] + \
+    [REPO / "chip_smoke.py"] + \
+    sorted((REPO / "examples").glob("torch_*.py")) + \
     sorted((REPO / "benchmarks").glob("torch_*.py"))
 CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
 KERNELS = ("channel_norm", "select_mask", "select_compact", "apoz")

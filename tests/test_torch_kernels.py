@@ -302,6 +302,19 @@ def test_select_mask_leaves_cpu_route_matches_plain_and_pallas(dtype, rest,
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("tie", [False, True])
+def test_select_mask_leaves_without_masks(dtype, tie):
+    """``masks=False`` (the LM's factored mask) gives the same masked
+    values and counts and no masks."""
+    leaves, _ = _table(dtype, 0.0, 31, tie)
+    outs, masks, counts = sm.select_mask_leaves(leaves)
+    bare, none, bare_counts = sm.select_mask_leaves(leaves, masks=False)
+    assert none == [None] * len(leaves)
+    assert torch.equal(bare_counts, counts)
+    assert all(torch.equal(a, b) for a, b in zip(bare, outs))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("rest", [0.0, 0.37])
 @pytest.mark.parametrize("drop_zeros", [False, True])
 def test_compact_leaves_cpu_route_matches_plain_and_pallas(dtype, rest,

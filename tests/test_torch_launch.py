@@ -134,3 +134,119 @@ def test_full_scale_example_passes_its_flags(monkeypatch):
     defaults = example.launcher_args(example.parse_args([]))
     assert defaults.device is None and defaults.loops == 30 and \
         defaults.methods == "scbf,fedavg,scbfwp,fedavgwp"
+
+
+STEP_LINE = r"step +\d+ loss \d+\.\d{4} \(\d+\.\ds\)"
+
+
+def _reference_lines(monkeypatch, capsys, module, argv):
+    """The reference launcher's printed lines for ``argv`` (JAX on the
+    CPU, the smoke variant)."""
+    import importlib
+    import sys
+
+    ref = importlib.import_module(module)
+    monkeypatch.setattr(sys, "argv", [module] + argv)
+    capsys.readouterr()
+    ref.main()
+    return capsys.readouterr().out.splitlines()
+
+
+def test_lm_mode_runs_and_prints_the_references_lines(monkeypatch, capsys):
+    """``--mode lm --device cpu --steps 2``: the reference's defaults (5
+    clients, batch 4 when ``--batch-size`` is left at 256, seq 64, rate
+    0.10, lr 0.05) and its ``step … loss … (…s)`` lines, a finite loss
+    near the reference's on the smoke qwen2-0.5b (random init, vocab
+    512: ln 512 ≈ 6.24)."""
+    import re
+
+    from repro_torch.launch import train
+
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.train",
+                            ["--mode", "lm", "--steps", "2"])
+    seen = []
+    real = train.run_lm
+    monkeypatch.setattr(train, "run_lm",
+                        lambda args: seen.append(args) or real(args))
+    params = train.main(["--mode", "lm", "--device", "cpu", "--steps", "2"])
+    got = capsys.readouterr().out.splitlines()
+    args, = seen
+    assert (args.clients, args.batch_size, args.seq_len, args.upload_rate,
+            args.lr, args.arch) == (5, 4, 64, 0.10, 0.05, "qwen2-0.5b")
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert re.fullmatch(STEP_LINE, g) and re.fullmatch(STEP_LINE, w)
+        assert g.split()[1] == w.split()[1]
+        assert abs(float(g.split()[3]) - float(w.split()[3])) < 0.5
+    assert params["embed"]["w"].device.type == "cpu"
+
+
+def test_lm_mode_needs_cuda_unless_cpu_is_asked():
+    import torch
+
+    from repro_torch.launch import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--mode", "lm", "--steps", "1"])
+
+
+def test_serve_runs_and_prints_the_references_lines(monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --device cpu``: the reference's
+    flags and four lines (arch and shapes, prefill, decode, the first 16
+    sampled ids), ids in [0, V)."""
+    import re
+
+    from repro_torch.launch import serve
+
+    argv = ["--gen", "6", "--batch", "2", "--prompt-len", "8"]
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.serve", argv)
+    res = serve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 4
+    assert got[0] == want[0] == "arch=qwen2-0.5b batch=2 prompt=8 gen=6"
+    for g, w, pattern in zip(got[1:3], want[1:3], (
+            r"prefill: \d+\.\d ms \(\d+ tok/s", r"decode:  \d+\.\d ms "
+                                                r"\(\d+ tok/s\)")):
+        assert re.match(pattern, g) and re.match(pattern, w)
+    assert got[3].startswith("sample token ids[0]: [") and \
+        want[3].startswith("sample token ids[0]: [")
+    assert res.tokens.shape == (2, 6) and len(res.logits) == 6
+    assert 0 <= int(res.tokens.min()) and int(res.tokens.max()) < 512
+    assert torch_equal_greedy(res)
+
+
+def torch_equal_greedy(res) -> bool:
+    """Every id the greedy loop took is the argmax of its logits."""
+    import torch
+    return all(torch.equal(torch.argmax(lg, -1).to(torch.int32),
+                           res.tokens[:, i])
+               for i, lg in enumerate(res.logits))
+
+
+def test_serve_examples_pass_their_flags(monkeypatch):
+    """``examples/torch_serve_batched.py`` runs ``repro_torch.launch.serve``
+    once an arch with its flags (the subprocess monkeypatched)."""
+    import importlib.util
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_serve_batched.py"
+    spec = importlib.util.spec_from_file_location("torch_serve", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    calls = []
+    monkeypatch.setattr(subprocess, "run",
+                        lambda cmd, check: calls.append(cmd))
+    monkeypatch.setattr(sys, "argv", ["x", "--archs",
+                                      "qwen2-0.5b,chatglm3-6b", "--gen",
+                                      "3", "--device", "cpu"])
+    example.main()
+    assert [c[c.index("--arch") + 1] for c in calls] == \
+        ["qwen2-0.5b", "chatglm3-6b"]
+    assert all(c[2] == "repro_torch.launch.serve" and
+               c[-2:] == ["--device", "cpu"] and
+               c[c.index("--gen") + 1] == "3" for c in calls)

@@ -1,0 +1,290 @@
+"""The port's dense LM zoo (``repro_torch.models``: transformer and
+model_zoo, ``configs``) against the reference's on the CPU, with the
+reference's initial params carried across (``params.from_numpy_tree``):
+param trees equal in paths, shapes and dtypes; losses within 1e-5 in fp32
+and 2e-2 relative in bf16; prefill and decode logits within 2e-4 in fp32
+with equal greedy tokens."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.config import INPUT_SHAPES as REF_SHAPES
+from repro.models import model_zoo as ref_zoo
+from repro.models import transformer as RT
+from repro_torch import configs as port_configs
+from repro_torch.config import INPUT_SHAPES
+from repro_torch.models import model_zoo as port_zoo
+from repro_torch.models import transformer as PT
+from repro_torch.params import (from_numpy_tree, to_numpy_tree, tree_leaves,
+                                tree_paths)
+
+DENSE = [n for n in ref_configs.ASSIGNED
+         if ref_configs.get(n).family == "dense"]
+OTHERS = [n for n in ref_configs.ASSIGNED if n not in DENSE]
+
+
+def _cfgs(arch, **kw):
+    return (dataclasses.replace(
+                ref_configs.smoke_variant(ref_configs.get(arch)), **kw),
+            dataclasses.replace(
+                port_configs.smoke_variant(port_configs.get(arch)), **kw))
+
+
+def _ref_paths(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return [(tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in p),
+             tuple(leaf.shape), np.dtype(leaf.dtype).name)
+            for p, leaf in flat]
+
+
+def _port_paths(tree):
+    return [(p, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for p, t in tree_paths(tree)]
+
+
+def _pair(arch, dtype="float32", **build_kw):
+    """(ref bundle, port bundle, ref params, the same params in torch)."""
+    ref_cfg, port_cfg = _cfgs(arch, dtype=dtype)
+    rb = ref_zoo.build(ref_cfg, **build_kw)
+    pb = port_zoo.build(port_cfg, device="cpu", **build_kw)
+    rp, _ = rb.init(jax.random.PRNGKey(0))
+    return rb, pb, rp, from_numpy_tree(jax.tree_util.tree_map(np.asarray,
+                                                              rp), "cpu")
+
+
+def _tokens(cfg, b, s, seed=1):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def test_configs_are_the_references():
+    assert sorted(port_configs.ARCHS) == sorted(ref_configs.ARCHS)
+    assert port_configs.ASSIGNED == ref_configs.ASSIGNED
+    for name, ref in ref_configs.ARCHS.items():
+        port = port_configs.get(name)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
+        assert port.active_param_count() == ref.active_param_count()
+        assert dataclasses.asdict(port_configs.smoke_variant(port)) == \
+            dataclasses.asdict(ref_configs.smoke_variant(ref))
+    assert {k: dataclasses.astuple(v) for k, v in INPUT_SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in REF_SHAPES.items()}
+    with pytest.raises(KeyError):
+        port_configs.get("gpt-5")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_tree_is_the_references(arch):
+    """Paths, shapes and dtypes of the smoke variant's params and axes,
+    in flatten order (the stacked layer leaves included)."""
+    ref_cfg, port_cfg = _cfgs(arch)
+    rp, ra = ref_zoo.build(ref_cfg).init(jax.random.PRNGKey(0))
+    pp, pa = port_zoo.build(port_cfg, device="cpu").init(0)
+    assert _port_paths(pp) == _ref_paths(rp)
+    assert [leaf for _, leaf in tree_paths(pa)] == \
+        jax.tree_util.tree_leaves(ra)
+
+
+def test_full_width_qwen2_shapes_on_meta():
+    """qwen2-0.5b at full width: the port's init on the meta device
+    against the reference's ``jax.eval_shape``; 15 leaves, 14 of them
+    scored (ndim >= 2), and the parameter count."""
+    ref_cfg, port_cfg = ref_configs.get("qwen2-0.5b"), \
+        port_configs.get("qwen2-0.5b")
+    shapes = jax.eval_shape(
+        lambda k: ref_zoo.build(ref_cfg).init(k)[0], jax.random.PRNGKey(0))
+    params, _ = PT.init_model(port_cfg, None)
+    assert _port_paths(params) == _ref_paths(shapes)
+    leaves = tree_leaves(params)
+    assert all(t.device.type == "meta" for t in leaves)
+    assert len(leaves) == 15 and sum(t.ndim >= 2 for t in leaves) == 14
+    assert sum(t.numel() for t in leaves) == port_cfg.param_count() == \
+        ref_cfg.param_count() == 630_167_424
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_input_specs_are_the_references(shape, kv_quant):
+    ref_cfg, port_cfg = ref_configs.get("qwen2-0.5b"), \
+        port_configs.get("qwen2-0.5b")
+    want = ref_zoo.build(ref_cfg, kv_quant=kv_quant).input_specs(
+        REF_SHAPES[shape])
+    got = port_zoo.build(port_cfg, device="cpu", kv_quant=kv_quant
+                         ).input_specs(INPUT_SHAPES[shape])
+    assert _port_paths(got) == _ref_paths(want)
+    assert all(t.device.type == "meta" for t in tree_leaves(got))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_loss_fn(arch, dtype, rtol):
+    rb, pb, rp, pp = _pair(arch, dtype)
+    toks, tgts = _tokens(pb.cfg, 2, 16), _tokens(pb.cfg, 2, 16, seed=2)
+    want = float(rb.loss_fn(rp, {"tokens": jnp.asarray(toks),
+                                 "targets": jnp.asarray(tgts)}))
+    got = float(pb.loss_fn(pp, {"tokens": torch.from_numpy(toks),
+                                "targets": torch.from_numpy(tgts)}))
+    assert got == pytest.approx(want, rel=rtol, abs=rtol)
+
+
+def test_train_step_fp32():
+    """One SGD step: loss and every updated leaf within 1e-5; the params
+    handed in are left as they were."""
+    rb, pb, rp, pp = _pair("qwen2-0.5b")
+    before = [t.clone() for t in tree_leaves(pp)]
+    toks, tgts = _tokens(pb.cfg, 2, 16), _tokens(pb.cfg, 2, 16, seed=2)
+    wl, wp = rb.train_step(rp, {"tokens": jnp.asarray(toks),
+                                "targets": jnp.asarray(tgts)}, 0.1)
+    gl, gp = pb.train_step(pp, {"tokens": torch.from_numpy(toks),
+                                "targets": torch.from_numpy(tgts)}, 0.1)
+    assert float(gl) == pytest.approx(float(wl), rel=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(wp),
+                    tree_leaves(to_numpy_tree(gp))):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) and not b.requires_grad
+               for a, b in zip(before, tree_leaves(pp)))
+
+
+def test_remat_changes_no_gradient():
+    """``remat`` (``torch.utils.checkpoint`` over each unit) gives the
+    same loss and gradients, bitwise."""
+    _, port_cfg = _cfgs("qwen2-0.5b", dtype="float32")
+    outs = []
+    for remat in (False, True):
+        pb = port_zoo.build(port_cfg, remat=remat, device="cpu")
+        params, _ = pb.init(0)
+        toks = torch.from_numpy(_tokens(port_cfg, 2, 16))
+        outs.append(port_zoo.value_and_grad(
+            pb.loss_fn, params, {"tokens": toks, "targets": toks}))
+    (l0, g0), (l1, g1) = outs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
+
+
+@pytest.mark.parametrize("arch,kv_quant", [(a, False) for a in DENSE] +
+                         [("qwen2-0.5b", True)])
+def test_prefill_then_decode(arch, kv_quant):
+    """Prefill 8 tokens into fresh caches of 10 slots, then 4 decode steps
+    (the ring wraps at position 10): logits within 2e-4 of the
+    reference's, greedy tokens equal, and (without int8, before the wrap)
+    the port's own cache-less forward within 2e-4."""
+    rb, pb, rp, pp = _pair(arch, kv_quant=kv_quant, remat=False)
+    toks = _tokens(pb.cfg, 2, 12)
+    wl, wc = rb.prefill_step(rp, {"tokens": jnp.asarray(toks[:, :8]),
+                                  "caches": rb.make_cache(2, 10)})
+    gl, gc = pb.prefill_step(pp, {"tokens": torch.from_numpy(toks[:, :8]),
+                                  "caches": pb.make_cache(2, 10)})
+    h, _ = PT.forward_hidden(pp, pb.cfg, torch.from_numpy(toks), pb.ctx)
+    full = PT.logits_from_hidden(pp, pb.cfg, h).detach()
+    steps = [(7, wl, gl)]
+    for t in range(8, 12):
+        wl, wc = rb.decode_step(rp, {
+            "token": jnp.asarray(toks[:, t:t + 1]),
+            "pos": jnp.full((2, 1), t, jnp.int32), "caches": wc})
+        gl, gc = pb.decode_step(pp, {
+            "token": torch.from_numpy(toks[:, t:t + 1]),
+            "pos": torch.full((2, 1), t, dtype=torch.int32), "caches": gc})
+        steps.append((t, wl, gl))
+    for t, w, g in steps:
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=0)
+        assert np.array_equal(np.argmax(np.asarray(w), -1),
+                              torch.argmax(g, -1).numpy())
+        if not kv_quant and t < 10:
+            np.testing.assert_allclose(g.numpy(), full[:, t].numpy(),
+                                       atol=2e-4, rtol=0)
+
+
+def test_query_chunked_prefill():
+    """A prefill of 16 tokens at ``q_chunk`` 8 takes the chunked path and
+    gives the reference's logits and caches."""
+    rb, pb, rp, pp = _pair("qwen2-0.5b", q_chunk=8, remat=False)
+    toks = _tokens(pb.cfg, 2, 16)
+    wl, wc = rb.prefill_step(rp, {"tokens": jnp.asarray(toks),
+                                  "caches": rb.make_cache(2, 16)})
+    gl, gc = pb.prefill_step(pp, {"tokens": torch.from_numpy(toks),
+                                  "caches": pb.make_cache(2, 16)})
+    np.testing.assert_allclose(gl.numpy(), np.asarray(wl), atol=2e-4,
+                               rtol=0)
+    for a, b in zip(jax.tree_util.tree_leaves(wc),
+                    tree_leaves(to_numpy_tree(gc))):
+        np.testing.assert_allclose(b, np.asarray(a), atol=1e-5, rtol=1e-5)
+
+
+def test_sliding_window_decode_matches_windowed_forward():
+    """The reference's ring-buffer test on the port: decode token by token
+    with a cache of ``window`` slots reproduces the windowed full forward
+    (and the reference's windowed forward)."""
+    rb, pb, rp, pp = _pair("qwen2-0.5b", remat=False)
+    toks = _tokens(pb.cfg, 1, 12)
+    window = 4
+    h, _ = PT.forward_hidden(pp, pb.cfg, torch.from_numpy(toks), pb.ctx,
+                             window=window)
+    full = PT.logits_from_hidden(pp, pb.cfg, h).detach()
+    rh, _ = RT.forward_hidden(rp, rb.cfg, jnp.asarray(toks), rb.ctx,
+                              window=window)
+    np.testing.assert_allclose(
+        full.numpy(), np.asarray(RT.logits_from_hidden(rp, rb.cfg, rh)),
+        atol=2e-4, rtol=0)
+    caches = {"layers": pb.make_cache(1, window)}
+    for t in range(12):
+        lg, caches = pb.decode_step(pp, {
+            "token": torch.from_numpy(toks[:, t:t + 1]),
+            "pos": torch.full((1, 1), t, dtype=torch.int32),
+            "caches": caches}, window=window)
+        np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(),
+                                   atol=2e-4, rtol=0)
+
+
+def test_prefix_layers_forward_like_the_reference():
+    """A dense config with one unrolled prefix layer (the reference's
+    ``first_dense_layers``): the same param tree and loss."""
+    ref_cfg, port_cfg = _cfgs("qwen2-0.5b", dtype="float32",
+                              first_dense_layers=1)
+    rb, pb = ref_zoo.build(ref_cfg), port_zoo.build(port_cfg, device="cpu")
+    rp, _ = rb.init(jax.random.PRNGKey(0))
+    pp = from_numpy_tree(jax.tree_util.tree_map(np.asarray, rp), "cpu")
+    assert _port_paths(pb.init(0)[0]) == _ref_paths(rp)
+    toks = _tokens(port_cfg, 2, 8)
+    want = float(rb.loss_fn(rp, {"tokens": jnp.asarray(toks),
+                                 "targets": jnp.asarray(toks)}))
+    got = float(pb.loss_fn(pp, {"tokens": torch.from_numpy(toks),
+                                "targets": torch.from_numpy(toks)}))
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_build_refuses_a14b_families(arch):
+    _, port_cfg = _cfgs(arch)
+    with pytest.raises(NotImplementedError, match="A14b"):
+        port_zoo.build(port_cfg, device="cpu")
+
+
+def test_build_needs_cuda_unless_cpu_is_asked():
+    _, port_cfg = _cfgs("qwen2-0.5b")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_zoo.build(port_cfg)
+
+
+def test_init_draws_from_the_generator():
+    """Seeded init is reproducible and differs between seeds; weights are
+    truncated at two standard deviations of their fan-in scale."""
+    _, port_cfg = _cfgs("qwen2-0.5b", dtype="float32")
+    pb = port_zoo.build(port_cfg, device="cpu")
+    a, b, c = pb.init(0)[0], pb.init(0)[0], pb.init(1)[0]
+    assert all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    assert not torch.equal(a["embed"]["w"], c["embed"]["w"])
+    w = a["stack"]["l0"]["mlp"]["wi"]["w"]
+    assert float(w.abs().max()) <= 2.0 / port_cfg.d_model ** 0.5 + 1e-6
+    assert float(w.std()) == pytest.approx(
+        0.88 / port_cfg.d_model ** 0.5, rel=0.05)
