@@ -136,7 +136,30 @@ its own failure:
    K1 and K2 once in the step, and a window with no event fails).  Its
    lines start with ``lm:``; the kernel report adds its launches to K1's
    and K2's and its timings as ``lm``.
-12. the card line, the kernel report line and the final ok line.
+12. lm-moe — the MoE models at every published width, cut to one period
+   of their layer pattern (depth 2), bf16, weights drawn on the card from
+   a seed, each freed before the next.  llama4-maverick ([dense, moe]:
+   128 experts top-1 + 1 shared, 18,553,267,200 params) serves batch 4,
+   prompt 32, 8 greedy tokens, cache 128 (prefill and decode ms, tok/s,
+   peak memory; the tokens each expert received and those dropped at
+   capacity 1.25), then K2 masks its bf16 expert stack ``wi`` as one
+   matrix of 5,368,709,120 entries (past 2^31: row blocks in one launch)
+   bitwise its plain version.  deepseek-v2 (MLA; the dense prefix layer
+   and an MoE layer of 160 experts top-6 + 2 shared, 5,353,956,352
+   params) serves batch 4, prompt 32, 32 greedy tokens from its latent
+   cache; at a capacity that drops nothing (asserted) its decode is held
+   against a cache-less forward (LM_LOGIT_MAX / LM_LOGIT_MEAN and greedy
+   ids equal, but where the MoE routing flipped at a near-tie of the
+   router) and a 1 x 1024 prefill over MLA's chunked path against an
+   unchunked one; then 4 federated SCBF steps of 2 clients x 4 x 64
+   tokens (losses finite, step walls, the peak memory under 60 GB, K1
+   and K2 once a leaf table — two bf16 tables and the fp32 router's — and
+   nothing else, one step profiled, the last step's tables against the
+   plain versions: K1 within LM_K1_RTOL with no floor, K2 in place
+   bitwise), and K1 and K2 timed on each table beside its byte bound.
+   Its lines start with ``lm-moe:``; the kernel report adds its launches
+   and its timings as ``lm_moe``.
+13. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -2895,7 +2918,9 @@ def phase_lm(torch, card: str) -> dict:
     seen = {}
     real = ch.apply_factored_mask_slots
 
-    def tap(grads_k, rate, selection):
+    def tap(grads_k, rate, selection, in_place=False):
+        # out of place, so that the checks see the step's g beside its g̃
+        # (the step masks in place; its values are the same either way)
         masked, frac = real(grads_k, rate, selection)
         seen.update(grads=grads_k, masked=masked, frac=frac)
         return masked, frac
@@ -2953,6 +2978,644 @@ def phase_lm(torch, card: str) -> dict:
     return out
 
 
+# the lm-moe phase: llama4-maverick and deepseek-v2 at every published
+# width, cut to one period of their layer pattern (depth 2), bf16, random
+# weights from a seed
+MOE_DEPTH = 2
+MOE_LLAMA = "llama4-maverick-400b-a17b"
+MOE_LLAMA_SERVE = dict(batch=4, prompt=32, gen=8, cache=128)
+MOE_DEEPSEEK = "deepseek-v2-236b"
+MOE_SERVE = dict(batch=4, prompt=32, gen=32, cache=128)
+# K = 2 clients (the launcher's 5 would need 5 x 10.71 GB of gradient
+# buffers), each 4 sequences of 64 tokens; 4 steps: the first cold, the
+# second steady, the third profiled, the last checked
+MOE_CLIENTS, MOE_STEPS = 2, 4
+MOE_TABLES = 3                        # two bf16 leaf tables and one fp32
+MOE_PEAK_GB = 60.0                    # the step's peak device memory
+MOE_BIG_ROWS = 1 << 16                # rows a plain block of the K2 split
+
+
+class RouteTap:
+    """Counts what ``models.moe._route`` routes while it is on: the
+    (token, expert) assignments each expert received (before capacity)
+    and those dropped past it, summed over the calls; with ``keep``, each
+    call's router probabilities (T, E) too.  A tap of the port's routing
+    (the real ``_route`` computes every table)."""
+
+    def __init__(self, torch, num_experts: int, keep: bool = False):
+        from repro_torch.models import moe
+        self.torch, self.moe = torch, moe
+        self.load = torch.zeros(num_experts, dtype=torch.int64,
+                                device="cuda")
+        self.routed = self.kept = self.calls = 0
+        self.capacities = set()
+        self.probs = [] if keep else None
+
+    def __enter__(self):
+        # what is there now: taps nest, each calling the one it wraps
+        torch, real = self.torch, self.moe._route
+        self.real = real
+
+        def route(probs, k, capacity):
+            table, gate = real(probs, k, capacity)
+            eidx = torch.topk(probs, k, axis=-1).indices
+            self.load += torch.bincount(eidx.reshape(-1),
+                                        minlength=self.load.numel())
+            self.routed += eidx.numel()
+            self.kept += int(torch.count_nonzero(table < probs.shape[1]))
+            self.calls += 1
+            self.capacities.add(capacity)
+            if self.probs is not None:
+                self.probs.append(probs.reshape(-1, probs.shape[-1]).clone())
+            return table, gate
+
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+    @property
+    def dropped(self) -> int:
+        return self.routed - self.kept
+
+    def summary(self) -> dict:
+        load = self.load.cpu()
+        return {"calls": self.calls, "routed": self.routed,
+                "dropped": self.dropped,
+                "capacities": sorted(self.capacities),
+                "tokens_per_expert_min_mean_max": [
+                    int(load.min()), float(load.float().mean()),
+                    int(load.max())],
+                "experts_receiving_none": int((load == 0).sum())}
+
+
+def _moe_model(torch, arch: str, card: str):
+    """(cfg, bundle, params) of ``arch`` at depth MOE_DEPTH, every width
+    as published, bf16, drawn on the card from seed 0."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    from repro_torch.params import tree_leaves
+
+    cfg = dataclasses.replace(configs.get(arch), num_layers=MOE_DEPTH)
+    t0 = time.perf_counter()
+    bundle = model_zoo.build(cfg, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    if n != cfg.param_count():
+        raise AssertionError(f"lm-moe: {n} params, want "
+                             f"{cfg.param_count()}")
+    log(f"lm-moe: {cfg.name} at depth {MOE_DEPTH} (d={cfg.d_model} "
+        f"{cfg.num_heads}H/{cfg.num_kv_heads}KV, {cfg.num_experts} experts "
+        f"top-{cfg.experts_per_token} + {cfg.num_shared_experts} shared, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, MLA {cfg.use_mla}; "
+        f"{n:,} params, {gb:.2f} GB, "
+        f"{sum(t.dtype == torch.float32 for t in leaves)} fp32 leaf) "
+        f"drawn on the card in {time.perf_counter() - t0:.2f}s ({card})")
+    return cfg, bundle, params
+
+
+def moe_serve(torch, bundle, params, sv: dict, card: str) -> dict:
+    """A warm-up call, the timed batch through ``launch.serve.generate``
+    at the published capacity factor, and the same batch again under a
+    ``RouteTap`` (the tokens each expert received, the dropped ones)."""
+    from repro_torch.launch.serve import generate
+
+    cfg = bundle.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (sv["batch"], sv["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    generate(bundle, params, prompts, 2, sv["cache"])          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res = generate(bundle, params, prompts, sv["gen"], sv["cache"])
+    toks = res.tokens
+    if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"lm-moe: token ids outside [0, "
+                             f"{cfg.vocab_size})")
+    decoded = sv["batch"] * (sv["gen"] - 1)
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "decode_ms": res.decode_s * 1e3,
+           "decode_ms_a_step": res.decode_s * 1e3 / (sv["gen"] - 1),
+           "decode_tok_s": decoded / res.decode_s,
+           "peak_gb": _peak_gb(torch)}
+    with RouteTap(torch, cfg.num_experts) as tap:
+        generate(bundle, params, prompts, sv["gen"], sv["cache"])
+    out["routing"] = tap.summary()
+    log(f"lm-moe: serve {cfg.name} batch {sv['batch']} prompt "
+        f"{sv['prompt']} gen {sv['gen']} cache {sv['cache']} at capacity "
+        f"factor {cfg.moe_capacity_factor}: prefill {out['prefill_ms']:.2f}"
+        f" ms, decode {out['decode_ms']:.1f} ms ({out['decode_ms_a_step']:.2f}"
+        f" ms a step, {out['decode_tok_s']:.1f} tok/s), peak "
+        f"{out['peak_gb']:.2f} GB; routing of the same batch: "
+        + json.dumps(out["routing"]) + f" ({card})")
+    return out
+
+
+def moe_k2_split_check(torch, params, card: str) -> dict:
+    """K2 on one bf16 matrix past 2^31 entries: llama4's expert stack
+    ``wi`` as (128 x 5120, 8192) = 5,368,709,120 entries, random row and
+    column scores, masked by one launch (the wrapper's three row blocks)
+    into a new buffer, without masks; held bitwise against the plain
+    version a block of MOE_BIG_ROWS rows at a time, values and count."""
+    from repro_torch.kernels import select_mask as sm
+
+    g = params["stack"]["l1"]["moe"]["wi"]
+    g = g.reshape(-1, g.shape[-1])
+    m, n = g.shape
+    if m * n < sm.MAX_ENTRIES:
+        raise AssertionError(f"lm-moe: {m} x {n} is not past 2^31")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    row = torch.rand(m, generator=gen, device="cuda")
+    col = torch.rand(n, generator=gen, device="cuda")
+    thr = torch.full((), 1.0, device="cuda")
+    rest = torch.zeros((), device="cuda")
+    before = sm.mask_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (out,), _, counts = sm.select_mask_leaves([(g, row, col, thr, rest)],
+                                              masks=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sm.mask_launches - before
+    total = 0
+    for a in range(0, m, MOE_BIG_ROWS):
+        b = min(m, a + MOE_BIG_ROWS)
+        pout, _, pcnt = sm.select_mask_plain(g[a:b], row[a:b], col, thr,
+                                             rest)
+        if not torch.equal(out[a:b], pout):
+            raise AssertionError(f"lm-moe: K2 past 2^31 differs from plain "
+                                 f"in rows {a}:{b}")
+        total += int(pcnt)
+    if int(counts[0]) != total or launches != 1:
+        raise AssertionError(f"lm-moe: K2 past 2^31 counted "
+                             f"{int(counts[0])} (plain {total}) in "
+                             f"{launches} launches")
+    del out
+    res = {"entries": m * n, "blocks": -(-m // ((sm.MAX_ENTRIES - 1) // n)),
+           "launches": launches, "kept": total, "wall_ms": wall * 1e3}
+    log(f"lm-moe: K2 on one bf16 matrix of {m} x {n} = {m * n:,} entries "
+        f"(past 2^31): {res['blocks']} row blocks in {launches} launch, "
+        f"bitwise the plain version (values and count, {total:,} kept), "
+        f"{res['wall_ms']:.1f} ms ({card})")
+    return res
+
+
+def phase_llama4(torch, card: str) -> dict:
+    """llama4-maverick at depth 2 ([dense, moe]), serving only: its single
+    expert stack is too large a gradient for one card; then K2 past 2^31
+    on that stack."""
+    cfg, bundle, params = _moe_model(torch, MOE_LLAMA, card)
+    out = {"serve": moe_serve(torch, bundle, params, MOE_LLAMA_SERVE, card)}
+    if out["serve"]["routing"]["dropped"]:
+        log(f"lm-moe: {cfg.name} dropped "
+            f"{out['serve']['routing']['dropped']} assignments at 1.25")
+    out["k2_past_2_31"] = moe_k2_split_check(torch, params, card)
+    return out
+
+
+def _drop_free(cfg):
+    """A capacity factor under which no token drops at any T: C >= T."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, moe_capacity_factor=float(math.ceil(cfg.num_experts
+                                                 / cfg.experts_per_token)))
+
+
+def _routing_flips(torch, dec, fwd, batch: int, prompt: int, n: int,
+                   k: int) -> dict:
+    """The MoE layer's routing at the n compared positions (prompt - 1
+    ...), through the cache (``dec``: the prefill's probabilities, then one
+    decode step's a call) against the cache-less forward (``fwd``): which
+    (row, position) chose another top-k set of experts, the largest
+    router log-probability difference between the two paths (δ), and
+    each flip's gap between the k-th and (k+1)-th log-probabilities of
+    the forward.  The MoE layer is the model's last, so a flip changes
+    only its own position's logits."""
+    E = fwd[0].shape[-1]
+    ref = fwd[0].reshape(batch, -1, E)[:, prompt - 1:prompt - 1 + n]
+    got = torch.stack([dec[0].reshape(batch, prompt, E)[:, -1]]
+                      + [d.reshape(batch, E) for d in dec[1:n]], 1)
+    lp_ref, lp_got = torch.log(ref), torch.log(got)
+    delta = float((lp_got - lp_ref).abs().max())
+    want = torch.sort(torch.topk(ref, k, axis=-1).indices, axis=-1).values
+    have = torch.sort(torch.topk(got, k, axis=-1).indices, axis=-1).values
+    flip = (want != have).any(-1)                           # (batch, n)
+    top = torch.topk(lp_ref, k + 1, axis=-1).values
+    gap = top[..., k - 1] - top[..., k]
+    return {"flip": flip, "delta": delta, "gaps": [float(g) for g in
+                                                   gap[flip].cpu()]}
+
+
+def deepseek_consistency(torch, bundle, params, card: str) -> dict:
+    """At a drop-free capacity (asserted: no assignment dropped): the
+    first decode steps' logits against a cache-less forward over the same
+    tokens, and a 1 x LM_LONG prefill (MLA's query-chunked path) against
+    an unchunked forward (LM_LOGIT_MAX); then the same long prefill timed
+    at the published capacity factor.  Decode against the forward: every
+    (row, position) whose MoE routing chose the same experts in both
+    paths within LM_LOGIT_MAX / LM_LOGIT_MEAN and with its greedy id
+    equal; a row whose routing flipped (``_routing_flips``) only where its
+    k-th and (k+1)-th router log-probabilities lie within 2δ, the two
+    paths' largest router difference — a near-tie that bf16 rounding of
+    the router's input may tip either way."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+    from repro_torch.models import transformer as T
+
+    cfg = bundle.cfg
+    free = model_zoo.build(_drop_free(cfg), device="cuda")
+    sv = MOE_SERVE
+    n = LM_DECODE_CHECKED + 1
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (sv["batch"], sv["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    long = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    if not (LM_LONG > free.ctx.q_chunk and LM_LONG % free.ctx.q_chunk == 0):
+        raise AssertionError("lm-moe: the long prefill must take the "
+                             "chunked path")
+    out = {"drop_free_factor": free.cfg.moe_capacity_factor}
+    with RouteTap(torch, cfg.num_experts, keep=True) as dec, \
+            RouteTap(torch, cfg.num_experts) as tap:
+        res = generate(free, params, prompts, n, sv["cache"])
+    seq = torch.cat([prompts, res.tokens[:, :n - 1]], axis=1)
+    with RouteTap(torch, cfg.num_experts, keep=True) as fwd, tap:
+        with torch.no_grad():
+            h, _ = T.forward_hidden(params, free.cfg, seq, free.ctx)
+            full = T.logits_from_hidden(params, free.cfg, h).float()
+    with tap:
+        lg, _ = free.prefill_step(params, {
+            "tokens": long, "caches": free.make_cache(1, LM_LONG)})
+        whole = dataclasses.replace(free.ctx, q_chunk=2 * LM_LONG)
+        with torch.no_grad():
+            h, _ = T.forward_hidden(params, free.cfg, long, whole)
+            ref = T.logits_from_hidden(params, free.cfg, h[:, -1]).float()
+    out["routing"] = tap.summary()
+    if tap.dropped:
+        raise AssertionError(f"lm-moe: {tap.dropped} assignments dropped "
+                             f"at the drop-free factor")
+    flips = _routing_flips(torch, dec.probs, fwd.probs, sv["batch"],
+                           sv["prompt"], n, cfg.experts_per_token)
+    same = ~flips["flip"]                                   # (batch, n)
+    diffs = torch.stack([(res.logits[i].float()
+                          - full[:, sv["prompt"] - 1 + i]).abs()
+                         for i in range(n)], 1)             # (batch, n, V)
+    greedy = torch.stack([torch.argmax(full[:, sv["prompt"] - 1 + i],
+                                       -1).to(torch.int32) == res.tokens[:, i]
+                          for i in range(n)], 1)            # (batch, n)
+    out["routing_flips"] = int(flips["flip"].sum())
+    out["flip_gaps"] = flips["gaps"]
+    out["router_logprob_delta"] = flips["delta"]
+    out["logit_max_abs"] = float(diffs[same].max())
+    out["logit_mean_abs"] = max(float(diffs[:, i][same[:, i]].mean())
+                                for i in range(n) if bool(same[:, i].any()))
+    out["flipped_rows_logit_max_abs"] = float(diffs[~same].max()) \
+        if out["routing_flips"] else None
+    out["greedy_agree"] = int(greedy[same].sum())
+    out["compared_rows"] = int(same.sum())
+    out["long_max_abs"] = float((lg.float() - ref).abs().max())
+    if not (out["logit_max_abs"] <= LM_LOGIT_MAX
+            and out["logit_mean_abs"] <= LM_LOGIT_MEAN
+            and out["greedy_agree"] == out["compared_rows"]
+            and all(g <= 2 * flips["delta"] for g in flips["gaps"])
+            and torch.isfinite(lg).all()
+            and out["long_max_abs"] <= LM_LOGIT_MAX):
+        raise AssertionError(f"lm-moe: decode or chunked prefill against "
+                             f"the cache-less forward: {out}")
+    with RouteTap(torch, cfg.num_experts) as tap:
+        bundle.prefill_step(params, {"tokens": long,
+                                     "caches": bundle.make_cache(1, LM_LONG)})
+    out["long_routing"] = tap.summary()
+    bundle.prefill_step(params, {"tokens": long,
+                                 "caches": bundle.make_cache(1, LM_LONG)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, _ = bundle.prefill_step(params, {
+        "tokens": long, "caches": bundle.make_cache(1, LM_LONG)})
+    torch.cuda.synchronize()
+    out["long_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(lg).all():
+        raise AssertionError("lm-moe: the long prefill's logits")
+    log(f"lm-moe: {cfg.name} at the drop-free capacity factor "
+        f"{out['drop_free_factor']} (0 of {out['routing']['routed']} "
+        f"assignments dropped): decode vs full forward over {n} positions "
+        f"x {sv['batch']} rows: {out['routing_flips']} rows routed to "
+        f"another top-{cfg.experts_per_token} (k-th vs (k+1)-th router "
+        f"log-prob gaps {out['flip_gaps']}, within 2 x the paths' largest "
+        f"router difference {out['router_logprob_delta']:.3g}; their max "
+        f"|dlogit| {out['flipped_rows_logit_max_abs']}); the "
+        f"{out['compared_rows']} others max |dlogit| "
+        f"{out['logit_max_abs']:.4g}, mean {out['logit_mean_abs']:.3g}, "
+        f"greedy ids equal at {out['greedy_agree']}; 1 x {LM_LONG} prefill "
+        f"chunked by {free.ctx.q_chunk} vs unchunked max |dlogit| "
+        f"{out['long_max_abs']:.4g}; at {cfg.moe_capacity_factor} the long "
+        f"prefill takes {out['long_prefill_ms']:.1f} ms and drops "
+        f"{out['long_routing']['dropped']} of "
+        f"{out['long_routing']['routed']} ({card})")
+    return out
+
+
+class MoeStepTap:
+    """One federated step's K1 and K2 calls as ``core.channels`` makes them
+    (its module names wrapped, the real wrappers called, so the counts
+    are the step's): each K1 table's scores held against the plain
+    version on the device before K2 masks the table (rtol LM_K1_RTOL, no
+    absolute floor), the table's g copied to the host; each K2 table
+    (masked in place) held bitwise against the plain version on that
+    copy, slot by slot, values and counts."""
+
+    def __init__(self, torch):
+        from repro_torch.core import channels as ch
+        self.torch, self.ch = torch, ch
+        self.real_k1, self.real_k2 = ch.channel_norms_leaves, \
+            ch.select_mask_leaves
+        self.real_mask = ch.apply_factored_mask_slots
+        self.frac = None
+        self.host, self.kcols, self.pcols, self.tables = [], [], [], []
+        self.pending = []
+        self.k1_rel = 0.0
+        self.k2_tables = 0
+
+    def __enter__(self):
+        self.ch.channel_norms_leaves = self.k1
+        self.ch.select_mask_leaves = self.k2
+        self.ch.apply_factored_mask_slots = self.mask
+        return self
+
+    def __exit__(self, *exc):
+        self.ch.channel_norms_leaves = self.real_k1
+        self.ch.select_mask_leaves = self.real_k2
+        self.ch.apply_factored_mask_slots = self.real_mask
+
+    def mask(self, *args, **kw):
+        masked, frac = self.real_mask(*args, **kw)
+        self.frac = [float(f) for f in frac.cpu()]
+        return masked, frac
+
+    def k1(self, gs):
+        from repro_torch.kernels import channel_norm as cn
+        torch = self.torch
+        out = self.real_k1(gs)
+        copies = []
+        for g, (_, col) in zip(gs, out):
+            for s in range(g.shape[0]):
+                _, pcol = cn.channel_norms_plain(g[s])
+                torch.testing.assert_close(col[s], pcol, rtol=LM_K1_RTOL,
+                                           atol=0.0)
+                self.k1_rel = max(self.k1_rel, float(
+                    ((col[s] - pcol).abs()
+                     / pcol.abs().clamp_min(1e-38)).max()))
+                self.pcols.append(pcol)
+                self.kcols.append(col[s].clone())
+            copies.append(g.cpu())
+        self.tables.append([(tuple(g.shape), str(g.dtype)) for g in gs])
+        self.pending.append(copies)
+        return out
+
+    def k2(self, table, masks=True, out=None):
+        from repro_torch.kernels import select_mask as sm
+        torch = self.torch
+        outs, made, counts = self.real_k2(table, masks=masks, out=out)
+        copies = self.pending.pop(0)
+        self.host.append(copies)
+        slots = table[0][0].shape[0]
+        for j, (leaf, o, orig) in enumerate(zip(table, outs, copies)):
+            if tuple(orig.shape) != tuple(o.shape):
+                raise AssertionError("lm-moe: K1's and K2's tables differ")
+            for s in range(slots):
+                _, row, col, thr, rest = sm.leaf_slot(leaf, s)
+                pout, _, pcnt = sm.select_mask_plain(orig[s].cuda(), row,
+                                                     col, thr, rest)
+                if not (torch.equal(o[s], pout) and
+                        int(counts[j * slots + s]) == int(pcnt)):
+                    raise AssertionError(
+                        f"lm-moe: K2 differs from plain on table "
+                        f"{self.k2_tables} leaf {j} slot {s} "
+                        f"{tuple(o.shape)}")
+                del pout
+        self.k2_tables += 1
+        return outs, made, counts
+
+    def flips(self, rate: float) -> dict:
+        """The channels kept by K1's scores and their threshold against
+        those kept by the plain scores and theirs: a flip is allowed only
+        where the plain score ties the plain threshold within 2 x
+        LM_K1_RTOL."""
+        torch, ch = self.torch, self.ch
+        # one pool a client: the scores are (leaf, slot) in order
+        k = MOE_CLIENTS
+        kc = [torch.stack(self.kcols[i:i + k]) for i in
+              range(0, len(self.kcols), k)]
+        pc = [torch.stack(self.pcols[i:i + k]) for i in
+              range(0, len(self.pcols), k)]
+        thr = ch.factored_threshold(kc, rate)
+        pthr = ch.factored_threshold(pc, rate)
+        flips = 0
+        for a, b in zip(kc, pc):
+            diff = (a >= thr[:, None]) != (b >= pthr[:, None])
+            tie = (b - pthr[:, None]).abs() <= \
+                2 * LM_K1_RTOL * pthr.abs()[:, None]
+            if bool(torch.any(diff & ~tie)):
+                raise AssertionError("lm-moe: K1's scores keep other "
+                                     "channels than the plain scores do, "
+                                     "away from the threshold")
+            flips += int(torch.count_nonzero(diff))
+        return {"threshold": [float(t) for t in thr.cpu()],
+                "plain_threshold": [float(t) for t in pthr.cpu()],
+                "channel_flips": flips}
+
+
+def moe_time_tables(torch, host, card: str) -> dict:
+    """K1 and K2 timed on each of the step's leaf tables, rebuilt on the
+    card from the tap's host copies one table at a time, as the step
+    calls them (K2 in place, without masks): CUDA-event ms a call beside
+    the plain version (in turns) and the device ms of one launch with
+    the queue held ahead (``queued_ms``), each against its byte bound (K1
+    reads every entry once and writes the row and column norms; K2 reads
+    it and writes it back)."""
+    from repro_torch.core import channels as ch
+    from repro_torch.kernels import channel_norm as cn
+    from repro_torch.kernels import select_mask as sm
+
+    out = {"channel_norm": [], "select_mask": []}
+    for t, copies in enumerate(host):
+        mats = [c.cuda() for c in copies]
+        k = mats[0].shape[0]
+        item = mats[0].element_size()
+        entries = sum(m.numel() for m in mats)
+        _, scores = zip(*cn.channel_norms_leaves(mats))
+        thr = ch.factored_threshold(list(scores), LM_RATE)
+        below = torch.nextafter(thr, torch.full_like(thr, float("-inf")))
+        rest = torch.zeros((), device="cuda")
+        table = [(m, torch.zeros(m.shape[1], device="cuda"), s, below, rest)
+                 for m, s in zip(mats, scores)]
+        norms_f32 = 4 * sum(m.shape[0] * (m.shape[1] + m.shape[2])
+                            for m in mats)
+        operands = 4 * sum(m.shape[1] + m.shape[0] * m.shape[2]
+                           for m in mats) + 4 * k + 4 + 4 * len(mats) * k
+        units = {
+            "channel_norm": (
+                lambda: [cn.channel_norms_plain(m) for m in mats],
+                lambda: cn.channel_norms_leaves(mats),
+                item * entries + norms_f32, 3 * entries),
+            "select_mask": (
+                lambda: [sm.select_mask_plain(*leaf, out=leaf[0])
+                         for leaf in table],
+                lambda: sm.select_mask_leaves(table, masks=False,
+                                              out=mats),
+                2 * item * entries + operands, 3 * entries),
+        }
+        for name, (plain, kernel, nbytes, flops) in units.items():
+            p1, k1, k2, p2 = (cuda_ms(f, iters=3, warmup=1)
+                              for f in (plain, kernel, kernel, plain))
+            bound, by = bound_ms(nbytes, flops)
+            queued = queued_ms(torch, kernel, iters=5)
+            row = {"table": t, "leaves": len(mats), "slots": k,
+                   "dtype": str(mats[0].dtype), "entries": entries,
+                   "bytes": nbytes, "ms": (k1 + k2) / 2,
+                   "plain_ms": (p1 + p2) / 2, "queued_ms": queued,
+                   "bound_ms": bound, "bound_by": by}
+            out[name].append(row)
+            log(f"lm-moe: {name} on leaf table {t} ({len(mats)} leaves x "
+                f"{k} clients, {entries:,} {mats[0].dtype} entries): one "
+                f"launch {queued:.4f} ms by events ({bound / queued:.1%} of "
+                f"the bound), {row['ms']:.3f} ms a call, plain "
+                f"{row['plain_ms']:.3f} ms; bound {bound:.4f} ms ({by}, "
+                f"{nbytes / 1e9:.3f} GB) ({card})")
+        del mats, table, scores
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_deepseek(torch, card: str) -> dict:
+    """deepseek-v2 at depth 2 (the dense prefix layer + one MoE layer):
+    serving at 1.25, the drop-free consistency checks, then MOE_STEPS
+    federated SCBF steps (K1 and K2 once a leaf table a step, from the
+    wrapper counts; the peak memory under MOE_PEAK_GB; the next to last
+    step profiled, the last one's tables checked against the plain
+    versions), and K1 and K2 timed on those tables."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.tokens import SyntheticTokenStream
+
+    cfg, bundle, params = _moe_model(torch, MOE_DEEPSEEK, card)
+    out = {"serve": moe_serve(torch, bundle, params, MOE_SERVE, card),
+           "consistency": deepseek_consistency(torch, bundle, params, card)}
+    torch.cuda.empty_cache()
+
+    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=MOE_CLIENTS)
+    step = dist.make_federated_train_step(bundle.loss_fn, scbf, lr=LM_LR)
+    stream = SyntheticTokenStream(MOE_CLIENTS * LM_BATCH, LM_SEQ,
+                                  cfg.vocab_size, seed=0)
+    losses, walls, counts, peaks, grad_peaks = [], [], [], [], []
+    tap = MoeStepTap(torch)
+    profiled = None
+    real_grads = dist.client_gradients
+
+    def client_gradients(*args):
+        # the peak so far in the step: the gradient phase's
+        out = real_grads(*args)
+        grad_peaks.append(_peak_gb(torch))
+        return out
+
+    dist.client_gradients = client_gradients
+    try:
+        for i, nb in zip(range(MOE_STEPS), stream):
+            batch = {k: torch.from_numpy(v).cuda().reshape(
+                MOE_CLIENTS, LM_BATCH, LM_SEQ) for k, v in nb.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t1 = time.perf_counter()
+            if i == MOE_STEPS - 2:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    loss, params = step(params, batch)
+                    torch.cuda.synchronize()
+                profiled = prof
+            elif i == MOE_STEPS - 1:
+                with tap:
+                    loss, params = step(params, batch)
+            else:
+                loss, params = step(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            counts.append(_launch_counts())
+            peaks.append(_peak_gb(torch))
+            losses.append(float(loss))
+    finally:
+        dist.client_gradients = real_grads
+    for c in counts:
+        if (c["channel_norm"], c["select_mask"]) != (MOE_TABLES,
+                                                     MOE_TABLES) or any(
+                c[k] for k in c if k not in ("channel_norm", "select_mask")):
+            raise AssertionError(f"lm-moe: a federated step launched {c}; "
+                                 f"want K1 and K2 once a leaf table "
+                                 f"({MOE_TABLES}) and nothing else")
+    if tap.k2_tables != MOE_TABLES or len(tap.tables) != MOE_TABLES:
+        raise AssertionError(f"lm-moe: the tapped step checked "
+                             f"{tap.k2_tables} tables")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lm-moe: losses {losses}")
+    if max(peaks) >= MOE_PEAK_GB:
+        raise AssertionError(f"lm-moe: a step's peak {peaks} GB is not "
+                             f"under {MOE_PEAK_GB} GB")
+    by_name = _device_events(profiled)
+    if not by_name:
+        raise AssertionError("lm-moe: the profiled step holds no CUDA event")
+    window = _window(by_name, walls[-2])
+    flips = tap.flips(LM_RATE)
+    log(f"lm-moe: {MOE_STEPS} federated steps of {cfg.name} "
+        f"({MOE_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, rate "
+        f"{LM_RATE}, lr {LM_LR}): losses {losses}, step walls "
+        f"{[round(w, 4) for w in walls]} s (step 1 cold, step 2 steady, "
+        f"step 3 profiled, step 4 checked), peaks "
+        f"{[round(p, 2) for p in peaks]} GB (under {MOE_PEAK_GB} GB; the "
+        f"checked step's checks add to its own), the gradient phase's "
+        f"{[round(p, 2) for p in grad_peaks]} GB; K1 "
+        f"and K2 once a leaf table a step ({MOE_TABLES} each): tables "
+        + json.dumps(tap.tables) + f"; kept fraction a client {tap.frac}; "
+        f"on step {MOE_STEPS}'s tables K1 within rtol "
+        f"{LM_K1_RTOL} and no absolute floor (max rel err "
+        f"{tap.k1_rel:.3g}; thresholds {flips['threshold']}, plain "
+        f"{flips['plain_threshold']}; {flips['channel_flips']} channels "
+        f"flipped, all at the threshold) and K2 in place bitwise its plain "
+        f"version (values and counts) ({card})")
+    log("lm-moe: profile of 1 federated step: "
+        + json.dumps({**window, "card": card}))
+    out.update(losses=losses, step_walls=walls, peaks_gb=peaks,
+               gradient_phase_peaks_gb=grad_peaks, kept_fraction=tap.frac,
+               profile=window, k1_max_rel_err=tap.k1_rel, flips=flips,
+               tables=tap.tables,
+               launches={k: sum(c[k] for c in counts)
+                         for k in ("channel_norm", "select_mask")})
+    host = tap.host
+    del tap, params, bundle
+    torch.cuda.empty_cache()
+    out["timing"] = moe_time_tables(torch, host, card)
+    return out
+
+
+def phase_lm_moe(torch, card: str) -> dict:
+    """llama4-maverick, then deepseek-v2, each freed before the next."""
+    torch.cuda.empty_cache()
+    llama = phase_llama4(torch, card)
+    torch.cuda.empty_cache()
+    deepseek = phase_deepseek(torch, card)
+    torch.cuda.empty_cache()
+    return {"llama4": llama, "deepseek": deepseek,
+            "launches": deepseek["launches"], "timing": deepseek["timing"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2995,6 +3658,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lm = phase_lm(torch, card)
     log(f"phase lm: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    moe = phase_lm_moe(torch, card)
+    log(f"phase lm-moe: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
                                 "select_compact_scatter")}
     for r in report:
@@ -3005,6 +3671,9 @@ def main() -> int:
             by_run["lm_federated_steps"] = {r["name"]:
                                             lm["launches"][r["name"]]}
             r["lm"] = lm["timing"][r["name"]]
+            by_run["lm_moe_federated_steps"] = {r["name"]:
+                                                moe["launches"][r["name"]]}
+            r["lm_moe"] = moe["timing"][r["name"]]
         r["launches"] = sum(sum(c.values()) for c in by_run.values())
         r["launches_by_run"] = by_run
         # the fused runs' graph replays, apart from the wrapper counts
@@ -3026,7 +3695,7 @@ def main() -> int:
                  "ms_single_leaf", "device_us", "device_us_l2_warm",
                  "device_us_single_leaf",
                  "encoder", "memset_us", "memset_us_single_leaf", "slots",
-                 "pass", "lm")}}))
+                 "pass", "lm", "lm_moe")}}))
     log(f"total: {time.perf_counter() - T_START:.1f}s")
     print(card)
     print(json.dumps({"kernels": report}))

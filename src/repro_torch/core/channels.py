@@ -365,19 +365,34 @@ def _matrices(leaf: torch.Tensor) -> torch.Tensor:
     return leaf.reshape(leaf.shape[0], -1, leaf.shape[-1])
 
 
+def _score_tables(leaves: Sequence[torch.Tensor],
+                  scored: Sequence[int]) -> List[List[int]]:
+    """The launches of a slot-stacked tree's scored leaves (indices into
+    ``leaves``): grouped by dtype first (a launch takes one), the groups
+    in the order their first leaf comes, tree order within each, and
+    each group split by ``leaf_tables``.  A tree of one dtype gives
+    ``leaf_tables``'s ranges of it."""
+    by_dtype: dict = {}
+    for i in scored:
+        by_dtype.setdefault(leaves[i].dtype, []).append(i)
+    tables = []
+    for group in by_dtype.values():
+        slots = leaves[group[0]].shape[0]
+        tables += [group[a:b] for a, b in leaf_tables(len(group), slots)]
+    return tables
+
+
 def factored_scores_slots(grads_k) -> Tuple[list, list]:
     """(leaves, scores) of a slot-stacked tree: every leaf (K, ...); a leaf
     whose client part has ndim >= 2 gets its fp32 channel scores (K, N)
-    from the channel-norm kernel (one launch a leaf table), the others
-    ``None`` (always uploaded)."""
+    from the channel-norm kernel (one launch a leaf table of one dtype,
+    ``_score_tables``), the others ``None`` (always uploaded)."""
     leaves = tree_leaves(grads_k)
     scores: List[Optional[torch.Tensor]] = [None] * len(leaves)
     idx = [i for i, leaf in enumerate(leaves) if leaf.ndim >= 3]
-    slots = leaves[idx[0]].shape[0] if idx else 1
-    for a, b in leaf_tables(len(idx), slots):
-        norms = channel_norms_leaves([_matrices(leaves[i])
-                                      for i in idx[a:b]])
-        for i, (_, col) in zip(idx[a:b], norms):
+    for table in _score_tables(leaves, idx):
+        norms = channel_norms_leaves([_matrices(leaves[i]) for i in table])
+        for i, (_, col) in zip(table, norms):
             scores[i] = col
     return leaves, scores
 
@@ -411,14 +426,17 @@ def factored_threshold(scores: Sequence, upload_rate: float,
 
 def factored_mask_slots(leaves: Sequence[torch.Tensor],
                         scores: Sequence[Optional[torch.Tensor]],
-                        threshold: torch.Tensor
+                        threshold: torch.Tensor, in_place: bool = False
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Mask slot-stacked leaves (K, ...) to the channels whose score is
     ``>= threshold`` (0-d, or one a slot); returns (masked leaves,
-    uploaded fraction (K,)).
+    uploaded fraction (K,)).  ``in_place`` writes each scored leaf's
+    masked values over the leaf itself (the federated step's gradients,
+    which nothing reads unmasked after).
 
-    One select-mask launch a leaf table, with zero row scores shared by
-    every slot and ``rest = 0``: the kernel tests ``(0 + s) + 0 > t``,
+    One select-mask launch a leaf table of one dtype (``_score_tables``),
+    with zero row scores shared by every slot and ``rest = 0``: the
+    kernel tests ``(0 + s) + 0 > t``,
     which is ``s > t`` exactly, so ``t`` is the float just below the
     threshold and ``s > t`` holds exactly when ``s >= threshold`` (ties
     keep their channels, as in the reference; a -inf threshold keeps
@@ -436,12 +454,13 @@ def factored_mask_slots(leaves: Sequence[torch.Tensor],
                             dtype=torch.float32, device=dev)
         rest = torch.zeros((), dtype=torch.float32, device=dev)
         slots = leaves[idx[0]].shape[0]
-        for a, b in leaf_tables(len(idx), slots):
-            group = idx[a:b]
+        for group in _score_tables(leaves, idx):
             table = [(_matrices(leaves[i]), zeros[:_matrices(leaves[i])
                                                   .shape[1]],
                       scores[i], below, rest) for i in group]
-            outs, _, counts = select_mask_leaves(table, masks=False)
+            outs, _, counts = select_mask_leaves(
+                table, masks=False,
+                out=[t[0] for t in table] if in_place else None)
             counts = counts.view(len(group), slots)
             for j, i in enumerate(group):
                 masked[i] = outs[j].view(leaves[i].shape)
@@ -460,13 +479,15 @@ def factored_mask_slots(leaves: Sequence[torch.Tensor],
 
 
 def apply_factored_mask_slots(grads_k, upload_rate: float,
-                              selection: str = "positive"):
+                              selection: str = "positive",
+                              in_place: bool = False):
     """``apply_factored_mask`` of K clients at once: every leaf of
     ``grads_k`` is (K, ...); one channel-norm and one select-mask launch a
-    leaf table.  Returns (masked tree, uploaded fraction (K,))."""
+    leaf table (``in_place``: the scored leaves masked over themselves).
+    Returns (masked tree, uploaded fraction (K,))."""
     leaves, scores = factored_scores_slots(grads_k)
     thr = factored_threshold(scores, upload_rate, selection)
-    masked, frac = factored_mask_slots(leaves, scores, thr)
+    masked, frac = factored_mask_slots(leaves, scores, thr, in_place)
     return tree_unflatten(grads_k, masked), frac
 
 

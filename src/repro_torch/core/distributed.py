@@ -14,6 +14,12 @@ One federated train step is:
   3. the server sums the masked gradients over the clients and takes the
      SGD step ``W <- W - lr · Σ_k ΔW̃_k``.
 
+The step holds one copy of the clients' gradients at a time: K2 writes
+the masked values over them (``in_place``), each leaf's client buffer is
+dropped once it is summed, and each summed leaf once its param is
+updated, so a step needs the params, the (K, ...) buffers and one
+client's gradient tree (its peak, while client_gradients copies it in).
+
 With ``compressed_exchange`` each client's top-k channels by factored
 score are gathered into an (α·rows)-sized buffer and the dense sum is
 rebuilt by a scatter-add, plain torch as the reference's is plain
@@ -27,7 +33,7 @@ import torch
 
 from repro_torch.config import ScbfConfig
 from repro_torch.core import channels
-from repro_torch.models.model_zoo import sgd_update, value_and_grad
+from repro_torch.models.model_zoo import sgd_leaf, sgd_update, value_and_grad
 from repro_torch.params import tree_leaves, tree_unflatten
 
 
@@ -35,7 +41,8 @@ def client_gradients(loss_fn: Callable, params, batch):
     """(losses (K,), gradient tree with every leaf (K, *leaf.shape)) of the
     K clients whose batches are the slots of ``batch``'s leaves (K, ...).
     Client k's gradient is written into slot k of one buffer a leaf, in
-    the leaf's dtype; params are left without ``requires_grad``."""
+    the leaf's dtype, and let go before client k + 1's backward; params
+    are left without ``requires_grad``."""
     k_clients = next(iter(batch.values())).shape[0]
     grads = [torch.empty((k_clients,) + tuple(p.shape), dtype=p.dtype,
                          device=p.device) for p in tree_leaves(params)]
@@ -43,8 +50,10 @@ def client_gradients(loss_fn: Callable, params, batch):
     for k in range(k_clients):
         loss, g = value_and_grad(loss_fn, params,
                                  {name: v[k] for name, v in batch.items()})
-        for buf, leaf in zip(grads, tree_leaves(g)):
-            buf[k].copy_(leaf)
+        g = tree_leaves(g)
+        for i, buf in enumerate(grads):
+            buf[k].copy_(g[i])
+        del g                   # gone before the next client's backward
         losses.append(loss)
     return torch.stack(losses), tree_unflatten(params, grads)
 
@@ -60,14 +69,28 @@ def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
         losses, grads_k = client_gradients(loss_fn, params, batch)
         if scbf.compressed_exchange:
             summed = _compressed_sum(grads_k, scbf.upload_rate)
-        else:
-            masked_k, _ = channels.apply_factored_mask_slots(
-                grads_k, scbf.upload_rate, scbf.selection)
-            summed = tree_unflatten(masked_k, [
-                torch.sum(g, axis=0) for g in tree_leaves(masked_k)])
-        return torch.mean(losses), sgd_update(params, summed, lr)
+            return torch.mean(losses), sgd_update(params, summed, lr)
+        masked_k, _ = channels.apply_factored_mask_slots(
+            grads_k, scbf.upload_rate, scbf.selection, in_place=True)
+        del grads_k
+        leaves = tree_leaves(masked_k)
+        del masked_k
+        return torch.mean(losses), _sum_and_update(params, leaves, lr)
 
     return step
+
+
+def _sum_and_update(params, masked: list, lr: float):
+    """``sgd_update(params, Σ_k masked_k, lr)`` leaf by leaf, each client
+    buffer of ``masked`` (the list's only reference) let go once it is
+    summed and each sum once its param is updated."""
+    new = []
+    for i, p in enumerate(tree_leaves(params)):
+        summed = torch.sum(masked[i], axis=0)
+        masked[i] = None
+        new.append(sgd_leaf(p, summed, lr))
+        del summed
+    return tree_unflatten(params, new)
 
 
 def _compressed_sum(grads_k, rate: float):

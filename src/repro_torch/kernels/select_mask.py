@@ -32,7 +32,11 @@ Each wrapper dispatches on the tensors' device: CPU tensors go to the
 ``*_plain`` versions (leaf by leaf, slot by slot); CUDA tensors launch
 the hand-written Hopper kernel or raise.  A table past what one launch
 takes (``MAX_LEAVES`` leaves, ``MAX_SLOTS`` (leaf, slot) pairs) raises
-``ValueError`` on either device.
+``ValueError`` on either device.  ``select_mask_leaves`` writes g̃ into
+the tensors given as ``out=`` (g itself for an in-place mask: each entry
+is loaded and stored by one thread, its load first), and masks a matrix
+of ``MAX_ENTRIES`` or more entries (past the kernel's int32 flat
+indices) as row blocks of the same columns, its blocks' counts summed.
 ``mask_launches``, ``compact_count_launches`` and
 ``compact_scatter_launches`` count kernel launches only: a
 ``select_mask_leaves`` call under CUDA graph capture records its launch
@@ -51,6 +55,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 2048            # entries a block takes: TILE in select_compact.cu
 MAX_LEAVES = 16        # leaves a launch takes: MAX_LEAVES in both sources
 MAX_SLOTS = 4096       # (leaf, slot) pairs a launch: MAX_SLOTS in both
+MAX_ENTRIES = 2 ** 31  # entries of a matrix a launch takes: int32 indices
 _ALIGN = 16            # bytes: every output view starts 16-byte aligned
 
 mask_launches = 0
@@ -80,16 +85,24 @@ def leaf_slot(leaf: tuple, s: int) -> tuple:
 
 
 def select_mask_plain(g: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
-                      thr: torch.Tensor, rest: torch.Tensor
+                      thr: torch.Tensor, rest: torch.Tensor,
+                      out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(g̃ like g, mask bool like g, count int32 0-d — or (S,) for a
-    slot-stacked g (S, M, N), computed slot by slot)."""
+    slot-stacked g (S, M, N), computed slot by slot).  g̃ is written into
+    ``out`` when it is given (g itself masks in place)."""
     if g.ndim == 3:
-        outs = [select_mask_plain(*leaf_slot((g, row, col, thr, rest), s))
+        outs = [select_mask_plain(*leaf_slot((g, row, col, thr, rest), s),
+                                  out=None if out is None else out[s])
                 for s in range(g.shape[0])]
-        return tuple(torch.stack(x) for x in zip(*outs))
+        vals, keeps, counts = zip(*outs)
+        return (torch.stack(vals) if out is None else out,
+                torch.stack(keeps), torch.stack(counts))
     keep = (row[:, None] + col[None, :]) + rest > thr
-    out = torch.where(keep, g, torch.zeros_like(g))
+    if out is None:
+        out = torch.where(keep, g, torch.zeros_like(g))
+    else:
+        torch.where(keep, g, torch.zeros_like(g), out=out)
     return out, keep, torch.count_nonzero(keep).to(torch.int32)
 
 
@@ -150,11 +163,12 @@ def _check(g, row, col) -> None:
         raise ValueError("select_mask takes contiguous operands")
 
 
-def _leaves(leaves: Sequence[Leaf], what: str
+def _leaves(leaves: Sequence[Leaf], what: str, limit: bool = True
             ) -> Tuple[List[tuple], torch.device]:
     """Checked leaves (thr and rest as fp32 tensors) and their device.
-    Flat indices are int32, so M*N must be below 2^31; a CUDA table takes
-    one dtype and at most ``MAX_SLOTS`` (leaf, slot) pairs."""
+    Flat indices are int32, so M*N must be below 2^31 (unless ``limit`` is
+    off: the caller splits); a CUDA table takes one dtype and at most
+    ``MAX_SLOTS`` (leaf, slot) pairs."""
     if not 0 < len(leaves) <= MAX_LEAVES:
         raise ValueError(f"{what} takes 1 to {MAX_LEAVES} leaves, got "
                          f"{len(leaves)}")
@@ -165,7 +179,7 @@ def _leaves(leaves: Sequence[Leaf], what: str
         rest = _scalar(rest, g.device, slots)
         _check(g, row, col)
         m, n = g.shape[-2:]
-        if m * n >= 2 ** 31:
+        if limit and m * n >= MAX_ENTRIES:
             raise ValueError(f"{what} takes fewer than 2^31 entries (int32 "
                              f"flat indices), got {m} x {n}")
         out.append((g, row, col, thr, rest))
@@ -215,7 +229,8 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def select_mask_leaves(leaves: Sequence[Leaf], masks: bool = True
+def select_mask_leaves(leaves: Sequence[Leaf], masks: bool = True,
+                       out: Optional[Sequence[torch.Tensor]] = None
                        ) -> Tuple[List[torch.Tensor],
                                   List[Optional[torch.Tensor]],
                                   torch.Tensor]:
@@ -223,21 +238,91 @@ def select_mask_leaves(leaves: Sequence[Leaf], masks: bool = True
     counts, one a (leaf, slot) pair, leaf by leaf (``(L,)`` for a table of
     matrices); on CUDA one launch, and the outputs are views of one
     allocation.  With ``masks=False`` no mask is made (each is ``None``):
-    on CUDA the kernel writes g̃ and the counts only."""
+    on CUDA the kernel writes g̃ and the counts only.  ``out``, one
+    contiguous tensor a leaf in its g's shape, dtype and device, takes
+    g̃ in place of a new allocation (``out=[g, ...]`` masks in place).  A
+    matrix of ``MAX_ENTRIES`` entries or more is masked as row blocks (a
+    matrix of the launch each; launches of at most ``MAX_LEAVES`` blocks
+    and ``MAX_SLOTS`` pairs), its g̃ and mask one tensor, its count the
+    sum of its blocks' — the counts of such a table are int64."""
+    leaves, device = _leaves(leaves, "select_mask", limit=False)
+    if out is not None:
+        out = list(out)
+        if len(out) != len(leaves) or any(
+                o.shape != leaf[0].shape or o.dtype != leaf[0].dtype
+                or o.device != device or not o.is_contiguous()
+                for o, leaf in zip(out, leaves)):
+            raise ValueError("select_mask: out= takes one contiguous tensor "
+                             "a leaf, in its g's shape, dtype and device")
+    if all(leaf[0].shape[-2] * leaf[0].shape[-1] < MAX_ENTRIES
+           for leaf in leaves):
+        return _mask_table(leaves, device, masks, out, None)
+    outs = out or [torch.empty_like(leaf[0]) for leaf in leaves]
+    made = [torch.empty(leaf[0].shape, dtype=torch.bool, device=device)
+            if masks else None for leaf in leaves]
+    pieces, owner, pair = [], [], 0
+    for leaf, o, mk in zip(leaves, outs, made):
+        m, n = leaf[0].shape[-2:]
+        if m * n < MAX_ENTRIES:
+            pieces.append((leaf, o, mk))
+            owner += range(pair, pair + _slots(leaf))
+        else:
+            block = (MAX_ENTRIES - 1) // n
+            for s in range(_slots(leaf)):
+                g, row, col, thr, rest = leaf_slot(leaf, s)
+                for a in range(0, m, block):
+                    b = min(m, a + block)
+                    pieces.append(((g[a:b], row[a:b], col, thr, rest),
+                                   (o if o.ndim == 2 else o[s])[a:b],
+                                   None if mk is None else
+                                   (mk if mk.ndim == 2 else mk[s])[a:b]))
+                    owner.append(pair + s)
+        pair += _slots(leaf)
+    parts, group, size = [], [], 0
+    for piece in pieces + [None]:
+        if piece is None or len(group) == MAX_LEAVES or \
+                size + _slots(piece[0]) > MAX_SLOTS:
+            parts.append(_mask_table([p[0] for p in group], device, masks,
+                                     [p[1] for p in group],
+                                     [p[2] for p in group])[2])
+            group, size = [], 0
+        if piece is not None:
+            group.append(piece)
+            size += _slots(piece[0])
+    # a matrix past 2^31 entries may keep more than an int32 holds
+    counts = torch.zeros(pair, dtype=torch.int64, device=device).index_add(
+        0, torch.tensor(owner, dtype=torch.int64, device=device),
+        torch.cat(parts).to(torch.int64))
+    return outs, made, counts
+
+
+def _mask_table(leaves: List[tuple], device, masks: bool,
+                out: Optional[List[torch.Tensor]],
+                mask_out: Optional[List[Optional[torch.Tensor]]]
+                ) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]],
+                           torch.Tensor]:
+    """One launch over checked leaves, writing g̃ into ``out`` and the masks
+    into ``mask_out`` where given (else into one new allocation)."""
     global mask_launches
-    leaves, device = _leaves(leaves, "select_mask")
     if device.type == "cpu":
-        outs = [select_mask_plain(*leaf) for leaf in leaves]
-        return ([o for o, _, _ in outs],
-                [m if masks else None for _, m, _ in outs],
-                torch.cat([c.reshape(-1) for _, _, c in outs]))
+        res = [select_mask_plain(*leaf, out=None if out is None else out[l])
+               for l, leaf in enumerate(leaves)]
+        made = [m if masks else None for _, m, _ in res]
+        if mask_out is not None and masks:
+            for mo, m in zip(mask_out, made):
+                mo.copy_(m)
+            made = list(mask_out)
+        return ([o for o, _, _ in res], made,
+                torch.cat([c.reshape(-1) for _, _, c in res]))
     dtype = leaves[0][0].dtype
     item = dtype.itemsize
-    # per leaf g̃ then its mask (if any), then the counts
+    # per leaf g̃ then its mask (each only where not given), then the counts
     offsets, size = [], 0
     for g, *_ in leaves:
-        offsets.append((size, size + _pad(g.numel() * item)))
-        size = offsets[-1][1] + (_pad(g.numel()) if masks else 0)
+        vals = 0 if out is not None else _pad(g.numel() * item)
+        flags = _pad(g.numel()) if masks and mask_out is None else 0
+        offsets.append((size, size + vals))
+        size += vals + flags
     counts_at = size
     pairs = sum(_slots(leaf) for leaf in leaves)
     buf = torch.empty(counts_at + _pad(4 * pairs), dtype=torch.uint8,
@@ -245,14 +330,20 @@ def select_mask_leaves(leaves: Sequence[Leaf], masks: bool = True
     as_vals, as_flags = buf.view(dtype), buf.view(torch.bool)
     base = buf.data_ptr()
     outs, made, words = [], [], []
-    for leaf, (out_at, mask_at) in zip(leaves, offsets):
+    for l, (leaf, (out_at, mask_at)) in enumerate(zip(leaves, offsets)):
         g = leaf[0]
-        outs.append(as_vals[out_at // item:out_at // item + g.numel()]
+        outs.append(out[l] if out is not None else
+                    as_vals[out_at // item:out_at // item + g.numel()]
                     .view(g.shape))
-        made.append(as_flags[mask_at:mask_at + g.numel()].view(g.shape)
-                    if masks else None)
-        words += _words(leaf) + [base + out_at,
-                                 base + mask_at if masks else 0]
+        if not masks:
+            made.append(None)
+        elif mask_out is not None:
+            made.append(mask_out[l])
+        else:
+            made.append(as_flags[mask_at:mask_at + g.numel()].view(g.shape))
+        words += _words(leaf) + [outs[-1].data_ptr(),
+                                 0 if made[-1] is None
+                                 else made[-1].data_ptr()]
     table = _table(words)
     lib = build.libraries()["select_mask"]
     build.check(lib.select_mask_launch(

@@ -39,17 +39,37 @@ def device_of(gen: Optional[torch.Generator]) -> torch.device:
     return torch.device("meta") if gen is None else gen.device
 
 
-def trunc_normal(gen: Optional[torch.Generator], shape, scale: float,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """Normal on [-2, 2], times ``scale``, drawn in fp32 by the inverse CDF
-    (as ``torch.nn.init.trunc_normal_`` draws it), cast to ``dtype``."""
-    if gen is None:
-        return torch.empty(shape, dtype=dtype, device="meta")
+# entries a leaf draws at once: a larger leaf (an MoE expert stack) is
+# drawn in pieces of this many, so its fp32 temporaries stay ~1 GB each
+DRAW_CHUNK = 1 << 28
+
+
+def _trunc_normal_draw(gen: torch.Generator, shape, scale: float,
+                       dtype: torch.dtype) -> torch.Tensor:
     u = torch.rand(shape, generator=gen, dtype=torch.float32,
                    device=gen.device)
     p = _PHI_LO + (_PHI_HI - _PHI_LO) * u
     x = torch.erfinv(2.0 * p - 1.0) * math.sqrt(2.0)
     return (torch.clamp(x, -2.0, 2.0) * scale).to(dtype)
+
+
+def trunc_normal(gen: Optional[torch.Generator], shape, scale: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Normal on [-2, 2], times ``scale``, drawn in fp32 by the inverse CDF
+    (as ``torch.nn.init.trunc_normal_`` draws it), cast to ``dtype``; a
+    leaf of more than ``DRAW_CHUNK`` entries is drawn that many at a time,
+    in flat order."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    n = math.prod(shape)
+    if n <= DRAW_CHUNK:
+        return _trunc_normal_draw(gen, shape, scale, dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = out.view(-1)
+    for a in range(0, n, DRAW_CHUNK):
+        b = min(n, a + DRAW_CHUNK)
+        flat[a:b] = _trunc_normal_draw(gen, (b - a,), scale, dtype)
+    return out
 
 
 def dense_init(gen, fin: int, fout: int, axes: str, dtype,

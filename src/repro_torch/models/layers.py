@@ -15,7 +15,8 @@ All softmax/norm math runs in fp32; activations stay in the model dtype.
 The attention is the reference's arithmetic (fp32 scores, ``NEG_INF`` on
 masked slots, probabilities cast to ``v``'s dtype before the second
 product), not ``scaled_dot_product_attention``, whose numerics differ.
-MLA (DeepSeek-V2) is ROADMAP A14b.
+MLA (DeepSeek-V2) attends in the compressed (kv-lora) space, its cache
+the latent ``{"ckv","krope","kpos"}`` ring buffer.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models.common import dense_init, merge
@@ -37,6 +40,10 @@ class ModelCtx:
     dtype: torch.dtype
     q_chunk: int = 512                           # attention query chunk
     kv_quant: bool = False                       # int8 KV cache
+    # the reference's d_model-sharded MoE combine: it only places shards,
+    # so on one device it changes nothing (multi-device is ROADMAP A15)
+    moe_dshard: bool = False
+    moe_groups: int = 1                          # grouped routing; 1 = global
 
 
 # ---------------------------------------------------------------------------
@@ -282,15 +289,119 @@ def attn_cache_init(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# MLA — Multi-head Latent Attention (DeepSeek-V2): ROADMAP A14b
+# MLA — Multi-head Latent Attention (DeepSeek-V2), absorbed decode path
 # ---------------------------------------------------------------------------
 
-def _mla_refused(*_, **__):
-    raise NotImplementedError("MLA (Multi-head Latent Attention, "
-                              "DeepSeek-V2) is ROADMAP A14b; not ported yet")
+def mla_init(gen, cfg: ArchConfig, dtype):
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    return merge(
+        # per-head query: nope part (hd) + rope part (rd)
+        ("q", dense_init(gen, D, H * (hd + rd), "embed,heads", dtype)),
+        # compressed kv (lora) + shared rope key
+        ("kv_down", dense_init(gen, D, r + rd, "embed,lora", dtype)),
+        # decompress: k_nope (hd) + v (hd) per head
+        ("kv_up", dense_init(gen, r, H * 2 * hd, "lora,heads", dtype)),
+        ("o", dense_init(gen, H * hd, D, "heads,embed", dtype)),
+    )
 
 
-mla_init = mla_apply = mla_cache_init = _mla_refused
+def mla_cache_init(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+                   device):
+    return {
+        "ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                             dtype=dtype, device=device),
+        "kpos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                           device=device),
+    }
+
+
+def _mla_qkv(p, x, ctx: ModelCtx, positions):
+    cfg = ctx.cfg
+    B, S, _ = x.shape
+    H, hd, rd, r = cfg.num_heads, cfg.head_dim, cfg.qk_rope_dim, \
+        cfg.kv_lora_rank
+    q = _dense(p["q"], x).reshape(B, S, H, hd + rd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    down = _dense(p["kv_down"], x)                       # (B,S,r+rd)
+    ckv, krope = down[..., :r], down[..., r:]
+    krope = rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, krope
+
+
+def _mla_attend(q_nope, q_rope, ckv, krope, kpos, qpos, p, ctx: ModelCtx):
+    """Absorbed MLA attention: scores in compressed (lora) space, fp32.
+
+    q_nope (B,S,H,hd), q_rope (B,S,H,rd); ckv (B,T,r), krope (B,T,rd).
+    """
+    cfg = ctx.cfg
+    B, S, H, hd = q_nope.shape
+    r = cfg.kv_lora_rank
+    wu = p["kv_up"]["w"].reshape(r, H, 2 * hd)
+    wk = wu[..., :hd].to(torch.float32)                  # (r,H,hd)
+    wv = wu[..., hd:].to(torch.float32)                  # (r,H,hd)
+    ckv_f = ckv.to(torch.float32)
+    # absorb k-decompression into q:  q' = q_nope · wkᵀ  -> (B,S,H,r)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32), wk)
+    scale = (hd + cfg.qk_rope_dim) ** -0.5
+    s = (torch.einsum("bshr,btr->bhst", q_abs, ckv_f) +
+         torch.einsum("bshd,btd->bhst", q_rope.to(torch.float32),
+                      krope.to(torch.float32))) * scale
+    valid = (kpos[:, None, None, :] >= 0) & \
+        (qpos[:, None, :, None] >= kpos[:, None, None, :])
+    s = s.masked_fill(~valid, NEG_INF)
+    pr = torch.softmax(s, axis=-1)
+    # attend in compressed space, then decompress through wv
+    o_c = torch.einsum("bhst,btr->bshr", pr, ckv_f)
+    o = torch.einsum("bshr,rhd->bshd", o_c, wv)
+    return o.to(ckv.dtype)
+
+
+def mla_apply(p, x, ctx: ModelCtx, positions, *, cache=None):
+    """MLA self-attention; returns (y, new_cache) (None without a cache).
+
+    A cache-less query longer than ``ctx.q_chunk`` (and a multiple of it)
+    attends one chunk at a time against the whole latent sequence, each
+    chunk under ``torch.utils.checkpoint`` while autograd records (the
+    reference's ``jax.checkpoint`` over its scan of chunks)."""
+    cfg = ctx.cfg
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q_nope, q_rope, ckv, krope = _mla_qkv(p, x, ctx, positions)
+    if cache is None:
+        kpos = torch.arange(S, device=x.device)[None].expand(B, S)
+        chunk = ctx.q_chunk
+        if S > chunk and S % chunk == 0:
+            def attend(qn, qr, qp):
+                return _mla_attend(qn, qr, ckv, krope, kpos, qp, p, ctx)
+
+            outs = []
+            for i in range(0, S, chunk):
+                qn, qr = q_nope[:, i:i + chunk], q_rope[:, i:i + chunk]
+                qp = positions[:, i:i + chunk]
+                outs.append(checkpoint(attend, qn, qr, qp,
+                                       use_reentrant=False)
+                            if torch.is_grad_enabled()
+                            else attend(qn, qr, qp))
+            o = torch.cat(outs, axis=1)
+        else:
+            o = _mla_attend(q_nope, q_rope, ckv, krope, kpos, positions, p,
+                            ctx)
+        new_cache = None
+    else:
+        T = cache["ckv"].shape[1]
+        slot = positions % T
+        ckv_c = _ring_write(cache["ckv"], ckv, slot)
+        krope_c = _ring_write(cache["krope"], krope, slot)
+        kpos = _ring_write(cache["kpos"], positions, slot)
+        o = _mla_attend(q_nope, q_rope, ckv_c, krope_c, kpos, positions, p,
+                        ctx)
+        new_cache = {"ckv": ckv_c, "krope": krope_c, "kpos": kpos}
+    y = _dense(p["o"], o.reshape(B, S, H * hd))
+    return y, new_cache
 
 
 # ---------------------------------------------------------------------------

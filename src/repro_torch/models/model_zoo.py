@@ -13,8 +13,8 @@ A bundle packages what the launchers and the federated trainer need:
 Params, batches and caches are the reference's trees of tensors on the
 bundle's device (``build(..., device=None)`` is cuda; the CPU only when
 asked).  Token ids and positions are int32, as in the reference.  The
-serving steps run without autograd.  ``build`` refuses what this slice
-cannot run — MLA, MoE, Mamba2/SSD, the encoder, modality frontends and
+serving steps run without autograd.  ``build`` refuses what the port
+does not run yet — Mamba2/SSD, the encoder, modality frontends and
 cross-attention — with ``NotImplementedError`` naming ROADMAP A14b.
 """
 from __future__ import annotations
@@ -53,9 +53,7 @@ def _cache_len(cfg: ArchConfig, shape: ShapeConfig, window: int) -> int:
 def refuse_unported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A14b for a config
     that needs a module this slice does not port."""
-    for needs, what in ((cfg.use_mla, "MLA (use_mla)"),
-                        (cfg.num_experts, "MoE (num_experts)"),
-                        (cfg.ssm_state, "Mamba2/SSD (ssm_state)"),
+    for needs, what in ((cfg.ssm_state, "Mamba2/SSD (ssm_state)"),
                         (cfg.encoder_layers, "the encoder (encoder_layers)"),
                         (cfg.frontend != "none",
                          f"the {cfg.frontend} frontend"),
@@ -78,19 +76,27 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
+def sgd_leaf(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+    """``(p - lr * g)`` in fp32, cast back to p's dtype."""
+    return (p.to(torch.float32) - lr * g.to(torch.float32)).to(p.dtype)
+
+
 def sgd_update(params, grads, lr: float):
-    """``(p - lr * g)`` in fp32, cast back to each param's dtype."""
-    return tree_map(lambda p, g: (p.to(torch.float32)
-                                  - lr * g.to(torch.float32)).to(p.dtype),
-                    params, grads)
+    """``sgd_leaf`` over every leaf."""
+    return tree_map(lambda p, g: sgd_leaf(p, g, lr), params, grads)
 
 
 def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
-          kv_quant: bool = False, device=None) -> ModelBundle:
+          kv_quant: bool = False, moe_dshard: bool = False,
+          moe_groups: int = 1, device=None) -> ModelBundle:
+    """``moe_groups`` > 1 routes MoE tokens in that many groups, as the
+    reference; ``moe_dshard`` places the reference's shards and changes
+    nothing on one device."""
     refuse_unported(cfg)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
-    ctx = ModelCtx(cfg=cfg, dtype=dtype, q_chunk=q_chunk, kv_quant=kv_quant)
+    ctx = ModelCtx(cfg=cfg, dtype=dtype, q_chunk=q_chunk, kv_quant=kv_quant,
+                   moe_dshard=moe_dshard, moe_groups=moe_groups)
 
     def init(gen: Union[int, torch.Generator]):
         """(params, axes) drawn from ``gen``: a generator on the bundle's
@@ -132,6 +138,11 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
 
     # -------------------------------------------------------- cache tree
     def _layer_cache(batch: int, cache_len: int, mk):
+        if cfg.use_mla:                   # the latent cache, int8 or not
+            return {"attn": {
+                "ckv": mk((batch, cache_len, cfg.kv_lora_rank), dtype),
+                "krope": mk((batch, cache_len, cfg.qk_rope_dim), dtype),
+                "kpos": mk((batch, cache_len), torch.int32)}}
         KV, hd = cfg.num_kv_heads, cfg.head_dim
         kv_dtype = torch.int8 if kv_quant else dtype
         c = {"k": mk((batch, cache_len, KV, hd), kv_dtype),

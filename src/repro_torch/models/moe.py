@@ -1,0 +1,171 @@
+"""Mixture-of-Experts block with capacity-bucketed sort routing (port of
+``repro.models.moe``).
+
+Each token is routed to its top-k experts; an (experts, capacity) table
+of token ids is built from a stable argsort over the expert assignments
+(a token's position within its expert is its rank, found by
+``searchsorted``); tokens are gathered into (E, C, D) expert buckets, the
+SwiGLU experts run as batched products over the expert axis, and the
+buckets are added back to token order, weighted by their router gates,
+in one fp32 ``index_add``.  Tokens past an expert's capacity are dropped
+(their residual path still carries them): they land in a scratch column
+of the tables, which is cut off before any use.
+
+With ``ctx.moe_groups`` = G > 1 the tokens are routed in G independent
+groups, each with its own capacity (dropping is group-local), as in the
+reference; on one device that is the same arithmetic batched over a
+leading G axis.  ``ctx.moe_dshard`` only places shards in the reference,
+so it changes nothing here (multi-device is ROADMAP A15).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ArchConfig
+from repro_torch.models.common import trunc_normal
+from repro_torch.models.layers import ModelCtx, mlp_apply, mlp_init
+
+
+def moe_init(gen, cfg: ArchConfig, dtype):
+    """(params, axes): the router in fp32 whatever ``dtype``, the experts'
+    ``wi``, ``wg`` (E, D, F) and ``wo`` (E, F, D), and the shared expert
+    (an MLP of ``d_ff * num_shared_experts``) when there is one."""
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    scale = 1.0 / (D ** 0.5)
+    params = {
+        "router": {"w": trunc_normal(gen, (D, E), scale, torch.float32)},
+        "wi": trunc_normal(gen, (E, D, Fd), scale, dtype),
+        "wg": trunc_normal(gen, (E, D, Fd), scale, dtype),
+        "wo": trunc_normal(gen, (E, Fd, D), 1.0 / (Fd ** 0.5), dtype),
+    }
+    axes = {
+        "router": {"w": "embed,none"},
+        "wi": "experts,embed,mlp",
+        "wg": "experts,embed,mlp",
+        "wo": "experts,mlp,embed",
+    }
+    if cfg.num_shared_experts:
+        params["shared"], axes["shared"] = mlp_init(
+            gen, cfg, dtype, d_ff=cfg.d_ff * cfg.num_shared_experts)
+    return params, axes
+
+
+def _capacity(cfg: ArchConfig, num_tokens: int) -> int:
+    c = int(cfg.moe_capacity_factor * num_tokens * cfg.experts_per_token
+            / cfg.num_experts)
+    c = max(c, 1)
+    return ((c + 7) // 8) * 8        # 8-aligned buckets, as the reference
+
+
+def _groups(ctx: ModelCtx, num_tokens: int) -> int:
+    """The reference's group count: ``moe_groups`` lowered until it
+    divides the tokens."""
+    g = ctx.moe_groups
+    while g > 1 and num_tokens % g:
+        g -= 1
+    return g
+
+
+def _route(probs: torch.Tensor, k: int, capacity: int):
+    """The dispatch tables of G groups of routed tokens.
+
+    probs (G, Tg, E) fp32 router probabilities -> (table (G, E, C) int64
+    token ids, ``Tg`` for an empty slot; gate_tab (G, E, C) fp32 gates,
+    0 for an empty slot).  Each token's top-k gates are renormalised to
+    sum to 1; a token's slot in an expert is its rank among the expert's
+    tokens in token order (a stable sort); ranks past the capacity go to
+    the scratch column ``C``, which is cut off.  Every write to a slot
+    that is kept is the only one; the scratch column's duplicates all
+    write the same value (``Tg``, 0), so ``index_put`` without
+    accumulation is deterministic.
+    """
+    G, Tg, E = probs.shape
+    dev = probs.device
+    gate, eidx = torch.topk(probs, k, axis=-1)              # (G,Tg,k)
+    # the k gates summed left to right, as XLA sums so short a row (a
+    # vectorised ``sum`` rounds another way), so the gates are bitwise
+    total = gate[..., :1]
+    for j in range(1, k):
+        total = total + gate[..., j:j + 1]
+    gate = gate / torch.clamp(total, min=1e-9)
+    n = Tg * k
+    flat_e = eidx.reshape(G, n)
+    flat_t = torch.arange(Tg, device=dev).repeat_interleave(k)[None] \
+        .expand(G, n)
+    flat_g = gate.reshape(G, n)
+    order = torch.argsort(flat_e, axis=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, order)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    pos = torch.arange(n, device=dev)[None] - first         # rank in expert
+    keep = pos < capacity
+    col = torch.where(keep, pos, torch.full_like(pos, capacity))
+    g_idx = torch.arange(G, device=dev)[:, None].expand(G, n)
+    tok = torch.gather(flat_t, -1, order)
+    table = torch.full((G, E, capacity + 1), Tg, dtype=torch.int64,
+                       device=dev).index_put(
+        (g_idx, sorted_e, col), torch.where(keep, tok, torch.full_like(
+            tok, Tg)))
+    gates = torch.gather(flat_g, -1, order)
+    gate_tab = torch.zeros((G, E, capacity + 1), dtype=torch.float32,
+                           device=dev).index_put(
+        (g_idx, sorted_e, col), torch.where(keep, gates,
+                                            torch.zeros_like(gates)))
+    return table[..., :capacity], gate_tab[..., :capacity]
+
+
+def _experts(p, xg: torch.Tensor, table: torch.Tensor,
+             gate_tab: torch.Tensor) -> torch.Tensor:
+    """xg (G, Tg, D) through the tables' buckets and the SwiGLU experts;
+    the gate-weighted buckets added back to token order in fp32 (one
+    ``index_add`` over the G·E·C bucket rows into G·(Tg + 1) rows, the
+    pad rows cut off).  Returns (G, Tg, D) fp32."""
+    G, Tg, D = xg.shape
+    xpad = torch.cat([xg, torch.zeros((G, 1, D), dtype=xg.dtype,
+                                      device=xg.device)], axis=1)
+    g_idx = torch.arange(G, device=xg.device)[:, None, None]
+    xe = xpad[g_idx, table]                                 # (G,E,C,D)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wi"])) * \
+        torch.einsum("gecd,edf->gecf", xe, p["wg"])
+    ye = torch.einsum("gecf,efd->gecd", h, p["wo"])         # (G,E,C,D)
+    yw = ye * gate_tab[..., None].to(ye.dtype)
+    rows = (table + g_idx * (Tg + 1)).reshape(-1)
+    yf = torch.zeros((G * (Tg + 1), D), dtype=torch.float32,
+                     device=xg.device).index_add(
+        0, rows, yw.reshape(-1, D).to(torch.float32))
+    return yf.reshape(G, Tg + 1, D)[:, :Tg]
+
+
+def moe_apply(p, x: torch.Tensor, ctx: ModelCtx) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D): the routed experts plus the shared expert.
+
+    The B·S tokens route as ``_groups`` groups (one unless
+    ``ctx.moe_groups`` > 1), each at the capacity of its own tokens."""
+    cfg = ctx.cfg
+    B, S, D = x.shape
+    T = B * S
+    G = _groups(ctx, T)
+    Tg = T // G
+    xg = x.reshape(G, Tg, D)
+    logits = (xg.to(torch.float32) @ p["router"]["w"]).to(torch.float32)
+    probs = torch.softmax(logits, axis=-1)                  # (G,Tg,E)
+    table, gate_tab = _route(probs, cfg.experts_per_token,
+                             _capacity(cfg, Tg))
+    y = _experts(p, xg, table, gate_tab).reshape(B, S, D).to(x.dtype)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x, ctx)
+    return y
+
+
+def aux_load_balance_loss(p, x: torch.Tensor, cfg: ArchConfig
+                          ) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss: E · Σ_e (share of tokens
+    whose first choice is e) · (mean router probability of e)."""
+    D = x.shape[-1]
+    logits = x.reshape(-1, D).to(torch.float32) @ p["router"]["w"]
+    probs = torch.softmax(logits, -1)
+    _, eidx = torch.topk(probs, cfg.experts_per_token, axis=-1)
+    onehot = F.one_hot(eidx[..., 0], cfg.num_experts).to(torch.float32)
+    frac_tokens = torch.mean(onehot, axis=0)
+    frac_probs = torch.mean(probs, axis=0)
+    return cfg.num_experts * torch.sum(frac_tokens * frac_probs)

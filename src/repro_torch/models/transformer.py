@@ -1,12 +1,14 @@
-"""Generic decoder transformer over a repeating layer pattern, dense part
-(port of ``repro.models.transformer``).
+"""Generic decoder transformer over a repeating layer pattern (port of
+``repro.models.transformer``, but Mamba2/SSD, cross-attention and the
+encoder).
 
 Every architecture is expressed as:
 
     prefix layers (unrolled)  +  R repeats of a layer *unit*
 
 where a unit is the architecture's repeating pattern — 1 layer for dense
-models.  Unit params are stacked on a leading "layers" axis, as in the
+models and DeepSeek-V2 (after its dense prefix layer), [dense, moe] for
+Llama-4.  Unit params are stacked on a leading "layers" axis, as in the
 reference, so the param tree (and the leaves SCBF scores and masks: a
 per-layer bias ``(N,)`` is a 2-D ``(R, N)`` leaf) is the reference's.  The
 reference's ``lax.scan`` over the repeats is a Python loop over ``R``
@@ -16,8 +18,8 @@ under ``torch.utils.checkpoint`` (the backward recomputes the unit's
 activations), which changes no result.
 
 Caches mirror the param structure: a tree per unit, stacked on the same
-leading axis.  Mamba, MoE, cross-attention layers and the encoder are
-ROADMAP A14b.
+leading axis.  Mamba, cross-attention layers and the encoder are ROADMAP
+A14b.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import (DTYPES, dense_init, device_of, merge,
                                        norm_init, stack_inits, trunc_normal)
 from repro_torch.models.layers import ModelCtx
@@ -77,8 +80,6 @@ def unit_pattern(cfg: ArchConfig) -> Tuple[List[LayerSpec], List[LayerSpec], int
 def _refuse(spec: LayerSpec) -> None:
     if spec.kind != "attn":
         raise NotImplementedError(f"Mamba2/SSD layers are {A14B}")
-    if spec.moe:
-        raise NotImplementedError(f"MoE layers are {A14B}")
     if spec.cross:
         raise NotImplementedError(f"cross-attention layers are {A14B}")
 
@@ -98,7 +99,8 @@ def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype):
     if cfg.d_ff:
         pairs.append(("norm2", norm_init(cfg.d_model, dtype, bias=ln,
                                          device=dev)))
-        pairs.append(("mlp", L.mlp_init(gen, cfg, dtype)))
+        pairs.append(("moe", MOE.moe_init(gen, cfg, dtype)) if spec.moe
+                     else ("mlp", L.mlp_init(gen, cfg, dtype)))
     return merge(*pairs)
 
 
@@ -164,9 +166,12 @@ def _layer_forward(lp, spec: LayerSpec, h, ctx: ModelCtx, positions,
     h = h + a
     if c is not None:
         new_cache["attn"] = c
-    if "mlp" in lp:
+    if "mlp" in lp or "moe" in lp:
         xin = L.norm_apply(lp["norm2"], h, cfg.norm)
-        h = h + L.mlp_apply(lp["mlp"], xin, ctx)
+        if "moe" in lp:
+            h = h + MOE.moe_apply(lp["moe"], xin, ctx)
+        else:
+            h = h + L.mlp_apply(lp["mlp"], xin, ctx)
     return h, (new_cache or None)
 
 

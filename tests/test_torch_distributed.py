@@ -228,12 +228,11 @@ def test_a_tree_past_max_leaves_is_masked_in_groups(monkeypatch):
                                   np.asarray(want[name]))
 
 
-def _lm_pair(dtype):
+def _lm_pair(dtype, arch="qwen2-0.5b"):
     ref_cfg = dataclasses.replace(
-        ref_configs.smoke_variant(ref_configs.get("qwen2-0.5b")), dtype=dtype)
+        ref_configs.smoke_variant(ref_configs.get(arch)), dtype=dtype)
     port_cfg = dataclasses.replace(
-        port_configs.smoke_variant(port_configs.get("qwen2-0.5b")),
-        dtype=dtype)
+        port_configs.smoke_variant(port_configs.get(arch)), dtype=dtype)
     rb = ref_zoo.build(ref_cfg)
     pb = port_zoo.build(port_cfg, device="cpu")
     rp, _ = rb.init(jax.random.PRNGKey(0))
@@ -258,7 +257,24 @@ def test_federated_lm_step_two_steps(dtype):
     a leaf the reference left unchanged unchanged, and the output channels
     each ≥2-D leaf's update touched — the mask — equal (fp32), or equal
     but for 1% of a leaf's channels (bf16, whose scores tie more)."""
-    rb, pb, rp, pp = _lm_pair(dtype)
+    _two_federated_steps("qwen2-0.5b", dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_federated_moe_step_two_steps(dtype):
+    """The same two steps on the smoke deepseek-v2 (MLA, a dense prefix
+    layer and an MoE layer of top-2 of 4 routed experts plus a shared
+    one): 22 scored leaves, in bf16 the router fp32 among bf16 leaves, so
+    a step's K1 and K2 run over leaf tables of each dtype.  The same
+    tolerances as qwen2-0.5b's but for the bf16 mask, which may differ in
+    1% of all the tree's scored channels rather than of each leaf's: its
+    first layers' leaves (192 to 512 channels) each flip up to 5 channels
+    whose bf16 scores lie at the threshold."""
+    _two_federated_steps("deepseek-v2-236b", dtype, flips_per_leaf=False)
+
+
+def _two_federated_steps(arch, dtype, flips_per_leaf=True):
+    rb, pb, rp, pp = _lm_pair(dtype, arch)
     init = [np.asarray(a, np.float32).astype(np.float64)
             for a in jax.tree_util.tree_leaves(rp)]
     K, B, S = 2, 2, 16
@@ -277,7 +293,7 @@ def test_federated_lm_step_two_steps(dtype):
         else:
             assert float(gl) == pytest.approx(float(wl), rel=2e-2)
     rel = 5e-5 if dtype == "float32" else 0.25
-    partial = 0
+    partial = flips = channels = 0
     for a, b, p0 in zip(jax.tree_util.tree_leaves(rp),
                         tree_leaves(to_numpy_tree(pp)), init):
         assert b.dtype == np.float32
@@ -293,16 +309,22 @@ def test_federated_lm_step_two_steps(dtype):
         assert np.linalg.norm(got - want) <= rel * norm
         if want.ndim >= 2:
             cols, got_cols = _updated_columns(want), _updated_columns(got)
-            flips = int(np.count_nonzero(cols != got_cols))
-            assert flips <= (0 if dtype == "float32" else cols.size // 100)
+            leaf_flips = int(np.count_nonzero(cols != got_cols))
+            if flips_per_leaf or dtype == "float32":
+                assert leaf_flips <= (0 if dtype == "float32"
+                                      else cols.size // 100)
+            flips += leaf_flips
+            channels += cols.size
             partial += int(0 < np.count_nonzero(cols) < cols.size)
+    assert flips <= channels // 100
     # the mask left channels out, so the column check checked a mask; and
     # the update stands well above the fp32 params' absolute tolerance
     assert partial >= 5
     assert max(np.abs(np.asarray(a, np.float32) - p0).max() for a, p0 in
                zip(jax.tree_util.tree_leaves(rp), init)) > 1e3 * 1e-5
-    assert all(t.dtype == torch.float32 if dtype == "float32"
-               else t.dtype == torch.bfloat16 for t in tree_leaves(pp))
+    assert [t.dtype for t in tree_leaves(pp)] == [
+        torch.float32 if a.dtype == np.float32 else torch.bfloat16
+        for a in jax.tree_util.tree_leaves(rp)]
 
 
 def _quad_loss_ref(params, batch):
@@ -462,3 +484,111 @@ def test_tree_map_walks_in_flatten_order():
     new = apply_updates(tree, upd)
     assert torch.equal(new["b"]["a"][0], tree["b"]["a"][0])
     assert torch.equal(new["a"], tree["a"] + 1)
+
+
+def _tree_grads(arch, dtype, k_clients=2):
+    """The smoke model's params and a (K, ...) gradient tree of K clients
+    (random batches), through ``client_gradients``."""
+    _, pb, _, pp = _lm_pair(dtype, arch)
+    nb = port_tokens.synthetic_lm_batch(k_clients * 2, 16, pb.cfg.vocab_size,
+                                        0)
+    batch = {k: torch.from_numpy(v).reshape(k_clients, 2, 16)
+             for k, v in nb.items()}
+    return pb, pp, batch, port_dist.client_gradients(pb.loss_fn, pp,
+                                                     batch)[1]
+
+
+def _count_tables(monkeypatch):
+    """Record each K1 and K2 call's leaf dtypes (the wrappers as
+    ``core.channels`` calls them)."""
+    calls = {"norms": [], "masks": []}
+    norms, masks = port_ch.channel_norms_leaves, port_ch.select_mask_leaves
+
+    def count_norms(gs):
+        calls["norms"].append([g.dtype for g in gs])
+        return norms(gs)
+
+    def count_masks(ls, **kw):
+        calls["masks"].append([leaf[0].dtype for leaf in ls])
+        return masks(ls, **kw)
+
+    monkeypatch.setattr(port_ch, "channel_norms_leaves", count_norms)
+    monkeypatch.setattr(port_ch, "select_mask_leaves", count_masks)
+    return calls
+
+
+def test_leaf_tables_hold_one_dtype(monkeypatch):
+    """A tree of mixed dtypes: the smoke deepseek-v2 in bf16 has 21 bf16
+    scored leaves and the fp32 router (K1 and K2 take one dtype a launch
+    on the card); every table handed to K1 and K2 holds one dtype —
+    the bf16 leaves in tree order as 16 + 5, then the router — and each
+    client's masks and fraction are those of the reference's
+    ``apply_factored_mask`` given the port's scores' threshold, leaf for
+    leaf as the port's own one-client masking gives them."""
+    _, _, _, grads_k = _tree_grads("deepseek-v2-236b", "bfloat16")
+    leaves = tree_leaves(grads_k)
+    assert sum(t.ndim >= 3 for t in leaves) == 22
+    assert [t.dtype for t in leaves if t.ndim >= 3].count(torch.float32) == 1
+    calls = _count_tables(monkeypatch)
+    masked, frac = port_ch.apply_factored_mask_slots(grads_k, 0.1)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert calls == {"norms": [[bf] * 16, [bf] * 5, [f32]],
+                     "masks": [[bf] * 16, [bf] * 5, [f32]]}
+    # the same masks, client by client, as a one-client tree
+    for k in range(2):
+        one, f1 = port_ch.apply_factored_mask(
+            tree_unflatten(grads_k, [t[k] for t in leaves]), 0.1)
+        assert torch.equal(f1, frac[k])
+        assert all(torch.equal(a, b[k]) for a, b in
+                   zip(tree_leaves(one), tree_leaves(masked)))
+
+
+def test_single_dtype_trees_keep_their_tables(monkeypatch):
+    """Grouping by dtype leaves a one-dtype tree's tables as
+    ``leaf_tables`` cuts them: qwen2-0.5b's 14 leaves in one table, the
+    fp32 deepseek-v2's 22 as 16 + 6."""
+    for arch, dtype, sizes in (("qwen2-0.5b", "bfloat16", [14]),
+                               ("deepseek-v2-236b", "float32", [16, 6])):
+        _, _, _, grads_k = _tree_grads(arch, dtype)
+        calls = _count_tables(monkeypatch)
+        port_ch.apply_factored_mask_slots(grads_k, 0.1)
+        assert [len(c) for c in calls["norms"]] == sizes
+        assert [len(c) for c in calls["masks"]] == sizes
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen2-0.5b", "bfloat16"),
+                                        ("qwen2-0.5b", "float32"),
+                                        ("deepseek-v2-236b", "bfloat16")])
+def test_step_is_bitwise_the_unfused_sum_and_update(arch, dtype):
+    """The step changes only where it keeps its buffers: K2 masks the
+    gradients in place and the sum and SGD update run leaf by leaf.  The
+    new params are bitwise those of the out-of-place composition — masks
+    into new tensors, every leaf summed, then ``sgd_update`` — from the
+    same gradients."""
+    pb, pp, batch, grads_k = _tree_grads(arch, dtype)
+    masked, _ = port_ch.apply_factored_mask_slots(
+        tree_unflatten(grads_k, [t.clone() for t in tree_leaves(grads_k)]),
+        0.1)
+    summed = tree_unflatten(masked, [torch.sum(t, axis=0)
+                                     for t in tree_leaves(masked)])
+    want = port_zoo.sgd_update(pp, summed, 0.05)
+    loss, got = port_dist.make_federated_train_step(
+        pb.loss_fn, ScbfConfig(upload_rate=0.1), lr=0.05)(pp, batch)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(want),
+                                                 tree_leaves(got)))
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(pp),
+                                                     tree_leaves(got)))
+
+
+def test_in_place_masking_is_the_out_of_place_one():
+    """``in_place`` writes each scored leaf's masked values over the leaf:
+    the same values and fraction as the out-of-place pass, in the leaves
+    handed in; the unscored leaves are passed through."""
+    _, _, _, grads_k = _tree_grads("deepseek-v2-236b", "bfloat16")
+    leaves = tree_leaves(grads_k)
+    copy = tree_unflatten(grads_k, [t.clone() for t in leaves])
+    want, wf = port_ch.apply_factored_mask_slots(copy, 0.1)
+    got, gf = port_ch.apply_factored_mask_slots(grads_k, 0.1, in_place=True)
+    assert torch.equal(wf, gf)
+    for a, b, leaf in zip(tree_leaves(want), tree_leaves(got), leaves):
+        assert torch.equal(a, b) and b.data_ptr() == leaf.data_ptr()

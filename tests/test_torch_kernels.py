@@ -347,16 +347,103 @@ def test_compact_leaves_cpu_route_matches_plain_and_pallas(dtype, rest,
 
 
 def test_select_mask_refuses_int32_overflow():
+    """K3's flat indices are int32, so its count pass refuses a table that
+    holds a matrix of 2^31 entries; K2's wrapper masks one as row blocks
+    instead (``MAX_ENTRIES``), so it passes the size check and stops only
+    at the meta device."""
     big = torch.empty(2 ** 16, 2 ** 15, device="meta")    # no storage
     with pytest.raises(ValueError, match="2\\^31"):
+        sm.compact_count([(torch.zeros(2, 2), torch.zeros(2),
+                           torch.zeros(2), 0.0, 0.0),
+                          (big, torch.zeros(2 ** 16, device="meta"),
+                           torch.zeros(2 ** 15, device="meta"), 0.0, 0.0)])
+    assert big.numel() == sm.MAX_ENTRIES
+    with pytest.raises(ValueError, match="cpu or cuda, not meta"):
         sm.select_mask(big, torch.zeros(2 ** 16, device="meta"),
                        torch.zeros(2 ** 15, device="meta"), 0.0)
-    with pytest.raises(ValueError, match="2\\^31"):
-        sm.select_mask_leaves([(torch.zeros(2, 2), torch.zeros(2),
-                                torch.zeros(2), 0.0, 0.0),
-                               (big, torch.zeros(2 ** 16, device="meta"),
-                                torch.zeros(2 ** 15, device="meta"), 0.0,
-                                0.0)])
+
+
+def _slot_table(dtype, seed):
+    """A table of a small matrix and two slot-stacked leaves (3 slots of
+    (37, 20) with rows a slot, 2 slots of (45, 12) with shared rows),
+    thresholds a slot at a quantile of the pair sums, rest 0.37."""
+    rng = np.random.default_rng(seed)
+    td = DTYPES[dtype][1]
+    leaves = []
+    for slots, m, n, shared in ((0, 7, 9, True), (3, 37, 20, False),
+                                (2, 45, 12, True)):
+        lead = (slots,) if slots else ()
+        g = torch.from_numpy(rng.standard_normal(lead + (m, n)).astype(
+            np.float32)).to(td)
+        row = torch.from_numpy(rng.random((m,) if shared else lead + (m,))
+                               .astype(np.float32))
+        col = torch.from_numpy(rng.random(lead + (n,)).astype(np.float32))
+        thr = torch.full(lead, 0.9, dtype=torch.float32)
+        leaves.append((g, row, col, thr, torch.tensor(0.37)))
+    return leaves
+
+
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("limit", [64, 200, 500])
+def test_select_mask_splits_a_matrix_past_max_entries(monkeypatch, limit,
+                                                      dtype, masks):
+    """A matrix of ``MAX_ENTRIES`` or more entries (lowered here) is masked
+    as row blocks of the same columns, a block a matrix of the launch: the
+    values, masks and counts (a block's counts summed to its (leaf, slot))
+    are bitwise the unsplit launch's, slot-stacked leaves and shared rows
+    included (the counts int64: a split matrix may keep more than 2^31
+    entries); the blocks past ``MAX_LEAVES`` go to further launches."""
+    leaves = _slot_table(dtype, 40)
+    want = sm.select_mask_leaves(leaves, masks=masks)
+    calls = []
+    real = sm._mask_table
+    monkeypatch.setattr(sm, "_mask_table",
+                        lambda ls, *a: calls.append(len(ls)) or real(ls, *a))
+    monkeypatch.setattr(sm, "MAX_ENTRIES", limit)
+    got = sm.select_mask_leaves(leaves, masks=masks)
+    blocks = sum(-(-m // ((limit - 1) // n)) * s for s, m, n in
+                 ((1, 7, 9), (3, 37, 20), (2, 45, 12)) if m * n >= limit) \
+        + sum(1 for m, n in ((7, 9), (37, 20), (45, 12)) if m * n < limit)
+    assert sum(calls) == blocks and max(calls) <= sm.MAX_LEAVES
+    assert len(calls) == -(-blocks // sm.MAX_LEAVES)
+    split = any(m * n >= limit for m, n in ((7, 9), (37, 20), (45, 12)))
+    assert got[2].dtype == (torch.int64 if split else torch.int32)
+    assert torch.equal(got[2], want[2].to(got[2].dtype))
+    for a, b in zip(want[0], got[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(want[1], got[1]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_select_mask_writes_into_out(monkeypatch, dtype, split):
+    """``out=`` takes g̃: into other tensors, or over g itself (in place),
+    the values bitwise those of a fresh output, the counts and masks
+    unchanged, split or not; a misshapen ``out`` is refused."""
+    if split:
+        monkeypatch.setattr(sm, "MAX_ENTRIES", 100)
+    leaves = _slot_table(dtype, 41)
+    want = sm.select_mask_leaves(leaves)
+    into = [torch.full_like(leaf[0], 7.0) for leaf in leaves]
+    got = sm.select_mask_leaves(leaves, out=into)
+    assert all(a is b for a, b in zip(got[0], into))
+    copies = [(leaf[0].clone(),) + leaf[1:] for leaf in leaves]
+    inplace = sm.select_mask_leaves(copies, masks=False,
+                                    out=[c[0] for c in copies])
+    for w, g, i, c in zip(want[0], got[0], inplace[0], copies):
+        assert torch.equal(w, g) and torch.equal(w, i)
+        assert torch.equal(w, c[0])
+    assert torch.equal(want[2], got[2]) and torch.equal(want[2], inplace[2])
+    assert got[2].dtype == (torch.int64 if split else torch.int32)
+    assert all(torch.equal(a, b) for a, b in zip(want[1], got[1]))
+    with pytest.raises(ValueError, match="out="):
+        sm.select_mask_leaves(leaves, out=into[:1])
+    with pytest.raises(ValueError, match="out="):
+        sm.select_mask_leaves(leaves, out=[o.float() if o.dtype ==
+                                           torch.bfloat16 else o.double()
+                                           for o in into])
 
 
 def test_leaf_tables_refuse_what_a_launch_does_not_take():

@@ -250,3 +250,53 @@ def test_serve_examples_pass_their_flags(monkeypatch):
     assert all(c[2] == "repro_torch.launch.serve" and
                c[-2:] == ["--device", "cpu"] and
                c[c.index("--gen") + 1] == "3" for c in calls)
+
+
+MOE_ARCHS = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_runs_the_moe_archs(monkeypatch, capsys, arch):
+    """``--arch deepseek-v2-236b`` (MLA's latent cache, MoE) and
+    ``--arch llama4-maverick-400b-a17b`` serve with no refusal: the
+    reference's four lines, ids in [0, V), greedy ids the argmax of their
+    logits."""
+    import re
+
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--gen", "4", "--batch", "2",
+            "--prompt-len", "8"]
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.serve", argv)
+    res = serve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 4
+    assert got[0] == want[0] == f"arch={arch} batch=2 prompt=8 gen=4"
+    assert re.match(r"decode:  \d+\.\d ms \(\d+ tok/s\)", got[2])
+    assert res.tokens.shape == (2, 4) and len(res.logits) == 4
+    assert 0 <= int(res.tokens.min()) and int(res.tokens.max()) < 512
+    assert torch_equal_greedy(res)
+
+
+def test_lm_mode_trains_deepseek_v2(monkeypatch, capsys):
+    """``--mode lm --arch deepseek-v2-236b`` takes SCBF's federated step
+    (the smoke variant's bf16 leaves and fp32 router) with no refusal:
+    the reference's ``step … loss …`` lines, a loss near the
+    reference's."""
+    import re
+
+    import torch
+
+    from repro_torch.launch import train
+
+    argv = ["--mode", "lm", "--arch", "deepseek-v2-236b", "--steps", "2",
+            "--clients", "2"]
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.train", argv)
+    params = train.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert re.fullmatch(STEP_LINE, g) and re.fullmatch(STEP_LINE, w)
+        assert abs(float(g.split()[3]) - float(w.split()[3])) < 0.05
+    assert params["stack"]["l0"]["moe"]["router"]["w"].dtype == \
+        torch.float32

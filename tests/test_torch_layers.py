@@ -3,6 +3,7 @@ the reference's (``repro.models.layers``) on the CPU, in fp32, from the
 same numpy inputs: every output within 1e-5 (int8 cache values exact)."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -249,7 +250,101 @@ def test_mlp_apply(activation):
            PL.mlp_apply(from_numpy_tree(p, "cpu"), _t(x), pctx))
 
 
-def test_mla_is_refused_naming_a14b():
-    _, port = _cfgs("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="A14b"):
-        PL.mla_init(None, port, torch.float32)
+def _mla_params(rng, cfg):
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    return {name: {"w": _rand(rng, fin, fout, scale=fin ** -0.5)}
+            for name, (fin, fout) in {"q": (D, H * (hd + rd)),
+                                      "kv_down": (D, r + rd),
+                                      "kv_up": (r, H * 2 * hd),
+                                      "o": (H * hd, D)}.items()}
+
+
+def test_mla_init_is_the_references_tree():
+    """MLA's four projections: the reference's names, shapes and axes."""
+    rctx, pctx = _ctxs("deepseek-v2-236b")
+    rp, ra = RL.mla_init(jax.random.PRNGKey(0), rctx.cfg, jnp.float32)
+    pp, pa = PL.mla_init(torch.Generator().manual_seed(0), pctx.cfg,
+                         torch.float32)
+    assert pa == ra
+    assert {k: tuple(v["w"].shape) for k, v in pp.items()} == \
+        {k: tuple(v["w"].shape) for k, v in rp.items()}
+    assert all(v["w"].dtype == torch.float32 for v in pp.values())
+
+
+@pytest.mark.parametrize("q_chunk", [512, 8, 4])
+def test_mla_train_forward(q_chunk):
+    """A cache-less MLA forward of 16 tokens, unchunked and query-chunked
+    (chunks of 8 and 4: the checkpointed path while autograd records),
+    within 1e-5 of the reference's; its gradients (to the params and the
+    input) within 1e-5 of the reference's too, relative to the largest
+    entry where that is above 1."""
+    rctx, pctx = _ctxs("deepseek-v2-236b", q_chunk=q_chunk)
+    rng = np.random.default_rng(8)
+    p = _mla_params(rng, pctx.cfg)
+    x = _rand(rng, 2, 16, pctx.cfg.d_model)
+    pos = np.arange(16, dtype=np.int32)[None].repeat(2, 0)
+    cot = _rand(rng, 2, 16, pctx.cfg.d_model)
+
+    def ref_loss(params, xx):
+        y, _ = RL.mla_apply(params, xx, rctx, jnp.asarray(pos))
+        return jnp.sum(y * jnp.asarray(cot)), y
+
+    (_, want), (gp, gx) = jax.value_and_grad(ref_loss, argnums=(0, 1),
+                                             has_aux=True)(
+        _jnp_tree(p), jnp.asarray(x))
+    pp = from_numpy_tree(p, "cpu")
+    leaves = [pp[k]["w"].requires_grad_() for k in sorted(pp)]
+    xt = _t(x).requires_grad_()
+    got, cache = PL.mla_apply(pp, xt, pctx, _t(pos))
+    assert cache is None
+    _close(want, got)
+    grads = torch.autograd.grad(torch.sum(got * _t(cot)), leaves + [xt])
+    for k, g in zip(sorted(pp), grads):
+        scale = max(1.0, float(np.abs(gp[k]["w"]).max()))
+        _close(gp[k]["w"], g, tol=TOL * scale)
+    _close(gx, grads[-1])
+
+
+def test_mla_chunked_equals_unchunked():
+    """The chunked prefill is the unchunked one within fp32 rounding."""
+    _, whole = _ctxs("deepseek-v2-236b", q_chunk=512)
+    _, chunked = _ctxs("deepseek-v2-236b", q_chunk=4)
+    rng = np.random.default_rng(9)
+    pp = from_numpy_tree(_mla_params(rng, whole.cfg), "cpu")
+    x = _t(_rand(rng, 2, 16, whole.cfg.d_model))
+    pos = torch.arange(16, dtype=torch.int32)[None].expand(2, 16)
+    with torch.no_grad():
+        a, _ = PL.mla_apply(pp, x, whole, pos)
+        b, _ = PL.mla_apply(pp, x, chunked, pos)
+    _close(a.numpy(), b)
+
+
+def test_mla_prefill_then_decode_with_ring_wrap():
+    """Prefill 7 tokens into a latent cache of 9 slots, then decode 6
+    more one at a time: the ring wraps at position 9; every output and
+    the cache (ckv, krope within 1e-5, kpos exact) are the reference's,
+    and the cache holds the last 9 positions."""
+    rctx, pctx = _ctxs("deepseek-v2-236b")
+    cfg = pctx.cfg
+    rng = np.random.default_rng(10)
+    p = _mla_params(rng, cfg)
+    rp, pp = _jnp_tree(p), from_numpy_tree(p, "cpu")
+    B, T = 2, 9
+    rc = RL.mla_cache_init(rctx.cfg, B, T, jnp.float32)
+    pc = PL.mla_cache_init(cfg, B, T, torch.float32, "cpu")
+    assert {k: (tuple(v.shape), np.dtype(v.dtype).name)
+            for k, v in rc.items()} == \
+        {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+         for k, v in pc.items()}
+    x = _rand(rng, B, 13, cfg.d_model)
+    for a, b in [(0, 7)] + [(t, t + 1) for t in range(7, 13)]:
+        pos = np.arange(a, b, dtype=np.int32)[None].repeat(B, 0)
+        want, rc = RL.mla_apply(rp, jnp.asarray(x[:, a:b]), rctx,
+                                jnp.asarray(pos), cache=rc)
+        got, pc = PL.mla_apply(pp, _t(x[:, a:b]), pctx, _t(pos), cache=pc)
+        _close(want, got)
+        assert np.array_equal(np.asarray(rc["kpos"]), pc["kpos"].numpy())
+        _close(rc["ckv"], pc["ckv"])
+        _close(rc["krope"], pc["krope"])
+    assert sorted(pc["kpos"][0].tolist()) == list(range(4, 13))

@@ -1,5 +1,6 @@
-"""The port's dense LM zoo (``repro_torch.models``: transformer and
-model_zoo, ``configs``) against the reference's on the CPU, with the
+"""The port's LM zoo (``repro_torch.models``: transformer and model_zoo,
+``configs``) against the reference's on the CPU — the dense models and
+the MoE ones (deepseek-v2 with MLA, llama4-maverick) — with the
 reference's initial params carried across (``params.from_numpy_tree``):
 param trees equal in paths, shapes and dtypes; losses within 1e-5 in fp32
 and 2e-2 relative in bf16; prefill and decode logits within 2e-4 in fp32
@@ -25,7 +26,11 @@ from repro_torch.params import (from_numpy_tree, to_numpy_tree, tree_leaves,
 
 DENSE = [n for n in ref_configs.ASSIGNED
          if ref_configs.get(n).family == "dense"]
-OTHERS = [n for n in ref_configs.ASSIGNED if n not in DENSE]
+MOE = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]
+OTHERS = [n for n in ref_configs.ASSIGNED if n not in DENSE + MOE]
+# the reference's smoke tests route MoE without drops when they compare a
+# decode with a cache-less forward (tests/test_models_smoke.py)
+NO_DROPS = {"moe_capacity_factor": 8.0}
 
 
 def _cfgs(arch, **kw):
@@ -47,9 +52,9 @@ def _port_paths(tree):
             for p, t in tree_paths(tree)]
 
 
-def _pair(arch, dtype="float32", **build_kw):
+def _pair(arch, dtype="float32", cfg_kw=None, **build_kw):
     """(ref bundle, port bundle, ref params, the same params in torch)."""
-    ref_cfg, port_cfg = _cfgs(arch, dtype=dtype)
+    ref_cfg, port_cfg = _cfgs(arch, dtype=dtype, **(cfg_kw or {}))
     rb = ref_zoo.build(ref_cfg, **build_kw)
     pb = port_zoo.build(port_cfg, device="cpu", **build_kw)
     rp, _ = rb.init(jax.random.PRNGKey(0))
@@ -78,7 +83,7 @@ def test_configs_are_the_references():
         port_configs.get("gpt-5")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_tree_is_the_references(arch):
     """Paths, shapes and dtypes of the smoke variant's params and axes,
     in flatten order (the stacked layer leaves included)."""
@@ -107,11 +112,38 @@ def test_full_width_qwen2_shapes_on_meta():
         ref_cfg.param_count() == 630_167_424
 
 
+@pytest.mark.parametrize("arch,depth,params,leaves,scored", [
+    ("deepseek-v2-236b", 2, 5_353_956_352, 25, 22),
+    ("llama4-maverick-400b-a17b", 2, 18_553_267_200, 25, 24),
+])
+def test_full_width_moe_shapes_on_meta(arch, depth, params, leaves, scored):
+    """The MoE models at full width, cut to one period of their layer
+    pattern (deepseek-v2: the dense prefix layer and one MoE layer;
+    llama4: [dense, moe]), on the meta device against the reference's
+    ``jax.eval_shape``: the tree, the parameter count, the scored leaves
+    (ndim >= 2) and the one fp32 leaf, the router."""
+    ref_cfg = dataclasses.replace(ref_configs.get(arch), num_layers=depth)
+    port_cfg = dataclasses.replace(port_configs.get(arch), num_layers=depth)
+    shapes = jax.eval_shape(
+        lambda k: ref_zoo.build(ref_cfg).init(k)[0], jax.random.PRNGKey(0))
+    tree, _ = PT.init_model(port_cfg, None)
+    assert _port_paths(tree) == _ref_paths(shapes)
+    got = tree_paths(tree)
+    assert len(got) == leaves and sum(t.ndim >= 2 for _, t in got) == scored
+    assert [p for p, t in got if t.dtype == torch.float32] == [
+        ("stack", "l0" if arch.startswith("deepseek") else "l1", "moe",
+         "router", "w")]
+    assert sum(t.numel() for _, t in got) == port_cfg.param_count() == \
+        ref_cfg.param_count() == params
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b"] + MOE)
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("kv_quant", [False, True])
-def test_input_specs_are_the_references(shape, kv_quant):
-    ref_cfg, port_cfg = ref_configs.get("qwen2-0.5b"), \
-        port_configs.get("qwen2-0.5b")
+def test_input_specs_are_the_references(arch, shape, kv_quant):
+    """Batches and cache trees at the assigned shapes (MLA's latent cache
+    whether or not ``kv_quant`` is asked)."""
+    ref_cfg, port_cfg = ref_configs.get(arch), port_configs.get(arch)
     want = ref_zoo.build(ref_cfg, kv_quant=kv_quant).input_specs(
         REF_SHAPES[shape])
     got = port_zoo.build(port_cfg, device="cpu", kv_quant=kv_quant
@@ -120,7 +152,7 @@ def test_input_specs_are_the_references(shape, kv_quant):
     assert all(t.device.type == "meta" for t in tree_leaves(got))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
                                         ("bfloat16", 2e-2)])
 def test_loss_fn(arch, dtype, rtol):
@@ -168,14 +200,16 @@ def test_remat_changes_no_gradient():
                for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
 
 
-@pytest.mark.parametrize("arch,kv_quant", [(a, False) for a in DENSE] +
-                         [("qwen2-0.5b", True)])
+@pytest.mark.parametrize("arch,kv_quant", [(a, False) for a in DENSE + MOE]
+                         + [("qwen2-0.5b", True), ("deepseek-v2-236b", True)])
 def test_prefill_then_decode(arch, kv_quant):
     """Prefill 8 tokens into fresh caches of 10 slots, then 4 decode steps
     (the ring wraps at position 10): logits within 2e-4 of the
     reference's, greedy tokens equal, and (without int8, before the wrap)
-    the port's own cache-less forward within 2e-4."""
-    rb, pb, rp, pp = _pair(arch, kv_quant=kv_quant, remat=False)
+    the port's own cache-less forward within 2e-4 (MoE without drops, as
+    the reference's smoke test; MLA's latent cache is not quantized)."""
+    rb, pb, rp, pp = _pair(arch, kv_quant=kv_quant, remat=False,
+                           cfg_kw=NO_DROPS if arch in MOE else None)
     toks = _tokens(pb.cfg, 2, 12)
     wl, wc = rb.prefill_step(rp, {"tokens": jnp.asarray(toks[:, :8]),
                                   "caches": rb.make_cache(2, 10)})
@@ -197,15 +231,16 @@ def test_prefill_then_decode(arch, kv_quant):
                                    rtol=0)
         assert np.array_equal(np.argmax(np.asarray(w), -1),
                               torch.argmax(g, -1).numpy())
-        if not kv_quant and t < 10:
+        if (not kv_quant or pb.cfg.use_mla) and t < 10:
             np.testing.assert_allclose(g.numpy(), full[:, t].numpy(),
                                        atol=2e-4, rtol=0)
 
 
-def test_query_chunked_prefill():
-    """A prefill of 16 tokens at ``q_chunk`` 8 takes the chunked path and
-    gives the reference's logits and caches."""
-    rb, pb, rp, pp = _pair("qwen2-0.5b", q_chunk=8, remat=False)
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-v2-236b"])
+def test_query_chunked_prefill(arch):
+    """A prefill of 16 tokens at ``q_chunk`` 8 takes the chunked path (GQA,
+    or MLA's) and gives the reference's logits and caches."""
+    rb, pb, rp, pp = _pair(arch, q_chunk=8, remat=False)
     toks = _tokens(pb.cfg, 2, 16)
     wl, wc = rb.prefill_step(rp, {"tokens": jnp.asarray(toks),
                                   "caches": rb.make_cache(2, 16)})
@@ -260,6 +295,46 @@ def test_prefix_layers_forward_like_the_reference():
     assert got == pytest.approx(want, rel=1e-5)
 
 
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("groups", [1, 2])
+def test_moe_capacity_and_groups_through_build(arch, groups):
+    """``build(moe_groups=)`` routes as the reference's, at the published
+    capacity factor (1.25, where 2 x 16 tokens may drop), loss and
+    gradients: the loss within 1e-5 and one SGD step's params too;
+    ``moe_dshard`` changes nothing on one device."""
+    rb, pb, rp, pp = _pair(arch, moe_groups=groups)
+    toks, tgts = _tokens(pb.cfg, 2, 16), _tokens(pb.cfg, 2, 16, seed=2)
+    wl, wp = rb.train_step(rp, {"tokens": jnp.asarray(toks),
+                                "targets": jnp.asarray(tgts)}, 0.1)
+    gl, gp = pb.train_step(pp, {"tokens": torch.from_numpy(toks),
+                                "targets": torch.from_numpy(tgts)}, 0.1)
+    assert float(gl) == pytest.approx(float(wl), rel=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(wp),
+                    tree_leaves(to_numpy_tree(gp))):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=1e-5, atol=1e-5)
+    shard = port_zoo.build(pb.cfg, moe_groups=groups, moe_dshard=True,
+                           device="cpu")
+    assert torch.equal(
+        shard.loss_fn(pp, {"tokens": torch.from_numpy(toks),
+                           "targets": torch.from_numpy(tgts)}), gl)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_from_numpy_tree_keeps_each_leafs_dtype(arch):
+    """The reference's bf16 MoE tree carried across: every leaf keeps its
+    dtype (the fp32 router stays fp32) and its values, exactly."""
+    ref_cfg, _ = _cfgs(arch, dtype="bfloat16")
+    rp, _ = ref_zoo.build(ref_cfg).init(jax.random.PRNGKey(0))
+    tree = from_numpy_tree(jax.tree_util.tree_map(np.asarray, rp), "cpu")
+    want = jax.tree_util.tree_leaves(rp)
+    got = tree_leaves(tree)
+    assert [np.dtype(a.dtype).name for a in want] == \
+        [str(t.dtype).replace("torch.", "") for t in got]
+    assert sum(t.dtype == torch.float32 for t in got) == 1
+    for a, t in zip(want, tree_leaves(to_numpy_tree(tree))):
+        assert np.array_equal(np.asarray(a, np.float32), t)
+
+
 @pytest.mark.parametrize("arch", OTHERS)
 def test_build_refuses_a14b_families(arch):
     _, port_cfg = _cfgs(arch)
@@ -288,3 +363,26 @@ def test_init_draws_from_the_generator():
     assert float(w.abs().max()) <= 2.0 / port_cfg.d_model ** 0.5 + 1e-6
     assert float(w.std()) == pytest.approx(
         0.88 / port_cfg.d_model ** 0.5, rel=0.05)
+
+
+def test_a_large_leaf_is_drawn_in_chunks(monkeypatch):
+    """A leaf of more than ``DRAW_CHUNK`` entries (an MoE expert stack at
+    full width) is drawn ``DRAW_CHUNK`` entries at a time in flat order:
+    the same numbers as drawing the chunks one after another, truncated
+    at two standard deviations; a smaller leaf is drawn at once, as
+    before."""
+    from repro_torch.models import common
+
+    monkeypatch.setattr(common, "DRAW_CHUNK", 1000)
+    got = common.trunc_normal(torch.Generator().manual_seed(3), (50, 60),
+                              0.5, torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    want = torch.cat([common._trunc_normal_draw(gen, (1000,), 0.5,
+                                                torch.bfloat16)
+                      for _ in range(3)]).view(50, 60)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert float(got.abs().max()) <= 1.0
+    small = common.trunc_normal(torch.Generator().manual_seed(3), (20, 50),
+                                0.5, torch.float32)
+    assert torch.equal(small, common._trunc_normal_draw(
+        torch.Generator().manual_seed(3), (20, 50), 0.5, torch.float32))
