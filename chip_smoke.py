@@ -159,7 +159,40 @@ its own failure:
    bitwise), and K1 and K2 timed on each table beside its byte bound.
    Its lines start with ``lm-moe:``; the kernel report adds its launches
    and its timings as ``lm_moe``.
-13. the card line, the kernel report line and the final ok line.
+13. lm-ssm — mamba2-2.7b uncut (64 layers, d_model 2560, 80 SSD heads of
+   64, state 128, chunk 256, vocab 50,280; 2,830,624,256 params, bf16 with
+   fp32 ``A_log`` and ``D_res``, drawn on the card from a seed; the count
+   is the meta-device tree's, ``param_count()`` logged beside it): serving
+   through ``launch.serve.generate`` (batch 4, prompt 32, 32 greedy
+   tokens), the first decode steps (the O(1) recurrence) held against a
+   cache-less forward (the chunked SSD; LM_LOGIT_MAX / LM_LOGIT_MEAN,
+   greedy ids equal), the same check in fp32 at full width logged beside
+   it, and a 1 x 1024 prefill (4 chunks of 256 through the inter-chunk
+   loop) against one chunk of 1024; then 3 federated SCBF steps (5
+   clients x 4 x 64 tokens; K1 and K2 once a leaf table — a bf16 table
+   of 11 leaves and the fp32 one of ``A_log`` and ``D_res`` — from the
+   wrapper counts and, in the second step, from the profiler over its
+   selection; the peak under 60 GB; the third step's tables against the
+   plain versions through ``MoeStepTap``) and one of 5 x 4 x 512 (2
+   chunks of 256, where the reference's gradients are NaN: a finite
+   loss and every gradient leaf finite); a client's gradient profiled
+   (device activity only); K1 and K2 timed a table beside its byte bound.
+   Then jamba-1.5-large at one period of its layer pattern (8 layers: 7
+   Mamba, 1 attention, MoE every other layer) with 8 of its 16 experts
+   (top-2 kept), both cuts stated: 25,816,813,824 params, serving batch
+   4, prompt 32, 8 tokens at 1.25 (routing logged), and at a drop-free
+   capacity its decode against the forward: each row's first routing
+   flip at a router near-tie, the positions before it within the bounds.
+   Its lines start with ``lm-ssm:``; the kernel report adds its launches
+   and timings as ``lm_ssm``.
+14. comm-table — ``benchmarks/torch_table_communication.run(quick=False)``
+   (MLP 2917-256-64-1, one client's upload at α 0.05 … 0.90 positive and
+   0.10 negative): a ``comm-table:`` line a row, K1, K2 and K3's count
+   once a row and K3's scatter once a row with a coo or bitmap weight
+   leaf, every payload the host ``wire.encode`` of its masked delta; the
+   fraction at α 0.10 beside the paper's 0.45 and the 0.98 of a real
+   training delta.
+15. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -171,6 +204,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
@@ -2574,6 +2608,32 @@ def _peak_gb(torch) -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
+def _decode_vs_forward(torch, bundle, params, prompts, res, n: int
+                       ) -> dict:
+    """The first ``n`` logits of a greedy ``generate`` (logits[i] is the
+    prediction at position prompt - 1 + i) against a cache-less forward
+    over the same tokens: the largest |dlogit|, the largest mean |dlogit|
+    of a position, at how many positions the greedy ids are equal, and at
+    how many (row, position) pairs they differ where the forward's top
+    two logits lie more than twice that pair's largest |dlogit| apart
+    (away from a near-tie of the argmax)."""
+    from repro_torch.models import transformer as T
+
+    cfg, prompt = bundle.cfg, prompts.shape[1]
+    seq = torch.cat([prompts, res.tokens[:, :n - 1]], axis=1)
+    with torch.no_grad():
+        h, _ = T.forward_hidden(params, cfg, seq, bundle.ctx)
+        full = T.logits_from_hidden(params, cfg, h)[:, prompt - 1:].float()
+    diffs = (torch.stack(res.logits[:n], 1).float() - full).abs()
+    greedy = torch.argmax(full, -1).to(torch.int32) == res.tokens[:, :n]
+    top2 = torch.topk(full, 2, axis=-1).values
+    tie = top2[..., 0] - top2[..., 1] <= 2 * diffs.amax(-1)
+    return {"logit_max_abs": float(diffs.max()),
+            "logit_mean_abs": float(diffs.mean(axis=(0, 2)).max()),
+            "greedy_agree": int(greedy.all(0).sum()),
+            "greedy_off_tie": int((~greedy & ~tie).sum())}
+
+
 def lm_serve(torch, bundle, params, card: str) -> dict:
     """Serving at full width through ``launch.serve.generate``: a warm-up
     call, the timed batch (greedy), its first decode steps held against a
@@ -2600,19 +2660,8 @@ def lm_serve(torch, bundle, params, card: str) -> dict:
            "decode_tok_s": decoded / res.decode_s,
            "prefill_tok_s": sv["batch"] * sv["prompt"] / res.prefill_s,
            "peak_gb": _peak_gb(torch)}
-    # the first decode steps against a cache-less forward: logits[i] is the
-    # prediction at position prompt - 1 + i
-    seq = torch.cat([prompts, toks[:, :LM_DECODE_CHECKED]], axis=1)
-    with torch.no_grad():
-        h, _ = T.forward_hidden(params, cfg, seq, bundle.ctx)
-        full = T.logits_from_hidden(params, cfg, h).float()
-    diffs = [(res.logits[i].float() - full[:, sv["prompt"] - 1 + i]).abs()
-             for i in range(LM_DECODE_CHECKED + 1)]
-    out["logit_max_abs"] = max(float(d.max()) for d in diffs)
-    out["logit_mean_abs"] = max(float(d.mean()) for d in diffs)
-    out["greedy_agree"] = sum(int(torch.equal(
-        torch.argmax(full[:, sv["prompt"] - 1 + i], -1).to(torch.int32),
-        toks[:, i])) for i in range(LM_DECODE_CHECKED + 1))
+    out.update(_decode_vs_forward(torch, bundle, params, prompts, res,
+                                  LM_DECODE_CHECKED + 1))
     if not (out["logit_max_abs"] <= LM_LOGIT_MAX
             and out["logit_mean_abs"] <= LM_LOGIT_MEAN):
         raise AssertionError(f"lm: decode through the cache against the "
@@ -2755,6 +2804,18 @@ def queued_ms(torch, fn, iters: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[iters // 2]
+
+
+def _host_gb() -> tuple:
+    """(this process's resident GB, the host's available GB), from
+    /proc."""
+    def field(path, key):
+        for line in Path(path).read_text().splitlines():
+            if line.startswith(key):
+                return int(line.split()[1]) * 1024 / 1e9
+        return float("nan")
+    return (field("/proc/self/status", "VmRSS:"),
+            field("/proc/meminfo", "MemAvailable:"))
 
 
 def _free_gb(torch) -> tuple:
@@ -3080,7 +3141,8 @@ def _moe_model(torch, arch: str, card: str):
     return cfg, bundle, params
 
 
-def moe_serve(torch, bundle, params, sv: dict, card: str) -> dict:
+def moe_serve(torch, bundle, params, sv: dict, card: str,
+              tag: str = "lm-moe") -> dict:
     """A warm-up call, the timed batch through ``launch.serve.generate``
     at the published capacity factor, and the same batch again under a
     ``RouteTap`` (the tokens each expert received, the dropped ones)."""
@@ -3095,7 +3157,7 @@ def moe_serve(torch, bundle, params, sv: dict, card: str) -> dict:
     res = generate(bundle, params, prompts, sv["gen"], sv["cache"])
     toks = res.tokens
     if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
-        raise AssertionError(f"lm-moe: token ids outside [0, "
+        raise AssertionError(f"{tag}: token ids outside [0, "
                              f"{cfg.vocab_size})")
     decoded = sv["batch"] * (sv["gen"] - 1)
     out = {"prefill_ms": res.prefill_s * 1e3,
@@ -3106,7 +3168,7 @@ def moe_serve(torch, bundle, params, sv: dict, card: str) -> dict:
     with RouteTap(torch, cfg.num_experts) as tap:
         generate(bundle, params, prompts, sv["gen"], sv["cache"])
     out["routing"] = tap.summary()
-    log(f"lm-moe: serve {cfg.name} batch {sv['batch']} prompt "
+    log(f"{tag}: serve {cfg.name} batch {sv['batch']} prompt "
         f"{sv['prompt']} gen {sv['gen']} cache {sv['cache']} at capacity "
         f"factor {cfg.moe_capacity_factor}: prefill {out['prefill_ms']:.2f}"
         f" ms, decode {out['decode_ms']:.1f} ms ({out['decode_ms_a_step']:.2f}"
@@ -3329,11 +3391,14 @@ class MoeStepTap:
     version on the device before K2 masks the table (rtol LM_K1_RTOL, no
     absolute floor), the table's g copied to the host; each K2 table
     (masked in place) held bitwise against the plain version on that
-    copy, slot by slot, values and counts."""
+    copy, slot by slot, values and counts.  ``clients`` slots a leaf;
+    ``tag`` heads its messages."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, clients: int = MOE_CLIENTS,
+                 tag: str = "lm-moe"):
         from repro_torch.core import channels as ch
         self.torch, self.ch = torch, ch
+        self.clients, self.tag = clients, tag
         self.real_k1, self.real_k2 = ch.channel_norms_leaves, \
             ch.select_mask_leaves
         self.real_mask = ch.apply_factored_mask_slots
@@ -3388,7 +3453,8 @@ class MoeStepTap:
         slots = table[0][0].shape[0]
         for j, (leaf, o, orig) in enumerate(zip(table, outs, copies)):
             if tuple(orig.shape) != tuple(o.shape):
-                raise AssertionError("lm-moe: K1's and K2's tables differ")
+                raise AssertionError(f"{self.tag}: K1's and K2's tables "
+                                     f"differ")
             for s in range(slots):
                 _, row, col, thr, rest = sm.leaf_slot(leaf, s)
                 pout, _, pcnt = sm.select_mask_plain(orig[s].cuda(), row,
@@ -3396,7 +3462,7 @@ class MoeStepTap:
                 if not (torch.equal(o[s], pout) and
                         int(counts[j * slots + s]) == int(pcnt)):
                     raise AssertionError(
-                        f"lm-moe: K2 differs from plain on table "
+                        f"{self.tag}: K2 differs from plain on table "
                         f"{self.k2_tables} leaf {j} slot {s} "
                         f"{tuple(o.shape)}")
                 del pout
@@ -3410,7 +3476,7 @@ class MoeStepTap:
         LM_K1_RTOL."""
         torch, ch = self.torch, self.ch
         # one pool a client: the scores are (leaf, slot) in order
-        k = MOE_CLIENTS
+        k = self.clients
         kc = [torch.stack(self.kcols[i:i + k]) for i in
               range(0, len(self.kcols), k)]
         pc = [torch.stack(self.pcols[i:i + k]) for i in
@@ -3423,7 +3489,7 @@ class MoeStepTap:
             tie = (b - pthr[:, None]).abs() <= \
                 2 * LM_K1_RTOL * pthr.abs()[:, None]
             if bool(torch.any(diff & ~tie)):
-                raise AssertionError("lm-moe: K1's scores keep other "
+                raise AssertionError(f"{self.tag}: K1's scores keep other "
                                      "channels than the plain scores do, "
                                      "away from the threshold")
             flips += int(torch.count_nonzero(diff))
@@ -3432,7 +3498,7 @@ class MoeStepTap:
                 "channel_flips": flips}
 
 
-def moe_time_tables(torch, host, card: str) -> dict:
+def moe_time_tables(torch, host, card: str, tag: str = "lm-moe") -> dict:
     """K1 and K2 timed on each of the step's leaf tables, rebuilt on the
     card from the tap's host copies one table at a time, as the step
     calls them (K2 in place, without masks): CUDA-event ms a call beside
@@ -3483,7 +3549,7 @@ def moe_time_tables(torch, host, card: str) -> dict:
                    "plain_ms": (p1 + p2) / 2, "queued_ms": queued,
                    "bound_ms": bound, "bound_by": by}
             out[name].append(row)
-            log(f"lm-moe: {name} on leaf table {t} ({len(mats)} leaves x "
+            log(f"{tag}: {name} on leaf table {t} ({len(mats)} leaves x "
                 f"{k} clients, {entries:,} {mats[0].dtype} entries): one "
                 f"launch {queued:.4f} ms by events ({bound / queued:.1%} of "
                 f"the bound), {row['ms']:.3f} ms a call, plain "
@@ -3616,6 +3682,636 @@ def phase_lm_moe(torch, card: str) -> dict:
             "launches": deepseek["launches"], "timing": deepseek["timing"]}
 
 
+# the lm-ssm phase: mamba2-2.7b uncut and one period of jamba-1.5-large at
+# the published widths, bf16, random weights from a seed
+SSM_ARCH = "mamba2-2.7b"
+SSM_SERVE = dict(batch=4, prompt=32, gen=32, cache=128)
+SSM_STEPS = 3                         # cold, profiled selection, checked
+SSM_LONG_SEQ = 512                    # one more step: 2 SSD chunks of 256
+SSM_TABLES = 2                        # a bf16 leaf table and an fp32 one
+SELECTION_IDLE_S = 1.0                # host idle before a profiled selection
+SSM_PEAK_GB = 60.0
+# mamba2's decode against a cache-less forward.  In fp32 at full width the
+# two paths agree to 1.37e-4 max / 2.0e-5 mean |dlogit| (H100 run, greedy
+# ids equal), so the gate there is the algorithm's.  In bf16 every one of
+# the 64 layers rounds its output and the residual stream, and the two
+# paths round different sums: 0.357 max / 0.058 mean in the same run, past
+# LM_LOGIT_MAX / LM_LOGIT_MEAN; two bf16 forwards that differ only in the
+# SSD's chunking (4 chunks of 256 against one of 1024) differ by 0.398 on
+# one prompt.  So bf16 is held to that noise, with room, and its greedy
+# ids to the forward's but at a near-tie of the top two logits.
+SSM_FP32_LOGIT_MAX, SSM_FP32_LOGIT_MEAN = 1e-3, 1e-4
+SSM_LOGIT_MAX, SSM_LOGIT_MEAN = 1.0, 0.15
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# one period of jamba's pattern (7 Mamba layers, 1 attention; MoE every
+# other layer) at the published widths holds 45.1 G params, 90.3 GB in
+# bf16, more than the card's 80 GB: 8 of its 16 experts (top-2 kept) make
+# it 25.8 G, 51.6 GB
+JAMBA_CUT = dict(num_layers=8, num_experts=8)
+JAMBA_SERVE = dict(batch=4, prompt=32, gen=8, cache=128)
+
+
+def _ssm_model(torch, arch: str, card: str, **cut):
+    """(cfg, bundle, params) of ``arch`` at every published width with the
+    ``cut`` fields replaced, drawn on the card from seed 0; the count is
+    the meta-device tree's (``param_count()``, the reference's closed
+    form, counts two norms a layer and no ``in_dt`` bias, so it is logged
+    beside)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    from repro_torch.models import transformer as T
+    from repro_torch.params import tree_leaves
+
+    cfg = dataclasses.replace(configs.get(arch), **cut)
+    before = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = model_zoo.build(cfg, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    meta = sum(t.numel() for t in tree_leaves(T.init_model(cfg, None)[0]))
+    if n != meta:
+        raise AssertionError(f"lm-ssm: {n} params, the meta tree {meta}")
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    log(f"lm-ssm: {cfg.name} ({cfg.num_layers}L d={cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.num_ssm_heads} SSD heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}"
+        f", {cfg.num_experts} experts top-{cfg.experts_per_token}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; cut: "
+        f"{cut or 'none'}; {n:,} params (param_count() "
+        f"{cfg.param_count():,}), {gb:.2f} GB, "
+        f"{sum(t.dtype == torch.float32 for t in leaves)} fp32 leaves) "
+        f"drawn on the card in {time.perf_counter() - t0:.2f}s (peak "
+        f"{_peak_gb(torch):.2f} GB from {before:.2f} GB allocated before; "
+        f"host {_host_gb()[0]:.1f} GB resident, {_host_gb()[1]:.1f} GB "
+        f"available) ({card})")
+    return cfg, bundle, params
+
+
+def _chunk_difference(torch, bundle, params, long) -> float:
+    """The largest |dlogit| of a prefill of ``long`` (1, L) at the model's
+    SSD chunk against the same prefill as one chunk of L."""
+    import dataclasses
+
+    from repro_torch.models import model_zoo
+
+    one = model_zoo.build(dataclasses.replace(bundle.cfg,
+                                              ssm_chunk=long.shape[1]),
+                          device="cuda")
+    outs = [b.prefill_step(params, {"tokens": long,
+                                    "caches": b.make_cache(1, long.shape[1])}
+                           )[0].float() for b in (bundle, one)]
+    return float((outs[0] - outs[1]).abs().max())
+
+
+def ssm_serve(torch, bundle, params, card: str) -> dict:
+    """mamba2 serving through ``launch.serve.generate`` (a warm-up call,
+    the timed batch), its first decode steps (the O(1) recurrence over the
+    conv window and the SSM state) against a cache-less forward (the
+    chunked SSD); the same check in fp32 at full width as evidence beside
+    the bf16 gate; and a 1 x LM_LONG prefill (4 SSD chunks through the
+    inter-chunk loop) against the same prefill as one chunk, in bf16 and
+    in fp32."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+
+    cfg = bundle.cfg
+    sv = SSM_SERVE
+    n = LM_DECODE_CHECKED + 1
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (sv["batch"], sv["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    generate(bundle, params, prompts, 2, sv["cache"])          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res = generate(bundle, params, prompts, sv["gen"], sv["cache"])
+    if not (0 <= int(res.tokens.min())
+            and int(res.tokens.max()) < cfg.vocab_size):
+        raise AssertionError(f"lm-ssm: token ids outside [0, "
+                             f"{cfg.vocab_size})")
+    decoded = sv["batch"] * (sv["gen"] - 1)
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "decode_ms": res.decode_s * 1e3,
+           "decode_ms_a_step": res.decode_s * 1e3 / (sv["gen"] - 1),
+           "decode_tok_s": decoded / res.decode_s,
+           "peak_gb": _peak_gb(torch),
+           "bf16": _decode_vs_forward(torch, bundle, params, prompts, res,
+                                      n)}
+    # the same prompts in fp32: the weights are the same draws before
+    # their rounding to bf16
+    f32 = model_zoo.build(dataclasses.replace(cfg, dtype="float32"),
+                          device="cuda")
+    p32, _ = f32.init(torch.Generator(device="cuda").manual_seed(0))
+    r32 = generate(f32, p32, prompts, n, sv["cache"])
+    out["fp32"] = _decode_vs_forward(torch, f32, p32, prompts, r32, n)
+    # one long prompt: LM_LONG / ssm_chunk chunks against one chunk
+    long = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    if LM_LONG // cfg.ssm_chunk < 2 or LM_LONG % cfg.ssm_chunk:
+        raise AssertionError("lm-ssm: the long prefill must take several "
+                             "chunks")
+    out["long_max_abs_fp32"] = _chunk_difference(torch, f32, p32, long)
+    del f32, p32, r32
+    torch.cuda.empty_cache()
+    bundle.prefill_step(params, {"tokens": long,
+                                 "caches": bundle.make_cache(1, LM_LONG)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, _ = bundle.prefill_step(params, {
+        "tokens": long, "caches": bundle.make_cache(1, LM_LONG)})
+    torch.cuda.synchronize()
+    out["long_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["long_max_abs"] = _chunk_difference(torch, bundle, params, long)
+    b16, f32 = out["bf16"], out["fp32"]
+    if not (f32["logit_max_abs"] <= SSM_FP32_LOGIT_MAX
+            and f32["logit_mean_abs"] <= SSM_FP32_LOGIT_MEAN
+            and f32["greedy_agree"] == n
+            and out["long_max_abs_fp32"] <= SSM_FP32_LOGIT_MAX
+            and b16["logit_max_abs"] <= SSM_LOGIT_MAX
+            and b16["logit_mean_abs"] <= SSM_LOGIT_MEAN
+            and b16["greedy_off_tie"] == 0
+            and torch.isfinite(lg).all()
+            and out["long_max_abs"] <= SSM_LOGIT_MAX):
+        raise AssertionError(f"lm-ssm: decode or the chunked prefill "
+                             f"against the cache-less forward: {out}")
+    log(f"lm-ssm: serve {cfg.name} batch {sv['batch']} prompt "
+        f"{sv['prompt']} gen {sv['gen']}: prefill {out['prefill_ms']:.2f} "
+        f"ms, decode {out['decode_ms']:.1f} ms ({out['decode_ms_a_step']:.2f}"
+        f" ms a step, {out['decode_tok_s']:.1f} tok/s), peak "
+        f"{out['peak_gb']:.2f} GB; decode vs full forward over {n} "
+        f"positions: fp32 at full width max |dlogit| "
+        f"{f32['logit_max_abs']:.4g}, mean {f32['logit_mean_abs']:.3g}, "
+        f"greedy ids equal at {f32['greedy_agree']} of {n} (gate "
+        f"{SSM_FP32_LOGIT_MAX} / {SSM_FP32_LOGIT_MEAN}); bf16 max |dlogit| "
+        f"{b16['logit_max_abs']:.4g}, mean {b16['logit_mean_abs']:.3g}, "
+        f"greedy ids equal at {b16['greedy_agree']} of {n}, "
+        f"{b16['greedy_off_tie']} (row, position) pairs unequal away from "
+        f"a near-tie (gate {SSM_LOGIT_MAX} / {SSM_LOGIT_MEAN}; the lm: "
+        f"gate {LM_LOGIT_MAX} / {LM_LOGIT_MEAN}); 1 x {LM_LONG} prefill in "
+        f"{LM_LONG // cfg.ssm_chunk} chunks of {cfg.ssm_chunk} "
+        f"{out['long_prefill_ms']:.1f} ms, max |dlogit| vs one chunk of "
+        f"{LM_LONG}: bf16 {out['long_max_abs']:.4g}, fp32 "
+        f"{out['long_max_abs_fp32']:.4g} ({card})")
+    return out
+
+
+class SelectionProfile:
+    """torch.profiler over the selection of each federated step run under
+    it (the step's ``core.channels.apply_factored_mask_slots`` call, where
+    K1 and K2 launch): each window's kernel events, wall and device busy
+    share: a warm-up step and a kernel of its own open each window, and
+    its host idles WINDOW_TAIL_S times the window's number before it
+    closes (late in the command the profiler has lost a window's first
+    and last events)."""
+
+    def __init__(self, torch):
+        from repro_torch.core import channels as ch
+        self.torch, self.ch = torch, ch
+        self.windows = []
+
+    def __enter__(self):
+        self.real = self.ch.apply_factored_mask_slots
+        self.ch.apply_factored_mask_slots = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.ch.apply_factored_mask_slots = self.real
+
+    def call(self, *args, **kw):
+        from torch.profiler import ProfilerActivity, profile, schedule
+        torch = self.torch
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1))
+        # a warm-up step, and a first kernel of the active step that is
+        # none of ours (as ChunkTap: a window's first device activity can
+        # go unrecorded)
+        prof.start()
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(SELECTION_IDLE_S)
+        t0 = time.perf_counter()
+        out = self.real(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(WINDOW_TAIL_S * (len(self.windows) + 1))
+        prof.stop()
+        by_name = _device_events(prof)
+        self.windows.append(_window(by_name, wall))
+        launched = self.windows[-1]["kernel_launches"]
+        if launched["channel_norm"] < SSM_TABLES:
+            log(f"lm-ssm: a selection window with K1 "
+                f"{launched['channel_norm']} and K2 {launched['select_mask']}"
+                f" of {SSM_TABLES}: its CUDA events "
+                + json.dumps({k[:50]: n for k, (n, _) in by_name.items()}))
+        return out
+
+
+def ssm_gradient_profile(torch, bundle, params, batch, card: str) -> dict:
+    """torch.profiler (device activity only: a client's pass dispatches
+    hundreds of thousands of kernels) over one client's forward and
+    backward at the step's shape: wall, device busy share, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model_zoo
+
+    one = {k: v[0] for k, v in batch.items()}
+    model_zoo.value_and_grad(bundle.loss_fn, params, one)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model_zoo.value_and_grad(bundle.loss_fn, params, one)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    window = _window(_device_events(prof), wall)
+    if not window["events"]:
+        raise AssertionError("lm-ssm: the profile of a client's gradient "
+                             "holds no CUDA event")
+    log("lm-ssm: profile of one client's gradient (4 x 64 tokens): "
+        + json.dumps({**window, "card": card}))
+    return window
+
+
+def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
+    """SSM_STEPS federated SCBF steps of mamba2 at the launcher's shape (K1
+    and K2 once a leaf table a step from the wrapper counts, and from the
+    profiler in the second step's selection; the peak under SSM_PEAK_GB;
+    the last step's tables against the plain versions through
+    ``MoeStepTap``), one more step at LM_CLIENTS x LM_BATCH x SSM_LONG_SEQ
+    (2 SSD chunks of 256: a finite loss, every gradient leaf finite), a
+    client's gradient profiled, and K1 and K2 timed a table.  The
+    selections of the untapped steps are profiled: no window may show
+    more launches than the wrapper counts, and one at least all of
+    them.  ``held``
+    hands over the only reference to the params, so that a step's old
+    params go once it returns its new ones."""
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.kernels import select_mask as sm
+    from repro_torch.params import tree_leaves
+
+    params = held.pop()
+    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=LM_CLIENTS)
+    step = dist.make_federated_train_step(bundle.loss_fn, scbf, lr=LM_LR)
+    losses, walls, counts, peaks, grad_peaks = [], [], [], [], []
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    tap = MoeStepTap(torch, LM_CLIENTS, "lm-ssm")
+    sel = SelectionProfile(torch)
+    nonfinite = []
+    real_grads = dist.client_gradients
+
+    def client_gradients(*args):
+        loss, grads = real_grads(*args)
+        grad_peaks.append(_peak_gb(torch))
+        nonfinite.append(sum(int(not torch.isfinite(g).all())
+                             for g in tree_leaves(grads)))
+        return loss, grads
+
+    shapes = [(LM_SEQ, s) for s in range(SSM_STEPS)] + [(SSM_LONG_SEQ, 0)]
+    dist.client_gradients = client_gradients
+    try:
+        for i, (seq, seed) in enumerate(shapes):
+            nb = synthetic_lm_batch(LM_CLIENTS * LM_BATCH, seq,
+                                    cfg.vocab_size, seed)
+            batch = {k: torch.from_numpy(v).cuda().reshape(
+                LM_CLIENTS, LM_BATCH, seq) for k, v in nb.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t1 = time.perf_counter()
+            if i == SSM_STEPS - 1:
+                with tap:
+                    loss, params = step(params, batch)
+                tap_host = _host_gb()
+            else:
+                with sel:
+                    loss, params = step(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            counts.append(_launch_counts())
+            peaks.append(_peak_gb(torch))
+            losses.append(float(loss))
+            if seq == LM_SEQ:
+                short = batch
+    finally:
+        dist.client_gradients = real_grads
+    flips = tap.flips(LM_RATE)
+    launched = [(w["kernel_launches"]["channel_norm"],
+                 w["kernel_launches"]["select_mask"]) for w in sel.windows]
+    largest = max(math.prod(s[1:-1]) * s[-1] for table in tap.tables
+                  for s, _ in table)
+    log(f"lm-ssm: {SSM_STEPS} federated steps of {cfg.name} "
+        f"({LM_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, rate "
+        f"{LM_RATE}, lr {LM_LR}) and one of {LM_CLIENTS} x {LM_BATCH} x "
+        f"{SSM_LONG_SEQ} ({SSM_LONG_SEQ // cfg.ssm_chunk} SSD chunks of "
+        f"{cfg.ssm_chunk}): losses {losses}, step walls "
+        f"{[round(w, 4) for w in walls]} s (cold, steady, checked, long),"
+        f" peaks {[round(p, 2) for p in peaks]} GB (under "
+        f"{SSM_PEAK_GB} GB) from {before_gb:.2f} GB allocated before step "
+        f"1, the gradient phase's {[round(p, 2) for p in grad_peaks]} GB; "
+        f"non-finite gradient leaves a step {nonfinite}; host memory "
+        f"after the checked step {tap_host[0]:.1f} GB resident, "
+        f"{tap_host[1]:.1f} GB available; K1 and K2 once a leaf table a "
+        f"step "
+        f"({SSM_TABLES} each; K1 and K2 in the profiled selections of "
+        f"steps 1, 2 and 4: {launched}): tables "
+        + json.dumps(tap.tables) + f" (K2 row blocks: "
+        f"{'none, ' if largest < sm.MAX_ENTRIES else ''}a client's largest "
+        f"matrix {largest:,} entries against {sm.MAX_ENTRIES:,}); kept "
+        f"fraction a client {tap.frac}; on step {SSM_STEPS}'s tables K1 "
+        f"within rtol {LM_K1_RTOL} and no absolute floor (max rel err "
+        f"{tap.k1_rel:.3g}; thresholds {flips['threshold']}, plain "
+        f"{flips['plain_threshold']}; {flips['channel_flips']} channels "
+        f"flipped, all at the threshold) and K2 in place bitwise its plain "
+        f"version (values and counts) ({card})")
+    for c in counts:
+        if (c["channel_norm"], c["select_mask"]) != (SSM_TABLES,
+                                                     SSM_TABLES) or any(
+                c[k] for k in c if k not in ("channel_norm", "select_mask")):
+            raise AssertionError(f"lm-ssm: a federated step launched {c}; "
+                                 f"want K1 and K2 once a leaf table "
+                                 f"({SSM_TABLES}) and nothing else")
+    if (SSM_TABLES, SSM_TABLES) not in launched or any(
+            k1 > SSM_TABLES or k2 > SSM_TABLES for k1, k2 in launched):
+        raise AssertionError(f"lm-ssm: the profiled selections launched "
+                             f"{launched}")
+    if tap.k2_tables != SSM_TABLES or len(tap.tables) != SSM_TABLES:
+        raise AssertionError(f"lm-ssm: the tapped step checked "
+                             f"{tap.k2_tables} tables")
+    if not all(math.isfinite(x) for x in losses) or any(nonfinite):
+        raise AssertionError(f"lm-ssm: losses {losses}, non-finite "
+                             f"gradient leaves a step {nonfinite}")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)):
+        raise AssertionError("lm-ssm: non-finite params after the steps")
+    if max(peaks) >= SSM_PEAK_GB:
+        raise AssertionError(f"lm-ssm: a step's peak {peaks} GB is not "
+                             f"under {SSM_PEAK_GB} GB")
+    log("lm-ssm: profile of the selection of step 2: "
+        + json.dumps({**sel.windows[1], "card": card}))
+    out = {"losses": losses, "step_walls": walls, "peaks_gb": peaks,
+           "gradient_phase_peaks_gb": grad_peaks, "kept_fraction": tap.frac,
+           "selection_profiles": sel.windows, "k1_max_rel_err": tap.k1_rel,
+           "flips": flips, "tables": tap.tables,
+           "launches": {k: sum(c[k] for c in counts)
+                        for k in ("channel_norm", "select_mask")}}
+    out["gradient_profile"] = ssm_gradient_profile(torch, bundle, params,
+                                                   short, card)
+    host = tap.host
+    del tap, params
+    torch.cuda.empty_cache()
+    out["timing"] = moe_time_tables(torch, host, card, tag="lm-ssm")
+    return out
+
+
+def _hybrid_routing_flips(torch, dec, fwd, batch: int, layers: int,
+                          k: int) -> dict:
+    """The routing of every MoE layer at every position through the cache
+    (``dec``: the prefill's calls, one a layer, then each decode step's)
+    against the cache-less forward (``fwd``, one call a layer).  In a
+    hybrid a flip (another top-k set) reaches every later layer and
+    position of its row (the SSM state, the attention keys), so a row's
+    first flip — its earliest position, lowest layer — is the one to
+    explain: ``first`` (batch,) is each row's first flipped position (the
+    sequence length if none), ``delta`` the largest router log-probability
+    difference of the two paths where no flip has reached, and ``gaps``
+    each first flip's gap between the k-th and (k+1)-th log-probabilities
+    of the forward."""
+    E = fwd[0].shape[-1]
+    flips, diffs, gaps = [], [], []
+    for j in range(layers):
+        ref = fwd[j].reshape(batch, -1, E)
+        got = torch.cat([dec[j].reshape(batch, -1, E)]
+                        + [d.reshape(batch, 1, E)
+                           for d in dec[layers + j::layers]], 1)
+        lp_ref, lp_got = torch.log(ref), torch.log(got)
+        diffs.append((lp_got - lp_ref).abs().amax(-1))       # (batch, T)
+        want = torch.sort(torch.topk(ref, k, axis=-1).indices, axis=-1).values
+        have = torch.sort(torch.topk(got, k, axis=-1).indices, axis=-1).values
+        flips.append((want != have).any(-1))                 # (batch, T)
+        top = torch.topk(lp_ref, k + 1, axis=-1).values
+        gaps.append(top[..., k - 1] - top[..., k])
+    flip, diff, gap = (torch.stack(x) for x in (flips, diffs, gaps))
+    T = flip.shape[-1]
+    t = torch.arange(T, device=flip.device)
+    first = torch.where(flip.any(0), t, T).amin(-1)          # (batch,)
+    # where no flip has reached: before a row's first flipped position, and
+    # there in the layers below its first flip
+    at = (t[None] == first[:, None])                         # (batch, T)
+    lowest = torch.where(flip, torch.arange(layers, device=flip.device)
+                         [:, None, None], layers).amin(0)    # (batch, T)
+    clean = (t[None, None] < first[None, :, None]) | (
+        at[None] & (torch.arange(layers, device=flip.device)[:, None, None]
+                    < lowest[None]))
+    first_gaps = [float(gap[lowest[b, first[b]], b, first[b]])
+                  for b in range(batch) if int(first[b]) < T]
+    return {"first": first, "flips": int(flip.sum()),
+            "delta": float(diff[clean].max()) if clean.any() else 0.0,
+            "gaps": first_gaps}
+
+
+def jamba_consistency(torch, bundle, params, card: str) -> dict:
+    """At a drop-free capacity (asserted: nothing dropped), the first decode
+    steps of jamba against a cache-less forward over the same tokens.
+    Each row's first routing flip (``_hybrid_routing_flips``) must sit at
+    a router near-tie (its gap within 2δ); the positions of a row before
+    its first flip are compared: within LM_LOGIT_MAX / LM_LOGIT_MEAN, and
+    the greedy ids equal but where the forward's top two logits lie within
+    twice that position's largest |dlogit| (a near-tie of the argmax).
+    In bf16 a row's routing flips within its prompt often enough that few
+    positions or none are left to compare, so the same weights are also
+    run with every expert routed (top-k = E, capacity = T): the routing
+    is then no discrete choice, and the decode is held to the forward at
+    every position (SSM_LOGIT_MAX / SSM_LOGIT_MEAN, mamba2's bf16 bounds,
+    and the greedy rule above)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+    from repro_torch.models import transformer as T
+
+    cfg = bundle.cfg
+    free = model_zoo.build(_drop_free(cfg), device="cuda")
+    sv = JAMBA_SERVE
+    n = LM_DECODE_CHECKED + 1
+    moe_layers = sum(cfg._is_moe_layer(i) for i in range(cfg.num_layers))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (sv["batch"], sv["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    with RouteTap(torch, cfg.num_experts, keep=True) as dec, \
+            RouteTap(torch, cfg.num_experts) as tap:
+        res = generate(free, params, prompts, n, sv["cache"])
+    seq = torch.cat([prompts, res.tokens[:, :n - 1]], axis=1)
+    with RouteTap(torch, cfg.num_experts, keep=True) as fwd, tap:
+        with torch.no_grad():
+            h, _ = T.forward_hidden(params, free.cfg, seq, free.ctx)
+            full = T.logits_from_hidden(params, free.cfg, h).float()
+    if tap.dropped:
+        raise AssertionError(f"lm-ssm: {tap.dropped} assignments dropped "
+                             f"at the drop-free factor")
+    flips = _hybrid_routing_flips(torch, dec.probs, fwd.probs, sv["batch"],
+                                  moe_layers, cfg.experts_per_token)
+    pos = torch.arange(n, device="cuda") + sv["prompt"] - 1
+    clean = pos[None] < flips["first"][:, None]              # (batch, n)
+    ref = full[:, pos]                                       # (batch, n, V)
+    diffs = (torch.stack(res.logits[:n], 1).float() - ref).abs()
+    top2 = torch.topk(ref, 2, axis=-1).values
+    tie = top2[..., 0] - top2[..., 1] <= 2 * diffs.amax(-1)
+    greedy = torch.argmax(ref, -1).to(torch.int32) == res.tokens[:, :n]
+    out = {"drop_free_factor": free.cfg.moe_capacity_factor,
+           "routing": tap.summary(), "flipped": flips["flips"],
+           "first_flip_positions": [int(f) for f in flips["first"].cpu()],
+           "first_flip_gaps": flips["gaps"],
+           "router_logprob_delta": flips["delta"],
+           "compared": int(clean.sum()),
+           "logit_max_abs": float(diffs.amax(-1)[clean].max())
+           if clean.any() else None,
+           "logit_mean_abs": max((float(diffs[:, i][clean[:, i]].mean())
+                                  for i in range(n) if clean[:, i].any()),
+                                 default=None),
+           "greedy_agree": int((greedy & clean).sum()),
+           "greedy_near_ties": int((~greedy & tie & clean).sum())}
+    dense = model_zoo.build(dataclasses.replace(
+        cfg, experts_per_token=cfg.num_experts, moe_capacity_factor=1.0),
+        device="cuda")
+    with RouteTap(torch, cfg.num_experts) as every:
+        res = generate(dense, params, prompts, n, sv["cache"])
+    out["every_expert"] = {
+        **_decode_vs_forward(torch, dense, params, prompts, res, n),
+        "dropped": every.dropped}
+    ev = out["every_expert"]
+    if not (all(g <= 2 * flips["delta"] for g in flips["gaps"])
+            and not bool((~greedy & ~tie & clean).any())
+            and (not out["compared"]
+                 or (out["logit_max_abs"] <= LM_LOGIT_MAX
+                     and out["logit_mean_abs"] <= LM_LOGIT_MEAN))
+            and ev["dropped"] == 0 and ev["greedy_off_tie"] == 0
+            and ev["logit_max_abs"] <= SSM_LOGIT_MAX
+            and ev["logit_mean_abs"] <= SSM_LOGIT_MEAN):
+        raise AssertionError(f"lm-ssm: jamba's decode against the "
+                             f"cache-less forward: {out}")
+    log(f"lm-ssm: {cfg.name} at the drop-free capacity factor "
+        f"{out['drop_free_factor']} (0 of {out['routing']['routed']} "
+        f"assignments dropped): {out['flipped']} (layer, row, position) "
+        f"routings over {moe_layers} MoE layers chose another top-"
+        f"{cfg.experts_per_token}; each row's first flip at positions "
+        f"{out['first_flip_positions']} (of {seq.shape[1]}) with gaps "
+        f"{out['first_flip_gaps']}, within 2 x the paths' largest router "
+        f"difference before any flip {out['router_logprob_delta']:.3g}; "
+        f"decode vs full forward at the {out['compared']} of "
+        f"{n * sv['batch']} positions before a flip: max |dlogit| "
+        f"{out['logit_max_abs']}, mean {out['logit_mean_abs']}, greedy ids "
+        f"equal at {out['greedy_agree']} and at a logit near-tie at "
+        f"{out['greedy_near_ties']}; with every expert routed (top-"
+        f"{cfg.num_experts}, 0 dropped) at all {n * sv['batch']}: max "
+        f"|dlogit| {ev['logit_max_abs']:.4g}, mean {ev['logit_mean_abs']:.3g}"
+        f", greedy ids equal at {ev['greedy_agree']} of {n} positions, "
+        f"{ev['greedy_off_tie']} (row, position) pairs unequal away from a "
+        f"near-tie (gate {SSM_LOGIT_MAX} / {SSM_LOGIT_MEAN}) ({card})")
+    return out
+
+
+def phase_mamba2(torch, card: str) -> dict:
+    """mamba2-2.7b uncut: serving, then the federated steps."""
+    cfg, bundle, params = _ssm_model(torch, SSM_ARCH, card)
+    out = {"serve": ssm_serve(torch, bundle, params, card)}
+    torch.cuda.empty_cache()
+    held = [params]
+    del params
+    out.update(ssm_steps(torch, cfg, bundle, held, card))
+    return out
+
+
+def phase_jamba(torch, card: str) -> dict:
+    """jamba at one period of its layer pattern with 8 of 16 experts,
+    serving only (a client's gradient alone would be 51.6 GB)."""
+    cfg, bundle, params = _ssm_model(torch, JAMBA_ARCH, card, **JAMBA_CUT)
+    out = {"serve": moe_serve(torch, bundle, params, JAMBA_SERVE, card,
+                              tag="lm-ssm"),
+           "consistency": jamba_consistency(torch, bundle, params, card)}
+    return out
+
+
+def phase_lm_ssm(torch, card: str) -> dict:
+    """mamba2-2.7b, then jamba, each freed before the next."""
+    torch.cuda.empty_cache()
+    mamba = phase_mamba2(torch, card)
+    torch.cuda.empty_cache()
+    jamba = phase_jamba(torch, card)
+    torch.cuda.empty_cache()
+    return {"mamba2": mamba, "jamba": jamba, "launches": mamba["launches"],
+            "timing": mamba["timing"]}
+
+
+# the paper's claimed upload fraction at α = 0.10, and the fraction both
+# packages select there at full width from a real local-training delta
+# (tests/test_torch_channels.py: the layer-0 rule reveals whole W0 columns)
+COMM_PAPER_FRACTION, COMM_TRAINED_FRACTION = 0.45, 0.98
+
+
+def phase_comm_table(torch, card: str) -> dict:
+    """``benchmarks/torch_table_communication.run(quick=False)`` on the card:
+    the paper's MLP 2917-256-64-1, one client's upload at each rate (K1
+    and K2 in the selection, K3 in the encode: once each a row, K3's
+    scatter once a row whose weight leaves ship coo or bitmap), each
+    payload's bytes, codecs and values those of the host ``wire.encode``
+    of the same masked delta."""
+    import numpy as np
+
+    import benchmarks.torch_table_communication as tc
+    from repro_torch.comm import wire
+
+    seen = []
+    real = wire.encode_selected
+
+    def encode_selected(masked, operands):
+        payload = real(masked, operands)
+        seen.append((masked, payload))
+        return payload
+
+    wire.encode_selected = encode_selected
+    _reset_launches()
+    try:
+        rows = tc.run(quick=False, device="cuda")
+    finally:
+        wire.encode_selected = real
+    counts = _launch_counts()
+    scatters = 0
+    for masked, payload in seen:
+        want = wire.encode(masked)
+        if not (want.nbytes == payload.nbytes and all(
+                a.codec == b.codec and np.array_equal(a.values, b.values)
+                for a, b in zip(want.layers, payload.layers))):
+            raise AssertionError("comm-table: the card's encode differs "
+                                 "from the host encode")
+        scatters += any(lp.codec != "dense" for (_, k), lp in
+                        zip(payload.keys, payload.layers) if k == "w")
+    want = {"channel_norm": len(rows), "select_mask": len(rows),
+            "select_compact_count": len(rows),
+            "select_compact_scatter": scatters, "apoz": 0}
+    if counts != want:
+        raise AssertionError(f"comm-table: launches {counts}, want {want}")
+    for line in tc.csv_lines(rows):
+        log(f"comm-table: {line}")
+    frac = next(r[2] for r in rows if r[:2] == ("positive", 0.10))
+    log(f"comm-table: MLP {'-'.join(map(str, tc.FULL))}, positive "
+        f"selection at alpha 0.10 uploads {frac:.4f} of the params of a "
+        f"random-normal delta (the paper: ~{COMM_PAPER_FRACTION}; a real "
+        f"local-training delta: {COMM_TRAINED_FRACTION}); launches "
+        f"{counts}; every payload the host encode's ({card})")
+    return {"rows": rows, "launches": counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3661,6 +4357,12 @@ def main() -> int:
     t0 = time.perf_counter()
     moe = phase_lm_moe(torch, card)
     log(f"phase lm-moe: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ssm = phase_lm_ssm(torch, card)
+    log(f"phase lm-ssm: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    comm = phase_comm_table(torch, card)
+    log(f"phase comm-table: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
                                 "select_compact_scatter")}
     for r in report:
@@ -3674,6 +4376,11 @@ def main() -> int:
             by_run["lm_moe_federated_steps"] = {r["name"]:
                                                 moe["launches"][r["name"]]}
             r["lm_moe"] = moe["timing"][r["name"]]
+            by_run["lm_ssm_federated_steps"] = {r["name"]:
+                                                ssm["launches"][r["name"]]}
+            r["lm_ssm"] = ssm["timing"][r["name"]]
+        by_run["comm_table"] = {k: comm["launches"][k]
+                                for k in kinds.get(r["name"], (r["name"],))}
         r["launches"] = sum(sum(c.values()) for c in by_run.values())
         r["launches_by_run"] = by_run
         # the fused runs' graph replays, apart from the wrapper counts
@@ -3695,7 +4402,7 @@ def main() -> int:
                  "ms_single_leaf", "device_us", "device_us_l2_warm",
                  "device_us_single_leaf",
                  "encoder", "memset_us", "memset_us_single_leaf", "slots",
-                 "pass", "lm", "lm_moe")}}))
+                 "pass", "lm", "lm_moe", "lm_ssm")}}))
     log(f"total: {time.perf_counter() - T_START:.1f}s")
     print(card)
     print(json.dumps({"kernels": report}))

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.channels import slot_groups, slot_range
 from repro_torch.kernels.select_mask import compact_count, compact_scatter
+from repro_torch.params import tree_leaves
 
 INDEX_BYTES = 4                      # int32 flat index (coo)
 
@@ -63,6 +64,12 @@ def bitmap_bytes(nnz: int, size: int, itemsize: int = 4) -> int:
 
 def dense_bytes(size: int, itemsize: int = 4) -> int:
     return size * itemsize
+
+
+def tree_dense_bytes(tree) -> int:
+    """Bytes a dense (FedAvg-style) exchange of this tree would cost."""
+    return sum(dense_bytes(t.numel(), t.element_size())
+               for t in tree_leaves(tree))
 
 
 def codec_bytes(codec: str, nnz: int, size: int, itemsize: int = 4) -> int:

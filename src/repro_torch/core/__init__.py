@@ -1,13 +1,11 @@
 """The paper's contribution: Stochastic Channel-Based Federated Learning
 (port of ``repro.core``).
 
-The reference's exports, resolved on first use: ``core.scbf`` imports the
-engines, which import this package's modules, so an eager import here
-would be circular whenever an engine is imported first.
+The reference's exports, resolved on first use (``lazy_exports``).
 """
-import importlib
+from repro_torch import lazy_exports
 
-_EXPORTS = {
+__all__, __getattr__ = lazy_exports(__name__, {
     "LoopRecord": ("repro_torch.core.scbf", "LoopRecord"),
     "RunResult": ("repro_torch.core.scbf", "RunResult"),
     "run_federated": ("repro_torch.core.scbf", "run_federated"),
@@ -20,14 +18,4 @@ _EXPORTS = {
     "privacy": ("repro_torch.core.privacy", None),
     "pruning": ("repro_torch.core.pruning", None),
     "selection": ("repro_torch.core.selection", None),
-}
-
-__all__ = sorted(_EXPORTS)
-
-
-def __getattr__(name):
-    if name not in _EXPORTS:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    module, attr = _EXPORTS[name]
-    mod = importlib.import_module(module)
-    return mod if attr is None else getattr(mod, attr)
+})

@@ -101,6 +101,12 @@ from repro_torch.fed.cohort import (PaddedCohort, bucket_size,
 from repro_torch.fed.strategy import fedavg_step, scbf_sum_step
 from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obstrace
+from repro_torch.params import tree_map
+
+
+def stack_pytrees(trees: Sequence):
+    """Stack a list of identically-shaped trees along a new axis 0."""
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
 def _reveal_masks(masked, masks):

@@ -44,6 +44,8 @@ into the graph and is not counted (the graph's replays launch it).
 """
 from __future__ import annotations
 
+import sys
+import types
 from array import array
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -368,6 +370,16 @@ def select_mask(g: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     return out, mask, counts[0]
 
 
+def select_fused(g: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                 thr: Scalar, rest: Scalar = 0.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(g̃ like g, count int32 0-d): ``select_mask`` without its mask, a
+    one-leaf table (the reference's ``ops.scbf_select_fused``)."""
+    (out,), _, counts = select_mask_leaves([(g, row, col, thr, rest)],
+                                           masks=False)
+    return out, counts[0]
+
+
 class CompactCounts(NamedTuple):
     """A count pass over a leaf table: the counts and what the scatter
     pass needs."""
@@ -506,3 +518,16 @@ def select_compact(g: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     cc = _compact_count(leaves, device, drop_zeros)
     _, [(idx, vals)] = compact_scatter(cc, [capacity])
     return idx, vals, cc.counts[0]
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as its one-leaf wrapper ``select_mask``:
+    ``repro_torch.kernels.select_mask`` is both the module the port
+    imports (``from repro_torch.kernels import select_mask as sm``) and
+    the K2 call ``repro.kernels`` exports under that name."""
+
+    def __call__(self, *args, **kwargs):
+        return select_mask(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

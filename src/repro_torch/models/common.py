@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.params import tree_map
+from repro_torch.params import tree_leaves, tree_map, tree_unflatten
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -98,12 +98,21 @@ def norm_init(dim: int, dtype, bias: bool = False, *, device):
 
 def stack_inits(init_fn, gen, repeats: int):
     """``init_fn(gen)`` ``repeats`` times, each leaf stacked on a leading
-    'layers' axis (the reference vmaps its init over a key batch)."""
+    'layers' axis (the reference vmaps its init over a key batch).  The
+    units' own tensors are let go leaf by leaf as the stack is built, so
+    beside the stacked tree only one leaf's units are held at a time (a
+    unit of MoE layers at full width is tens of GB)."""
     units = [init_fn(gen) for _ in range(repeats)]
-    params = tree_map(lambda *xs: torch.stack(xs), units[0][0],
-                      *(u[0] for u in units[1:]))
     axes = tree_map(lambda a: "layers," + a if a else "layers", units[0][1])
-    return params, axes
+    skeleton = tree_map(lambda _: 0, units[0][0])
+    cols = [tree_leaves(p) for p, _ in units]
+    del units
+    stacked = []
+    for i in range(len(cols[0])):
+        stacked.append(torch.stack([c[i] for c in cols]))
+        for c in cols:
+            c[i] = None
+    return tree_unflatten(skeleton, stacked), axes
 
 
 def merge(*pairs_named):

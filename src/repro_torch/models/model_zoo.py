@@ -14,8 +14,8 @@ Params, batches and caches are the reference's trees of tensors on the
 bundle's device (``build(..., device=None)`` is cuda; the CPU only when
 asked).  Token ids and positions are int32, as in the reference.  The
 serving steps run without autograd.  ``build`` refuses what the port
-does not run yet — Mamba2/SSD, the encoder, modality frontends and
-cross-attention — with ``NotImplementedError`` naming ROADMAP A14b.
+does not run yet — the encoder, modality frontends and cross-attention —
+with ``NotImplementedError`` naming ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -53,8 +53,7 @@ def _cache_len(cfg: ArchConfig, shape: ShapeConfig, window: int) -> int:
 def refuse_unported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A14b for a config
     that needs a module this slice does not port."""
-    for needs, what in ((cfg.ssm_state, "Mamba2/SSD (ssm_state)"),
-                        (cfg.encoder_layers, "the encoder (encoder_layers)"),
+    for needs, what in ((cfg.encoder_layers, "the encoder (encoder_layers)"),
                         (cfg.frontend != "none",
                          f"the {cfg.frontend} frontend"),
                         (cfg.cross_attn_every,
@@ -137,7 +136,13 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
         return logits, {"layers": new_caches}
 
     # -------------------------------------------------------- cache tree
-    def _layer_cache(batch: int, cache_len: int, mk):
+    def _layer_cache(spec: T.LayerSpec, batch: int, cache_len: int, mk):
+        if spec.kind != "attn":           # the SSM state and conv window
+            return {"mamba": {
+                "h": mk((batch, cfg.num_ssm_heads, cfg.ssm_state,
+                         cfg.ssm_head_dim), torch.float32),
+                "conv": mk((batch, cfg.ssm_conv_width - 1,
+                            cfg.d_inner + 2 * cfg.ssm_state), dtype)}}
         if cfg.use_mla:                   # the latent cache, int8 or not
             return {"attn": {
                 "ckv": mk((batch, cache_len, cfg.kv_lora_rank), dtype),
@@ -168,11 +173,11 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
 
         out: Dict[str, Any] = {}
         if prefix:
-            out["prefix"] = [_layer_cache(batch, cache_len, mk(()))
-                             for _ in prefix]
-        out["stack"] = {f"l{i}": _layer_cache(batch, cache_len,
+            out["prefix"] = [_layer_cache(s, batch, cache_len, mk(()))
+                             for s in prefix]
+        out["stack"] = {f"l{i}": _layer_cache(s, batch, cache_len,
                                               mk((repeats,)))
-                        for i, _ in enumerate(unit)}
+                        for i, s in enumerate(unit)}
         return out
 
     def make_cache(batch: int, cache_len: int):

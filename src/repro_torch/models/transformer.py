@@ -1,15 +1,15 @@
 """Generic decoder transformer over a repeating layer pattern (port of
-``repro.models.transformer``, but Mamba2/SSD, cross-attention and the
-encoder).
+``repro.models.transformer``, but cross-attention and the encoder).
 
 Every architecture is expressed as:
 
     prefix layers (unrolled)  +  R repeats of a layer *unit*
 
 where a unit is the architecture's repeating pattern — 1 layer for dense
-models and DeepSeek-V2 (after its dense prefix layer), [dense, moe] for
-Llama-4.  Unit params are stacked on a leading "layers" axis, as in the
-reference, so the param tree (and the leaves SCBF scores and masks: a
+models, Mamba2 and DeepSeek-V2 (after its dense prefix layer), [dense,
+moe] for Llama-4, 8 layers (7 Mamba, 1 attention) for Jamba.  Unit
+params are stacked on a leading "layers" axis, as in the reference, so
+the param tree (and the leaves SCBF scores and masks: a
 per-layer bias ``(N,)`` is a 2-D ``(R, N)`` leaf) is the reference's.  The
 reference's ``lax.scan`` over the repeats is a Python loop over ``R``
 over the stacked params and caches, each leaf split once into its units
@@ -18,8 +18,7 @@ under ``torch.utils.checkpoint`` (the backward recomputes the unit's
 activations), which changes no result.
 
 Caches mirror the param structure: a tree per unit, stacked on the same
-leading axis.  Mamba, cross-attention layers and the encoder are ROADMAP
-A14b.
+leading axis.  Cross-attention layers and the encoder are ROADMAP A14b.
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.common import (DTYPES, dense_init, device_of, merge,
                                        norm_init, stack_inits, trunc_normal)
@@ -78,8 +78,6 @@ def unit_pattern(cfg: ArchConfig) -> Tuple[List[LayerSpec], List[LayerSpec], int
 
 
 def _refuse(spec: LayerSpec) -> None:
-    if spec.kind != "attn":
-        raise NotImplementedError(f"Mamba2/SSD layers are {A14B}")
     if spec.cross:
         raise NotImplementedError(f"cross-attention layers are {A14B}")
 
@@ -93,9 +91,12 @@ def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype):
     dev = device_of(gen)
     ln = cfg.norm == "layernorm"
     pairs = [("norm1", norm_init(cfg.d_model, dtype, bias=ln, device=dev))]
-    attn = L.mla_init(gen, cfg, dtype) if cfg.use_mla \
-        else L.gqa_init(gen, cfg, dtype)
-    pairs.append(("attn", attn))
+    if spec.kind == "attn":
+        attn = L.mla_init(gen, cfg, dtype) if cfg.use_mla \
+            else L.gqa_init(gen, cfg, dtype)
+        pairs.append(("attn", attn))
+    else:
+        pairs.append(("mamba", M.mamba_init(gen, cfg, dtype)))
     if cfg.d_ff:
         pairs.append(("norm2", norm_init(cfg.d_model, dtype, bias=ln,
                                          device=dev)))
@@ -154,18 +155,18 @@ def _layer_forward(lp, spec: LayerSpec, h, ctx: ModelCtx, positions,
     cfg = ctx.cfg
     new_cache = {}
     xin = L.norm_apply(lp["norm1"], h, cfg.norm)
-    if cfg.use_mla:
-        a, c = L.mla_apply(lp["attn"], xin, ctx, positions,
-                           cache=None if cache is None
-                           else cache.get("attn"))
+    sub = "attn" if spec.kind == "attn" else "mamba"
+    sub_cache = None if cache is None else cache.get(sub)
+    if spec.kind != "attn":
+        a, c = M.mamba_apply(lp["mamba"], xin, ctx, cache=sub_cache)
+    elif cfg.use_mla:
+        a, c = L.mla_apply(lp["attn"], xin, ctx, positions, cache=sub_cache)
     else:
-        a, c = L.gqa_apply(lp["attn"], xin, ctx, positions,
-                           cache=None if cache is None
-                           else cache.get("attn"),
+        a, c = L.gqa_apply(lp["attn"], xin, ctx, positions, cache=sub_cache,
                            causal=True, window=window)
     h = h + a
     if c is not None:
-        new_cache["attn"] = c
+        new_cache[sub] = c
     if "mlp" in lp or "moe" in lp:
         xin = L.norm_apply(lp["norm2"], h, cfg.norm)
         if "moe" in lp:

@@ -3,11 +3,12 @@ momentum, Adam and AdamW as (init, update) pairs over trees of tensors,
 and the learning-rate schedules."""
 from repro_torch.config import TrainConfig
 from repro_torch.optim.adam import adam, adamw
-from repro_torch.optim.schedules import constant, cosine_decay
+from repro_torch.optim.schedules import (constant, cosine_decay,
+                                         linear_warmup_cosine)
 from repro_torch.optim.sgd import Optimizer, apply_updates, sgd
 
 __all__ = ["Optimizer", "adam", "adamw", "apply_updates", "constant",
-           "cosine_decay", "from_config", "sgd"]
+           "cosine_decay", "from_config", "linear_warmup_cosine", "sgd"]
 
 
 def from_config(cfg: TrainConfig):

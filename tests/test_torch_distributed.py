@@ -31,7 +31,7 @@ from repro_torch.kernels import channel_norm as cn
 from repro_torch.kernels import select_mask as sm
 from repro_torch.models import model_zoo as port_zoo
 from repro_torch.params import (from_numpy_tree, to_numpy_tree, tree_leaves,
-                                tree_unflatten)
+                                tree_paths, tree_unflatten)
 
 
 def _grad_tree(rng, dtype=np.float32):
@@ -271,6 +271,20 @@ def test_federated_moe_step_two_steps(dtype):
     first layers' leaves (192 to 512 channels) each flip up to 5 channels
     whose bf16 scores lie at the threshold."""
     _two_federated_steps("deepseek-v2-236b", dtype, flips_per_leaf=False)
+
+
+@pytest.mark.parametrize("arch,dtype", [("mamba2-2.7b", "float32"),
+                                        ("mamba2-2.7b", "bfloat16"),
+                                        ("jamba-1.5-large-398b", "float32")])
+def test_federated_ssm_step_two_steps(arch, dtype):
+    """The same two steps on the smoke mamba2 (2 Mamba layers, 13 scored
+    leaves, in bf16 ``A_log`` and ``D_res`` fp32 among bf16 leaves: a
+    step's K1 and K2 run over a bf16 and an fp32 leaf table) and jamba
+    ([mamba + MLP, attention + MoE]), with deepseek-v2's tolerances.
+    jamba is held in fp32 only: in bf16 its MLP's channels tie at the
+    threshold often enough (3,485 against 3,499 kept entries of ``wg``)
+    that a leaf's update moves past the 0.25 relative bound."""
+    _two_federated_steps(arch, dtype, flips_per_leaf=False)
 
 
 def _two_federated_steps(arch, dtype, flips_per_leaf=True):
@@ -535,6 +549,36 @@ def test_leaf_tables_hold_one_dtype(monkeypatch):
     assert calls == {"norms": [[bf] * 16, [bf] * 5, [f32]],
                      "masks": [[bf] * 16, [bf] * 5, [f32]]}
     # the same masks, client by client, as a one-client tree
+    for k in range(2):
+        one, f1 = port_ch.apply_factored_mask(
+            tree_unflatten(grads_k, [t[k] for t in leaves]), 0.1)
+        assert torch.equal(f1, frac[k])
+        assert all(torch.equal(a, b[k]) for a, b in
+                   zip(tree_leaves(one), tree_leaves(masked)))
+
+
+@pytest.mark.parametrize("arch,bf16,fp32", [
+    ("mamba2-2.7b", 11, ["A_log", "D_res"]),
+    ("jamba-1.5-large-398b", 16, ["A_log", "D_res", "w"]),
+])
+def test_ssm_step_tables_hold_one_dtype(monkeypatch, arch, bf16, fp32):
+    """The smoke mamba2 and jamba in bf16: K1 and K2 each take the bf16
+    scored leaves in tree order, then one fp32 table holding exactly the
+    Mamba layers' ``A_log`` and ``D_res`` (and jamba's router); the masks
+    and fractions are the one-client pass's."""
+    _, _, _, grads_k = _tree_grads(arch, "bfloat16")
+    paths = [p for p, t in tree_paths(grads_k) if t.ndim >= 3
+             and t.dtype == torch.float32]
+    assert [p[-1] for p in paths] == fp32
+    calls = _count_tables(monkeypatch)
+    masked, frac = port_ch.apply_factored_mask_slots(grads_k, 0.1)
+    bf, f32 = torch.bfloat16, torch.float32
+    scored = sum(t.ndim >= 3 for t in tree_leaves(grads_k))
+    want = [[bf] * bf16] + ([[bf] * (scored - len(fp32) - bf16)]
+                            if scored - len(fp32) > bf16 else []) \
+        + [[f32] * len(fp32)]
+    assert calls == {"norms": want, "masks": want}
+    leaves = tree_leaves(grads_k)
     for k in range(2):
         one, f1 = port_ch.apply_factored_mask(
             tree_unflatten(grads_k, [t[k] for t in leaves]), 0.1)

@@ -300,3 +300,48 @@ def test_lm_mode_trains_deepseek_v2(monkeypatch, capsys):
         assert abs(float(g.split()[3]) - float(w.split()[3])) < 0.05
     assert params["stack"]["l0"]["moe"]["router"]["w"].dtype == \
         torch.float32
+
+
+def test_serve_runs_mamba2(monkeypatch, capsys):
+    """``--arch mamba2-2.7b`` serves from its SSM state and conv window
+    (the decode recurrence) with no refusal: the reference's four lines,
+    ids in [0, V), greedy ids the argmax of their logits."""
+    import re
+
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "mamba2-2.7b", "--gen", "4", "--batch", "2",
+            "--prompt-len", "8"]
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.serve", argv)
+    res = serve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 4
+    assert got[0] == want[0] == "arch=mamba2-2.7b batch=2 prompt=8 gen=4"
+    assert re.match(r"decode:  \d+\.\d ms \(\d+ tok/s\)", got[2])
+    assert res.tokens.shape == (2, 4) and len(res.logits) == 4
+    assert 0 <= int(res.tokens.min()) and int(res.tokens.max()) < 512
+    assert torch_equal_greedy(res)
+
+
+def test_lm_mode_trains_jamba(monkeypatch, capsys):
+    """``--mode lm --arch jamba-1.5-large-398b --steps 1`` takes SCBF's
+    federated step on the hybrid (Mamba + MLP, attention + MoE; bf16
+    leaves, fp32 ``A_log``, ``D_res`` and router) with no refusal: the
+    reference's ``step … loss …`` line, a loss near the reference's."""
+    import re
+
+    import torch
+
+    from repro_torch.launch import train
+
+    argv = ["--mode", "lm", "--arch", "jamba-1.5-large-398b", "--steps",
+            "1", "--clients", "2"]
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.train", argv)
+    params = train.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 1
+    assert re.fullmatch(STEP_LINE, got[0]) and re.fullmatch(STEP_LINE,
+                                                            want[0])
+    assert abs(float(got[0].split()[3]) - float(want[0].split()[3])) < 0.05
+    mamba = params["stack"]["l0"]["mamba"]
+    assert mamba["A_log"].dtype == mamba["D_res"].dtype == torch.float32

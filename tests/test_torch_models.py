@@ -1,11 +1,13 @@
 """The port's LM zoo (``repro_torch.models``: transformer and model_zoo,
-``configs``) against the reference's on the CPU — the dense models and
-the MoE ones (deepseek-v2 with MLA, llama4-maverick) — with the
+``configs``) against the reference's on the CPU — the dense models, the
+MoE ones (deepseek-v2 with MLA, llama4-maverick) and the SSM ones
+(mamba2, the jamba hybrid) — with the
 reference's initial params carried across (``params.from_numpy_tree``):
 param trees equal in paths, shapes and dtypes; losses within 1e-5 in fp32
 and 2e-2 relative in bf16; prefill and decode logits within 2e-4 in fp32
 with equal greedy tokens."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,8 @@ from repro_torch.params import (from_numpy_tree, to_numpy_tree, tree_leaves,
 DENSE = [n for n in ref_configs.ASSIGNED
          if ref_configs.get(n).family == "dense"]
 MOE = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]
-OTHERS = [n for n in ref_configs.ASSIGNED if n not in DENSE + MOE]
+SSM = ["mamba2-2.7b", "jamba-1.5-large-398b"]
+OTHERS = [n for n in ref_configs.ASSIGNED if n not in DENSE + MOE + SSM]
 # the reference's smoke tests route MoE without drops when they compare a
 # decode with a cache-less forward (tests/test_models_smoke.py)
 NO_DROPS = {"moe_capacity_factor": 8.0}
@@ -62,6 +65,10 @@ def _pair(arch, dtype="float32", cfg_kw=None, **build_kw):
                                                               rp), "cpu")
 
 
+def _has_moe(arch) -> bool:
+    return bool(port_configs.get(arch).num_experts)
+
+
 def _tokens(cfg, b, s, seed=1):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, size=(b, s)).astype(np.int32)
@@ -83,7 +90,7 @@ def test_configs_are_the_references():
         port_configs.get("gpt-5")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_param_tree_is_the_references(arch):
     """Paths, shapes and dtypes of the smoke variant's params and axes,
     in flatten order (the stacked layer leaves included)."""
@@ -137,7 +144,46 @@ def test_full_width_moe_shapes_on_meta(arch, depth, params, leaves, scored):
         ref_cfg.param_count() == params
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b"] + MOE)
+@pytest.mark.parametrize("arch,depth,experts,params,fp32", [
+    ("mamba2-2.7b", 64, 0, 2_830_624_256, 2),
+    ("jamba-1.5-large-398b", 72, 16, 397_709_859_072, 4 + 2 * 7),
+    ("jamba-1.5-large-398b", 8, 16, 45_144_428_800, 4 + 2 * 7),
+    ("jamba-1.5-large-398b", 8, 8, 25_816_813_824, 4 + 2 * 7),
+])
+def test_full_width_ssm_shapes_on_meta(arch, depth, experts, params, fp32):
+    """mamba2-2.7b uncut and jamba at every published width (its whole
+    depth, one period of 8 layers, and that period with 8 of its 16
+    experts: what the card runs) on the meta device against the
+    reference's ``jax.eval_shape``: the tree, its parameter count, and the
+    fp32 leaves — ``A_log`` and ``D_res`` of each Mamba layer of the unit,
+    stacked, and each MoE router.  ``param_count()``, the reference's
+    closed form (the port's is the same), counts two norms a layer and no
+    ``in_dt`` bias: a Mamba layer without an MLP (mamba2) holds d_model -
+    NH params fewer than it counts, one with an MLP (jamba's) NH more."""
+    kw = dict(num_layers=depth)
+    if experts:
+        kw["num_experts"] = experts
+    ref_cfg = dataclasses.replace(ref_configs.get(arch), **kw)
+    port_cfg = dataclasses.replace(port_configs.get(arch), **kw)
+    shapes = jax.eval_shape(
+        lambda k: ref_zoo.build(ref_cfg).init(k)[0], jax.random.PRNGKey(0))
+    tree, _ = PT.init_model(port_cfg, None)
+    assert _port_paths(tree) == _ref_paths(shapes)
+    got = tree_paths(tree)
+    f32 = [p for p, t in got if t.dtype == torch.float32]
+    assert len(f32) == fp32 and all(
+        p[-1] in ("A_log", "D_res") or p[-2:] == ("router", "w") for p in f32)
+    n = sum(t.numel() for _, t in got)
+    assert n == sum(math.prod(a.shape) for a in
+                    jax.tree_util.tree_leaves(shapes)) == params
+    mamba_layers = sum(not port_cfg._is_attn_layer(i) for i in range(depth))
+    per_layer = port_cfg.num_ssm_heads - (0 if port_cfg.d_ff
+                                          else port_cfg.d_model)
+    assert port_cfg.param_count() == ref_cfg.param_count() == \
+        n - mamba_layers * per_layer
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b"] + MOE + SSM)
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_input_specs_are_the_references(arch, shape, kv_quant):
@@ -152,7 +198,7 @@ def test_input_specs_are_the_references(arch, shape, kv_quant):
     assert all(t.device.type == "meta" for t in tree_leaves(got))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
                                         ("bfloat16", 2e-2)])
 def test_loss_fn(arch, dtype, rtol):
@@ -183,6 +229,29 @@ def test_train_step_fp32():
                for a, b in zip(before, tree_leaves(pp)))
 
 
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_logits_loss_and_gradients(arch):
+    """mamba2 and jamba (MoE at the published capacity) in fp32 with the
+    reference's weights: logits, loss and the gradient of every leaf within
+    1e-5, over 2 chunks of 16."""
+    rb, pb, rp, pp = _pair(arch)
+    toks, tgts = _tokens(pb.cfg, 2, 32), _tokens(pb.cfg, 2, 32, seed=2)
+    rh, _ = RT.forward_hidden(rp, rb.cfg, jnp.asarray(toks), rb.ctx)
+    ph, _ = PT.forward_hidden(pp, pb.cfg, torch.from_numpy(toks), pb.ctx)
+    np.testing.assert_allclose(
+        PT.logits_from_hidden(pp, pb.cfg, ph).detach().numpy(),
+        np.asarray(RT.logits_from_hidden(rp, rb.cfg, rh)), rtol=1e-5,
+        atol=1e-5)
+    wl, wg = jax.value_and_grad(rb.loss_fn)(
+        rp, {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tgts)})
+    gl, gg = port_zoo.value_and_grad(pb.loss_fn, pp, {
+        "tokens": torch.from_numpy(toks), "targets": torch.from_numpy(tgts)})
+    assert float(gl) == pytest.approx(float(wl), rel=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(wg), tree_leaves(gg)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=1e-5)
+
+
 def test_remat_changes_no_gradient():
     """``remat`` (``torch.utils.checkpoint`` over each unit) gives the
     same loss and gradients, bitwise."""
@@ -200,16 +269,19 @@ def test_remat_changes_no_gradient():
                for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
 
 
-@pytest.mark.parametrize("arch,kv_quant", [(a, False) for a in DENSE + MOE]
+@pytest.mark.parametrize("arch,kv_quant", [(a, False) for a in
+                                           DENSE + MOE + SSM]
                          + [("qwen2-0.5b", True), ("deepseek-v2-236b", True)])
 def test_prefill_then_decode(arch, kv_quant):
     """Prefill 8 tokens into fresh caches of 10 slots, then 4 decode steps
     (the ring wraps at position 10): logits within 2e-4 of the
     reference's, greedy tokens equal, and (without int8, before the wrap)
     the port's own cache-less forward within 2e-4 (MoE without drops, as
-    the reference's smoke test; MLA's latent cache is not quantized)."""
+    the reference's smoke test; MLA's latent cache is not quantized; a
+    Mamba layer's prefill runs one chunk of 8 and its decode the O(1)
+    recurrence)."""
     rb, pb, rp, pp = _pair(arch, kv_quant=kv_quant, remat=False,
-                           cfg_kw=NO_DROPS if arch in MOE else None)
+                           cfg_kw=NO_DROPS if _has_moe(arch) else None)
     toks = _tokens(pb.cfg, 2, 12)
     wl, wc = rb.prefill_step(rp, {"tokens": jnp.asarray(toks[:, :8]),
                                   "caches": rb.make_cache(2, 10)})
@@ -337,9 +409,31 @@ def test_from_numpy_tree_keeps_each_leafs_dtype(arch):
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_build_refuses_a14b_families(arch):
+    """whisper (the encoder) and llama-3.2-vision (cross-attention) are
+    still refused, naming A14b."""
     _, port_cfg = _cfgs(arch)
     with pytest.raises(NotImplementedError, match="A14b"):
         port_zoo.build(port_cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_build_accepts_the_ssm_archs(arch):
+    """mamba2-2.7b and jamba-1.5-large-398b as published build with no
+    refusal; their cache trees hold each Mamba layer's fp32 state
+    ``h`` (B, NH, N, P) and its conv window (B, W-1, DI+2N)."""
+    cfg = port_configs.get(arch)
+    port_zoo.refuse_unported(cfg)
+    bundle = port_zoo.build(cfg, device="cpu")
+    caches = bundle.input_specs(INPUT_SHAPES["decode_32k"])["caches"]
+    mamba = caches["layers"]["stack"]["l0"]["mamba"]
+    R = cfg.num_layers // (8 if cfg.family == "hybrid" else 1)
+    B = INPUT_SHAPES["decode_32k"].global_batch
+    assert tuple(mamba["h"].shape) == (R, B, cfg.num_ssm_heads,
+                                       cfg.ssm_state, cfg.ssm_head_dim)
+    assert mamba["h"].dtype == torch.float32
+    assert tuple(mamba["conv"].shape) == (R, B, cfg.ssm_conv_width - 1,
+                                          cfg.d_inner + 2 * cfg.ssm_state)
+    assert mamba["conv"].dtype == torch.bfloat16
 
 
 def test_build_needs_cuda_unless_cpu_is_asked():
