@@ -185,14 +185,41 @@ its own failure:
    flip at a router near-tie, the positions before it within the bounds.
    Its lines start with ``lm-ssm:``; the kernel report adds its launches
    and timings as ``lm_ssm``.
-14. comm-table — ``benchmarks/torch_table_communication.run(quick=False)``
+14. lm-encdec — whisper-medium uncut (24 encoder and 24 decoder layers,
+   d_model 1024, 16 heads, d_ff 4096, vocab 51,865, cross-attention in
+   every decoder layer to 1500 frames; 811,358,208 params, the meta
+   tree's count, ``param_count()`` logged beside) and
+   llama-3.2-vision-11b at all 40 layers (d_model 4096, 32 heads on 8 KV
+   heads, d_ff 14,336, vocab 128,256, cross-attention every 5th layer to
+   1024 patch tokens; 10,110,734,336 params), bf16, weights drawn on the
+   card from a seed and context embeddings from a seeded device
+   generator (normal, scale 1/sqrt(d_model)), each freed before the next.
+   Each serves through ``launch.serve.generate`` (batch 4, prompt 32: a
+   one-token prompt leaves the cross caches empty, ROADMAP C; 16 greedy
+   tokens; whisper's encoder timed inside the prefill by CUDA events),
+   its first decode steps (the cross caches written at prefill) held
+   against a cache-less forward over the same tokens and context
+   (LM_LOGIT_MAX / LM_LOGIT_MEAN, greedy ids equal but at a near-tie;
+   whisper also in fp32 at full width within 1e-3 / 1e-4), and 3 decode
+   steps profiled (device activity).  Then 3 federated SCBF steps of 5
+   clients x 4 x 64 tokens, each client with its own context (K, B, T,
+   D): whisper uncut, the vision model at one period of its pattern (5
+   layers: the 40 layers' step would need about 80.8 GB; the cut is
+   stated in its lines): losses finite and within 1.0 of ln V, K1 and K2
+   once a leaf table (whisper 2, the vision period 4) and nothing else,
+   the peak under 60 GB, the gradient phase timed apart, the last step's
+   tables against the plain versions (``MoeStepTap``), a client's
+   gradient profiled, and K1 and K2 timed a table.  Its lines start with
+   ``lm-encdec:``; the kernel report adds its launches and timings as
+   ``lm_encdec``.
+15. comm-table — ``benchmarks/torch_table_communication.run(quick=False)``
    (MLP 2917-256-64-1, one client's upload at α 0.05 … 0.90 positive and
    0.10 negative): a ``comm-table:`` line a row, K1, K2 and K3's count
    once a row and K3's scatter once a row with a coo or bitmap weight
    leaf, every payload the host ``wire.encode`` of its masked delta; the
    fraction at α 0.10 beside the paper's 0.45 and the 0.98 of a real
    training delta.
-15. the card line, the kernel report line and the final ok line.
+16. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -2608,21 +2635,22 @@ def _peak_gb(torch) -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def _decode_vs_forward(torch, bundle, params, prompts, res, n: int
-                       ) -> dict:
+def _decode_vs_forward(torch, bundle, params, prompts, res, n: int,
+                       aux=None) -> dict:
     """The first ``n`` logits of a greedy ``generate`` (logits[i] is the
     prediction at position prompt - 1 + i) against a cache-less forward
-    over the same tokens: the largest |dlogit|, the largest mean |dlogit|
-    of a position, at how many positions the greedy ids are equal, and at
-    how many (row, position) pairs they differ where the forward's top
-    two logits lie more than twice that pair's largest |dlogit| apart
-    (away from a near-tie of the argmax)."""
+    over the same tokens (reading the context tokens ``aux``, if the model
+    cross-attends): the largest |dlogit|, the largest mean |dlogit| of a
+    position, at how many positions the greedy ids are equal, and at how
+    many (row, position) pairs they differ where the forward's top two
+    logits lie more than twice that pair's largest |dlogit| apart (away
+    from a near-tie of the argmax)."""
     from repro_torch.models import transformer as T
 
     cfg, prompt = bundle.cfg, prompts.shape[1]
     seq = torch.cat([prompts, res.tokens[:, :n - 1]], axis=1)
     with torch.no_grad():
-        h, _ = T.forward_hidden(params, cfg, seq, bundle.ctx)
+        h, _ = T.forward_hidden(params, cfg, seq, bundle.ctx, aux=aux)
         full = T.logits_from_hidden(params, cfg, h)[:, prompt - 1:].float()
     diffs = (torch.stack(res.logits[:n], 1).float() - full).abs()
     greedy = torch.argmax(full, -1).to(torch.int32) == res.tokens[:, :n]
@@ -3689,7 +3717,18 @@ SSM_SERVE = dict(batch=4, prompt=32, gen=32, cache=128)
 SSM_STEPS = 3                         # cold, profiled selection, checked
 SSM_LONG_SEQ = 512                    # one more step: 2 SSD chunks of 256
 SSM_TABLES = 2                        # a bf16 leaf table and an fp32 one
-SELECTION_IDLE_S = 1.0                # host idle before a profiled selection
+# a profiled selection's window opens with a burst of this many
+# one-element kernels of its own (``bitwise_not``), left out of its
+# numbers: right after a client's gradient phase (hundreds of thousands of
+# unprofiled launches) the profiler loses a window's first events — on the
+# H100, 12 of 12 windows opened without a burst (as here but for it,
+# without the warm-up step, or with device activity only) lost their first
+# 0.7 s, K1 among them, and 4 of 4 opened with a burst of 20,000 lost
+# none; a host idle of 1 s (the earlier opening) lost K1 in 3 of 3 windows
+# of one whole command
+SELECTION_BURST = 20_000
+SELECTION_BURST_KERNEL = "bitwise_not_kernel"
+SELECTION_IDLE_S = 0.2                # host idle after the burst
 SSM_PEAK_GB = 60.0
 # mamba2's decode against a cache-less forward.  In fp32 at full width the
 # two paths agree to 1.37e-4 max / 2.0e-5 mean |dlogit| (H100 run, greedy
@@ -3864,10 +3903,11 @@ class SelectionProfile:
     """torch.profiler over the selection of each federated step run under
     it (the step's ``core.channels.apply_factored_mask_slots`` call, where
     K1 and K2 launch): each window's kernel events, wall and device busy
-    share: a warm-up step and a kernel of its own open each window, and
-    its host idles WINDOW_TAIL_S times the window's number before it
-    closes (late in the command the profiler has lost a window's first
-    and last events)."""
+    share: a warm-up step and a burst of SELECTION_BURST kernels of its
+    own open each window (after a gradient phase the profiler loses a
+    window's first events), and its host idles WINDOW_TAIL_S times the
+    window's number before it closes (late in the command the profiler
+    has lost a window's last events)."""
 
     def __init__(self, torch):
         from repro_torch.core import channels as ch
@@ -3889,14 +3929,15 @@ class SelectionProfile:
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA],
                        schedule=schedule(wait=0, warmup=1, active=1))
-        # a warm-up step, and a first kernel of the active step that is
-        # none of ours (as ChunkTap: a window's first device activity can
-        # go unrecorded)
+        # a warm-up step, and a burst of kernels of our own that the
+        # window's lost first events fall on
         prof.start()
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         prof.step()
-        torch.ones(1, device="cuda").add_(1)
+        burst = torch.zeros(1, dtype=torch.int32, device="cuda")
+        for _ in range(SELECTION_BURST):
+            burst.bitwise_not_()
         torch.cuda.synchronize()
         time.sleep(SELECTION_IDLE_S)
         t0 = time.perf_counter()
@@ -3905,7 +3946,8 @@ class SelectionProfile:
         wall = time.perf_counter() - t0
         time.sleep(WINDOW_TAIL_S * (len(self.windows) + 1))
         prof.stop()
-        by_name = _device_events(prof)
+        by_name = {k: v for k, v in _device_events(prof).items()
+                   if SELECTION_BURST_KERNEL not in k}
         self.windows.append(_window(by_name, wall))
         launched = self.windows[-1]["kernel_launches"]
         if launched["channel_norm"] < SSM_TABLES:
@@ -3916,7 +3958,8 @@ class SelectionProfile:
         return out
 
 
-def ssm_gradient_profile(torch, bundle, params, batch, card: str) -> dict:
+def ssm_gradient_profile(torch, bundle, params, batch, card: str,
+                         tag: str = "lm-ssm") -> dict:
     """torch.profiler (device activity only: a client's pass dispatches
     hundreds of thousands of kernels) over one client's forward and
     backward at the step's shape: wall, device busy share, top kernels."""
@@ -3934,10 +3977,10 @@ def ssm_gradient_profile(torch, bundle, params, batch, card: str) -> dict:
         wall = time.perf_counter() - t0
     window = _window(_device_events(prof), wall)
     if not window["events"]:
-        raise AssertionError("lm-ssm: the profile of a client's gradient "
+        raise AssertionError(f"{tag}: the profile of a client's gradient "
                              "holds no CUDA event")
-    log("lm-ssm: profile of one client's gradient (4 x 64 tokens): "
-        + json.dumps({**window, "card": card}))
+    log(f"{tag}: profile of one client's gradient of {bundle.cfg.name} "
+        f"(4 x 64 tokens): " + json.dumps({**window, "card": card}))
     return window
 
 
@@ -4253,6 +4296,424 @@ def phase_lm_ssm(torch, card: str) -> dict:
             "timing": mamba["timing"]}
 
 
+# the lm-encdec phase: whisper-medium uncut and llama-3.2-vision-11b at
+# every published width, bf16, random weights and context embeddings from
+# seeds
+ENC_ARCH = "whisper-medium"
+VIS_ARCH = "llama-3.2-vision-11b"
+# prompts of more than one token: a one-token prompt's prefill leaves the
+# cross caches empty, as the reference's (ROADMAP C)
+ENCDEC_SERVE = dict(batch=4, prompt=32, gen=16, cache=128)
+ENCDEC_STEPS = 3                      # cold, steady, checked
+ENCDEC_PEAK_GB = 60.0
+# the vision model's federated step at one period of its pattern (4 self
+# layers, 1 with cross-attention): 2,183,184,384 params, 4.37 GB, where its
+# 40 layers (20.2 GB) would need about 80.8 GB for the step's buffers, one
+# client's tree and the update's temporaries, even at 2 clients
+VIS_STEP_CUT = dict(num_layers=5)
+# a federated step's loss at random init sits near ln V (the logits of a
+# layer-normed hidden state through a fan-in-scaled unembedding have unit
+# spread, which adds about 0.5): the gate is ln V within 1.0
+ENCDEC_LOSS_SPREAD = 1.0
+
+
+def _encdec_model(torch, arch: str, card: str, **cut):
+    """(cfg, bundle, params) of ``arch`` at every published width with the
+    ``cut`` fields replaced, drawn on the card from seed 0; the count is
+    the meta-device tree's (``param_count()``, the reference's closed
+    form, is logged beside: for whisper it counts a gated MLP and no norm
+    bias)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    from repro_torch.models import transformer as T
+    from repro_torch.params import tree_leaves
+
+    cfg = dataclasses.replace(configs.get(arch), **cut)
+    before = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = model_zoo.build(cfg, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    meta = sum(t.numel() for t in tree_leaves(T.init_model(cfg, None)[0]))
+    if n != meta:
+        raise AssertionError(f"lm-encdec: {n} params, the meta tree {meta}")
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    key, t_ctx = model_zoo.context_input(cfg)
+    log(f"lm-encdec: {cfg.name} ({cfg.num_layers}L decoder"
+        + (f" + {cfg.encoder_layers}L encoder" if cfg.encoder_layers
+           else "") + f", d={cfg.d_model} {cfg.num_heads}H/"
+        f"{cfg.num_kv_heads}KV d_ff={cfg.d_ff} vocab={cfg.vocab_size}, "
+        f"cross-attention every {cfg.cross_attn_every} layer(s) to "
+        f"{t_ctx} context tokens ({key}), {cfg.dtype}; cut: "
+        f"{cut or 'none'}; {n:,} params (param_count() "
+        f"{cfg.param_count():,}), {gb:.2f} GB, {len(leaves)} leaves, "
+        f"{sum(t.ndim >= 2 for t in leaves)} scored) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s (peak {_peak_gb(torch):.2f} GB "
+        f"from {before:.2f} GB allocated before) ({card})")
+    return cfg, bundle, params
+
+
+def _context_embeds(torch, cfg, lead: tuple, seed: int):
+    """Context embeddings ``lead + (t_ctx, d_model)`` from a seeded device
+    generator: normal, scale 1/sqrt(d_model), drawn in fp32 (zeros would
+    make every cross-attention output constant).  (fp32, model dtype)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.models.common import DTYPES
+
+    _, t_ctx = model_zoo.context_input(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(lead + (t_ctx, cfg.d_model), generator=gen,
+                    device="cuda") / math.sqrt(cfg.d_model)
+    return x, x.to(DTYPES[cfg.dtype])
+
+
+class EncodeTimer:
+    """CUDA events around each ``transformer.encode`` call that
+    ``model_zoo`` makes while installed (whisper's encoder inside
+    prefill): the device ms from the call's first kernel to its last."""
+
+    def __init__(self, torch):
+        from repro_torch.models import transformer as T
+        self.torch, self.T = torch, T
+        self.events = []
+
+    def __enter__(self):
+        self.real = self.T.encode
+        self.T.encode = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.T.encode = self.real
+
+    def call(self, *args, **kw):
+        torch = self.torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.real(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _context_tokens(torch, bundle, params, embeds):
+    """What the decoder's cross-attention reads: the encoder's output over
+    ``embeds``, or the patch embeddings as given."""
+    from repro_torch.models import model_zoo
+
+    key, _ = model_zoo.context_input(bundle.cfg)
+    with torch.no_grad():
+        return model_zoo._aux_from_batch(params, bundle.cfg, {key: embeds},
+                                         bundle.ctx)
+
+
+def encdec_decode_profile(torch, bundle, params, aux, card: str) -> dict:
+    """torch.profiler (device activity only) over 3 steady decode steps at
+    batch 4 from a 32-token prompt: wall, device busy share, top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model_zoo
+
+    sv = ENCDEC_SERVE
+    key, _ = model_zoo.context_input(bundle.cfg)
+    prompts = torch.randint(0, bundle.cfg.vocab_size,
+                            (sv["batch"], sv["prompt"]), dtype=torch.int32,
+                            device="cuda")
+    logits, caches = bundle.prefill_step(params, {
+        "tokens": prompts, key: aux,
+        "caches": bundle.make_cache(sv["batch"], sv["cache"])})
+    token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    def decode(t):
+        nonlocal caches, token
+        pos = torch.full((sv["batch"], 1), sv["prompt"] + t,
+                         dtype=torch.int32, device="cuda")
+        lg, caches = bundle.decode_step(params, {
+            "token": token, "pos": pos, "caches": caches})
+        token = torch.argmax(lg, -1)[:, None].to(torch.int32)
+
+    decode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, 4):
+            decode(t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    window = _window(_device_events(prof), wall)
+    if not window["events"]:
+        raise AssertionError("lm-encdec: the profile of 3 decode steps "
+                             "holds no CUDA event")
+    log(f"lm-encdec: profile of 3 decode steps of {bundle.cfg.name}: "
+        + json.dumps({**window, "card": card}))
+    return window
+
+
+def encdec_serve(torch, bundle, params, card: str, fp32_check: bool
+                 ) -> dict:
+    """Serving through ``launch.serve.generate`` with context embeddings
+    (a warm-up call, the timed batch; whisper's encoder timed inside the
+    prefill by CUDA events), the first decode steps (the cross caches
+    written at prefill, read a step) held against a cache-less forward
+    over the same tokens and context within LM_LOGIT_MAX / LM_LOGIT_MEAN
+    and greedy ids equal but at a near-tie; with ``fp32_check`` the same
+    in fp32 at full width (the same draws before their rounding) within
+    SSM_FP32_LOGIT_MAX / SSM_FP32_LOGIT_MEAN and greedy ids equal; a
+    profile of 3 decode steps."""
+    from repro_torch.launch.serve import generate
+
+    cfg = bundle.cfg
+    sv = ENCDEC_SERVE
+    n = LM_DECODE_CHECKED + 1
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (sv["batch"], sv["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    a32, aux = _context_embeds(torch, cfg, (sv["batch"],), seed=2)
+    generate(bundle, params, prompts, 2, sv["cache"], aux=aux)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with EncodeTimer(torch) as enc:
+        res = generate(bundle, params, prompts, sv["gen"], sv["cache"],
+                       aux=aux)
+    if not (0 <= int(res.tokens.min())
+            and int(res.tokens.max()) < cfg.vocab_size):
+        raise AssertionError(f"lm-encdec: token ids outside [0, "
+                             f"{cfg.vocab_size})")
+    steps = sv["gen"] - 1
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "encoder_ms_in_prefill": enc.ms(),
+           "decode_ms": res.decode_s * 1e3,
+           "decode_ms_a_step": res.decode_s * 1e3 / steps,
+           "decode_tok_s": sv["batch"] * steps / res.decode_s,
+           "peak_gb": _peak_gb(torch),
+           "bf16": _decode_vs_forward(
+               torch, bundle, params, prompts, res, n,
+               aux=_context_tokens(torch, bundle, params, aux))}
+    if cfg.encoder_layers and len(out["encoder_ms_in_prefill"]) != 1:
+        raise AssertionError(f"lm-encdec: the prefill encoded "
+                             f"{len(out['encoder_ms_in_prefill'])} times")
+    b16 = out["bf16"]
+    ok = (b16["logit_max_abs"] <= LM_LOGIT_MAX
+          and b16["logit_mean_abs"] <= LM_LOGIT_MEAN
+          and b16["greedy_off_tie"] == 0)
+    if fp32_check:
+        import dataclasses
+
+        from repro_torch.models import model_zoo
+        f32 = model_zoo.build(dataclasses.replace(cfg, dtype="float32"),
+                              device="cuda")
+        p32, _ = f32.init(torch.Generator(device="cuda").manual_seed(0))
+        r32 = generate(f32, p32, prompts, n, sv["cache"], aux=a32)
+        out["fp32"] = f = _decode_vs_forward(
+            torch, f32, p32, prompts, r32, n,
+            aux=_context_tokens(torch, f32, p32, a32))
+        ok = ok and (f["logit_max_abs"] <= SSM_FP32_LOGIT_MAX
+                     and f["logit_mean_abs"] <= SSM_FP32_LOGIT_MEAN
+                     and f["greedy_agree"] == n)
+        del f32, p32, r32
+        torch.cuda.empty_cache()
+    log(f"lm-encdec: serve {cfg.name} batch {sv['batch']} prompt "
+        f"{sv['prompt']} gen {sv['gen']} cache {sv['cache']}, context "
+        f"{tuple(aux.shape)} {aux.dtype}: prefill {out['prefill_ms']:.2f} ms"
+        + (f" (the encoder {out['encoder_ms_in_prefill'][0]:.2f} ms of it "
+           f"by events)" if cfg.encoder_layers else "")
+        + f", decode {out['decode_ms']:.1f} ms ({out['decode_ms_a_step']:.2f}"
+        f" ms a step, {out['decode_tok_s']:.1f} tok/s), peak "
+        f"{out['peak_gb']:.2f} GB; decode vs full forward over {n} "
+        f"positions: bf16 max |dlogit| {b16['logit_max_abs']:.4g}, mean "
+        f"{b16['logit_mean_abs']:.3g}, greedy ids equal at "
+        f"{b16['greedy_agree']} of {n}, {b16['greedy_off_tie']} (row, "
+        f"position) pairs unequal away from a near-tie (gate {LM_LOGIT_MAX}"
+        f" / {LM_LOGIT_MEAN})"
+        + (f"; fp32 at full width max |dlogit| "
+           f"{out['fp32']['logit_max_abs']:.4g}, mean "
+           f"{out['fp32']['logit_mean_abs']:.3g}, greedy ids equal at "
+           f"{out['fp32']['greedy_agree']} of {n} (gate "
+           f"{SSM_FP32_LOGIT_MAX} / {SSM_FP32_LOGIT_MEAN})"
+           if fp32_check else "") + f" ({card})")
+    if not (ok and all(bool(torch.isfinite(lg).all())
+                       for lg in res.logits)):
+        raise AssertionError(f"lm-encdec: decode against the cache-less "
+                             f"forward: {out}")
+    out["decode_profile"] = encdec_decode_profile(torch, bundle, params,
+                                                  aux, card)
+    return out
+
+
+def encdec_steps(torch, cfg, bundle, held: list, card: str, cut: str
+                 ) -> dict:
+    """ENCDEC_STEPS federated SCBF steps at the launcher's shape
+    (LM_CLIENTS x LM_BATCH x LM_SEQ tokens, each client with its own
+    context embeddings (K, B, T, D)): losses finite and within
+    ENCDEC_LOSS_SPREAD of ln V, K1 and K2 once a leaf table and nothing
+    else from the wrapper counts (the params are of one dtype, so a step's
+    tables are its scored leaves, ndim >= 2, in tables of MAX_LEAVES:
+    whisper's 32 in 2, the vision period's 52 in 4), each step's peak under
+    ENCDEC_PEAK_GB, its gradient phase timed apart, the last step's tables
+    against the plain versions (``MoeStepTap``), a client's gradient
+    profiled (device activity only), then K1 and K2 timed a table.
+    ``held`` hands over the only reference to the params."""
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.tokens import synthetic_lm_batch
+    from repro_torch.kernels import select_mask as sm
+    from repro_torch.models import model_zoo
+    from repro_torch.params import tree_leaves
+
+    params = held.pop()
+    leaves = tree_leaves(params)
+    if len({t.dtype for t in leaves}) != 1:
+        raise AssertionError("lm-encdec: the params hold several dtypes")
+    tables = -(-sum(t.ndim >= 2 for t in leaves) // sm.MAX_LEAVES)
+    del leaves
+    key, _ = model_zoo.context_input(cfg)
+    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=LM_CLIENTS)
+    step = dist.make_federated_train_step(bundle.loss_fn, scbf, lr=LM_LR)
+    losses, walls, counts, peaks, grad = [], [], [], [], []
+    tap = MoeStepTap(torch, LM_CLIENTS, "lm-encdec")
+    real_grads = dist.client_gradients
+
+    def client_gradients(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_grads(*args)
+        torch.cuda.synchronize()
+        grad.append((time.perf_counter() - t0, _peak_gb(torch)))
+        return out
+
+    dist.client_gradients = client_gradients
+    try:
+        for i in range(ENCDEC_STEPS):
+            nb = synthetic_lm_batch(LM_CLIENTS * LM_BATCH, LM_SEQ,
+                                    cfg.vocab_size, i)
+            batch = {k: torch.from_numpy(v).cuda().reshape(
+                LM_CLIENTS, LM_BATCH, LM_SEQ) for k, v in nb.items()}
+            batch[key] = _context_embeds(torch, cfg, (LM_CLIENTS, LM_BATCH),
+                                         seed=10 + i)[1]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t1 = time.perf_counter()
+            if i == ENCDEC_STEPS - 1:
+                with tap:
+                    loss, params = step(params, batch)
+            else:
+                loss, params = step(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            counts.append(_launch_counts())
+            peaks.append(_peak_gb(torch))
+            losses.append(float(loss))
+    finally:
+        dist.client_gradients = real_grads
+    flips = tap.flips(LM_RATE)
+    ln_v = math.log(cfg.vocab_size)
+    log(f"lm-encdec: {ENCDEC_STEPS} federated steps of {cfg.name} (cut: "
+        f"{cut}; {LM_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, each "
+        f"client's own {key}, rate {LM_RATE}, lr {LM_LR}): losses {losses} "
+        f"(ln V {ln_v:.4f}), step walls {[round(w, 4) for w in walls]} s "
+        f"(cold, steady, checked), the gradient phase's "
+        f"{[round(g, 4) for g, _ in grad]} s, peaks "
+        f"{[round(p, 2) for p in peaks]} GB (under {ENCDEC_PEAK_GB} GB), the "
+        f"gradient phase's {[round(p, 2) for _, p in grad]} GB; K1 and K2 "
+        f"once a leaf table a step ({tables} each): tables "
+        + json.dumps(tap.tables) + f"; kept fraction a client {tap.frac}; "
+        f"on step {ENCDEC_STEPS}'s tables K1 within rtol {LM_K1_RTOL} and "
+        f"no absolute floor (max rel err {tap.k1_rel:.3g}; thresholds "
+        f"{flips['threshold']}, plain {flips['plain_threshold']}; "
+        f"{flips['channel_flips']} channels flipped, all at the threshold) "
+        f"and K2 in place bitwise its plain version (values and counts) "
+        f"({card})")
+    for c in counts:
+        if (c["channel_norm"], c["select_mask"]) != (tables, tables) or any(
+                c[k] for k in c if k not in ("channel_norm", "select_mask")):
+            raise AssertionError(f"lm-encdec: a federated step launched "
+                                 f"{c}; want K1 and K2 once a leaf table "
+                                 f"({tables}) and nothing else")
+    if tap.k2_tables != tables or len(tap.tables) != tables:
+        raise AssertionError(f"lm-encdec: the tapped step checked "
+                             f"{tap.k2_tables} tables")
+    if not all(math.isfinite(x) and abs(x - ln_v) <= ENCDEC_LOSS_SPREAD
+               for x in losses):
+        raise AssertionError(f"lm-encdec: losses {losses}, want finite and "
+                             f"within {ENCDEC_LOSS_SPREAD} of ln V = "
+                             f"{ln_v:.4f}")
+    if max(peaks) >= ENCDEC_PEAK_GB:
+        raise AssertionError(f"lm-encdec: a step's peak {peaks} GB is not "
+                             f"under {ENCDEC_PEAK_GB} GB")
+    out = {"losses": losses, "step_walls": walls,
+           "gradient_phase_s": [g for g, _ in grad], "peaks_gb": peaks,
+           "gradient_phase_peaks_gb": [p for _, p in grad],
+           "kept_fraction": tap.frac, "k1_max_rel_err": tap.k1_rel,
+           "flips": flips, "tables": tap.tables,
+           "launches": {k: sum(c[k] for c in counts)
+                        for k in ("channel_norm", "select_mask")}}
+    out["gradient_profile"] = ssm_gradient_profile(
+        torch, bundle, params, batch, card, tag="lm-encdec")
+    host = tap.host
+    del tap, params, batch
+    torch.cuda.empty_cache()
+    out["timing"] = moe_time_tables(torch, host, card, tag="lm-encdec")
+    return out
+
+
+def phase_whisper(torch, card: str) -> dict:
+    """whisper-medium uncut: serving (bf16, and fp32 at full width), then
+    the federated steps."""
+    cfg, bundle, params = _encdec_model(torch, ENC_ARCH, card)
+    out = {"serve": encdec_serve(torch, bundle, params, card,
+                                 fp32_check=True)}
+    torch.cuda.empty_cache()
+    held = [params]
+    del params
+    out.update(encdec_steps(torch, cfg, bundle, held, card, "none"))
+    return out
+
+
+def phase_vision(torch, card: str) -> dict:
+    """llama-3.2-vision-11b at all 40 layers serving, freed, then the
+    federated steps at one period of its pattern (VIS_STEP_CUT)."""
+    cfg, bundle, params = _encdec_model(torch, VIS_ARCH, card)
+    out = {"serve": encdec_serve(torch, bundle, params, card,
+                                 fp32_check=False)}
+    del bundle, params
+    torch.cuda.empty_cache()
+    cfg, bundle, params = _encdec_model(torch, VIS_ARCH, card,
+                                        **VIS_STEP_CUT)
+    held = [params]
+    del params
+    out.update(encdec_steps(
+        torch, cfg, bundle, held, card,
+        f"{VIS_STEP_CUT['num_layers']} of 40 layers, one period of the "
+        f"pattern: the 40 layers' step would need about 80.8 GB"))
+    return out
+
+
+def phase_lm_encdec(torch, card: str) -> dict:
+    """whisper-medium, then llama-3.2-vision, each freed before the
+    next."""
+    torch.cuda.empty_cache()
+    whisper = phase_whisper(torch, card)
+    torch.cuda.empty_cache()
+    vision = phase_vision(torch, card)
+    torch.cuda.empty_cache()
+    return {"whisper": whisper, "vision": vision,
+            "launches": {k: whisper["launches"][k] + vision["launches"][k]
+                         for k in ("channel_norm", "select_mask")},
+            "timing": {k: {ENC_ARCH: whisper["timing"][k],
+                           VIS_ARCH: vision["timing"][k]}
+                       for k in ("channel_norm", "select_mask")}}
+
+
 # the paper's claimed upload fraction at α = 0.10, and the fraction both
 # packages select there at full width from a real local-training delta
 # (tests/test_torch_channels.py: the layer-0 rule reveals whole W0 columns)
@@ -4361,6 +4822,9 @@ def main() -> int:
     ssm = phase_lm_ssm(torch, card)
     log(f"phase lm-ssm: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    encdec = phase_lm_encdec(torch, card)
+    log(f"phase lm-encdec: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     comm = phase_comm_table(torch, card)
     log(f"phase comm-table: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
@@ -4379,6 +4843,9 @@ def main() -> int:
             by_run["lm_ssm_federated_steps"] = {r["name"]:
                                                 ssm["launches"][r["name"]]}
             r["lm_ssm"] = ssm["timing"][r["name"]]
+            by_run["lm_encdec_federated_steps"] = {
+                r["name"]: encdec["launches"][r["name"]]}
+            r["lm_encdec"] = encdec["timing"][r["name"]]
         by_run["comm_table"] = {k: comm["launches"][k]
                                 for k in kinds.get(r["name"], (r["name"],))}
         r["launches"] = sum(sum(c.values()) for c in by_run.values())
@@ -4402,7 +4869,7 @@ def main() -> int:
                  "ms_single_leaf", "device_us", "device_us_l2_warm",
                  "device_us_single_leaf",
                  "encoder", "memset_us", "memset_us_single_leaf", "slots",
-                 "pass", "lm", "lm_moe", "lm_ssm")}}))
+                 "pass", "lm", "lm_moe", "lm_ssm", "lm_encdec")}}))
     log(f"total: {time.perf_counter() - T_START:.1f}s")
     print(card)
     print(json.dumps({"kernels": report}))

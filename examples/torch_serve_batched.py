@@ -1,10 +1,11 @@
-"""Batched serving of reduced dense architectures on the PyTorch/CUDA port
-(prefill + decode through the ring-buffer KV caches; counterpart of
-``examples/serve_batched.py``, dense archs only: MoE, MLA, SSM, audio and
-vision are ROADMAP A14b).
+"""Batched serving of reduced assigned architectures on the PyTorch/CUDA
+port (prefill + decode through the ring-buffer KV, latent and SSM caches,
+and the cross caches of whisper and llama-3.2-vision; counterpart of
+``examples/serve_batched.py``).
 
     PYTHONPATH=src python examples/torch_serve_batched.py \
-        --archs qwen2-0.5b,chatglm3-6b --gen 16 [--device cpu]
+        --archs qwen2-0.5b,whisper-medium,llama-3.2-vision-11b --gen 16 \
+        [--device cpu]
 """
 import argparse
 import subprocess

@@ -32,12 +32,18 @@ def _sync(device: torch.device) -> None:
 
 def generate(bundle, params, prompts: torch.Tensor, gen: int,
              cache_len: int, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> Generation:
+             generator: Optional[torch.Generator] = None,
+             aux: Optional[torch.Tensor] = None) -> Generation:
     """Prefill ``prompts`` (B, P) int32 into fresh ring-buffer caches of
     ``cache_len`` slots, then decode ``gen - 1`` more tokens one at a time
     (``gen`` in all): greedy at temperature 0, else sampled from
-    softmax(logits / temperature) with ``generator``.  The two phases are
-    timed apart, each ending in a device synchronise."""
+    softmax(logits / temperature) with ``generator``.  ``aux`` (B, T, D)
+    is the context of a model with cross-attention (whisper's frame
+    embeddings, a vision model's patch embeddings), handed to prefill
+    under its batch key; decode reads it from the caches.  The two phases
+    are timed apart, each ending in a device synchronise."""
+    from repro_torch.models.model_zoo import context_input
+
     B, P = prompts.shape
     dev = prompts.device
 
@@ -49,10 +55,15 @@ def generate(bundle, params, prompts: torch.Tensor, gen: int,
         return torch.multinomial(probs, 1, generator=generator
                                  ).to(torch.int32)
 
+    batch = {"tokens": prompts, "caches": bundle.make_cache(B, cache_len)}
+    context = context_input(bundle.cfg)
+    if (context is None) != (aux is None):
+        raise ValueError(f"{bundle.cfg.name}: aux must be given exactly when "
+                         f"the model cross-attends")
+    if context is not None:
+        batch[context[0]] = aux
     t0 = time.perf_counter()
-    logits, caches = bundle.prefill_step(
-        params, {"tokens": prompts, "caches": bundle.make_cache(B,
-                                                                cache_len)})
+    logits, caches = bundle.prefill_step(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -96,8 +107,13 @@ def main(argv=None) -> Generation:
     gen = torch.Generator(device=bundle.device).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             dtype=torch.int32, device=bundle.device)
+    # the reference's stub context: zero frame or patch embeddings in bf16
+    context = model_zoo.context_input(cfg)
+    aux = None if context is None else torch.zeros(
+        (B, context[1], cfg.d_model), dtype=torch.bfloat16,
+        device=bundle.device)
     res = generate(bundle, params, prompts, args.gen, args.cache_len,
-                   args.temperature, gen)
+                   args.temperature, gen, aux=aux)
 
     toks = res.tokens.cpu().numpy()
     print(f"arch={cfg.name} batch={B} prompt={P} gen={args.gen}")

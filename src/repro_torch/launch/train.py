@@ -151,11 +151,16 @@ def run_lm(args):
     step = make_federated_train_step(bundle.loss_fn, scbf, lr=args.lr)
 
     K, B, S = args.clients, args.batch_size, args.seq_len
+    context = model_zoo.context_input(cfg)
     stream = SyntheticTokenStream(K * B, S, cfg.vocab_size, seed=args.seed)
     t0 = time.time()
     for i, nb in zip(range(args.steps), stream):
         batch = {k: torch.from_numpy(v).to(bundle.device).reshape(K, B, S)
                  for k, v in nb.items()}
+        if context is not None:       # the reference's zero embeddings
+            batch[context[0]] = torch.zeros(
+                (K, B, context[1], cfg.d_model), dtype=torch.bfloat16,
+                device=bundle.device)
         loss, params = step(params, batch)
         if i % max(1, args.steps // 20) == 0 or i == args.steps - 1:
             print(f"step {i:4d} loss {float(loss):.4f} "

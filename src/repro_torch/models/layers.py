@@ -225,7 +225,8 @@ def gqa_apply(p, x, ctx: ModelCtx, positions, *, kv_x=None, kv_positions=None,
         new_cache = cache
     elif cache is None or kv_x is not None:
         Skv = src.shape[1]
-        kpos = (torch.arange(Skv, device=x.device)[None].expand(B, Skv)
+        kpos = (torch.arange(Skv, dtype=torch.int32,
+                             device=x.device)[None].expand(B, Skv)
                 if kv_positions is None else kv_positions)
         k = _dense(p["k"], src).reshape(B, Skv, KV, hd)
         v = _dense(p["v"], src).reshape(B, Skv, KV, hd)

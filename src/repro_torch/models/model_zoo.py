@@ -13,14 +13,17 @@ A bundle packages what the launchers and the federated trainer need:
 Params, batches and caches are the reference's trees of tensors on the
 bundle's device (``build(..., device=None)`` is cuda; the CPU only when
 asked).  Token ids and positions are int32, as in the reference.  The
-serving steps run without autograd.  ``build`` refuses what the port
-does not run yet — the encoder, modality frontends and cross-attention —
-with ``NotImplementedError`` naming ROADMAP A14b.
+serving steps run without autograd.  A model with cross-attention reads
+its context from the batch (``context_input``): whisper's frame
+embeddings (``audio_embeds``, through the encoder) or a vision model's
+patch embeddings (``image_embeds``, as given: the frontends are stubs);
+prefill returns the context as ``ctx_tokens`` beside the caches and
+decode reads it from there.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -50,17 +53,26 @@ def _cache_len(cfg: ArchConfig, shape: ShapeConfig, window: int) -> int:
     return min(shape.seq_len, window) if window else shape.seq_len
 
 
-def refuse_unported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A14b for a config
-    that needs a module this slice does not port."""
-    for needs, what in ((cfg.encoder_layers, "the encoder (encoder_layers)"),
-                        (cfg.frontend != "none",
-                         f"the {cfg.frontend} frontend"),
-                        (cfg.cross_attn_every,
-                         "cross-attention (cross_attn_every)")):
-        if needs:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) needs {what}: {T.A14B}")
+def context_input(cfg: ArchConfig) -> Optional[Tuple[str, int]]:
+    """(batch key, tokens) of the context a config's cross-attention
+    reads, each token ``d_model`` wide: whisper's frame embeddings, a
+    vision model's patch embeddings; None for a text-only config."""
+    if cfg.encoder_layers:
+        return "audio_embeds", cfg.encoder_seq
+    if cfg.frontend == "vision":
+        return "image_embeds", cfg.num_patch_tokens
+    return None
+
+
+def _aux_from_batch(params, cfg: ArchConfig, batch, ctx):
+    """Cross-attention context tokens: the encoder's output (audio) or the
+    patch embeddings as given (vision); None for a text-only config."""
+    context = context_input(cfg)
+    if context is None:
+        return None
+    embeds = batch[context[0]]
+    return T.encode(params, cfg, embeds, ctx) if cfg.encoder_layers \
+        else embeds
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -91,7 +103,6 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
     """``moe_groups`` > 1 routes MoE tokens in that many groups, as the
     reference; ``moe_dshard`` places the reference's shards and changes
     nothing on one device."""
-    refuse_unported(cfg)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     ctx = ModelCtx(cfg=cfg, dtype=dtype, q_chunk=q_chunk, kv_quant=kv_quant,
@@ -106,7 +117,8 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
 
     # ------------------------------------------------------------- train
     def loss_fn(params, batch, window: int = 0):
-        h, _ = T.forward_hidden(params, cfg, batch["tokens"], ctx,
+        aux = _aux_from_batch(params, cfg, batch, ctx)
+        h, _ = T.forward_hidden(params, cfg, batch["tokens"], ctx, aux=aux,
                                 remat=remat,
                                 window=window or cfg.sliding_window)
         return T.chunked_ce_loss(params, cfg, h, batch["targets"], ctx)
@@ -118,25 +130,39 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
     # ----------------------------------------------------------- serving
     @torch.no_grad()
     def prefill_step(params, batch, window: int = 0):
-        """Writes the whole prompt into fresh caches; returns last logits."""
+        """Writes the whole prompt into fresh caches; returns last logits
+        (and the context tokens, for decode to read)."""
+        aux = _aux_from_batch(params, cfg, batch, ctx)
         h, new_caches = T.forward_hidden(params, cfg, batch["tokens"], ctx,
-                                         caches=batch["caches"], remat=False,
+                                         aux=aux, caches=batch["caches"],
+                                         remat=False,
                                          window=window or cfg.sliding_window)
         logits = T.logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
-        return logits, {"layers": new_caches}
+        out = {"layers": new_caches}
+        if aux is not None:
+            out["ctx_tokens"] = aux
+        return logits, out
 
     @torch.no_grad()
     def decode_step(params, batch, window: int = 0):
         """One token (B,1) at absolute position pos (B,1) against caches."""
+        caches = batch["caches"]
+        aux = caches.get("ctx_tokens")
         h, new_caches = T.forward_hidden(
             params, cfg, batch["token"], ctx, positions=batch["pos"],
-            caches=batch["caches"]["layers"], remat=False,
+            aux=aux, caches=caches["layers"], remat=False,
             window=window or cfg.sliding_window)
         logits = T.logits_from_hidden(params, cfg, h[:, 0, :])
-        return logits, {"layers": new_caches}
+        out = {"layers": new_caches}
+        if aux is not None:
+            out["ctx_tokens"] = aux
+        return logits, out
 
     # -------------------------------------------------------- cache tree
-    def _layer_cache(spec: T.LayerSpec, batch: int, cache_len: int, mk):
+    context = context_input(cfg)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def _self_cache(spec: T.LayerSpec, batch: int, cache_len: int, mk):
         if spec.kind != "attn":           # the SSM state and conv window
             return {"mamba": {
                 "h": mk((batch, cfg.num_ssm_heads, cfg.ssm_state,
@@ -148,7 +174,6 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
                 "ckv": mk((batch, cache_len, cfg.kv_lora_rank), dtype),
                 "krope": mk((batch, cache_len, cfg.qk_rope_dim), dtype),
                 "kpos": mk((batch, cache_len), torch.int32)}}
-        KV, hd = cfg.num_kv_heads, cfg.head_dim
         kv_dtype = torch.int8 if kv_quant else dtype
         c = {"k": mk((batch, cache_len, KV, hd), kv_dtype),
              "v": mk((batch, cache_len, KV, hd), kv_dtype),
@@ -157,6 +182,17 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
             c["k_scale"] = mk((batch, cache_len, KV), torch.float32)
             c["v_scale"] = mk((batch, cache_len, KV), torch.float32)
         return {"attn": c}
+
+    def _layer_cache(spec: T.LayerSpec, batch: int, cache_len: int, mk):
+        c = _self_cache(spec, batch, cache_len, mk)
+        if spec.cross:
+            # the context's K/V, written once at prefill; in the model
+            # dtype under kv_quant too, as the reference's
+            t_ctx = context[1]
+            c["cross"] = {"k": mk((batch, t_ctx, KV, hd), dtype),
+                          "v": mk((batch, t_ctx, KV, hd), dtype),
+                          "kpos": mk((batch, t_ctx), torch.int32)}
+        return c
 
     def cache_tree(batch: int, cache_len: int, on: torch.device):
         """Zero caches (``kpos`` -1: every slot empty), the unit's stacked
@@ -191,13 +227,17 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
         def ids(*s):
             return torch.empty(s, dtype=torch.int32, device=meta)
 
+        embeds = {} if context is None else {context[0]: torch.empty(
+            (B, context[1], cfg.d_model), dtype=dtype, device=meta)}
         if shape.kind == "train":
-            return {"tokens": ids(B, S), "targets": ids(B, S)}
+            return {"tokens": ids(B, S), "targets": ids(B, S), **embeds}
         caches = cache_tree(B, _cache_len(cfg, shape, window), meta)
         if shape.kind == "prefill":
-            return {"tokens": ids(B, S), "caches": caches}
-        return {"token": ids(B, 1), "pos": ids(B, 1),
-                "caches": {"layers": caches}}
+            return {"tokens": ids(B, S), "caches": caches, **embeds}
+        caches = {"layers": caches}
+        if context is not None:
+            caches["ctx_tokens"] = embeds[context[0]]
+        return {"token": ids(B, 1), "pos": ids(B, 1), "caches": caches}
 
     return ModelBundle(cfg=cfg, ctx=ctx, device=dev, init=init,
                        loss_fn=loss_fn, train_step=train_step,

@@ -1,5 +1,5 @@
-"""Generic decoder transformer over a repeating layer pattern (port of
-``repro.models.transformer``, but cross-attention and the encoder).
+"""Generic decoder(-encoder) transformer over a repeating layer pattern
+(port of ``repro.models.transformer``).
 
 Every architecture is expressed as:
 
@@ -7,7 +7,8 @@ Every architecture is expressed as:
 
 where a unit is the architecture's repeating pattern — 1 layer for dense
 models, Mamba2 and DeepSeek-V2 (after its dense prefix layer), [dense,
-moe] for Llama-4, 8 layers (7 Mamba, 1 attention) for Jamba.  Unit
+moe] for Llama-4, 8 layers (7 Mamba, 1 attention) for Jamba, [4 x self,
+self + cross] for the VLM.  Unit
 params are stacked on a leading "layers" axis, as in the reference, so
 the param tree (and the leaves SCBF scores and masks: a
 per-layer bias ``(N,)`` is a 2-D ``(R, N)`` leaf) is the reference's.  The
@@ -18,7 +19,10 @@ under ``torch.utils.checkpoint`` (the backward recomputes the unit's
 activations), which changes no result.
 
 Caches mirror the param structure: a tree per unit, stacked on the same
-leading axis.  Cross-attention layers and the encoder are ROADMAP A14b.
+leading axis.  A cross-attention sublayer attends to context tokens
+(``aux``): whisper's encoder output (``encode``, over the stub's frame
+embeddings) or a vision model's patch embeddings, its K/V computed once
+at prefill and kept in the layer's ``cross`` cache.
 """
 from __future__ import annotations
 
@@ -37,8 +41,6 @@ from repro_torch.models.common import (DTYPES, dense_init, device_of, merge,
                                        norm_init, stack_inits, trunc_normal)
 from repro_torch.models.layers import ModelCtx
 from repro_torch.params import tree_leaves, tree_map, tree_unflatten
-
-A14B = "ROADMAP A14b; not ported yet"
 
 
 @dataclass(frozen=True)
@@ -77,17 +79,11 @@ def unit_pattern(cfg: ArchConfig) -> Tuple[List[LayerSpec], List[LayerSpec], int
     return prefix, unit, len(rest) // period
 
 
-def _refuse(spec: LayerSpec) -> None:
-    if spec.cross:
-        raise NotImplementedError(f"cross-attention layers are {A14B}")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype):
-    _refuse(spec)
     dev = device_of(gen)
     ln = cfg.norm == "layernorm"
     pairs = [("norm1", norm_init(cfg.d_model, dtype, bias=ln, device=dev))]
@@ -97,6 +93,10 @@ def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype):
         pairs.append(("attn", attn))
     else:
         pairs.append(("mamba", M.mamba_init(gen, cfg, dtype)))
+    if spec.cross:
+        pairs.append(("cross_norm", norm_init(cfg.d_model, dtype, bias=ln,
+                                              device=dev)))
+        pairs.append(("cross", L.gqa_init(gen, cfg, dtype)))
     if cfg.d_ff:
         pairs.append(("norm2", norm_init(cfg.d_model, dtype, bias=ln,
                                          device=dev)))
@@ -110,12 +110,21 @@ def _unit_init(gen, cfg: ArchConfig, unit: List[LayerSpec], dtype):
                    for i, s in enumerate(unit)])
 
 
+def _encoder_layer_init(gen, cfg: ArchConfig, dtype):
+    dev = device_of(gen)
+    ln = cfg.norm == "layernorm"
+    return merge(
+        ("norm1", norm_init(cfg.d_model, dtype, bias=ln, device=dev)),
+        ("attn", L.gqa_init(gen, cfg, dtype)),
+        ("norm2", norm_init(cfg.d_model, dtype, bias=ln, device=dev)),
+        ("mlp", L.mlp_init(gen, cfg, dtype)),
+    )
+
+
 def init_model(cfg: ArchConfig, gen: Optional[torch.Generator]
                ) -> Tuple[Dict, Dict]:
     """Returns (params, logical_axes) for the full model, drawn from
     ``gen`` on its device (``gen=None``: on the meta device)."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"the encoder (whisper) is {A14B}")
     dtype = DTYPES[cfg.dtype]
     prefix, unit, repeats = unit_pattern(cfg)
     dev = device_of(gen)
@@ -141,6 +150,15 @@ def init_model(cfg: ArchConfig, gen: Optional[torch.Generator]
     if not cfg.tie_embeddings:
         params["unembed"], axes["unembed"] = dense_init(
             gen, cfg.d_model, cfg.vocab_size, "embed,vocab", dtype)
+
+    if cfg.encoder_layers:
+        stack_p, stack_a = stack_inits(
+            lambda g: _encoder_layer_init(g, cfg, dtype), gen,
+            cfg.encoder_layers)
+        fn_p, fn_a = norm_init(cfg.d_model, dtype,
+                               bias=cfg.norm == "layernorm", device=dev)
+        params["encoder"] = {"stack": stack_p, "final_norm": fn_p}
+        axes["encoder"] = {"stack": stack_a, "final_norm": fn_a}
     return params, axes
 
 
@@ -151,7 +169,6 @@ def init_model(cfg: ArchConfig, gen: Optional[torch.Generator]
 def _layer_forward(lp, spec: LayerSpec, h, ctx: ModelCtx, positions,
                    aux: Optional[torch.Tensor], cache, window: int):
     """One layer; returns (h, new_cache)."""
-    _refuse(spec)
     cfg = ctx.cfg
     new_cache = {}
     xin = L.norm_apply(lp["norm1"], h, cfg.norm)
@@ -167,6 +184,17 @@ def _layer_forward(lp, spec: LayerSpec, h, ctx: ModelCtx, positions,
     h = h + a
     if c is not None:
         new_cache[sub] = c
+    if spec.cross:
+        if aux is None:
+            raise ValueError("a cross-attention layer needs context tokens")
+        xin = L.norm_apply(lp["cross_norm"], h, cfg.norm)
+        a, c = L.gqa_apply(lp["cross"], xin, ctx, positions, kv_x=aux,
+                           causal=False,
+                           cache=None if cache is None
+                           else cache.get("cross"))
+        h = h + a
+        if c is not None:
+            new_cache["cross"] = c
     if "mlp" in lp or "moe" in lp:
         xin = L.norm_apply(lp["norm2"], h, cfg.norm)
         if "moe" in lp:
@@ -248,8 +276,33 @@ def _unstack(stacked, repeats: int) -> List[Any]:
             for r in range(repeats)]
 
 
-def encode(*_, **__):
-    raise NotImplementedError(f"the encoder (whisper) is {A14B}")
+def _encoder_layer(lp, h, ctx: ModelCtx, positions):
+    cfg = ctx.cfg
+    xin = L.norm_apply(lp["norm1"], h, cfg.norm)
+    a, _ = L.gqa_apply(lp["attn"], xin, ctx, positions, causal=False)
+    h = h + a
+    xin = L.norm_apply(lp["norm2"], h, cfg.norm)
+    return h + L.mlp_apply(lp["mlp"], xin, ctx)
+
+
+def encode(params, cfg: ArchConfig, embeds, ctx: ModelCtx,
+           remat: bool = True):
+    """Whisper encoder over precomputed frame embeddings (B,T,D):
+    sinusoidal positions, then non-causal attention and the MLP a layer,
+    each layer under ``torch.utils.checkpoint`` when ``remat`` and grad
+    is enabled (the reference's ``jax.checkpoint`` in its scan)."""
+    B, T, D = embeds.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=embeds.device)[None].expand(B, T)
+    h = embeds + L.sinusoidal_positions(positions, D).to(embeds.dtype)
+    enc = params["encoder"]
+    for lp in _unstack(enc["stack"], cfg.encoder_layers):
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(_encoder_layer, lp, h, ctx, positions,
+                           use_reentrant=False)
+        else:
+            h = _encoder_layer(lp, h, ctx, positions)
+    return L.norm_apply(enc["final_norm"], h, cfg.norm)
 
 
 def _unembed(params, cfg: ArchConfig):

@@ -287,7 +287,73 @@ def test_federated_ssm_step_two_steps(arch, dtype):
     _two_federated_steps(arch, dtype, flips_per_leaf=False)
 
 
-def _two_federated_steps(arch, dtype, flips_per_leaf=True):
+@pytest.mark.parametrize("arch,dtype", [("whisper-medium", "float32"),
+                                        ("whisper-medium", "bfloat16"),
+                                        ("llama-3.2-vision-11b", "float32")])
+def test_federated_encdec_step_two_steps(monkeypatch, arch, dtype):
+    """The same two steps on the smoke whisper (2 encoder and 2 decoder
+    layers, 32 scored leaves: the encoder's beside the decoder's and the
+    cross sublayer's) and llama-3.2-vision ([self, self + cross], 8 patch
+    tokens), each client with its own context embeddings (K, B, T, D),
+    with deepseek-v2's tolerances.  In fp32 each client's kept entries
+    are the reference's exactly: the fraction (bitwise) and the nonzero
+    count of every masked leaf, the reference's from ``jax.vmap`` of its
+    gradient and ``apply_factored_mask`` a client.  llama-3.2-vision is
+    held in fp32 only, as jamba: in bf16 a leaf's update is a few bf16
+    ulps (``final_norm``'s one changed entry, the second layer's ``o`` and
+    ``wg``), and one ulp the other way moves it past the 0.25 relative
+    bound."""
+    _two_federated_steps(arch, dtype, flips_per_leaf=False,
+                         kept=monkeypatch if dtype == "float32" else None)
+
+
+def _client_embeds(cfg, k_clients, batch, step):
+    """Each client's own context embeddings (K, B, T, D) in the model
+    dtype's numpy type (normal, scale 1/sqrt(d_model)), or {}."""
+    context = port_zoo.context_input(cfg)
+    if context is None:
+        return {}
+    rng = np.random.default_rng(100 + step)
+    x = rng.normal(size=(k_clients, batch, context[1], cfg.d_model)) \
+        / np.sqrt(cfg.d_model)
+    return {context[0]: x.astype(np.float32)}
+
+
+def _reference_kept(rb, rp, batch):
+    """Each client's (fraction, nonzero count of every masked leaf) of the
+    reference's step on ``batch``: its gradients by ``jax.vmap``, masked a
+    client by ``apply_factored_mask``."""
+    _, grads = jax.vmap(jax.value_and_grad(rb.loss_fn), in_axes=(None, 0))(
+        rp, batch)
+    out = []
+    for k in range(next(iter(batch.values())).shape[0]):
+        masked, frac = ref_ch.apply_factored_mask(
+            jax.tree_util.tree_map(lambda g, k=k: g[k], grads), 0.10)
+        out.append((np.float32(frac), [int(np.count_nonzero(np.asarray(g)))
+                                       for g in
+                                       jax.tree_util.tree_leaves(masked)]))
+    return out
+
+
+def _port_kept(monkeypatch):
+    """Record each step's (fraction, nonzero count of every masked leaf)
+    a client, as ``core.channels`` masks the clients' gradients."""
+    seen = []
+    real = port_ch.apply_factored_mask_slots
+
+    def tap(grads_k, rate, selection="positive", in_place=False):
+        masked, frac = real(grads_k, rate, selection, in_place=in_place)
+        leaves = tree_leaves(masked)
+        seen.append([(np.float32(frac[k].item()),
+                      [int(torch.count_nonzero(t[k])) for t in leaves])
+                     for k in range(frac.shape[0])])
+        return masked, frac
+
+    monkeypatch.setattr(port_ch, "apply_factored_mask_slots", tap)
+    return seen
+
+
+def _two_federated_steps(arch, dtype, flips_per_leaf=True, kept=None):
     rb, pb, rp, pp = _lm_pair(dtype, arch)
     init = [np.asarray(a, np.float32).astype(np.float64)
             for a in jax.tree_util.tree_leaves(rp)]
@@ -297,11 +363,20 @@ def _two_federated_steps(arch, dtype, flips_per_leaf=True):
     port_step = port_dist.make_federated_train_step(
         pb.loss_fn, ScbfConfig(upload_rate=0.10), lr=0.05)
     stream = ref_tokens.SyntheticTokenStream(K * B, S, pb.cfg.vocab_size)
-    for _, nb in zip(range(2), stream):
-        wl, rp = ref_step(rp, {k: jnp.asarray(v).reshape(K, B, S)
-                               for k, v in nb.items()})
-        gl, pp = port_step(pp, {k: torch.from_numpy(v).reshape(K, B, S)
+    port_kept = None if kept is None else _port_kept(kept)
+    for i, nb in zip(range(2), stream):
+        nb = {k: v.reshape(K, B, S) for k, v in nb.items()}
+        nb.update(_client_embeds(pb.cfg, K, B, i))
+        rbatch = {k: jnp.asarray(v).astype(rb.ctx.dtype) if v.ndim == 4
+                  else jnp.asarray(v) for k, v in nb.items()}
+        if kept is not None:
+            want_kept = _reference_kept(rb, rp, rbatch)
+        wl, rp = ref_step(rp, rbatch)
+        gl, pp = port_step(pp, {k: torch.from_numpy(v).to(pb.ctx.dtype)
+                                if v.ndim == 4 else torch.from_numpy(v)
                                 for k, v in nb.items()})
+        if kept is not None:
+            assert port_kept[-1] == want_kept
         if dtype == "float32":
             assert float(gl) == pytest.approx(float(wl), rel=1e-5)
         else:

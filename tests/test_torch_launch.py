@@ -345,3 +345,74 @@ def test_lm_mode_trains_jamba(monkeypatch, capsys):
     assert abs(float(got[0].split()[3]) - float(want[0].split()[3])) < 0.05
     mamba = params["stack"]["l0"]["mamba"]
     assert mamba["A_log"].dtype == mamba["D_res"].dtype == torch.float32
+
+
+ENCDEC_ARCHS = ["whisper-medium", "llama-3.2-vision-11b"]
+
+
+@pytest.mark.parametrize("arch", ENCDEC_ARCHS)
+def test_serve_runs_the_encdec_archs(monkeypatch, capsys, arch):
+    """``--arch whisper-medium`` (the encoder over the stub's zero frame
+    embeddings, the decoder's cross caches) and ``--arch
+    llama-3.2-vision-11b`` (zero patch embeddings) serve with no refusal:
+    the reference's four lines, ids in [0, V), greedy ids the argmax of
+    their logits."""
+    import re
+
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--gen", "4", "--batch", "2",
+            "--prompt-len", "8"]
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.serve", argv)
+    res = serve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 4
+    assert got[0] == want[0] == f"arch={arch} batch=2 prompt=8 gen=4"
+    assert re.match(r"decode:  \d+\.\d ms \(\d+ tok/s\)", got[2])
+    assert res.tokens.shape == (2, 4) and len(res.logits) == 4
+    assert 0 <= int(res.tokens.min()) and int(res.tokens.max()) < 512
+    assert torch_equal_greedy(res)
+
+
+@pytest.mark.parametrize("arch", ENCDEC_ARCHS)
+def test_lm_mode_trains_the_encdec_archs(monkeypatch, capsys, arch):
+    """``--mode lm --arch whisper-medium`` / ``llama-3.2-vision-11b``
+    takes SCBF's federated step with each client's (K, B, T, D) zero
+    context embeddings, as the reference's launcher adds them: its ``step
+    … loss …`` lines, a loss within 0.5 of the reference's (each package
+    draws its own random weights, so the two losses differ by the spread
+    of a random init about ln 512 ≈ 6.24, as the qwen2-0.5b case
+    allows)."""
+    import re
+
+    from repro_torch.launch import train
+
+    argv = ["--mode", "lm", "--arch", arch, "--steps", "2", "--clients",
+            "2"]
+    want = _reference_lines(monkeypatch, capsys, "repro.launch.train", argv)
+    params = train.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert re.fullmatch(STEP_LINE, g) and re.fullmatch(STEP_LINE, w)
+        assert abs(float(g.split()[3]) - float(w.split()[3])) < 0.5
+    assert ("encoder" in params) == (arch == "whisper-medium")
+    assert "cross" in params["stack"]["l1"]
+
+
+def test_generate_needs_the_context_exactly_when_the_model_cross_attends():
+    """``serve.generate`` refuses a cross-attending model without ``aux``
+    and a text-only one with it."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+
+    prompts = torch.zeros((1, 2), dtype=torch.int32)
+    for arch, aux in (("whisper-medium", None),
+                      ("qwen2-0.5b", torch.zeros((1, 4, 256)))):
+        cfg = configs.smoke_variant(configs.get(arch))
+        bundle = model_zoo.build(cfg, device="cpu")
+        with pytest.raises(ValueError, match="aux"):
+            generate(bundle, None, prompts, 2, 8, aux=aux)

@@ -408,22 +408,42 @@ def test_from_numpy_tree_keeps_each_leafs_dtype(arch):
 
 
 @pytest.mark.parametrize("arch", OTHERS)
-def test_build_refuses_a14b_families(arch):
-    """whisper (the encoder) and llama-3.2-vision (cross-attention) are
-    still refused, naming A14b."""
-    _, port_cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        port_zoo.build(port_cfg, device="cpu")
+def test_build_accepts_the_encoder_and_cross_archs(arch):
+    """whisper-medium (the encoder) and llama-3.2-vision-11b
+    (cross-attention) as published build with no refusal; each cross
+    layer's cache holds the context's K/V (R, B, t_ctx, KV, hd) — t_ctx
+    whisper's 1500 frames or the 1024 patch tokens — in the model dtype,
+    and its positions (R, B, t_ctx) int32; ``context_input`` names the
+    batch key and the tokens of that context."""
+    cfg = port_configs.get(arch)
+    bundle = port_zoo.build(cfg, device="cpu")
+    caches = bundle.input_specs(INPUT_SHAPES["decode_32k"])["caches"]
+    unit = caches["layers"]["stack"]
+    cross = unit[f"l{cfg.cross_attn_every - 1}"]["cross"]
+    R = cfg.num_layers // cfg.cross_attn_every
+    B = INPUT_SHAPES["decode_32k"].global_batch
+    t_ctx = cfg.encoder_seq if cfg.encoder_layers else cfg.num_patch_tokens
+    assert port_zoo.context_input(cfg) == (
+        "audio_embeds" if cfg.encoder_layers else "image_embeds", t_ctx)
+    assert t_ctx == (1500 if arch == "whisper-medium" else 1024)
+    for name in ("k", "v"):
+        assert tuple(cross[name].shape) == (R, B, t_ctx, cfg.num_kv_heads,
+                                            cfg.head_dim)
+        assert cross[name].dtype == torch.bfloat16
+    assert tuple(cross["kpos"].shape) == (R, B, t_ctx)
+    assert cross["kpos"].dtype == torch.int32
+    assert sum("cross" in unit[k] for k in unit) == 1
 
 
 @pytest.mark.parametrize("arch", SSM)
 def test_build_accepts_the_ssm_archs(arch):
     """mamba2-2.7b and jamba-1.5-large-398b as published build with no
     refusal; their cache trees hold each Mamba layer's fp32 state
-    ``h`` (B, NH, N, P) and its conv window (B, W-1, DI+2N)."""
+    ``h`` (B, NH, N, P) and its conv window (B, W-1, DI+2N); they read
+    no context."""
     cfg = port_configs.get(arch)
-    port_zoo.refuse_unported(cfg)
     bundle = port_zoo.build(cfg, device="cpu")
+    assert port_zoo.context_input(cfg) is None
     caches = bundle.input_specs(INPUT_SHAPES["decode_32k"])["caches"]
     mamba = caches["layers"]["stack"]["l0"]["mamba"]
     R = cfg.num_layers // (8 if cfg.family == "hybrid" else 1)
