@@ -219,7 +219,27 @@ its own failure:
    leaf, every payload the host ``wire.encode`` of its masked delta; the
    fraction at α 0.10 beside the paper's 0.45 and the 0.98 of a real
    training delta.
-16. the card line, the kernel report line and the final ok line.
+16. pods — the pod axis (``launch.mesh``, the batched engine's slot
+   split, the LM step's exchange).  (a) An NCCL group of one in this
+   process: SCBF 2 loops per round and 4 fused loops at ``fuse_rounds`` =
+   2 through the pod path, records and final weights bitwise the no-group
+   runs above, the fused round one captured graph with the gather inside
+   (one replay profiled beside a no-group replay: the device work it
+   adds).  (b) Two ranks sharing cuda:0 over gloo (``spawn_ranks``; the
+   kernels are built above, so no rank compiles): SCBF 2 loops, 2 with
+   DP, 8 of SCBFwP mask with compaction and 4 fused (two graphs a round,
+   the gather between), every rank's records and weights bitwise the
+   no-group run, its launches that run's (K1, K2 and K3's count once a
+   round, K4 once a validation batch of a prune step), the bytes it
+   gathered a round beside the dense model's.  (c) qwen2-0.5b uncut on
+   the same ranks: 2 dense steps and a compressed one of 4 clients x 4
+   x 64 tokens, each against the one-rank step of the same params and
+   batch (loss 1e-6 relative, bf16 params within one ulp, fp32 leaves
+   1e-6), K1 = K2 = 1 a dense step a rank, bytes put into collectives,
+   walls and peaks.  Two ranks on one card are no measure of scaling:
+   their walls are logged, nothing is claimed.  Its lines start with
+   ``pods:``.
+17. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -234,9 +254,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 T_START = time.perf_counter()
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
+from repro_torch.config import HARDWARE  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet; the port's table): HBM bytes/s and
+# fp32 (non-tensor) FLOP/s
+PEAK_BYTES_S = HARDWARE.hbm_bw
+PEAK_FP32_S = HARDWARE.peak_fp32
 MAIN_SHAPES = [(2917, 256), (256, 64), (64, 1)]
 CHECK_SHAPES = MAIN_SHAPES + [(33, 257), (7, 9), (1024, 128)]
 # SCBFwP's APoZ calls: the 3,076 validation rows in batches of 2048 + 1028,
@@ -2456,6 +2479,53 @@ def phase_big_round(torch, cohort, card: str) -> None:
         "engine_round_equals_stacked_pass": round_same,
         "upload_fraction_mean": float(np.mean([s.upload_fraction
                                                for s in stats]))}))
+    big_round_split(torch, eng, params, part, perms, card)
+
+
+BIG_SPLITS = ((0, 1), (0, 2), (0, 12), (0, BIG_ROUND // 2),
+              (BIG_ROUND // 2, BIG_ROUND))
+
+
+def big_round_split(torch, eng, params, part, perms, card: str) -> None:
+    """C1's round as the pods would split it: ``_slot_pass`` (DP and the
+    telemetry carry on) over slots [a, e) of the 256 alone — 1, 2, 12
+    and a rank's 128 of two pods, the first half and the second — each
+    bitwise those slots of the whole pass, masked deltas, masks and
+    carry: a slot's bits do not depend on how many slots share its
+    products, clip norms and selection (``repro_torch.slots``)."""
+    from repro_torch.config import ScbfConfig
+    from repro_torch.fed.engine import _slot_pass
+
+    cfg = ScbfConfig(upload_rate=0.10, **DP)
+    rows, valid, pm = eng._slot_inputs(part, perms, BIG_ROUND)
+    noise = eng.draw_noise(params, BIG_ROUND, generator=torch.Generator(
+        device="cuda").manual_seed(6))
+
+    def run(a, e):
+        masked, masks, met = _slot_pass(
+            params, eng.cohort, rows[a:e], valid[a:e], 0.01, pm[a:e], cfg,
+            batch_size=BIG_BATCH, epochs=1, noise=[z[a:e] for z in noise],
+            collect=True)
+        return [t for layer in masked for t in layer.values()] + \
+            [t for layer in masks for t in layer.values()
+             if t is not None] + list(met)
+
+    whole = run(0, BIG_ROUND)
+    t0 = time.perf_counter()
+    for a, e in BIG_SPLITS:
+        got = run(a, e)
+        bad = [i for i, (w, g) in enumerate(zip(whole, got))
+               if not torch.equal(w[a:e], g)]
+        if bad or len(got) != len(whole):
+            raise AssertionError(f"c1 split: slots [{a}, {e}) alone differ "
+                                 f"from the {BIG_ROUND}-slot pass in "
+                                 f"outputs {bad}")
+    torch.cuda.synchronize()
+    log(f"c1 split: slots {[list(r) for r in BIG_SPLITS]} of the "
+        f"{BIG_ROUND}-slot round (DP, carry) through _slot_pass alone: "
+        f"masked deltas, masks and carry bitwise the whole pass's "
+        f"({len(whole)} tensors each; {time.perf_counter() - t0:.1f}s) "
+        f"({card})")
 
 
 def phase_profile(torch, cohort, card: str) -> None:
@@ -3716,6 +3786,7 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_SERVE = dict(batch=4, prompt=32, gen=32, cache=128)
 SSM_STEPS = 3                         # cold, profiled selection, checked
 SSM_LONG_SEQ = 512                    # one more step: 2 SSD chunks of 256
+SSM_LONG_CLIENTS = 2                  # of LM_CLIENTS: the command's time
 SSM_TABLES = 2                        # a bf16 leaf table and an fp32 one
 # a profiled selection's window opens with a burst of this many
 # one-element kernels of its own (``bitwise_not``), left out of its
@@ -3989,7 +4060,8 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
     and K2 once a leaf table a step from the wrapper counts, and from the
     profiler in the second step's selection; the peak under SSM_PEAK_GB;
     the last step's tables against the plain versions through
-    ``MoeStepTap``), one more step at LM_CLIENTS x LM_BATCH x SSM_LONG_SEQ
+    ``MoeStepTap``), one more step at SSM_LONG_CLIENTS x LM_BATCH x
+    SSM_LONG_SEQ
     (2 SSD chunks of 256: a finite loss, every gradient leaf finite), a
     client's gradient profiled, and K1 and K2 timed a table.  The
     selections of the untapped steps are profiled: no window may show
@@ -4021,14 +4093,14 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
                              for g in tree_leaves(grads)))
         return loss, grads
 
-    shapes = [(LM_SEQ, s) for s in range(SSM_STEPS)] + [(SSM_LONG_SEQ, 0)]
+    shapes = [(LM_SEQ, s, LM_CLIENTS) for s in range(SSM_STEPS)] + \
+        [(SSM_LONG_SEQ, 0, SSM_LONG_CLIENTS)]
     dist.client_gradients = client_gradients
     try:
-        for i, (seq, seed) in enumerate(shapes):
-            nb = synthetic_lm_batch(LM_CLIENTS * LM_BATCH, seq,
-                                    cfg.vocab_size, seed)
-            batch = {k: torch.from_numpy(v).cuda().reshape(
-                LM_CLIENTS, LM_BATCH, seq) for k, v in nb.items()}
+        for i, (seq, seed, k) in enumerate(shapes):
+            nb = synthetic_lm_batch(k * LM_BATCH, seq, cfg.vocab_size, seed)
+            batch = {n: torch.from_numpy(v).cuda().reshape(
+                k, LM_BATCH, seq) for n, v in nb.items()}
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset_launches()
@@ -4056,7 +4128,8 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
                   for s, _ in table)
     log(f"lm-ssm: {SSM_STEPS} federated steps of {cfg.name} "
         f"({LM_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, rate "
-        f"{LM_RATE}, lr {LM_LR}) and one of {LM_CLIENTS} x {LM_BATCH} x "
+        f"{LM_RATE}, lr {LM_LR}) and one of {SSM_LONG_CLIENTS} x "
+        f"{LM_BATCH} x "
         f"{SSM_LONG_SEQ} ({SSM_LONG_SEQ // cfg.ssm_chunk} SSD chunks of "
         f"{cfg.ssm_chunk}): losses {losses}, step walls "
         f"{[round(w, 4) for w in walls]} s (cold, steady, checked, long),"
@@ -4773,6 +4846,366 @@ def phase_comm_table(torch, card: str) -> dict:
     return {"rows": rows, "launches": counts}
 
 
+# the pods phase: the pod axis (ROADMAP A15) on the card — an NCCL group
+# of one in this process, then two ranks sharing cuda:0 over gloo (NCCL
+# refuses two ranks on one card); two ranks on one card are no measure of
+# pod scaling, so their walls are logged and nothing is claimed from them
+POD_RUNS = {    # label: (method, loops, scbf, fed) — as the no-group run
+    "scbf": ("scbf", K_LOOPS, {}, {}),
+    "scbf_dp": ("scbf", K_LOOPS, DP, {}),
+    "scbfwp_mask": ("scbf", WP_LOOPS, dict(
+        prune=True, prune_rate=PRUNE_RATE, prune_total=PRUNE_TOTAL,
+        prune_impl="mask", prune_compact=True), {}),
+    "scbf_fused": ("scbf", FUSE_LOOPS, {}, dict(fuse_rounds=FUSE)),
+}
+POD_NCCL_RUNS = ("scbf", "scbf_fused")
+POD_RANKS = 2
+POD_LM_CLIENTS = 4                    # K: 2 clients a rank
+POD_LM_DENSE_STEPS = 2                # then one compressed step
+POD_TIMEOUT_S = 180.0                 # a rank's collectives (gloo)
+POD_JOIN_S = 300.0
+
+
+def _pod_records(res) -> list:
+    return [{k: v for k, v in vars(r).items() if k != "wall_time"}
+            for r in res.records]
+
+
+def _pod_run(torch, cohort, label: str, mesh) -> dict:
+    """One ``POD_RUNS`` run over ``mesh``: its records (but the walls),
+    final weights on the host, wrapper launches, the bytes this rank put
+    into collectives, captures and walls."""
+    from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
+    from repro_torch.core.scbf import run_federated
+    from repro_torch.fed import graphs
+    from repro_torch.launch import mesh as pod
+
+    method, loops, scbf, fed = POD_RUNS[label]
+    cfg = TrainConfig(learning_rate=0.05 / K_CLIENTS, global_loops=loops,
+                      local_epochs=2, local_batch_size=256, seed=0,
+                      scbf=ScbfConfig(upload_rate=0.10,
+                                      num_clients=K_CLIENTS, **scbf),
+                      fed=FedConfig(pods=mesh.size(), **fed))
+    graphs.reset_captures()
+    pod.reset_traffic()
+    _reset_launches()
+    res = run_federated(cohort, cfg, method=method,
+                        mlp_features=(cohort.num_features, 256, 64, 1),
+                        device="cuda", mesh=mesh)
+    return {"records": _pod_records(res), "launches": _launch_counts(),
+            "params": [{k: v.cpu().numpy() for k, v in layer.items()}
+                       for layer in res.final_params],
+            "traffic": [pod.calls, pod.bytes_sent],
+            "captures": graphs.captures,
+            "walls": [r.wall_time for r in res.records],
+            "dense_bytes": res.records[0].dense_bytes // K_CLIENTS}
+
+
+def _pod_same(torch, label: str, got: dict, want_res) -> None:
+    """A pod run against the no-group run of the same draws: records
+    (bytes, upload fractions, AUC, hidden sizes, ε) and final weights
+    bitwise."""
+    import numpy as np
+    if got["records"] != _pod_records(want_res):
+        raise AssertionError(f"pods: {label} records differ from the "
+                             "no-group run's")
+    for a, b in zip(got["params"], want_res.final_params):
+        for k in a:
+            if not np.array_equal(a[k], b[k].cpu().numpy()):
+                raise AssertionError(f"pods: {label} final {k} differs "
+                                     "from the no-group run's")
+
+
+def _bf16_ulps(torch, a, b):
+    """(entries that differ, the largest difference in bf16 ulps) of two
+    bf16 tensors (their bits ordered as integers)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i >= 0, i, -(i & 0x7FFF))
+    d = (ordered(a) - ordered(b)).abs()
+    return int(torch.count_nonzero(d)), int(d.max()) if d.numel() else 0
+
+
+def _pod_lm(torch, mesh, rank: int) -> dict:
+    """qwen2-0.5b uncut on this rank: POD_LM_DENSE_STEPS dense steps and
+    one compressed step over the pod mesh (K = POD_LM_CLIENTS clients,
+    LM_BATCH x LM_SEQ tokens each), with wrapper launches, bytes put into
+    collectives, the step wall and the peak; rank 0 also takes the
+    one-rank step of the same params and batch and holds the pod step to
+    it (the loss, each leaf's entries that differ and by how many bf16
+    ulps, fp32 leaves' relative error)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core.distributed import make_federated_train_step
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.launch import mesh as pod
+    from repro_torch.models import model_zoo
+    from repro_torch.params import tree_leaves
+
+    cfg = configs.get(LM_ARCH)
+    bundle = model_zoo.build(cfg, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=POD_LM_CLIENTS)
+    comp = dataclasses.replace(scbf, compressed_exchange=True)
+    steps = {c: (make_federated_train_step(bundle.loss_fn, s, lr=LM_LR,
+                                           mesh=mesh),
+                 make_federated_train_step(bundle.loss_fn, s, lr=LM_LR))
+             for c, s in ((False, scbf), (True, comp))}
+    stream = SyntheticTokenStream(POD_LM_CLIENTS * LM_BATCH, LM_SEQ,
+                                  cfg.vocab_size, seed=0)
+    out = []
+    for i, nb in zip(range(POD_LM_DENSE_STEPS + 1), stream):
+        compressed = i == POD_LM_DENSE_STEPS
+        batch = {k: torch.from_numpy(v).cuda().reshape(
+            POD_LM_CLIENTS, LM_BATCH, LM_SEQ) for k, v in nb.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        pod.reset_traffic()
+        t0 = time.perf_counter()
+        loss, new = steps[compressed][0](params, batch)
+        torch.cuda.synchronize()
+        rec = {"compressed": compressed, "loss": float(loss),
+               "wall_s": time.perf_counter() - t0,
+               "peak_gb": _peak_gb(torch), "launches": _launch_counts(),
+               "traffic": [pod.calls, pod.bytes_sent]}
+        if rank == 0:
+            loss1, one = steps[compressed][1](params, batch)
+            rec["one_rank_loss"] = float(loss1)
+            rec["bf16"], rec["fp32_max_rel"] = [], 0.0
+            for a, b in zip(tree_leaves(new), tree_leaves(one)):
+                if a.dtype == torch.bfloat16:
+                    rec["bf16"].append(_bf16_ulps(torch, a, b))
+                else:
+                    rel = ((a - b).abs() / b.abs().clamp(min=1e-30)).max()
+                    rec["fp32_max_rel"] = max(rec["fp32_max_rel"],
+                                              float(rel))
+            del one
+        params = new
+        out.append(rec)
+    leaves = tree_leaves(params)
+    return {"steps": out, "params": sum(t.numel() for t in leaves),
+            "dense_bytes": sum(t.numel() * t.element_size()
+                               for t in leaves)}
+
+
+def pods_rank(rank: int, world: int) -> dict:
+    """One of the gloo ranks sharing cuda:0: the MLP runs of ``POD_RUNS``
+    at pods = world on the full cohort, then ``_pod_lm``."""
+    import torch
+
+    from repro_torch.data.medical import generate_cohort
+    from repro_torch.launch import mesh as pod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pod.make_pod_mesh(world)
+    cohort = generate_cohort()
+    mlp = {label: _pod_run(torch, cohort, label, mesh) for label in POD_RUNS}
+    del cohort
+    torch.cuda.empty_cache()
+    return {"mlp": mlp, "lm": _pod_lm(torch, mesh, rank),
+            "device": torch.cuda.current_device()}
+
+
+def _pod_replay_profile(torch, cohort, mesh, card: str) -> dict:
+    """One fused round of the full-width MLP replayed under the profiler
+    on the NCCL pod mesh of one, beside the same round without a group:
+    the device events the pod replay adds (the gather the graph captured)
+    and no collective called from the host during the replay."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ScbfConfig
+    from repro_torch.data.medical import federated_split
+    from repro_torch.fed.engine import BatchedEngine
+    from repro_torch.launch import mesh as pod
+    from repro_torch.models.mlp_net import init_mlp
+
+    shards = federated_split(cohort.x_train, cohort.y_train, K_CLIENTS,
+                             seed=0)
+    params = init_mlp((cohort.num_features, 256, 64, 1),
+                      torch.Generator().manual_seed(0), "cuda")
+    cfg = ScbfConfig(upload_rate=0.10, num_clients=K_CLIENTS)
+    gen = torch.Generator().manual_seed(1)
+    events = {}
+    for label, m in (("no_group", None), ("nccl_pod", mesh)):
+        eng = BatchedEngine(shards, 256, 2, "cuda", mesh=m)
+        perms = [[torch.randperm(eng.perm_length(k), generator=gen)
+                  for _ in range(2)] for k in range(K_CLIENTS)]
+        plan = eng.prepare_fused_plan([np.arange(K_CLIENTS)], [0.01], [perms],
+                                      horizon=1,
+                                      num_slots=eng.fused_num_slots(K_CLIENTS))
+        eng.fused_scbf_chunk(params, plan, cfg)      # capture, replay
+        (prog,) = eng._programs.values()
+        torch.cuda.synchronize()
+        pod.reset_traffic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prog.graph.replay()
+            torch.cuda.synchronize()
+        events[label] = _device_events(prof)
+        if pod.calls:
+            raise AssertionError("pods: the replay called a collective "
+                                 "from the host")
+    base, got = events["no_group"], events["nccl_pod"]
+    extra = {k: n - base.get(k, (0, 0.0))[0] for k, (n, _) in got.items()
+             if n > base.get(k, (0, 0.0))[0]}
+    gather = {k: n for k, n in extra.items()
+              if "nccl" in k.lower() or "memcpy" in k.lower()}
+    if not gather:
+        raise AssertionError(f"pods: the NCCL replay shows no collective "
+                             f"work; it adds {extra}")
+    log(f"pods: (a) one fused round replayed under the profiler, NCCL pod "
+        f"mesh of one against no group: the graph adds {extra} — the "
+        f"gather's device work {gather} (NCCL runs a one-rank gather as a "
+        f"copy); K1 and K2 in the replay "
+        f"{_kernel_events(got)['channel_norm']} and "
+        f"{_kernel_events(got)['select_mask']} ({card})")
+    return {"extra_events": extra, "gather_events": gather}
+
+
+def phase_pods(torch, cohort, card: str, runs: dict) -> dict:
+    """The pod axis on the card: (a) an NCCL group of one in this process
+    — SCBF 2 loops per round and 4 fused at ``fuse_rounds`` = 2 through
+    the pod path, bitwise the no-group runs of the main path and fused
+    phases, and one replay profiled; (b) two gloo ranks on cuda:0
+    (``launch.mesh.spawn_ranks``; the kernels were built above, so no
+    rank compiles) — SCBF 2 loops, 2 with DP, 8 of SCBFwP mask with
+    compaction and 4 fused, each bitwise the no-group run of the same
+    draws, with each rank's launches asserted and the bytes it gathered
+    a round logged against the dense model's; (c) qwen2-0.5b uncut on
+    the same ranks — 2 dense steps and a compressed one of
+    POD_LM_CLIENTS clients, each held to the one-rank step of the same
+    params and batch.  Returns each run's launches for the kernel
+    report."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as pod
+
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="pods-nccl-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0),
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = pod.make_pod_mesh(1)
+        for label in POD_NCCL_RUNS:
+            got = _pod_run(torch, cohort, label, mesh)
+            _pod_same(torch, f"(a) {label}", got, runs[label][0])
+            want = runs[label][1]
+            if got["launches"] != want:
+                raise AssertionError(f"pods: (a) {label} launched "
+                                     f"{got['launches']}, the no-group "
+                                     f"run {want}")
+            if label == "scbf_fused" and got["captures"] != 1:
+                raise AssertionError(f"pods: (a) {label}: "
+                                     f"{got['captures']} captures, want 1 "
+                                     "(the gather inside the round's graph)")
+            launches[f"pods_nccl_{label}"] = got["launches"]
+            form = "fused rounds one graph each, the gather captured " \
+                "inside" if label == "scbf_fused" else "per round"
+            log(f"pods: (a) NCCL group of one, {label} ({form}): records and "
+                f"final weights bitwise the no-group run; launches "
+                f"{got['launches']}; captures {got['captures']}; "
+                f"collective calls {got['traffic'][0]} carrying "
+                f"{got['traffic'][1]} B eagerly (the replays' gathers are "
+                f"in the graph); walls {[round(w, 4) for w in got['walls']]}"
+                f" s ({card})")
+        profile = _pod_replay_profile(torch, cohort, mesh, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = pod.spawn_ranks(pods_rank, POD_RANKS, device="cuda",
+                            timeout_s=POD_TIMEOUT_S,
+                            join_timeout_s=POD_JOIN_S)
+    log(f"pods: (b, c) {POD_RANKS} gloo ranks on cuda:"
+        f"{[r['device'] for r in ranks]} ran in "
+        f"{time.perf_counter() - t0:.1f}s ({card})")
+    for label in POD_RUNS:
+        # a rank launches K1, K2 and K3's count once a round (its own
+        # slots; the encode on all of them) and K4 once a validation batch
+        # of a prune step — what the no-group run launched (a fused run:
+        # the train graph's warm-up calls and one emission a chunk)
+        want = runs[label][1]
+        if "fuse_rounds" not in POD_RUNS[label][3] and (
+                want["channel_norm"], want["select_mask"],
+                want["select_compact_count"]) != (POD_RUNS[label][1],) * 3:
+            raise AssertionError(f"pods: {label}'s no-group run launched "
+                                 f"{want}")
+        for rank, res in enumerate(ranks):
+            got = res["mlp"][label]
+            _pod_same(torch, f"(b) {label} rank {rank}", got,
+                      runs[label][0])
+            if got["launches"] != want:
+                raise AssertionError(f"pods: (b) {label} rank {rank} "
+                                     f"launched {got['launches']}, want "
+                                     f"{want}")
+            launches[f"pods_gloo_rank{rank}_{label}"] = got["launches"]
+        got = ranks[0]["mlp"][label]
+        if label == "scbf_fused" and got["captures"] != 2:
+            raise AssertionError(f"pods: (b) {label}: {got['captures']} "
+                                 "captures, want 2 (the slot pass and the "
+                                 "server step)")
+        rounds = len(got["records"])
+        form = "fused rounds two graphs each, the gloo gather between" \
+            if "fuse_rounds" in POD_RUNS[label][3] else "per round"
+        log(f"pods: (b) 2 gloo ranks, {label} ({form}): both ranks' records "
+            f"and final weights bitwise the no-group run; per rank launches "
+            f"{[r['mlp'][label]['launches'] for r in ranks]}, captures "
+            f"{got['captures']}; a rank gathered "
+            f"{got['traffic'][1] / rounds:.0f} B a round in "
+            f"{got['traffic'][0] / rounds:.1f} calls (the dense model: "
+            f"{got['dense_bytes']} B); walls rank 0 "
+            f"{[round(w, 4) for w in got['walls']]} s, rank 1 "
+            f"{[round(w, 4) for w in ranks[1]['mlp'][label]['walls']]} s "
+            f"(two ranks sharing one card: no measure of scaling) ({card})")
+    lm = [r["lm"] for r in ranks]
+    for i, (s0, s1) in enumerate(zip(lm[0]["steps"], lm[1]["steps"])):
+        kind = "compressed" if s0["compressed"] else "dense"
+        rel = abs(s0["loss"] - s0["one_rank_loss"]) / abs(
+            s0["one_rank_loss"])
+        ulps = max((u for _, u in s0["bf16"]), default=0)
+        differ = sum(n for n, _ in s0["bf16"])
+        want = {"channel_norm": 0, "select_mask": 0} if s0["compressed"] \
+            else {"channel_norm": 1, "select_mask": 1}
+        for rank, s in enumerate((s0, s1)):
+            seen = {k: s["launches"][k] for k in want}
+            if seen != want or s["loss"] != s0["loss"]:
+                raise AssertionError(f"pods: (c) step {i} rank {rank}: "
+                                     f"launches {s['launches']}, loss "
+                                     f"{s['loss']} (rank 0 {s0['loss']})")
+            launches[f"pods_gloo_rank{rank}_lm_step{i}"] = s["launches"]
+        if rel > 1e-6 or ulps > 1 or s0["fp32_max_rel"] > 1e-6:
+            raise AssertionError(f"pods: (c) {kind} step {i}: loss rel err "
+                                 f"{rel}, bf16 ulps {ulps}, fp32 rel "
+                                 f"{s0['fp32_max_rel']}")
+        log(f"pods: (c) {LM_ARCH} uncut ({lm[0]['params']:,} params), "
+            f"{kind} step {i}, K = {POD_LM_CLIENTS} clients x {LM_BATCH} x "
+            f"{LM_SEQ} tokens split 2 + 2: loss {s0['loss']:.6f} against "
+            f"the one-rank step's {s0['one_rank_loss']:.6f} (rel err "
+            f"{rel:.3g} <= 1e-6); bf16 params within {ulps} ulp of the "
+            f"one-rank step's, {differ:,} of {lm[0]['params']:,} entries "
+            f"differ; fp32 leaves max rel err {s0['fp32_max_rel']:.3g}; "
+            f"launches a rank {s0['launches']}; bytes a rank put into "
+            f"collectives {s0['traffic'][1]:,} in {s0['traffic'][0]} calls "
+            f"(the dense model: {lm[0]['dense_bytes']:,} B); step wall "
+            f"rank 0 {s0['wall_s']:.3f} s, rank 1 {s1['wall_s']:.3f} s; "
+            f"peak rank 0 {s0['peak_gb']:.2f} GB, rank 1 "
+            f"{s1['peak_gb']:.2f} GB ({card})")
+    return {"launches": launches, "profile": profile}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4827,6 +5260,9 @@ def main() -> int:
     t0 = time.perf_counter()
     comm = phase_comm_table(torch, card)
     log(f"phase comm-table: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    pods = phase_pods(torch, cohort, card, runs)
+    log(f"phase pods: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
                                 "select_compact_scatter")}
     for r in report:
@@ -4848,6 +5284,10 @@ def main() -> int:
             r["lm_encdec"] = encdec["timing"][r["name"]]
         by_run["comm_table"] = {k: comm["launches"][k]
                                 for k in kinds.get(r["name"], (r["name"],))}
+        for label, counts in pods["launches"].items():
+            by_run[label] = {k: counts[k] for k in kinds.get(r["name"],
+                                                             (r["name"],))
+                             if k in counts}
         r["launches"] = sum(sum(c.values()) for c in by_run.values())
         r["launches_by_run"] = by_run
         # the fused runs' graph replays, apart from the wrapper counts

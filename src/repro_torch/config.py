@@ -294,7 +294,7 @@ class FedConfig:
     engine: str = "batched"          # batched | sequential
     fuse_rounds: int = 1             # > 1: the fused round loop
     bucket: str = "pow2"             # batched-engine padding: pow2 | exact
-    pods: int = 1                    # pod sharding (A15)
+    pods: int = 1                    # ranks of the pod axis (launch.mesh)
     # --- per-round client sampling (sync mode) ---
     sample_fraction: float = 1.0     # fraction of clients invited per round
     dropout_rate: float = 0.0        # P(sampled client never reports back)
@@ -350,6 +350,51 @@ class TrainConfig:
     scbf: ScbfConfig = field(default_factory=ScbfConfig)
     fed: FedConfig = field(default_factory=FedConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+
+
+# ---------------------------------------------------------------------------
+# Mesh
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The production mesh's geometry, the reference's field for field
+    (``launch.mesh.make_production_mesh`` builds it over ranks)."""
+
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
+class HardwareConfig:
+    """One card's published figures (NVIDIA's data sheet, H100 SXM, dense
+    rates without sparsity, at the full power limit): the bounds that
+    ``chip_smoke.py`` and ``PERF.md`` state a kernel's time against.  The
+    reference's table holds TPU v5e figures; none of them carries over."""
+
+    name: str = "NVIDIA H100 80GB HBM3"
+    power_limit_w: float = 700.0
+    hbm_bw: float = 3.35e12          # bytes/s
+    hbm_bytes: float = 80e9
+    peak_fp32: float = 67e12         # FLOP/s outside the tensor cores
+    peak_bf16: float = 989e12        # FLOP/s on the tensor cores
+
+
+HARDWARE = HardwareConfig()
 
 
 def replace(cfg, **kw):

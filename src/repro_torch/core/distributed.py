@@ -23,7 +23,18 @@ client's gradient tree (its peak, while client_gradients copies it in).
 With ``compressed_exchange`` each client's top-k channels by factored
 score are gathered into an (α·rows)-sized buffer and the dense sum is
 rebuilt by a scatter-add, plain torch as the reference's is plain
-``jnp``.  Pods (the reference's ``spmd_axis_name``) are ROADMAP A15.
+``jnp``.
+
+Pods (the reference's ``spmd_axis_name="pod"``, here a ``mesh`` from
+``launch.mesh.make_pod_mesh``): the K clients split contiguously over the
+P ranks, and each rank computes and masks its own clients' gradients (K1
+and K2 once a leaf table a rank).  Only masked gradients or compact
+buffers cross: the dense exchange all-reduces each rank's fp32 partial
+sum of its masked clients (the reference's cross-pod all-reduce), rounded
+once to the leaf's dtype after it; the compressed exchange all-gathers
+the clients' ``(idx, vals)`` buffers in client order and rebuilds the
+sum by the same scatter-add after the gather.  The mean loss is the sum
+of the ranks' partial loss sums over K.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import torch
 
 from repro_torch.config import ScbfConfig
 from repro_torch.core import channels
+from repro_torch.launch import mesh as pod
 from repro_torch.models.model_zoo import sgd_leaf, sgd_update, value_and_grad
 from repro_torch.params import tree_leaves, tree_unflatten
 
@@ -59,71 +71,115 @@ def client_gradients(loss_fn: Callable, params, batch):
 
 
 def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
-                              lr: float = 1e-3) -> Callable:
+                              lr: float = 1e-3, mesh=None) -> Callable:
     """Returns step(params, batch) -> (mean_loss, new_params).
 
-    ``batch`` leaves carry a leading client axis (K, ...).
+    ``batch`` leaves carry a leading client axis (K, ...).  ``mesh``: a
+    pod mesh of P ranks; rank r then takes clients ``[r·K/P, (r+1)·K/P)``
+    of the batch every rank is given (``K % P`` must be 0).
     """
 
     def step(params, batch):
+        if mesh is not None:
+            batch = _local_clients(batch, mesh)
         losses, grads_k = client_gradients(loss_fn, params, batch)
+        loss = torch.mean(losses) if mesh is None else \
+            pod.all_reduce_sum(torch.sum(losses, axis=0), mesh) / (
+                losses.shape[0] * mesh.size())
         if scbf.compressed_exchange:
-            summed = _compressed_sum(grads_k, scbf.upload_rate)
-            return torch.mean(losses), sgd_update(params, summed, lr)
+            summed = _compressed_sum(grads_k, scbf.upload_rate, mesh)
+            return loss, sgd_update(params, summed, lr)
         masked_k, _ = channels.apply_factored_mask_slots(
             grads_k, scbf.upload_rate, scbf.selection, in_place=True)
         del grads_k
         leaves = tree_leaves(masked_k)
         del masked_k
-        return torch.mean(losses), _sum_and_update(params, leaves, lr)
+        return loss, _sum_and_update(params, leaves, lr, mesh)
 
     return step
 
 
-def _sum_and_update(params, masked: list, lr: float):
+def _local_clients(batch: dict, mesh) -> dict:
+    """This rank's contiguous block of the batch's K clients."""
+    k_clients = next(iter(batch.values())).shape[0]
+    p = mesh.size()
+    if k_clients % p:
+        raise ValueError(f"{k_clients} clients do not split over {p} pods")
+    per = k_clients // p
+    r = pod.pod_rank(mesh)
+    return {name: v[r * per:(r + 1) * per] for name, v in batch.items()}
+
+
+def _sum_and_update(params, masked: list, lr: float, mesh=None):
     """``sgd_update(params, Σ_k masked_k, lr)`` leaf by leaf, each client
     buffer of ``masked`` (the list's only reference) let go once it is
-    summed and each sum once its param is updated."""
+    summed and each sum once its param is updated.  On pods each rank's
+    fp32 partial sum is all-reduced and rounded once to the leaf dtype."""
     new = []
     for i, p in enumerate(tree_leaves(params)):
-        summed = torch.sum(masked[i], axis=0)
+        if mesh is None:
+            summed = torch.sum(masked[i], axis=0)
+        else:
+            summed = pod.all_reduce_sum(torch.sum(
+                masked[i], axis=0, dtype=torch.float32), mesh).to(p.dtype)
         masked[i] = None
         new.append(sgd_leaf(p, summed, lr))
         del summed
     return tree_unflatten(params, new)
 
 
-def _compressed_sum(grads_k, rate: float):
+def _compressed_sum(grads_k, rate: float, mesh=None):
     """Σ_k of top-α-channel compressed client gradients.
 
     Every leaf carries a leading client axis (K, ..., n).  Per client the
     top-k output channels by factored score are taken and only (indices
-    (K,k), values (K,...,k)) exchanged; the dense sum is reassembled by
-    one scatter-add over the stacked (K·k) buffers (``index_add_`` sums
-    clients that selected the same channel).
+    (K,k), values (K,...,k)) exchanged — on pods all-gathered in client
+    order; the dense sum is reassembled by one scatter-add over the
+    stacked (K·k) buffers (``index_add_`` sums clients that selected the
+    same channel).  A vector leaf (always uploaded) is summed densely, on
+    pods as an all-reduced fp32 partial sum.
     """
     out = []
     for leaf in tree_leaves(grads_k):
-        K = leaf.shape[0]
         if leaf.ndim - 1 < 2:
-            out.append(torch.sum(leaf, axis=0))
+            if mesh is None:
+                out.append(torch.sum(leaf, axis=0))
+            else:
+                out.append(pod.all_reduce_sum(torch.sum(
+                    leaf, axis=0, dtype=torch.float32), mesh).to(leaf.dtype))
             continue
-        n = leaf.shape[-1]
-        k = max(1, int(rate * n))
-        lf = leaf.to(torch.float32)
-        dims = tuple(range(1, leaf.ndim - 1))
-        scores = torch.sum(lf * lf, axis=dims)             # (K, n)
-        idx = torch.topk(scores, k, axis=-1).indices       # (K, k)
-        idx_b = idx.reshape((K,) + (1,) * (leaf.ndim - 2) + (k,))
-        vals = torch.gather(lf, -1, idx_b.expand(leaf.shape[:-1] + (k,)))
-        flat_idx = idx.reshape(K * k)
-        flat_vals = torch.movedim(vals, 0, -2).reshape(
-            vals.shape[1:-1] + (K * k,))
-        dense = torch.zeros(leaf.shape[1:], dtype=torch.float32,
-                            device=leaf.device)
-        dense.index_add_(dense.ndim - 1, flat_idx, flat_vals)
-        out.append(dense.to(leaf.dtype))
+        idx, vals = _top_channels(leaf, rate)
+        if mesh is not None:
+            idx, vals = pod.all_gather_compact(idx, vals, mesh)
+        out.append(_scatter_sum(idx, vals, leaf.shape[-1]).to(leaf.dtype))
     return tree_unflatten(grads_k, out)
+
+
+def _top_channels(leaf: torch.Tensor, rate: float):
+    """Each client's top-k output channels of a (K, ..., n) leaf by
+    factored score: (idx (K, k), fp32 vals (K, ..., k))."""
+    K, n = leaf.shape[0], leaf.shape[-1]
+    k = max(1, int(rate * n))
+    lf = leaf.to(torch.float32)
+    dims = tuple(range(1, leaf.ndim - 1))
+    scores = torch.sum(lf * lf, axis=dims)                 # (K, n)
+    idx = torch.topk(scores, k, axis=-1).indices           # (K, k)
+    idx_b = idx.reshape((K,) + (1,) * (leaf.ndim - 2) + (k,))
+    return idx, torch.gather(lf, -1, idx_b.expand(leaf.shape[:-1] + (k,)))
+
+
+def _scatter_sum(idx: torch.Tensor, vals: torch.Tensor, n: int
+                 ) -> torch.Tensor:
+    """The fp32 (..., n) sum of K clients' compact buffers (idx (K, k),
+    vals (K, ..., k)): one ``index_add_`` over the stacked (K·k)
+    entries."""
+    K, k = idx.shape
+    flat_vals = torch.movedim(vals, 0, -2).reshape(
+        vals.shape[1:-1] + (K * k,))
+    dense = torch.zeros(vals.shape[1:-1] + (n,), dtype=torch.float32,
+                        device=vals.device)
+    dense.index_add_(dense.ndim - 1, idx.reshape(K * k), flat_vals)
+    return dense
 
 
 def _compressed_masked(grads, rate: float):

@@ -36,6 +36,8 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.slots import slot_chunked
+
 
 def _leaves(tree: Sequence[dict]):
     """(layer, key) of every non-None leaf in JAX's flatten order."""
@@ -46,12 +48,16 @@ def _leaves(tree: Sequence[dict]):
 def clip_tree(tree: Sequence[dict], max_norm: float, slots: bool = False):
     """Scale the tree so its global L2 norm is <= max_norm; returns
     (clipped tree, norm).  ``slots``: every leaf is ``(S, …)`` and each
-    slot is clipped by its own norm (``norm`` then has shape (S,))."""
+    slot is clipped by its own norm (``norm`` then has shape (S,)),
+    summed in ``repro_torch.slots`` chunks."""
     keys = _leaves(tree)
     sq = None
     for l, k in keys:
         x = tree[l][k].to(torch.float32)
-        part = torch.sum(x * x, dim=tuple(range(1, x.ndim))) if slots \
+        # a reduction over (S, …) splits its work by S on the card, so
+        # the slots are summed a fixed-size chunk at a time (pods)
+        part = slot_chunked(lambda v: torch.sum(
+            v * v, dim=tuple(range(1, v.ndim))), x) if slots \
             else torch.sum(x * x)
         sq = part if sq is None else sq + part
     norm = torch.sqrt(sq)

@@ -71,8 +71,20 @@ channels and bytes by codec (``repro_torch.obs.metrics``), computed on the
 device (inside the captured round when fused) and offloaded once a round
 or a chunk.  ``TrainConfig.debug_checks`` runs the host-side checks of
 ``repro_torch.obs.checks`` on the offloaded values after each loop or
-chunk.  Neither changes a parameter bit.  Pod sharding (A15) raises
-``NotImplementedError`` naming its ROADMAP item.
+chunk.  Neither changes a parameter bit.
+
+Pods (``FedConfig.pods`` > 1, or a ``mesh``): the run is one rank of a
+``torch.distributed`` group whose world size is ``pods``
+(``launch.mesh.make_pod_mesh``), each rank on
+``cuda:{LOCAL_RANK % device_count}`` (ranks may share a card).  The
+batched engine splits every round's slots over the ranks
+(``fed.engine.BatchedEngine``); everything else — the plan, the draws
+(in the one-device order), the server state, SCBFwP's prune steps (K4 on
+every rank, so the keep-masks stay replicated) and the evaluation — runs
+alike on every rank, so every rank returns the same records, and the
+uploads and the model are bitwise one device's.  Whether the run
+collects its telemetry is agreed across the ranks.  The caller writes
+files and events from rank 0 only (``launch.train``).
 """
 from __future__ import annotations
 
@@ -98,6 +110,7 @@ from repro_torch.fed.faults import (FaultInjector, Resilience,
 from repro_torch.fed.scheduler import make_scheduler
 from repro_torch.fed.strategy import (AdmissionPolicy, RoundContribution,
                                       admit_payloads, make_strategy)
+from repro_torch.launch import mesh as pod
 from repro_torch.metrics.auc import auc_pr, auc_roc
 from repro_torch.models.mlp_net import hidden_sizes, init_mlp, mlp_forward
 from repro_torch.obs import checks as obschecks
@@ -206,8 +219,7 @@ def _should_eval(loop: int, total_loops: int, eval_every: int) -> bool:
 
 def check_slice(train_cfg: TrainConfig, method: str) -> None:
     """Refuse, before anything is built, what the reference refuses (its
-    exception types and order), and what the port does not run yet,
-    naming its ROADMAP item."""
+    exception types and order)."""
     cfg, fed = train_cfg.scbf, train_cfg.fed
     if int(fed.fuse_rounds) < 1:
         raise ValueError(f"fuse_rounds must be >= 1, got {fed.fuse_rounds}")
@@ -260,12 +272,6 @@ def check_slice(train_cfg: TrainConfig, method: str) -> None:
             "between emission and arrival, so the spilled indices "
             "would remap wrong — use deadline_action='drop' with "
             "pruning")
-    todo = [
-        (fed.pods != 1, "pod sharding is ROADMAP A15"),
-    ]
-    for cond, what in todo:
-        if cond:
-            raise NotImplementedError(f"{what}; not ported yet")
 
 
 def _check_dp(train_cfg: TrainConfig, method: str, scheduler) -> float:
@@ -390,7 +396,7 @@ def run_federated(cohort: MedicalCohort,
                   init_params: Optional[Sequence[dict]] = None,
                   perms: Optional[PermFn] = None,
                   dp_noise: Optional[NoiseFn] = None,
-                  engine: Optional[str] = None) -> RunResult:
+                  engine: Optional[str] = None, mesh=None) -> RunResult:
     """Run one federated experiment: method "scbf" | "fedavg", with
     pruning controlled by ``train_cfg.scbf.prune`` (→ SCBFwP / FAwP).
 
@@ -402,7 +408,10 @@ def run_federated(cohort: MedicalCohort,
     the standard normals of the round's i-th participant, one array a
     leaf of ``shapes`` (else drawn on the run's device generator).
     ``engine`` overrides ``train_cfg.fed.engine`` ("batched" |
-    "sequential").
+    "sequential").  ``mesh``: the pod mesh of the run's rank (by default
+    ``make_pod_mesh(fed.pods)`` when ``fed.pods`` > 1, which needs an
+    initialised group of that world size); given with ``pods`` = 1 it
+    runs the pod path on a group of one.
 
     ``LoopRecord.wall_time`` is the round span — plan, local training,
     selection, encoding (the host then holds the payloads), the fault
@@ -413,10 +422,14 @@ def run_federated(cohort: MedicalCohort,
     """
     check_slice(train_cfg, method)
     dev = resolve_device(device)
+    cfg, fed = train_cfg.scbf, train_cfg.fed
+    if mesh is None and fed.pods > 1 and (engine or fed.engine) == "batched":
+        mesh = pod.make_pod_mesh(fed.pods)
+    if mesh is not None:
+        dev = pod.rank_device(dev)
     # the reference computes in full fp32: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, fed = train_cfg.scbf, train_cfg.fed
     clock_on, faults_on = fed.clock.enabled, fed.faults.enabled
     spill_mode = clock_on and fed.clock.deadline_action == "spill"
     gen = torch.Generator().manual_seed(train_cfg.seed)
@@ -428,7 +441,7 @@ def run_federated(cohort: MedicalCohort,
     eng = make_engine(engine or fed.engine, clients,
                       train_cfg.local_batch_size,
                       train_cfg.local_epochs, dev, bucket=fed.bucket,
-                      pods=fed.pods)
+                      pods=fed.pods, mesh=mesh)
     clock = SimClock(cfg.num_clients, fed.clock, seed=train_cfg.seed) \
         if clock_on else None
     scheduler = make_scheduler(fed, cfg.num_clients, train_cfg.seed,
@@ -482,6 +495,8 @@ def run_federated(cohort: MedicalCohort,
     # the device telemetry collects under an active recorder or on request
     collect = train_cfg.obs.device_metrics or \
         obstrace.get_recorder() is not None
+    if mesh is not None:
+        collect = pod.agree_any(collect, mesh)
     obstrace.event(
         "run_start", method=result.method, loops=train_cfg.global_loops,
         clients=cfg.num_clients, engine=eng.name,
@@ -752,9 +767,9 @@ class _RunDraws:
 
     def sample_idx(self, params, p_count: int, keep=None) -> np.ndarray:
         """(slots, layers, n) int64: the indices the per-round pass draws
-        for its bucket of slots — among the kept neurons under
-        mask-mode pruning (``keep``, host index sets of the hidden
-        layers)."""
+        for its bucket of slots (one device's bucket, on pods too) —
+        among the kept neurons under mask-mode pruning (``keep``, host
+        index sets of the hidden layers)."""
         sizes = [int(layer["w"].shape[-1]) for layer in params]
         weights = None
         if keep is not None:
@@ -762,7 +777,7 @@ class _RunDraws:
             for l, kept in enumerate(keep):
                 weights[l] = torch.zeros(sizes[l])
                 weights[l][torch.from_numpy(np.asarray(kept))] = 1.0
-        out = np.zeros((self.eng.round_slots(p_count) if p_count else 0,
+        out = np.zeros((self.eng.draw_slots(p_count) if p_count else 0,
                         len(sizes), channels.NUM_SAMPLES), np.int64)
         for k in range(out.shape[0]):
             for l, idx in enumerate(channels.sample_channels(

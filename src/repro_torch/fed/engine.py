@@ -99,9 +99,12 @@ from repro_torch.fed import graphs
 from repro_torch.fed.cohort import (PaddedCohort, bucket_size,
                                     horizon_slot_plan, pad_clients)
 from repro_torch.fed.strategy import fedavg_step, scbf_sum_step
+from repro_torch.launch import mesh as pod
 from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obstrace
 from repro_torch.params import tree_map
+from repro_torch.sharding import rules as shard_rules
+from repro_torch.slots import SLOT_CHUNK
 
 
 def stack_pytrees(trees: Sequence):
@@ -205,7 +208,10 @@ class SequentialEngine:
 
     def __init__(self, clients: Sequence[Tuple[np.ndarray, np.ndarray]],
                  batch_size: int, epochs: int, device, bucket: str = "pow2",
-                 pods: int = 1):
+                 pods: int = 1, mesh=None):
+        if pods > 1 or mesh is not None:
+            raise ValueError("the sequential engine is single-device; "
+                             "pod sharding needs engine='batched'")
         self.device = torch.device(device)
         self.clients = [(torch.as_tensor(x).to(self.device),
                          torch.as_tensor(y).to(self.device))
@@ -301,8 +307,8 @@ def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
     ``sample_idx`` the sampled quantile path's indices (one list a slot;
     else drawn on ``generator``).  ``params``: one model shared by every
     slot, or a slot-stacked ``(B, …)`` one, each slot's own start (stale
-    versions; ``_train_slots``).  Returns (masked, masks, edge operands),
-    slot-stacked; a padded slot's masked delta and masks are zero.  With
+    versions; ``_train_slots``).  Returns (masked, masks), slot-stacked;
+    a padded slot's masked delta and masks are zero.  With
     ``collect``, also the slots' ``(B,)``-stacked ``MetricsCarry``
     (``obsm.slot_metrics``: the loss from training, the counts from the
     zeroed uploads, ``eff_sizes`` the mask-mode byte pricing, a device
@@ -314,14 +320,13 @@ def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
     if collect:
         new_p, loss = new_p
     g = client_delta(start, new_p)
-    masked, masks, _, ops = sel.select_gradients(
+    masked, masks, _, _ = sel.select_gradients(
         g, cfg.upload_rate, cfg.selection, score_norm=cfg.score_norm,
         sample_idx=sample_idx, generator=generator, neuron_masks=nmasks)
     if cfg.dp_noise_multiplier > 0.0:
         masked = privacy.gaussian_mechanism(
             tuple(masked), noise, cfg.dp_noise_multiplier, cfg.dp_clip_norm,
             masks=_reveal_masks(masked, masks), slots=True)
-        ops = _noised_operands(ops, masked)
     masked = tuple({k: _zero_invalid(t, valid) for k, t in layer.items()}
                    for layer in masked)
     masks = tuple(
@@ -333,9 +338,9 @@ def _slot_pass(params, cohort: PaddedCohort, rows: torch.Tensor,
         # validity and summed over the cohort on the device
         # (``obsm.reduce_slots``) before anything is offloaded
         # privlint: disable=PL006
-        return masked, masks, ops, obsm.slot_metrics(loss, masked, masks,
-                                                     valid, eff_sizes)
-    return masked, masks, ops
+        return masked, masks, obsm.slot_metrics(loss, masked, masks, valid,
+                                                eff_sizes)
+    return masked, masks
 
 
 def _train_slots(params, cohort: PaddedCohort, rows: torch.Tensor,
@@ -346,17 +351,34 @@ def _train_slots(params, cohort: PaddedCohort, rows: torch.Tensor,
     trains on cohort row ``rows[s]``, the masked loss on a ragged cohort.
     ``params`` is one model, broadcast to the B slots, or already slot-
     stacked (its weights one dimension up).  ``with_loss``: the trained
-    params are ``(params, (B,) losses)``."""
+    params are ``(params, (B,) losses)``.  The slots train padded to a
+    multiple of ``SLOT_CHUNK`` — padded slots invalid, on slot 0's row,
+    start and permutations, cut off after — so every product runs in
+    whole chunks (``repro_torch.slots``), padded once and not a product
+    at a time."""
     b = valid.shape[0]
-    stacked = params[0]["w"].ndim == 3
-    start = params if stacked else tuple(
-        {k: v.unsqueeze(0).expand(b, *v.shape) for k, v in layer.items()}
-        for layer in params)
-    return start, local_train_slots(
-        start, cohort.x, cohort.y, lr, perms,
-        w=None if cohort.uniform else cohort.w, valid=valid,
+    pad = -b % SLOT_CHUNK
+
+    def grow(t):
+        return torch.cat([t, t[:1].expand(pad, *t.shape[1:])]) if pad \
+            else t
+
+    if params[0]["w"].ndim == 3:
+        start = params
+        train = tree_map(grow, params)
+    else:
+        train = tuple({k: v.unsqueeze(0).expand(b + pad, *v.shape)
+                       for k, v in layer.items()} for layer in params)
+        start = tree_map(lambda t: t[:b], train)
+    out = local_train_slots(
+        train, cohort.x, cohort.y, lr, grow(perms),
+        w=None if cohort.uniform else cohort.w,
+        valid=torch.cat([valid, valid.new_zeros(pad)]) if pad else valid,
         batch_size=batch_size, epochs=epochs, neuron_masks=nmasks,
-        clients=rows, with_loss=with_loss)
+        clients=grow(rows), with_loss=with_loss)
+    new_p, loss = out if with_loss else (out, None)
+    new_p = tree_map(lambda t: t[:b], new_p)
+    return start, (new_p, loss[:b]) if with_loss else new_p
 
 
 def _zero_invalid(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -397,7 +419,6 @@ class FusedOutputs:
 
     masked: Tuple[dict, ...]
     masks: Tuple[dict, ...]
-    ops: List[EdgeOperands]           # a shared (M,) row stays (M,)
     metrics: Optional[obsm.MetricsCarry] = None   # (S,)-stacked, collect
 
 
@@ -418,18 +439,46 @@ class BatchedEngine:
     """Slot-stacked bucketed-cohort execution: one pass a round (see the
     module docstring), or a fused chunk of rounds a captured round at a
     time.  ``bucket`` picks the participant padding
-    (``fed.cohort.bucket_size``); pod sharding is ROADMAP A15."""
+    (``fed.cohort.bucket_size``).
+
+    Pods (``pods`` > 1, or a ``mesh`` given): the round's slot axis splits
+    over the 1-D ``("pod",)`` mesh of ``launch.mesh`` (``make_pod_mesh``
+    over the initialised group by default), one contiguous block of B/P
+    slots a rank (``sharding.rules``); B is a multiple of P.  A rank
+    trains, selects and noises its own slots — K1, K2 and K3's count
+    once a round a rank — then the masked slot stacks, their masks and
+    the telemetry carry are gathered in slot order (``pod.gather_slots``),
+    so the server sum, the encode and the carry's reduction see all B
+    slots exactly as on one device: the uploads and the sum are bitwise
+    one device's.  Only masked deltas (zero outside their channels),
+    their masks and the carry cross.  Every rank holds the whole cohort
+    on the device (replicated, as in the reference's fused path) and its
+    slots index it.  Every rank draws a round's randomness for all its
+    participants in the one-device order (``draw_slots``,
+    ``draw_noise``) and takes its slots' rows.
+
+    The encode (``_emit``) re-derives each upload from its masked values
+    alone (``_passthrough_operands``): a masked delta is zero outside the
+    edges its selection kept, so no channel score leaves the slot pass,
+    on one device or across pods.
+    """
 
     name = "batched"
 
     def __init__(self, clients: Sequence[Tuple[np.ndarray, np.ndarray]],
                  batch_size: int, epochs: int, device, bucket: str = "pow2",
-                 pods: int = 1):
-        if int(pods) != 1:
-            raise NotImplementedError("pod sharding is ROADMAP A15; not "
-                                      "ported yet")
+                 pods: int = 1, mesh=None):
         bucket_size(1, 1, bucket)         # refuse an unknown policy now
         self.device = torch.device(device)
+        self.pods = max(1, int(pods))
+        if mesh is None and self.pods > 1:
+            mesh = pod.make_pod_mesh(self.pods)
+        if mesh is not None:
+            if self.pods not in (1, mesh.size()):
+                raise ValueError(f"a pod mesh of {mesh.size()} ranks for "
+                                 f"pods={self.pods}")
+            self.pods = mesh.size()
+        self.mesh = mesh
         self.cohort: PaddedCohort = pad_clients(clients, self.device)
         self.counts = self.cohort.counts
         self.batch_size = batch_size
@@ -448,7 +497,14 @@ class BatchedEngine:
         return self.cohort.n_max
 
     def round_slots(self, p_count: int) -> int:
-        """B of a per-round pass of ``p_count`` participants."""
+        """B of a per-round pass of ``p_count`` participants (a multiple
+        of the pod count)."""
+        return bucket_size(p_count, self.num_clients, self.bucket,
+                           self.pods)
+
+    def draw_slots(self, p_count: int) -> int:
+        """The slots a round's per-slot draws cover: one device's bucket,
+        whatever the pods, so every rank draws the one-device stream."""
         return bucket_size(p_count, self.num_clients, self.bucket)
 
     def _slot_inputs(self, participants, perms, b: int):
@@ -463,6 +519,13 @@ class BatchedEngine:
         return (torch.from_numpy(rows).to(self.device),
                 torch.arange(b, device=self.device) < p_count,
                 torch.from_numpy(pm).to(self.device))
+
+    def _mine(self, b: int) -> slice:
+        """This rank's slots of a round of ``b`` (all of them on one
+        device): the contiguous range of ``sharding.rules.slot_range``."""
+        if self.mesh is None:
+            return slice(0, b)
+        return slice(*shard_rules.slot_range(b, self.mesh))
 
     def draw_noise(self, params, p_count: int, noise=None,
                    generator: Optional[torch.Generator] = None
@@ -483,22 +546,54 @@ class BatchedEngine:
     def _pass(self, params, participants, lr, perms, cfg, nmasks=None,
               noise=None, generator=None, sample_idx=None,
               collect: bool = False, eff_sizes=None):
+        """The round's slot pass: on pods this rank's slots (``_mine``),
+        then the round's masked deltas, masks and carry gathered in slot
+        order."""
         b = self.round_slots(len(participants))
-        rows, valid, pm = self._slot_inputs(participants, perms, b)
+        mine = self._mine(b)
+        rows, valid, pm = (t[mine] for t in self._slot_inputs(
+            participants, perms, b))
         if isinstance(params, list):
-            params = _stack_params(params, b)
+            params = tuple({k: v[mine] for k, v in layer.items()}
+                           for layer in _stack_params(params, b))
         if noise is not None:
-            noise = [torch.cat([z, z.new_zeros((b - z.shape[0],
-                                                *z.shape[1:]))])
-                     for z in noise]
+            noise = [_zero_fill_slots(z, b)[mine] for z in noise]
         if sample_idx is not None:
             idx = torch.from_numpy(sample_idx).to(self.device)
-            sample_idx = [list(slot) for slot in idx]
-        return _slot_pass(params, self.cohort, rows, valid, lr, pm, cfg,
-                          batch_size=self.batch_size, epochs=self.epochs,
-                          nmasks=nmasks, noise=noise, sample_idx=sample_idx,
-                          generator=generator, collect=collect,
-                          eff_sizes=eff_sizes)
+            sample_idx = [list(slot) for slot in
+                          _zero_fill_slots(idx, b)[mine]]
+        # on pods the sampled quantile's indices come drawn for the whole
+        # round (``sample_idx``): a rank's own draws would shift the stream
+        res = _slot_pass(params, self.cohort, rows, valid, lr, pm, cfg,
+                         batch_size=self.batch_size, epochs=self.epochs,
+                         nmasks=nmasks, noise=noise, sample_idx=sample_idx,
+                         generator=generator if self.mesh is None else None,
+                         collect=collect, eff_sizes=eff_sizes)
+        if self.mesh is None:
+            return res
+        masked, masks, met = self._gather_round(res[0], res[1],
+                                                res[2] if collect else None)
+        return (masked, masks, met) if collect else (masked, masks)
+
+    def _gather_round(self, masked, masks, met=None):
+        """Every pod's slots of a round's masked deltas, masks (None stays
+        None) and slot-stacked carry, in slot order."""
+        def gather(t):
+            return None if t is None else pod.gather_slots(t, self.mesh)
+        masked = tuple({k: gather(t) for k, t in layer.items()}
+                       for layer in masked)
+        masks = tuple({k: gather(t) for k, t in layer.items()}
+                      for layer in masks)
+        if met is not None:
+            met = type(met)(*(gather(t) for t in met))
+        return masked, masks, met
+
+    def _gather_trained(self, trained, losses=None):
+        """Every pod's slots of a FedAvg round's trained weights (and
+        losses), in slot order."""
+        return (tree_map(lambda t: pod.gather_slots(t, self.mesh), trained),
+                None if losses is None else
+                pod.gather_slots(losses, self.mesh))
 
     def scbf_round(self, params, participants, lr: float,
                    perms: Sequence[Sequence], cfg: ScbfConfig,
@@ -530,20 +625,20 @@ class BatchedEngine:
         out = self._pass(params, participants, lr, perms, cfg, nmasks, z,
                          generator, sample_idx, collect, eff)
         with obstrace.span("encode", clients=p_count):
-            payloads, stats = self._emit(*out[:3], p_count, keep)
+            payloads, stats = self._emit(*out[:2], p_count, keep)
         if collect:
-            return payloads, stats, obsm.offload(obsm.reduce_slots(out[3]))
+            return payloads, stats, obsm.offload(obsm.reduce_slots(out[2]))
         return payloads, stats
 
-    def _emit(self, masked, masks, ops, num: int, keep=None):
-        """Encode slots [:num] (after keep compaction): (payloads, stats);
-        its device→host copies are those of ``wire.encode_round``."""
+    def _emit(self, masked, masks, num: int, keep=None):
+        """Encode slots [:num] (after keep compaction) from their masked
+        values (``_passthrough_operands``): (payloads, stats); its
+        device→host copies are those of ``wire.encode_round``."""
         if keep is not None:
             keep_t = index_tensors(keep, self.device)
             masked = _compact_layers(masked, keep_t)
             masks = _compact_layers(masks, keep_t)
-            ops = _compact_operands(ops, keep_t)
-        return (wire.encode_round(masked, ops, num),
+        return (wire.encode_round(masked, _passthrough_operands(masked), num),
                 sel.UploadStats.from_slot_masks(masks, num))
 
     def fedavg_round(self, params, participants, lr: float,
@@ -551,18 +646,26 @@ class BatchedEngine:
         """Full-weight training, slot-stacked; returns (per-client params
         — views into the stacked output's real slots — and counts), and
         with ``collect`` the round's offloaded loss dict (padded slots
-        excluded by validity)."""
+        excluded by validity).  On pods every rank trains its slots, and
+        the trained weights (what FedAvg ships) and losses are gathered
+        in slot order."""
         p_count = len(participants)
         if not p_count:
             return ([], self.counts[:0], None) if collect \
                 else ([], self.counts[:0])
         b = self.round_slots(p_count)
-        rows, valid, pm = self._slot_inputs(participants, perms, b)
+        mine = self._mine(b)
+        rows, valid, pm = (t[mine] for t in self._slot_inputs(
+            participants, perms, b))
         _, new_p = _train_slots(params, self.cohort, rows, valid, lr, pm,
                                 batch_size=self.batch_size,
                                 epochs=self.epochs, with_loss=collect)
         if collect:
             new_p, losses = new_p
+        if self.mesh is not None:
+            new_p, losses = self._gather_trained(new_p,
+                                                 losses if collect else None)
+            valid = torch.arange(b, device=self.device) < p_count
         real = tuple({k: v[:p_count] for k, v in layer.items()}
                      for layer in new_p)
         res = [tuple({k: v[i] for k, v in layer.items()} for layer in real)
@@ -579,9 +682,10 @@ class BatchedEngine:
 
     def fused_num_slots(self, max_participants: int) -> int:
         """The run-constant slot count B of fused rounds, sized to the
-        scheduler's largest cohort: every round of the run replays one
-        captured graph."""
-        return bucket_size(max_participants, self.num_clients, self.bucket)
+        scheduler's largest cohort (a multiple of the pod count): every
+        round of the run replays one captured graph."""
+        return bucket_size(max_participants, self.num_clients, self.bucket,
+                           self.pods)
 
     def prepare_fused_plan(self, participants: Sequence[np.ndarray],
                            lrs: Sequence[float], perms: Sequence,
@@ -656,10 +760,35 @@ class BatchedEngine:
     def _program(self, key, fn, example: tuple) -> graphs.RoundProgram:
         """The captured round program of ``key`` (CUDA), captured at first
         use from the ``example`` inputs."""
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = graphs.RoundProgram(fn, *example)
-        return prog
+        if key not in self._programs:
+            self._programs[key] = graphs.RoundProgram(fn, *example)
+        # looked up, not passed on: a caller names the body it replays
+        # (``body if … else self._program(…)``), which the lints follow
+        return self._programs[key]
+
+    def round_form(self) -> str:
+        """How a fused round runs: ``"one graph"`` (CUDA: one captured
+        graph a round; on pods under NCCL the slot gather is captured
+        inside it), ``"two graphs"`` (pods under gloo, which cannot be
+        captured: the slot pass and the server step are two graphs with
+        the gather between them) or ``"eager"`` (the CPU: the same bodies
+        called directly — on pods the two steps, the gather between)."""
+        if self.device.type != "cuda":
+            return "eager"
+        if self.mesh is not None and torch.distributed.get_backend(
+                self.mesh.get_group(pod.POD)) != "nccl":
+            return "two graphs"
+        return "one graph"
+
+    def _plan_view(self, plan: FusedPlan):
+        """This rank's ``narrow`` of a fused plan's per-slot legs (the
+        round-slot axis of ``fused_plan_shardings``), or the identity on
+        one device."""
+        if self.mesh is None:
+            return lambda t: t
+        shard, _ = shard_rules.fused_plan_shardings(self.mesh)
+        a, e = shard_rules.slot_range(plan.num_slots, self.mesh)
+        return lambda t: t.narrow(shard.dim, a, e - a)
 
     def fused_scbf_chunk(self, params, plan: FusedPlan, cfg: ScbfConfig,
                          nmasks=None, collect: bool = False
@@ -669,15 +798,19 @@ class BatchedEngine:
         replay of a captured graph (an eager call on the CPU), with the
         round's rows of the plan copied into its inputs on the device.
         No host sync.  Returns (new params, the chunk's stacked masked
-        deltas, masks and edge operands for ``emit_fused_payloads``).
+        deltas and masks for ``emit_fused_payloads``).
         The server sum folds in the plan's admitted slots only; the
         emitted deltas are every valid slot's, as computed.
         ``nmasks`` (mask-mode SCBFwP): the chunk's keep-masks, an input.
         ``collect``: each round also computes its ``MetricsCarry`` inside
         the captured round (priced on ``plan.eff_sizes`` when given),
         stored into the outputs' ``(S,)`` stack ``metrics`` on the
-        device."""
-        def body(p, rows, valid, admit, lr, perms, noise, sample, nm, es):
+        device.  On pods a round trains this rank's slots of the plan,
+        then gathers the round's masked deltas, masks and carry in slot
+        order (``round_form`` says where the gather runs) and takes the
+        server step on all of them."""
+        def train(p, rows, valid, admit, lr, perms, noise, sample, nm, es):
+            # ``admit`` unused: the round body's signature
             sample = None if sample is None else \
                 [[s[k] for s in sample] for k in range(rows.shape[0])]
             res = _slot_pass(
@@ -685,37 +818,62 @@ class BatchedEngine:
                 batch_size=self.batch_size, epochs=self.epochs, nmasks=nm,
                 noise=noise, sample_idx=sample, collect=collect,
                 eff_sizes=es)
-            masked, masks, ops = res[:3]
+            return res[0], res[1], res[2] if collect else None
+
+        def server(p, masked, admit, nm, met):
             admitted = tuple({k: _zero_invalid(t, admit)
                               for k, t in layer.items()}
                              for layer in masked)
-            met = obsm.reduce_slots(res[3]) if collect else None
-            return scbf_sum_step(p, admitted, neuron_masks=nm), masked, \
-                masks, ops, met
+            return scbf_sum_step(p, admitted, neuron_masks=nm), \
+                obsm.reduce_slots(met) if collect else None
+
+        def body(p, rows, valid, admit, lr, perms, noise, sample, nm, es):
+            masked, masks, met = train(p, rows, valid, admit, lr, perms,
+                                       noise, sample, nm, es)
+            if self.mesh is not None:
+                masked, masks, met = self._gather_round(masked, masks, met)
+            new_p, met = server(p, masked, admit, nm, met)
+            return new_p, masked, masks, met
 
         p = tuple(params)
         nm = None if nmasks is None else tuple(nmasks)
         es = plan.eff_sizes if collect else None
+        view, form = self._plan_view(plan), self.round_form()
         out = None
         for r in range(plan.part_idx.shape[0]):
             rows, valid, admit, lr, perms = (
-                plan.part_idx[r], plan.valid[r], plan.admit[r], plan.lrs[r],
-                plan.perms[r])
+                view(plan.part_idx)[r], view(plan.valid)[r], plan.admit[r],
+                plan.lrs[r], view(plan.perms)[r])
             noise = None if plan.noise is None else \
-                [z[r] for z in plan.noise]
+                [view(z)[r] for z in plan.noise]
             sample = None if plan.sample_idx is None else \
-                [s[r] for s in plan.sample_idx]
-            prog = body if self.device.type != "cuda" else self._program(
-                graphs.program_key("scbf", cfg, p, rows, perms, noise,
-                                   sample, nm, collect, es),
-                body, (p, rows, valid, admit, lr, perms, noise, sample, nm,
-                       es))
-            p, masked, masks, ops, met = prog(p, rows, valid, admit, lr,
-                                              perms, noise, sample, nm, es)
+                [view(s)[r] for s in plan.sample_idx]
+            if self.mesh is not None and form != "one graph":
+                first = train if form == "eager" else self._program(
+                    graphs.program_key("scbf-train", cfg, p, rows, perms,
+                                       noise, sample, nm, collect, es),
+                    train, (p, rows, valid, admit, lr, perms, noise, sample,
+                            nm, es))
+                masked, masks, met = first(p, rows, valid, admit, lr, perms,
+                                           noise, sample, nm, es)
+                masked, masks, met = self._gather_round(masked, masks, met)
+                second = server if form == "eager" else self._program(
+                    graphs.program_key("scbf-server", p, masked, admit, nm,
+                                       met),
+                    server, (p, masked, admit, nm, met))
+                p, met = second(p, masked, admit, nm, met)
+            else:
+                prog = body if form == "eager" else self._program(
+                    graphs.program_key("scbf", cfg, p, rows, perms, noise,
+                                       sample, nm, collect, es),
+                    body, (p, rows, valid, admit, lr, perms, noise, sample,
+                           nm, es))
+                p, masked, masks, met = prog(p, rows, valid, admit, lr,
+                                             perms, noise, sample, nm, es)
             if out is None:
                 out = _stacked_like(plan.part_idx.shape[0], masked, masks,
-                                    ops, met)
-            _store_round(out, r, masked, masks, ops, met)
+                                    met)
+            _store_round(out, r, masked, masks, met)
         return tuple({k: v.clone() for k, v in layer.items()}
                      for layer in p), out
 
@@ -725,34 +883,62 @@ class BatchedEngine:
         training, then ``fedavg_step`` with the plan's weights); returns
         the final params, and with ``collect`` the chunk's ``(S,)``-stacked
         ``FedAvgMetrics`` on the device (a slot counts where its weight is
-        positive, as in the reference)."""
+        positive, as in the reference).  On pods each rank trains its
+        slots, and the trained weights (what FedAvg ships) and losses are
+        gathered in slot order before the step, as ``fused_scbf_chunk``
+        gathers SCBF's."""
         if plan.weights is None:
             raise ValueError("fused fedavg needs the plan built with "
                              "per-slot example weights")
 
-        def body(p, rows, valid, lr, perms, wts):
+        def train(p, rows, valid, lr, perms):
             trained = _train_slots(p, self.cohort, rows, valid, lr, perms,
                                    batch_size=self.batch_size,
                                    epochs=self.epochs, with_loss=collect)[1]
-            met = None
-            if collect:
-                trained, losses = trained
-                met = obsm.fedavg_metrics(losses, wts > 0.0)
+            return trained if collect else (trained, None)
+
+        def server(p, trained, valid, wts, losses):
+            met = obsm.fedavg_metrics(losses, wts > 0.0) if collect \
+                else None
             # a padded slot (weight 0) adds exact zeros
             return fedavg_step(p, tuple(
                 {k: _zero_invalid(t, valid) for k, t in layer.items()}
                 for layer in trained), wts), met
 
+        def body(p, rows, valid, lr, perms, wts):
+            trained, losses = train(p, rows, valid, lr, perms)
+            if self.mesh is not None:
+                trained, losses = self._gather_trained(trained, losses)
+                # the round's real slots: those of positive weight (a
+                # quorum-missed round weighs every slot 0 and passes the
+                # model through)
+                valid = wts > 0.0
+            return server(p, trained, valid, wts, losses)
+
         p = tuple(params)
+        view, form = self._plan_view(plan), self.round_form()
         stack = None
         for r in range(plan.part_idx.shape[0]):
             rows, valid, lr, perms, wts = (
-                plan.part_idx[r], plan.valid[r], plan.lrs[r], plan.perms[r],
-                plan.weights[r])
-            prog = body if self.device.type != "cuda" else self._program(
-                graphs.program_key("fedavg", p, rows, perms, collect),
-                body, (p, rows, valid, lr, perms, wts))
-            p, met = prog(p, rows, valid, lr, perms, wts)
+                view(plan.part_idx)[r], view(plan.valid)[r], plan.lrs[r],
+                view(plan.perms)[r], plan.weights[r])
+            if self.mesh is not None and form != "one graph":
+                first = train if form == "eager" else self._program(
+                    graphs.program_key("fedavg-train", p, rows, perms,
+                                       collect),
+                    train, (p, rows, valid, lr, perms))
+                trained, losses = first(p, rows, valid, lr, perms)
+                trained, losses = self._gather_trained(trained, losses)
+                live = plan.valid[r]
+                second = server if form == "eager" else self._program(
+                    graphs.program_key("fedavg-server", p, trained, collect),
+                    server, (p, trained, live, wts, losses))
+                p, met = second(p, trained, live, wts, losses)
+            else:
+                prog = body if form == "eager" else self._program(
+                    graphs.program_key("fedavg", p, rows, perms, collect),
+                    body, (p, rows, valid, lr, perms, wts))
+                p, met = prog(p, rows, valid, lr, perms, wts)
             if collect:
                 if stack is None:
                     stack = _carry_stack(plan.part_idx.shape[0], met)
@@ -813,11 +999,7 @@ class BatchedEngine:
                        for layer in out.masked)
         masks = tuple({k: None if v is None else take(v)
                        for k, v in layer.items()} for layer in out.masks)
-        ops = [op._replace(g=masked[l]["w"], col=take(op.col),
-                           thr=take(op.thr), rest=take(op.rest),
-                           row=take(op.row) if op.row.ndim == 3 else op.row)
-               for l, op in enumerate(out.ops)]
-        payloads, stats = self._emit(masked, masks, ops, len(flat), keep)
+        payloads, stats = self._emit(masked, masks, len(flat), keep)
         res, at = [], 0
         for n in sizes:
             res.append((payloads[at:at + n], stats[at:at + n]))
@@ -842,6 +1024,30 @@ def _stack_params(params: Sequence, num_slots: int) -> Tuple[dict, ...]:
                  for l, layer in enumerate(params[0]))
 
 
+def _zero_fill_slots(t: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """``t`` (P, …) with zero rows up to ``num_slots``."""
+    return torch.cat([t, t.new_zeros((num_slots - t.shape[0],
+                                      *t.shape[1:]))])
+
+
+def _passthrough_operands(masked) -> List[EdgeOperands]:
+    """Edge operands whose test every entry passes (``0 + 0 + 0 > -1``),
+    on the masked weights of a slot-stacked round: the encoder then keeps
+    exactly the masked values' nonzeros — what it keeps from the real
+    operands, since a masked delta is zero outside its kept edges (and
+    DP noises only revealed ones).  The batched engine's encode: no
+    channel score leaves the slot pass, on one device or across pods."""
+    out = []
+    for layer in masked:
+        w = layer["w"]
+        zero = torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+        out.append(EdgeOperands(
+            w, torch.zeros(w.shape[-2], dtype=torch.float32, device=w.device),
+            torch.zeros((w.shape[0], w.shape[-1]), dtype=torch.float32,
+                        device=w.device), zero - 1.0, zero))
+    return out
+
+
 def _carry_stack(s_count: int, met):
     """An empty (S, …) stack of a round's telemetry carry."""
     return type(met)(*(t.new_empty((s_count, *t.shape)) for t in met))
@@ -853,11 +1059,8 @@ def _store_carry(stack, r: int, met) -> None:
         d[r].copy_(s)
 
 
-def _stacked_like(s_count: int, masked, masks, ops, met=None
-                  ) -> FusedOutputs:
-    """Empty (S, …) stacks shaped like one round's outputs (EdgeOperands
-    keep only row, col, thr and rest: the emission compacts the masked
-    weights, which under the same rule hold the same kept entries)."""
+def _stacked_like(s_count: int, masked, masks, met=None) -> FusedOutputs:
+    """Empty (S, …) stacks shaped like one round's outputs."""
     def stack(t):
         return None if t is None else t.new_empty((s_count, *t.shape))
     return FusedOutputs(
@@ -865,14 +1068,10 @@ def _stacked_like(s_count: int, masked, masks, ops, met=None
         masked=tuple({k: stack(v) for k, v in layer.items()}
                      for layer in masked),
         masks=tuple({k: stack(v) for k, v in layer.items()}
-                    for layer in masks),
-        ops=[op._replace(g=None, col=stack(op.col), thr=stack(op.thr),
-                         rest=stack(op.rest),
-                         row=stack(op.row) if op.row.ndim == 2
-                         else op.row.clone()) for op in ops])
+                    for layer in masks))
 
 
-def _store_round(out: FusedOutputs, r: int, masked, masks, ops,
+def _store_round(out: FusedOutputs, r: int, masked, masks,
                  met=None) -> None:
     """Copy round r's outputs into the chunk's stacks (on the device)."""
     if met is not None:
@@ -882,19 +1081,15 @@ def _store_round(out: FusedOutputs, r: int, masked, masks, ops,
             for k, v in s.items():
                 if v is not None:
                     d[k][r].copy_(v)
-    for d, s in zip(out.ops, ops):
-        for name in ("col", "thr", "rest"):
-            getattr(d, name)[r].copy_(getattr(s, name))
-        if s.row.ndim == 2:
-            d.row[r].copy_(s.row)
 
 
 ENGINES = {"batched": BatchedEngine, "sequential": SequentialEngine}
 
 
 def make_engine(kind: str, clients, batch_size: int, epochs: int, device,
-                bucket: str = "pow2", pods: int = 1):
+                bucket: str = "pow2", pods: int = 1, mesh=None):
+    """``mesh``: the batched engine's pod mesh (``BatchedEngine``)."""
     if kind not in ENGINES:
         raise ValueError(f"unknown engine {kind!r}; one of {sorted(ENGINES)}")
     return ENGINES[kind](clients, batch_size, epochs, device, bucket=bucket,
-                         pods=pods)
+                         pods=pods, mesh=mesh)

@@ -21,12 +21,21 @@ make_federated_train_step``: ``--clients`` clients (5), ``--batch-size``
 sequences each (4 when left at 256), ``--seq-len`` tokens (64),
 ``--upload-rate`` (0.10), ``--lr`` (0.05), ``--steps`` steps.
 
+Pods: started by ``torchrun`` (``WORLD_SIZE`` > 1) the launcher
+initialises the process group (``launch.mesh.init_from_env``: NCCL when
+every rank has a card of its own, gloo on the CPU or when ranks share
+one) and runs with ``FedConfig.pods`` — the LM step with a pod mesh — of
+the world size; every rank computes the same records, and only rank 0
+prints and writes outputs.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --mode medical \
         --methods scbf,fedavg,scbfwp,fedavgwp --loops 30 \
         --out experiments/medical_torch
     PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
         --arch qwen2-0.5b --steps 200 --clients 4
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --methods scbf --loops 30
 """
 from __future__ import annotations
 
@@ -89,7 +98,8 @@ def fed_config(args):
     from repro_torch.config import ClockConfig, FedConfig
     from repro_torch.fed.faults import parse_fault_trace
 
-    kw = dict(engine=args.engine, sample_fraction=args.sample_fraction,
+    kw = dict(engine=args.engine, pods=args.pods,
+              sample_fraction=args.sample_fraction,
               dropout_rate=args.dropout_rate,
               straggler_rate=args.straggler_rate,
               partition=args.partition,
@@ -115,18 +125,22 @@ def run_medical(args):
     from repro_torch.obs import recording
 
     cohort = generate_cohort(seed=args.seed)
-    os.makedirs(args.out, exist_ok=True)
+    lead = args.rank == 0
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
     fed = fed_config(args)
     results = {}
     for method in args.methods.split(","):
         base, cfg = method_config(method, args, fed)
         rec_ctx = recording(os.path.join(args.out,
                                          f"{method}.events.jsonl")) \
-            if args.events else contextlib.nullcontext()
+            if args.events and lead else contextlib.nullcontext()
         with rec_ctx:
-            res = run_federated(cohort, cfg, method=base, verbose=True,
+            res = run_federated(cohort, cfg, method=base, verbose=lead,
                                 device=args.device)
         results[method] = res
+        if not lead:
+            continue
         write_csv(os.path.join(args.out, f"{res.method}.csv"), res)
         print(f"[{res.method}] best auc_roc={res.best('auc_roc'):.4f} "
               f"auc_pr={res.best('auc_pr'):.4f} "
@@ -142,13 +156,16 @@ def run_lm(args):
     from repro_torch.config import ScbfConfig
     from repro_torch.core.distributed import make_federated_train_step
     from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.launch import mesh as pod
     from repro_torch.models import model_zoo
 
     cfg = configs.smoke_variant(configs.get(args.arch))
     bundle = model_zoo.build(cfg, device=args.device)
     params, _ = bundle.init(args.seed)
     scbf = ScbfConfig(upload_rate=args.upload_rate, num_clients=args.clients)
-    step = make_federated_train_step(bundle.loss_fn, scbf, lr=args.lr)
+    step = make_federated_train_step(
+        bundle.loss_fn, scbf, lr=args.lr,
+        mesh=pod.make_pod_mesh(args.pods) if args.pods > 1 else None)
 
     K, B, S = args.clients, args.batch_size, args.seq_len
     context = model_zoo.context_input(cfg)
@@ -162,7 +179,8 @@ def run_lm(args):
                 (K, B, context[1], cfg.d_model), dtype=torch.bfloat16,
                 device=bundle.device)
         loss, params = step(params, batch)
-        if i % max(1, args.steps // 20) == 0 or i == args.steps - 1:
+        if args.rank == 0 and (i % max(1, args.steps // 20) == 0
+                               or i == args.steps - 1):
             print(f"step {i:4d} loss {float(loss):.4f} "
                   f"({(time.time()-t0):.1f}s)", flush=True)
     return params
@@ -226,16 +244,33 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=64)
+    # set by main() on a torchrun rank
+    ap.set_defaults(rank=0, pods=1)
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode == "lm":
-        if args.batch_size == 256:
-            args.batch_size = 4
-        return run_lm(args)
-    return run_medical(args)
+    owned = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # a torchrun rank: its group (unless the caller made it already),
+        # and pods of the world size
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as pod
+        owned = not dist.is_initialized()
+        if owned:
+            pod.init_from_env(args.device or "cuda")
+        args.rank, args.pods = dist.get_rank(), dist.get_world_size()
+    try:
+        if args.mode == "lm":
+            if args.batch_size == 256:
+                args.batch_size = 4
+            return run_lm(args)
+        return run_medical(args)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

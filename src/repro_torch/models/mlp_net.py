@@ -9,8 +9,9 @@ SCBFwP) multiplies the post-ReLU activations, as in the reference.
 Slot-stacked params (the batched engine: S clients of a round at once)
 hold ``w`` as ``(S, fan_in, fan_out)`` and ``b`` as ``(S, fan_out)``; the
 input is then ``(S, batch, fan_in)``, every product is one batched
-``torch.matmul``, and the bias broadcasts as ``b[:, None, :]``.  The
-``neuron_masks`` are shared by all slots.
+``torch.matmul`` a chunk of ``repro_torch.slots.SLOT_CHUNK`` slots, and
+the bias broadcasts as ``b[:, None, :]``.  The ``neuron_masks`` are
+shared by all slots.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.slots import slot_chunked
 
 
 def init_mlp(features: Sequence[int], generator: torch.Generator,
@@ -37,8 +40,12 @@ def init_mlp(features: Sequence[int], generator: torch.Generator,
 
 
 def _affine(h: torch.Tensor, layer: dict) -> torch.Tensor:
-    b = layer["b"]
-    return h @ layer["w"] + (b[:, None, :] if b.ndim == 2 else b)
+    b, w = layer["b"], layer["w"]
+    if w.ndim == 3 and h.ndim == 3:
+        # a slot's product must not depend on how many slots share it
+        # (pods): fixed-size slot chunks (``repro_torch.slots``)
+        return slot_chunked(torch.matmul, h, w) + b[:, None, :]
+    return h @ w + (b[:, None, :] if b.ndim == 2 else b)
 
 
 def mlp_forward(params: Sequence[dict], x: torch.Tensor,

@@ -1,0 +1,393 @@
+"""Rank bodies of ``tests/test_torch_pods.py``: each runs on one spawned
+rank of a gloo group (``repro_torch.launch.mesh.spawn_ranks``), computes
+the one-device run in the same process for comparison, and returns
+picklable results for the test to check.  No JAX here: a rank imports
+torch and the port only."""
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
+from repro_torch.launch import mesh as pod
+
+COLLECTIVES = ("gather_slots", "all_reduce_sum", "all_gather_compact")
+
+
+class CollectiveTap:
+    """Record every tensor that enters one of ``launch.mesh``'s collective
+    helpers (the callers reach them through the module) while active:
+    ``seen`` holds ``(helper, [tensors])`` in call order."""
+
+    def __init__(self):
+        self.seen = []
+        self._real = {}
+
+    def __enter__(self):
+        for name in COLLECTIVES:
+            real = self._real[name] = getattr(pod, name)
+
+            def wrapped(*args, _real=real, _name=name, **kw):
+                self.seen.append((_name, [a.detach().clone() for a in args
+                                          if isinstance(a, torch.Tensor)]))
+                return _real(*args, **kw)
+            setattr(pod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(pod, name, real)
+
+
+def masked_within_masks(seen) -> dict:
+    """The SCBF round's privacy check over ``gather_slots`` calls: every
+    float tensor shaped like a slot-stacked parameter is zero outside the
+    bool mask gathered for the same leaf (the next bool tensor of its
+    shape), and each tensor is a parameter-shaped float, its mask, or a
+    carry field (at most 2-D and never of the data's width).  Returns
+    counts, and the violations found."""
+    calls = [ts[0] for name, ts in seen if name == "gather_slots"]
+    floats = [t for t in calls if t.is_floating_point() and t.ndim >= 2]
+    bools = [t for t in calls if t.dtype == torch.bool]
+    bad, masked_out = [], 0
+    for t in floats:
+        mask = next((m for m in bools if m.shape == t.shape), None)
+        if mask is None:
+            bad.append(f"{tuple(t.shape)} has no mask")
+            continue
+        bools.remove(mask)
+        if torch.any((t != 0) & ~mask):
+            bad.append(f"{tuple(t.shape)} nonzero outside its mask")
+        masked_out += int(torch.count_nonzero(~mask))
+    return {"calls": len(calls), "checked": len(floats),
+            "masked_out": masked_out, "bad": bad,
+            "others": sorted({(str(t.dtype), tuple(t.shape)) for t in calls
+                              if not (t.is_floating_point() and t.ndim >= 2)
+                              and t.dtype != torch.bool})}
+
+
+def _clients():
+    rng = np.random.default_rng(0)
+    return [(rng.random((16, 8)).astype(np.float32),
+             (rng.random(16) < .5).astype(np.float32)) for _ in range(4)]
+
+
+def _perms(gen, n_parts, n=16):
+    return [[torch.randperm(n, generator=gen)] for _ in range(n_parts)]
+
+
+def engine_contracts(rank, world):
+    """The reference's two pod scripts (``tests/test_fed_engine.py`` and
+    ``tests/test_fused_rounds.py``) on the port: a round of P in {1, 3, 4}
+    participants and a fused chunk of rounds [0..3], [0, 2] and empty, at
+    ``pods = world`` and on one device; the per-round path's collectives
+    recorded.  Returns payloads, stats and params of both."""
+    from repro_torch.fed.engine import make_engine
+    from repro_torch.models.mlp_net import init_mlp
+
+    torch.set_num_threads(2)
+    clients = _clients()
+    params = init_mlp((8, 6, 1), torch.Generator().manual_seed(1), "cpu")
+    cfg = ScbfConfig(upload_rate=0.25, num_clients=4)
+    one = make_engine("batched", clients, 8, 1, "cpu", pods=1)
+    many = make_engine("batched", clients, 8, 1, "cpu", pods=world)
+    gen = torch.Generator().manual_seed(0)
+    rounds = []
+    pod.reset_traffic()
+    with CollectiveTap() as tap:
+        for P in (1, 3, 4):
+            part = np.arange(P)
+            perms = _perms(gen, P)
+            rounds.append((P, one.scbf_round(params, part, 0.1, perms, cfg),
+                           many.scbf_round(params, part, 0.1, perms, cfg)))
+    traffic = (pod.calls, pod.bytes_sent)
+    parts = [np.arange(4), np.array([0, 2]), np.array([], dtype=np.int64)]
+    perms = [_perms(gen, p.size) for p in parts]
+    fused = {}
+    with CollectiveTap() as fused_tap:
+        for label, eng in (("one", one), ("many", many)):
+            plan = eng.prepare_fused_plan(
+                parts, [0.1] * 3, perms, horizon=4,
+                num_slots=eng.fused_num_slots(4))
+            new_p, out = eng.fused_scbf_chunk(params, plan, cfg)
+            fused[label] = (eng.emit_fused_payloads(out, plan),
+                            _np_params(new_p), plan.num_slots)
+    return {"rounds": rounds, "fused": fused,
+            "privacy": masked_within_masks(tap.seen),
+            "fused_privacy": masked_within_masks(fused_tap.seen),
+            "traffic": traffic}
+
+
+def _np_params(params):
+    return [{k: v.numpy().copy() for k, v in layer.items()}
+            for layer in params]
+
+
+# ---------------------------------------------------------------------------
+# run_federated at pods = world, beside the one-device run
+# ---------------------------------------------------------------------------
+
+FEATS = (64, 32, 16, 1)
+SAMPLED_CHANNELS = 16
+CLIENTS = 5
+PRUNE = dict(prune=True, prune_rate=0.25, prune_total=0.4)
+
+
+def run_config(scbf=None, fed=None, loops=2, lr=0.01, collect=False):
+    from repro_torch.config import ObsConfig
+    return TrainConfig(learning_rate=lr, global_loops=loops, local_epochs=1,
+                       local_batch_size=64, seed=0,
+                       scbf=ScbfConfig(num_clients=CLIENTS, **(scbf or {})),
+                       fed=FedConfig(**(fed or {})),
+                       obs=ObsConfig(device_metrics=collect))
+
+
+RUNS = {
+    "scbf": ("scbf", run_config()),
+    "fedavg": ("fedavg", run_config(lr=0.05)),
+    "scbfwp-mask": ("scbf", run_config(
+        dict(PRUNE, prune_impl="mask", prune_compact=True), loops=3)),
+    "scbf-dp": ("scbf", run_config(dict(dp_noise_multiplier=0.3,
+                                        dp_clip_norm=1.0))),
+    "scbf-sampled-collect": ("scbf", run_config(
+        fed=dict(sample_fraction=0.6), loops=3, collect=True)),
+    "fedbuff": ("scbf", run_config(
+        fed=dict(mode="fedbuff", concurrency=4, buffer_size=2,
+                 straggler_rate=0.3), loops=3)),
+    "scbf-fused": ("scbf", run_config(fed=dict(fuse_rounds=2), loops=4,
+                                      collect=True)),
+    # past SAMPLED_CHANNELS channels the threshold samples channels, drawn
+    # for one device's bucket (5 slots) whatever the pods (6 slots)
+    "scbf-sampled-quantile": ("scbf", run_config()),
+    "scbf-sampled-quantile-fused": ("scbf", run_config(
+        fed=dict(fuse_rounds=2), loops=4)),
+    "fedavg-fused": ("fedavg", run_config(fed=dict(fuse_rounds=2), loops=2,
+                                          lr=0.05)),
+    "scbfwp-mask-fused": ("scbf", run_config(
+        dict(PRUNE, prune_impl="mask", prune_compact=True),
+        fed=dict(fuse_rounds=2), loops=4)),
+}
+
+
+def _records(res):
+    return [{k: v for k, v in dataclasses.asdict(r).items()
+             if k != "wall_time"} for r in res.records]
+
+
+def run_cases(rank, world, labels):
+    """``run_federated`` of each case of ``RUNS`` in ``labels`` on one
+    device and at ``pods = world``; then the refusals a group allows:
+    the sequential engine with pods, and pods other than the world
+    size."""
+    from repro_torch.core.scbf import run_federated
+    from repro_torch.data.medical import generate_cohort
+
+    torch.set_num_threads(2)
+    cohort = generate_cohort(num_admissions=1500, num_medicines=64, seed=0)
+    out = {}
+    from repro_torch.core import channels
+
+    materialized = channels.MAX_MATERIALIZED
+    for label in labels:
+        method, cfg = RUNS[label]
+        channels.MAX_MATERIALIZED = SAMPLED_CHANNELS if "sampled-quantile" \
+            in label else materialized
+        got = []
+        for pods in (1, world):
+            c = dataclasses.replace(cfg, fed=dataclasses.replace(
+                cfg.fed, pods=pods))
+            res = run_federated(cohort, c, method=method,
+                                mlp_features=FEATS, device="cpu")
+            got.append((_records(res), _np_params(res.final_params)))
+        out[label] = got
+    refusals = {}
+    for label, fed in (("sequential", FedConfig(engine="sequential",
+                                                pods=world)),
+                       ("world", FedConfig(pods=world + 1))):
+        try:
+            run_federated(cohort, dataclasses.replace(run_config(loops=1),
+                                                      fed=fed),
+                          mlp_features=FEATS, device="cpu")
+            refusals[label] = None
+        except (ValueError, RuntimeError) as e:
+            refusals[label] = (type(e).__name__, str(e))
+    out["refusals"] = refusals
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the federated LM step at pods = world
+# ---------------------------------------------------------------------------
+
+LM_K, LM_B, LM_S = 4, 2, 16
+
+
+def lm_batch(vocab: int, k_clients: int = LM_K, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(k_clients, LM_B, LM_S + 1))
+    return {"tokens": toks[..., :-1].astype(np.int32),
+            "targets": toks[..., 1:].astype(np.int32)}
+
+
+def lm_model(dtype: str):
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+
+    cfg = dataclasses.replace(
+        configs.smoke_variant(configs.get("qwen2-0.5b")), dtype=dtype)
+    bundle = model_zoo.build(cfg, device="cpu")
+    params, _ = bundle.init(0)
+    return cfg, bundle, params
+
+
+def lm_cases(rank, world, dtypes):
+    """``lm_case`` of each dtype; two threads a rank (the ranks share the
+    host's cores)."""
+    torch.set_num_threads(2)
+    return {dtype: lm_case(world, dtype) for dtype in dtypes}
+
+
+def lm_case(world, dtype):
+    """A dense and a compressed federated step of the qwen2 smoke variant,
+    K = 4 clients, on one device and over the pod mesh, each from the
+    same params and batch, with the pod steps' collectives recorded and
+    checked (``_lm_privacy``); and a batch of K = 3 (not a multiple of
+    the pods) refused."""
+    from repro_torch.core.distributed import make_federated_train_step
+    from repro_torch.params import tree_leaves
+
+    cfg, bundle, params = lm_model(dtype)
+    mesh = pod.make_pod_mesh(world)
+    batch = {k: torch.from_numpy(v)
+             for k, v in lm_batch(cfg.vocab_size).items()}
+    out = {}
+    for compressed in (False, True):
+        scbf = ScbfConfig(upload_rate=0.10, compressed_exchange=compressed)
+        one = make_federated_train_step(bundle.loss_fn, scbf, lr=0.05)
+        many = make_federated_train_step(bundle.loss_fn, scbf, lr=0.05,
+                                         mesh=mesh)
+        l1, p1 = one(params, batch)
+        pod.reset_traffic()
+        with CollectiveTap() as tap:
+            lp, pp = many(params, batch)
+        out[compressed] = {
+            "loss": (float(l1), float(lp)),
+            "params": ([t.float().numpy() for t in tree_leaves(p1)],
+                       [t.float().numpy() for t in tree_leaves(pp)]),
+            "dtypes": ([str(t.dtype) for t in tree_leaves(p1)],
+                       [str(t.dtype) for t in tree_leaves(pp)]),
+            "privacy": _lm_privacy(tap.seen, bundle, params, batch, scbf,
+                                   mesh),
+            "traffic": (pod.calls, pod.bytes_sent)}
+    three = {k: v[:3] for k, v in batch.items()}
+    try:
+        make_federated_train_step(bundle.loss_fn, ScbfConfig(), mesh=mesh)(
+            params, three)
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    return out
+
+
+def _lm_privacy(seen, bundle, params, batch, scbf, mesh) -> dict:
+    """What crossed in a pod step, against this rank's own clients.
+
+    Dense: the 0-d loss sum, then every leaf's fp32 partial sum of the
+    rank's clients' masked gradients (recomputed here, bitwise) — each
+    scored leaf's with channels the raw sum has and it has not.
+    Compressed: ``all_gather_compact`` pairs (int64 idx (k, c), fp32 vals
+    (k, ..., c) with c < the leaf's width), the 0-d loss sum and vector
+    leaves' sums; nothing else."""
+    from repro_torch.core import channels
+    from repro_torch.core.distributed import _local_clients, client_gradients
+    from repro_torch.params import tree_leaves
+
+    _, grads = client_gradients(bundle.loss_fn, params,
+                                _local_clients(batch, mesh))
+    leaves = tree_leaves(grads)
+    bad = []
+    if not scbf.compressed_exchange:
+        masked, _ = channels.apply_factored_mask_slots(
+            grads, scbf.upload_rate, scbf.selection)
+        names = [name for name, _ in seen]
+        sent = [ts[0] for _, ts in seen]
+        if set(names) != {"all_reduce_sum"} or sent[0].ndim != 0:
+            bad.append(f"calls {names[:3]}…")
+        hidden = 0
+        for leaf, m, t in zip(leaves, tree_leaves(masked), sent[1:]):
+            want = torch.sum(m, axis=0, dtype=torch.float32)
+            if not torch.equal(t, want):
+                bad.append(f"{tuple(t.shape)} is not the masked sum")
+            if leaf.ndim >= 3:
+                raw = torch.sum(leaf, axis=0, dtype=torch.float32)
+                hidden += int(torch.any((raw != 0) & (t == 0)))
+        return {"checked": len(sent) - 1, "leaves": len(leaves),
+                "scored": sum(t.ndim >= 3 for t in leaves),
+                "scored_with_hidden_entries": hidden, "bad": bad}
+    pairs = vectors = 0
+    for name, ts in seen:
+        if name == "all_gather_compact":
+            idx, vals = ts
+            ok = (idx.dtype == torch.int64 and idx.ndim == 2
+                  and vals.dtype == torch.float32
+                  and vals.shape[0] == idx.shape[0]
+                  and vals.shape[-1] == idx.shape[-1]
+                  and any(vals.shape[1:-1] == leaf.shape[1:-1]
+                          and idx.shape[-1] < leaf.shape[-1]
+                          for leaf in leaves))
+            pairs += 1
+            if not ok:
+                bad.append(f"compact {tuple(idx.shape)} {tuple(vals.shape)}")
+        elif name == "all_reduce_sum":
+            t = ts[0]
+            vectors += t.ndim == 1
+            if t.ndim > 1 or (t.ndim == 1 and not any(
+                    leaf.ndim == 2 and leaf.shape[1:] == t.shape
+                    for leaf in leaves)):
+                bad.append(f"dense {tuple(t.shape)}")
+        elif name == "gather_slots":
+            pass                       # inside all_gather_compact
+        else:
+            bad.append(name)
+    return {"pairs": pairs, "vectors": vectors,
+            "scored": sum(t.ndim >= 3 for t in leaves), "bad": bad}
+
+
+def fail_on_last(rank, world):
+    """Rank world-1 raises; the others wait for it at a barrier."""
+    if rank == world - 1:
+        raise ValueError("rank failed on purpose")
+    torch.distributed.barrier()
+    return rank
+
+
+def launch_train(rank, world, out):
+    """``launch.train.main`` as a torchrun rank of the group (a small
+    cohort in place of the paper's): every file this rank opens for
+    writing, and its records."""
+    import builtins
+
+    import repro_torch.data.medical as medical
+    from repro_torch.launch import train
+
+    torch.set_num_threads(2)
+    real = medical.generate_cohort
+    medical.generate_cohort = lambda seed=0: real(
+        num_admissions=1500, num_medicines=64, seed=seed)
+    written, real_open = [], builtins.open
+
+    def tracking_open(file, mode="r", *args, **kw):
+        if any(m in mode for m in "wax"):
+            written.append(str(file))
+        return real_open(file, mode, *args, **kw)
+
+    builtins.open = tracking_open
+    try:
+        res = train.main(["--methods", "scbf,fedavg", "--loops", "2",
+                          "--clients", "4", "--device", "cpu", "--events",
+                          "--local-epochs", "1", "--batch-size", "64",
+                          "--out", out])
+    finally:
+        builtins.open = real_open
+    return {"written": sorted(written),
+            "records": {m: _records(r) for m, r in res.items()}}

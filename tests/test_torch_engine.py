@@ -404,5 +404,8 @@ def test_make_engine_refusals():
         engine.make_engine("vectorised", shards, 64, 1, "cpu")
     with pytest.raises(ValueError, match="bucket"):
         engine.make_engine("batched", shards, 64, 1, "cpu", bucket="odd")
-    with pytest.raises(NotImplementedError, match="A15"):
+    # pods need a process group of that world size (tests/test_torch_pods)
+    with pytest.raises(RuntimeError, match="need 2 devices for a pod mesh"):
         engine.make_engine("batched", shards, 64, 1, "cpu", pods=2)
+    with pytest.raises(ValueError, match="single-device"):
+        engine.make_engine("sequential", shards, 64, 1, "cpu", pods=2)

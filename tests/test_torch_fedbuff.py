@@ -128,11 +128,11 @@ def test_stacked_slot_pass_is_its_one_slot_runs():
                          for _ in range(4)])
     rows = torch.tensor([2, 0, 1, 2])
     valid = torch.tensor([True, True, True, False])
-    masked, masks, _ = _slot_pass(
+    masked, masks = _slot_pass(
         _stack_params(starts, 4), eng.cohort, rows, valid, 0.05, perms, cfg,
         batch_size=32, epochs=2)
     for s in range(3):
-        one, one_masks, _ = _slot_pass(
+        one, one_masks = _slot_pass(
             starts[s], eng.cohort, rows[s:s + 1], valid[s:s + 1], 0.05,
             perms[s:s + 1], cfg, batch_size=32, epochs=2)
         for layer, ref_layer in zip(masked, one):

@@ -416,3 +416,25 @@ def test_generate_needs_the_context_exactly_when_the_model_cross_attends():
         bundle = model_zoo.build(cfg, device="cpu")
         with pytest.raises(ValueError, match="aux"):
             generate(bundle, None, prompts, 2, 8, aux=aux)
+
+
+def test_two_ranks_run_the_launcher_as_torchrun_would(tmp_path):
+    """``launch.train.main`` on 2 spawned gloo ranks of one group (the
+    environment torchrun gives: ``WORLD_SIZE`` 2): pods of 2, the same
+    records on both ranks, and rank 0 alone writing — the CSVs and the
+    event logs."""
+    import _torch_pod_ranks as ranks
+    from repro_torch.launch import mesh as pod
+
+    out = str(tmp_path / "out")
+    r0, r1 = pod.spawn_ranks(ranks.launch_train, 2, (out,), timeout_s=60.0,
+                             join_timeout_s=240.0)
+    assert r0["records"] == r1["records"]
+    assert set(r0["records"]) == {"scbf", "fedavg"}
+    assert all(len(v) == 2 for v in r0["records"].values())
+    assert r1["written"] == []
+    want = {f"{out}/{m}.csv" for m in ("scbf", "fedavg")} | \
+        {f"{out}/{m}.events.jsonl" for m in ("scbf", "fedavg")}
+    assert set(r0["written"]) == want
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == sorted(
+        p.rsplit("/", 1)[1] for p in want)

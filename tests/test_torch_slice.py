@@ -160,9 +160,11 @@ def test_device_none_without_cuda_raises():
     dict(fed=tcfg.FedConfig(pods=2)),
 ], ids=["pods"])
 def test_out_of_slice_configs_refused(change):
+    """Pods run as ranks of a process group (``tests/test_torch_pods.py``):
+    without one, ``pods`` = 2 is refused in the reference's words."""
     cohort = generate_cohort(num_admissions=200, num_medicines=16, seed=0)
     cfg = tcfg.TrainConfig(global_loops=1, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="need 2 devices for a pod mesh"):
         run_federated(cohort, cfg, mlp_features=(16, 8, 4, 1), device="cpu")
 
 
