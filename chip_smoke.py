@@ -168,13 +168,14 @@ its own failure:
    cache-less forward (the chunked SSD; LM_LOGIT_MAX / LM_LOGIT_MEAN,
    greedy ids equal), the same check in fp32 at full width logged beside
    it, and a 1 x 1024 prefill (4 chunks of 256 through the inter-chunk
-   loop) against one chunk of 1024; then 3 federated SCBF steps (5
-   clients x 4 x 64 tokens; K1 and K2 once a leaf table — a bf16 table
+   loop) against one chunk of 1024; then 3 federated SCBF steps
+   (SSM_CLIENTS = 3 clients x 4 x 64 tokens, cut from 5 in PR 24 for the
+   command's time; K1 and K2 once a leaf table — a bf16 table
    of 11 leaves and the fp32 one of ``A_log`` and ``D_res`` — from the
    wrapper counts and, in the second step, from the profiler over its
    selection; the peak under 60 GB; the third step's tables against the
-   plain versions through ``MoeStepTap``) and one of 5 x 4 x 512 (2
-   chunks of 256, where the reference's gradients are NaN: a finite
+   plain versions through ``MoeStepTap``) and one of SSM_LONG_CLIENTS =
+   2 x 4 x 512 (2 chunks of 256, where the reference's gradients are NaN: a finite
    loss and every gradient leaf finite); a client's gradient profiled
    (device activity only); K1 and K2 timed a table beside its byte bound.
    Then jamba-1.5-large at one period of its layer pattern (8 layers: 7
@@ -239,7 +240,25 @@ its own failure:
    walls and peaks.  Two ranks on one card are no measure of scaling:
    their walls are logged, nothing is claimed.  Its lines start with
    ``pods:``.
-17. the card line, the kernel report line and the final ok line.
+17. mesh — the zoo on a ``(data, model)`` mesh (ROADMAP A15b): two gloo
+   ranks sharing cuda:0 (``spawn_ranks``), params as DTensors placed by
+   ``sharding.rules`` (DTensor's all-gathers and all-to-alls staged
+   through host buffers, ``sharding.mesh.stage_gloo_gathers``).
+   qwen2-0.5b uncut (bf16) on (1, 2) (tensor parallel) and (2, 1)
+   (FSDP): a prefill of 4 x 32 and 8 decode steps fed the one-rank run's
+   greedy ids, within LM_LOGIT_MAX / LM_LOGIT_MEAN of the one-rank
+   logits; a federated step of MESH_CLIENTS x 4 x 64 against the
+   one-rank step of the same params and batch (loss MESH_LOSS_REL, the
+   share of bf16 entries that differ MESH_BF16_DIFFER, the difference's
+   norm MESH_UPDATE_REL of the update's), each rank's K1 and K2 launches
+   equal to the step's leaf tables, the bytes a rank puts into
+   collectives (``launch.roofline.StepCounter``), walls and peaks.
+   deepseek-v2 at depth 2, every published width, drop-free, on (1, 2):
+   80 of 160 experts a rank, a prefill and MESH_MOE_DECODE decode steps
+   against the one-rank logits, a row whose routing flipped only at a
+   router near-tie.  No speed is claimed.  Its lines start with
+   ``mesh:``; the kernel report adds each rank's step launches.
+18. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -3786,6 +3805,7 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_SERVE = dict(batch=4, prompt=32, gen=32, cache=128)
 SSM_STEPS = 3                         # cold, profiled selection, checked
 SSM_LONG_SEQ = 512                    # one more step: 2 SSD chunks of 256
+SSM_CLIENTS = 3                       # of LM_CLIENTS: the command's time
 SSM_LONG_CLIENTS = 2                  # of LM_CLIENTS: the command's time
 SSM_TABLES = 2                        # a bf16 leaf table and an fp32 one
 # a profiled selection's window opens with a burst of this many
@@ -4056,7 +4076,7 @@ def ssm_gradient_profile(torch, bundle, params, batch, card: str,
 
 
 def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
-    """SSM_STEPS federated SCBF steps of mamba2 at the launcher's shape (K1
+    """SSM_STEPS federated SCBF steps of mamba2 of SSM_CLIENTS clients (K1
     and K2 once a leaf table a step from the wrapper counts, and from the
     profiler in the second step's selection; the peak under SSM_PEAK_GB;
     the last step's tables against the plain versions through
@@ -4076,12 +4096,12 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
     from repro_torch.params import tree_leaves
 
     params = held.pop()
-    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=LM_CLIENTS)
+    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=SSM_CLIENTS)
     step = dist.make_federated_train_step(bundle.loss_fn, scbf, lr=LM_LR)
     losses, walls, counts, peaks, grad_peaks = [], [], [], [], []
     torch.cuda.synchronize()
     before_gb = torch.cuda.memory_allocated() / 1e9
-    tap = MoeStepTap(torch, LM_CLIENTS, "lm-ssm")
+    tap = MoeStepTap(torch, SSM_CLIENTS, "lm-ssm")
     sel = SelectionProfile(torch)
     nonfinite = []
     real_grads = dist.client_gradients
@@ -4093,7 +4113,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
                              for g in tree_leaves(grads)))
         return loss, grads
 
-    shapes = [(LM_SEQ, s, LM_CLIENTS) for s in range(SSM_STEPS)] + \
+    shapes = [(LM_SEQ, s, SSM_CLIENTS) for s in range(SSM_STEPS)] + \
         [(SSM_LONG_SEQ, 0, SSM_LONG_CLIENTS)]
     dist.client_gradients = client_gradients
     try:
@@ -4127,7 +4147,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
     largest = max(math.prod(s[1:-1]) * s[-1] for table in tap.tables
                   for s, _ in table)
     log(f"lm-ssm: {SSM_STEPS} federated steps of {cfg.name} "
-        f"({LM_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, rate "
+        f"({SSM_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, rate "
         f"{LM_RATE}, lr {LM_LR}) and one of {SSM_LONG_CLIENTS} x "
         f"{LM_BATCH} x "
         f"{SSM_LONG_SEQ} ({SSM_LONG_SEQ // cfg.ssm_chunk} SSD chunks of "
@@ -4878,7 +4898,7 @@ def _pod_run(torch, cohort, label: str, mesh) -> dict:
     from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
     from repro_torch.core.scbf import run_federated
     from repro_torch.fed import graphs
-    from repro_torch.launch import mesh as pod
+    from repro_torch.comm import collectives
 
     method, loops, scbf, fed = POD_RUNS[label]
     cfg = TrainConfig(learning_rate=0.05 / K_CLIENTS, global_loops=loops,
@@ -4887,7 +4907,7 @@ def _pod_run(torch, cohort, label: str, mesh) -> dict:
                                       num_clients=K_CLIENTS, **scbf),
                       fed=FedConfig(pods=mesh.size(), **fed))
     graphs.reset_captures()
-    pod.reset_traffic()
+    collectives.reset_traffic()
     _reset_launches()
     res = run_federated(cohort, cfg, method=method,
                         mlp_features=(cohort.num_features, 256, 64, 1),
@@ -4895,7 +4915,7 @@ def _pod_run(torch, cohort, label: str, mesh) -> dict:
     return {"records": _pod_records(res), "launches": _launch_counts(),
             "params": [{k: v.cpu().numpy() for k, v in layer.items()}
                        for layer in res.final_params],
-            "traffic": [pod.calls, pod.bytes_sent],
+            "traffic": [collectives.calls, collectives.bytes_sent],
             "captures": graphs.captures,
             "walls": [r.wall_time for r in res.records],
             "dense_bytes": res.records[0].dense_bytes // K_CLIENTS}
@@ -4940,7 +4960,7 @@ def _pod_lm(torch, mesh, rank: int) -> dict:
     from repro_torch.config import ScbfConfig
     from repro_torch.core.distributed import make_federated_train_step
     from repro_torch.data.tokens import SyntheticTokenStream
-    from repro_torch.launch import mesh as pod
+    from repro_torch.comm import collectives
     from repro_torch.models import model_zoo
     from repro_torch.params import tree_leaves
 
@@ -4963,14 +4983,14 @@ def _pod_lm(torch, mesh, rank: int) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        pod.reset_traffic()
+        collectives.reset_traffic()
         t0 = time.perf_counter()
         loss, new = steps[compressed][0](params, batch)
         torch.cuda.synchronize()
         rec = {"compressed": compressed, "loss": float(loss),
                "wall_s": time.perf_counter() - t0,
                "peak_gb": _peak_gb(torch), "launches": _launch_counts(),
-               "traffic": [pod.calls, pod.bytes_sent]}
+               "traffic": [collectives.calls, collectives.bytes_sent]}
         if rank == 0:
             loss1, one = steps[compressed][1](params, batch)
             rec["one_rank_loss"] = float(loss1)
@@ -4997,11 +5017,11 @@ def pods_rank(rank: int, world: int) -> dict:
     import torch
 
     from repro_torch.data.medical import generate_cohort
-    from repro_torch.launch import mesh as pod
+    from repro_torch.sharding import mesh as meshes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh = pod.make_pod_mesh(world)
+    mesh = meshes.make_pod_mesh(world)
     cohort = generate_cohort()
     mlp = {label: _pod_run(torch, cohort, label, mesh) for label in POD_RUNS}
     del cohort
@@ -5021,7 +5041,7 @@ def _pod_replay_profile(torch, cohort, mesh, card: str) -> dict:
     from repro_torch.config import ScbfConfig
     from repro_torch.data.medical import federated_split
     from repro_torch.fed.engine import BatchedEngine
-    from repro_torch.launch import mesh as pod
+    from repro_torch.comm import collectives
     from repro_torch.models.mlp_net import init_mlp
 
     shards = federated_split(cohort.x_train, cohort.y_train, K_CLIENTS,
@@ -5041,13 +5061,13 @@ def _pod_replay_profile(torch, cohort, mesh, card: str) -> dict:
         eng.fused_scbf_chunk(params, plan, cfg)      # capture, replay
         (prog,) = eng._programs.values()
         torch.cuda.synchronize()
-        pod.reset_traffic()
+        collectives.reset_traffic()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             prog.graph.replay()
             torch.cuda.synchronize()
         events[label] = _device_events(prof)
-        if pod.calls:
+        if collectives.calls:
             raise AssertionError("pods: the replay called a collective "
                                  "from the host")
     base, got = events["no_group"], events["nccl_pod"]
@@ -5087,7 +5107,8 @@ def phase_pods(torch, cohort, card: str, runs: dict) -> dict:
 
     import torch.distributed as dist
 
-    from repro_torch.launch import mesh as pod
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.sharding import mesh as meshes
 
     launches = {}
     tmp = tempfile.mkdtemp(prefix="pods-nccl-")
@@ -5096,7 +5117,7 @@ def phase_pods(torch, cohort, card: str, runs: dict) -> dict:
                             device_id=torch.device("cuda", 0),
                             timeout=datetime.timedelta(seconds=120))
     try:
-        mesh = pod.make_pod_mesh(1)
+        mesh = meshes.make_pod_mesh(1)
         for label in POD_NCCL_RUNS:
             got = _pod_run(torch, cohort, label, mesh)
             _pod_same(torch, f"(a) {label}", got, runs[label][0])
@@ -5126,9 +5147,9 @@ def phase_pods(torch, cohort, card: str, runs: dict) -> dict:
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = pod.spawn_ranks(pods_rank, POD_RANKS, device="cuda",
-                            timeout_s=POD_TIMEOUT_S,
-                            join_timeout_s=POD_JOIN_S)
+    ranks = spawn_ranks(pods_rank, POD_RANKS, device="cuda",
+                        timeout_s=POD_TIMEOUT_S,
+                        join_timeout_s=POD_JOIN_S)
     log(f"pods: (b, c) {POD_RANKS} gloo ranks on cuda:"
         f"{[r['device'] for r in ranks]} ran in "
         f"{time.perf_counter() - t0:.1f}s ({card})")
@@ -5206,6 +5227,456 @@ def phase_pods(torch, cohort, card: str, runs: dict) -> dict:
     return {"launches": launches, "profile": profile}
 
 
+MESH_RANKS = 2
+MESH_SHAPES = ((1, 2), (2, 1))          # tensor parallel; FSDP
+MESH_SERVE = dict(batch=4, prompt=32, decode=8, cache=128)
+MESH_MOE_DECODE = 4                    # deepseek's decode steps
+MESH_CLIENTS = 2                       # the step: 2 clients x LM_BATCH x LM_SEQ
+# the sharded step against the one-rank step of the same params and batch
+# (stated before the first card run, PERF.md section 6): the loss, the
+# share of bf16 param entries that differ, and the norm of the two
+# steps' difference over the norm of the one-rank step's update (a
+# channel that the threshold keeps in one run and drops in the other
+# differs by its whole update)
+MESH_LOSS_REL = 1e-2
+MESH_BF16_DIFFER = 2e-2
+MESH_UPDATE_REL = 0.25
+# the selection itself (PERF.md section 6): each run's select-mask
+# launches keep exactly the channels whose own score is >= its own
+# threshold, and each leaf's sharded scores, as a vector, and the
+# threshold lie within MESH_SCORE_REL of the one-rank run's (a row partial
+# left unsummed halves a leaf's scores).  A single channel's score is no
+# gate: a bias's channel sums gradients that cancel, and its bf16 rounding
+# moved one near the threshold by 0.324 (runs DI, DJ)
+MESH_SCORE_REL = 0.2
+MESH_TIMEOUT_S = 300.0
+MESH_JOIN_S = 600.0
+
+
+def _mesh_serve(torch, bundle, params, prompts, follow=None,
+                n: int = MESH_SERVE["decode"]):
+    """``serve.generate``: prefill ``prompts`` into fresh caches of
+    MESH_SERVE['cache'] slots, then ``n`` greedy decode steps, fed
+    ``follow``'s ids (the one-rank run's) where given: (ids (B, 1 + n),
+    the logits of each step in fp32, whole on every rank, prefill s,
+    decode s)."""
+    from repro_torch.launch.serve import generate
+
+    res = generate(bundle, params, prompts, 1 + n, MESH_SERVE["cache"],
+                   follow=follow)
+    return res.tokens, [t.float() for t in res.logits], res.prefill_s, \
+        res.decode_s
+
+
+class SelectionTap:
+    """Keeps a federated step's channel scores and threshold, and for
+    each scored leaf which of its channels the select-mask launch kept (a
+    column of the masked gradient with an entry that is not 0), this
+    rank's local (K, N_local) block of them; ``result`` then joins the
+    blocks over the mesh (outside the step's counters)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.core import channels
+        from repro_torch.sharding.rules import local_shard
+        self.real = channels.factored_mask_slots
+
+        def tapped(leaves, scores, thr, in_place=False):
+            masked, frac = self.real(leaves, scores, thr, in_place)
+            self.scores = [None if x is None else x.float().cpu()
+                           for x in scores]
+            self.thr = thr.float().cpu()
+            self.kept, self.axes = [], []
+            for m, x in zip(masked, scores):
+                loc = local_shard(m)
+                self.kept.append(None if x is None else (loc != 0).reshape(
+                    loc.shape[0], -1, loc.shape[-1]).any(1).to(
+                        self.torch.float32))
+                self.axes.append(None if x is None else
+                                 channels.shard_axes(m))
+            return masked, frac
+        channels.factored_mask_slots = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import channels
+        channels.factored_mask_slots = self.real
+
+    def result(self) -> tuple:
+        """(scores, threshold, kept channels) whole, on the host."""
+        from repro_torch.comm import collectives
+        kept = []
+        for k, ax in zip(self.kept, self.axes):
+            if k is not None and ax is not None:
+                k = collectives.shard_gather(
+                    collectives.shard_sum(k, ax.mesh, ax.rows), ax.mesh,
+                    () if ax.cols is None else (ax.cols,))
+            kept.append(None if k is None else (k > 0).cpu())
+        return self.scores, self.thr, kept
+
+
+def _selection_check(torch, one: tuple, sharded: tuple, names=None
+                     ) -> dict:
+    """The two runs' selections (``SelectionTap.result``): each run's kept
+    channels against its own scores and threshold (mismatches, exact);
+    the largest score difference relative to the larger of the channel's
+    score and the one-rank threshold (``score_rel``, at the leaf and
+    channel ``worst``), and each leaf's ``|Δscores| / |scores|`` (the
+    largest, ``leaf_rel``, and the three largest by leaf name, ``names``
+    the leaves' paths); the threshold's difference; and the channels
+    whose choice flips, each within δ = max |Δscore| + max |Δthreshold|
+    of the one-rank threshold."""
+    def mismatch(sel):
+        sc, thr, kept = sel
+        return sum(int((k != (x >= thr[:, None])).sum())
+                   for x, k in zip(sc, kept) if x is not None)
+    (s1, t1, _), (s2, t2, _) = one, sharded
+    names = names or [str(i) for i in range(len(s1))]
+    pairs = [(n, a, b) for n, a, b in zip(names, s1, s2) if a is not None]
+    ds = max(float((b - a).abs().max()) for _, a, b in pairs)
+    dt = float((t2 - t1).abs().max())
+    score_rel, worst = 0.0, None
+    leaf_rel = []
+    flips, margin = 0, 0.0
+    for n, a, b in pairs:
+        rel = (b - a).abs() / torch.maximum(a, t1[:, None])
+        i = int(rel.argmax())
+        if float(rel.reshape(-1)[i]) > score_rel:
+            score_rel = float(rel.reshape(-1)[i])
+            worst = (n, i, float(a.reshape(-1)[i]), float(b.reshape(-1)[i]))
+        leaf_rel.append((float((b - a).norm() / a.norm().clamp_min(1e-30)),
+                         n))
+        f = (a >= t1[:, None]) != (b >= t2[:, None])
+        flips += int(f.sum())
+        if f.any():
+            margin = max(margin, float((a - t1[:, None]).abs()[f].max()))
+    leaf_rel.sort(reverse=True)
+    return {"mismatch": (mismatch(one), mismatch(sharded)),
+            "score_rel": score_rel, "worst": worst,
+            "leaf_rel": leaf_rel[0][0], "leaves": leaf_rel[:3],
+            "thr_rel": float(((t2 - t1).abs() / t1).max()),
+            "channels": sum(a.numel() for _, a, _ in pairs), "flips": flips,
+            "worst_flip_margin": margin, "delta": ds + dt,
+            "thr": float(t1.max())}
+
+
+def _logit_gap(torch, got, want) -> tuple:
+    """(max, mean) |Δlogit| over every step's logits."""
+    d = [(a - b).abs() for a, b in zip(got, want)]
+    return max(float(x.max()) for x in d), \
+        float(torch.cat([x.reshape(-1) for x in d]).mean())
+
+
+def _mesh_qwen(torch, rank: int) -> dict:
+    """qwen2-0.5b uncut (bf16, weights drawn on the card from seed 0) on
+    each mesh of MESH_SHAPES: serving held to the one-rank logits of the
+    same ids, and a federated step of MESH_CLIENTS clients held to the
+    one-rank step, with its wrapper launches, its collectives counted
+    (``launch.roofline.StepCounter``: DTensor's, and SCBF's score
+    exchange from ``comm.collectives``) and its wall with the counter
+    on."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.comm import collectives
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core import channels
+    from repro_torch.core.distributed import make_federated_train_step
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.sharding import mesh as meshes
+    from repro_torch.launch.roofline import StepCounter
+    from repro_torch.models import model_zoo
+    from repro_torch.params import tree_leaves, tree_paths
+    from repro_torch.sharding import rules
+
+    cfg = configs.get(LM_ARCH)
+    one = model_zoo.build(cfg, device="cuda")
+    params, axes = one.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (MESH_SERVE["batch"],
+                                                MESH_SERVE["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    ids, want, _, _ = _mesh_serve(torch, one, params, prompts)
+    scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=MESH_CLIENTS)
+    nb = next(iter(SyntheticTokenStream(MESH_CLIENTS * LM_BATCH, LM_SEQ,
+                                        cfg.vocab_size, seed=0)))
+    batch = {k: torch.from_numpy(v).cuda().reshape(MESH_CLIENTS, LM_BATCH,
+                                                   LM_SEQ)
+             for k, v in nb.items()}
+    with SelectionTap(torch) as tap:
+        loss1, one_params = make_federated_train_step(
+            one.loss_fn, scbf, lr=LM_LR)(params, batch)
+    sel1 = tap.result()
+    names = ["/".join(p) for p, _ in tree_paths(params)]
+    # the step's leaf tables, from the gradients' shapes and dtypes
+    leaves = [torch.empty((MESH_CLIENTS,) + tuple(p.shape), dtype=p.dtype,
+                          device="meta") for p in tree_leaves(params)]
+    tables = len(channels._score_tables(
+        leaves, [i for i, t in enumerate(leaves) if t.ndim >= 3]))
+    out = {"params": sum(t.numel() for t in tree_leaves(params)),
+           "tables": tables, "meshes": {}}
+    for shape in MESH_SHAPES:
+        mesh = meshes.make_host_mesh(shape, device="cuda")
+        sh = model_zoo.build(cfg, shard=rules.make_shard_fn(mesh),
+                             device="cuda")
+        placed = rules.distribute_params(params, axes, mesh)
+        local = sum(t.to_local().numel() * t.element_size()
+                    for t in tree_leaves(placed))
+        _, got, t_prefill, t_decode = _mesh_serve(torch, sh, placed, prompts,
+                                                  follow=ids)
+        logit_max, logit_mean = _logit_gap(torch, got, want)
+        step = make_federated_train_step(sh.loss_fn, scbf, lr=LM_LR,
+                                         mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_traffic()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with StepCounter(mesh) as counter, SelectionTap(torch) as tap:
+            loss2, new = step(placed, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        score_exchange = collectives.traffic("mesh")
+        selection = _selection_check(torch, sel1, tap.result(), names)
+        differ = total = 0
+        diff2 = upd2 = 0.0
+        for a, b, p0 in zip(tree_leaves(new), tree_leaves(one_params),
+                            tree_leaves(params)):
+            a = a.full_tensor()
+            differ += int(torch.count_nonzero(a != b))
+            total += b.numel()
+            diff2 += float(((a.float() - b.float()) ** 2).sum())
+            upd2 += float(((b.float() - p0.float()) ** 2).sum())
+        out["meshes"][shape] = {
+            "local_param_bytes": local, "logit_max": logit_max,
+            "logit_mean": logit_mean, "prefill_s": t_prefill, "decode_s": t_decode,
+            "loss": (float(loss2), float(loss1)),
+            "bf16_differ": differ / total,
+            "update_rel": math.sqrt(diff2 / upd2),
+            "launches": launches, "step_wall_s": wall,
+            "peak_gb": _peak_gb(torch),
+            "dtensor_collectives": counter.collectives(),
+            "score_exchange": score_exchange, "selection": selection}
+        del sh, placed, new
+        torch.cuda.empty_cache()
+    del params, one_params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_deepseek(torch, rank: int) -> dict:
+    """deepseek-v2 at depth MOE_DEPTH, every published width, drop-free,
+    served on the (1, 2) mesh (80 of its 160 experts a rank) against the
+    one-rank logits of the same ids, with the router probabilities of
+    both runs kept (``RouteTap``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.sharding import mesh as meshes
+    from repro_torch.models import model_zoo
+    from repro_torch.params import tree_leaves
+    from repro_torch.sharding import rules
+
+    cfg = _drop_free(dataclasses.replace(configs.get(MOE_DEEPSEEK),
+                                         num_layers=MOE_DEPTH))
+    one = model_zoo.build(cfg, device="cuda")
+    params, axes = one.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (MESH_SERVE["batch"],
+                                                MESH_SERVE["prompt"]),
+                            generator=gen, dtype=torch.int32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with RouteTap(torch, cfg.num_experts, keep=True) as r1:
+        ids, want, _, _ = _mesh_serve(torch, one, params, prompts,
+                                      n=MESH_MOE_DECODE)
+    mesh = meshes.make_host_mesh((1, 2), device="cuda")
+    sh = model_zoo.build(cfg, shard=rules.make_shard_fn(mesh), device="cuda")
+    placed = rules.distribute_params(params, axes, mesh)
+    experts = placed["stack"]["l0"]["moe"]["wi"].to_local().shape[1]
+    local = sum(t.to_local().numel() * t.element_size()
+                for t in tree_leaves(placed))
+    del params
+    torch.cuda.empty_cache()
+    with RouteTap(torch, cfg.num_experts, keep=True) as r2:
+        _, got, t_prefill, t_decode = _mesh_serve(torch, sh, placed, prompts,
+                                                  follow=ids,
+                                                  n=MESH_MOE_DECODE)
+    return {"experts_local": experts, "local_param_bytes": local,
+            "want": [w.cpu() for w in want], "got": [g.cpu() for g in got],
+            "probs": ([p.cpu() for p in r1.probs],
+                      [p.cpu() for p in r2.probs]),
+            "k": cfg.experts_per_token, "num_experts": cfg.num_experts,
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "peak_gb": _peak_gb(torch)}
+
+
+def mesh_rank(rank: int, world: int) -> dict:
+    """One of the gloo ranks sharing cuda:0: ``_mesh_qwen``, then
+    ``_mesh_deepseek``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    qwen = _mesh_qwen(torch, rank)
+    return {"qwen": qwen, "deepseek": _mesh_deepseek(torch, rank),
+            "device": torch.cuda.current_device()}
+
+
+def _mesh_routing_check(torch, ds: dict) -> dict:
+    """deepseek's sharded logits against the one-rank ones under the MoE
+    tie rule of ROADMAP C: each logged step's rows whose MoE routing (the
+    model's last layer: a flip changes only its own position) chose the
+    same experts in both runs within LM_LOGIT_MAX / LM_LOGIT_MEAN; a
+    flipped row only where the one-rank run's k-th and (k+1)-th router
+    log-probabilities lie within 2δ, δ the runs' largest router
+    log-probability difference."""
+    k, B, P = ds["k"], MESH_SERVE["batch"], MESH_SERVE["prompt"]
+    p1, p2 = ds["probs"]
+    # the router's rows at each logged step: the prompt's last position,
+    # then each decode token
+    def at_steps(probs):
+        return [probs[0].reshape(B, P, -1)[:, -1]] + \
+            [p.reshape(B, -1) for p in probs[1:]]
+    r1, r2 = at_steps(p1), at_steps(p2)
+    delta = max(float((torch.log(b) - torch.log(a)).abs().max())
+                for a, b in zip(r1, r2))
+    flips = gaps = 0
+    worst_gap = 0.0
+    kept = []
+    for a, b, w, g in zip(r1, r2, ds["want"], ds["got"]):
+        sa = torch.sort(torch.topk(a, k, axis=-1).indices, axis=-1).values
+        sb = torch.sort(torch.topk(b, k, axis=-1).indices, axis=-1).values
+        flip = (sa != sb).any(-1)
+        top = torch.topk(torch.log(a), k + 1, axis=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        for row in range(B):
+            if flip[row]:
+                flips += 1
+                worst_gap = max(worst_gap, float(gap[row]))
+                gaps += float(gap[row]) > 2 * delta
+            else:
+                kept.append((g[row] - w[row]).abs())
+    d = torch.stack(kept)
+    return {"flips": flips, "far_flips": gaps, "delta": delta,
+            "worst_flip_gap": worst_gap, "logit_max": float(d.max()),
+            "logit_mean": float(d.mean()), "rows_compared": len(kept)}
+
+
+def phase_mesh(torch, card: str) -> dict:
+    """The ``(data, model)`` mesh on the card (ROADMAP A15b): two gloo
+    ranks sharing cuda:0 (``spawn_ranks``; NCCL refuses two ranks on one
+    card; DTensor's all-gathers and all-to-alls go through host buffers,
+    ``sharding.mesh.stage_gloo_gathers``).  qwen2-0.5b uncut (bf16) on
+    (1, 2) (tensor parallel) and (2, 1) (FSDP): prefill of 4 x 32 and 8
+    decode steps fed the one-rank run's greedy ids, held to the one-rank
+    logits (LM_LOGIT_MAX / LM_LOGIT_MEAN); a federated step of
+    MESH_CLIENTS x LM_BATCH x LM_SEQ held to the one-rank step (MESH_*
+    gates), each rank's K1 and K2 launches equal to the leaf tables.
+    deepseek-v2 at depth 2, every published width, on (1, 2): 80 of its
+    160 experts a rank, prefill and MESH_MOE_DECODE decode steps served
+    against the one-rank logits under the MoE tie rule.  Logged: launches, bytes into collectives, walls, peaks.
+    Two ranks on one card claim no speed.  Returns the launches for the
+    kernel report."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, MESH_RANKS, device="cuda",
+                        timeout_s=MESH_TIMEOUT_S, join_timeout_s=MESH_JOIN_S)
+    log(f"mesh: {MESH_RANKS} gloo ranks on cuda:"
+        f"{[r['device'] for r in ranks]} ran in "
+        f"{time.perf_counter() - t0:.1f}s ({card})")
+    launches = {}
+    for rank, res in enumerate(ranks):
+        q = res["qwen"]
+        for shape, m in q["meshes"].items():
+            tag = f"mesh: {LM_ARCH} uncut ({q['params']:,} params) on " \
+                f"{shape} rank {rank}"
+            want = {"channel_norm": q["tables"], "select_mask": q["tables"]}
+            seen = {k: m["launches"][k] for k in want}
+            if seen != want:
+                raise AssertionError(f"{tag}: launches {m['launches']}, "
+                                     f"want K1 = K2 = {q['tables']} (its "
+                                     "leaf tables)")
+            launches[f"mesh_rank{rank}_{shape[0]}x{shape[1]}_step"] = \
+                m["launches"]
+            if not (m["logit_max"] <= LM_LOGIT_MAX
+                    and m["logit_mean"] <= LM_LOGIT_MEAN):
+                raise AssertionError(f"{tag}: serving logits max "
+                                     f"{m['logit_max']} mean "
+                                     f"{m['logit_mean']} from the one-rank "
+                                     "run's")
+            l2, l1 = m["loss"]
+            rel = abs(l2 - l1) / abs(l1)
+            if rel > MESH_LOSS_REL or m["bf16_differ"] > MESH_BF16_DIFFER \
+                    or m["update_rel"] > MESH_UPDATE_REL:
+                raise AssertionError(f"{tag}: step loss rel err {rel}, "
+                                     f"{m['bf16_differ']:.3g} of bf16 "
+                                     "entries differ from the one-rank "
+                                     "step, the difference "
+                                     f"{m['update_rel']:.3g} of its update")
+            sel = m["selection"]
+            if sel["mismatch"] != (0, 0) or sel["leaf_rel"] > \
+                    MESH_SCORE_REL or sel["thr_rel"] > MESH_SCORE_REL or \
+                    sel["worst_flip_margin"] > sel["delta"]:
+                raise AssertionError(f"{tag}: selection {sel}")
+            coll = m["dtensor_collectives"]
+            log(f"{tag}: selection: the select-mask launches kept exactly "
+                f"the channels at or above each run's threshold "
+                f"(mismatches {sel['mismatch']}); each leaf's scores within "
+                f"{sel['leaf_rel']:.3g} ({sel['leaves'][0][1]}) and the "
+                f"threshold within {sel['thr_rel']:.3g} of the one-rank "
+                f"run's (<= {MESH_SCORE_REL}); a channel's score within "
+                f"{sel['score_rel']:.3g} (at {sel['worst']}, relative to it "
+                f"or the threshold); {sel['flips']} of {sel['channels']:,} "
+                f"channel choices flip, each within "
+                f"{sel['worst_flip_margin']:.3g} <= δ = {sel['delta']:.3g} "
+                f"of the threshold {sel['thr']:.3g}")
+            log(f"{tag}: {m['local_param_bytes']:,} B of params a rank; "
+                f"serving 4 x {MESH_SERVE['prompt']} + "
+                f"{MESH_SERVE['decode']} decode steps (the one-rank ids): "
+                f"logits max |d| {m['logit_max']:.4f} <= {LM_LOGIT_MAX}, "
+                f"mean {m['logit_mean']:.5f} <= {LM_LOGIT_MEAN}; prefill "
+                f"{m['prefill_s']:.3f} s, decode {m['decode_s']:.3f} s; "
+                f"federated step of {MESH_CLIENTS} x {LM_BATCH} x {LM_SEQ}: "
+                f"loss {l2:.6f} against the one-rank {l1:.6f} (rel "
+                f"{rel:.3g} <= {MESH_LOSS_REL}), bf16 params "
+                f"{m['bf16_differ']:.3g} of entries differ (<= "
+                f"{MESH_BF16_DIFFER}), the difference's norm "
+                f"{m['update_rel']:.3g} of the one-rank update's (<= "
+                f"{MESH_UPDATE_REL}); launches {m['launches']} = its "
+                f"{q['tables']} leaf table(s); into collectives a rank: "
+                f"DTensor {coll['bytes_by_kind']} B in "
+                f"{coll['count_by_kind']} calls, SCBF's score exchange "
+                f"{m['score_exchange'][1]:,} B in {m['score_exchange'][0]} "
+                f"calls; step wall {m['step_wall_s']:.3f} s (the counter "
+                f"on); peak "
+                f"{m['peak_gb']:.2f} GB ({card})")
+        ds = res["deepseek"]
+        chk = _mesh_routing_check(torch, ds)
+        tag = f"mesh: {MOE_DEEPSEEK} depth {MOE_DEPTH} on (1, 2) rank {rank}"
+        if ds["experts_local"] != ds["num_experts"] // 2:
+            raise AssertionError(f"{tag}: {ds['experts_local']} experts a "
+                                 "rank")
+        if chk["far_flips"] or not (chk["logit_max"] <= LM_LOGIT_MAX and
+                                    chk["logit_mean"] <= LM_LOGIT_MEAN):
+            raise AssertionError(f"{tag}: {chk}")
+        log(f"{tag}: {ds['experts_local']} of {ds['num_experts']} experts "
+            f"and {ds['local_param_bytes']:,} B of params a rank; served 4 "
+            f"x {MESH_SERVE['prompt']} + {MESH_MOE_DECODE} decode "
+            f"steps on the one-rank ids: {chk['rows_compared']} rows with "
+            f"the same routing within logits max {chk['logit_max']:.4f} / "
+            f"mean {chk['logit_mean']:.5f}; {chk['flips']} routing flips, "
+            f"each at a near-tie (gap <= {chk['worst_flip_gap']:.3g}, "
+            f"2δ = {2 * chk['delta']:.3g}); prefill {ds['prefill_s']:.3f} "
+            f"s, decode {ds['decode_s']:.3f} s; peak {ds['peak_gb']:.2f} GB "
+            f"({card})")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5263,6 +5734,9 @@ def main() -> int:
     t0 = time.perf_counter()
     pods = phase_pods(torch, cohort, card, runs)
     log(f"phase pods: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mesh = phase_mesh(torch, card)
+    log(f"phase mesh: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
                                 "select_compact_scatter")}
     for r in report:
@@ -5284,7 +5758,8 @@ def main() -> int:
             r["lm_encdec"] = encdec["timing"][r["name"]]
         by_run["comm_table"] = {k: comm["launches"][k]
                                 for k in kinds.get(r["name"], (r["name"],))}
-        for label, counts in pods["launches"].items():
+        for label, counts in list(pods["launches"].items()) + list(
+                mesh["launches"].items()):
             by_run[label] = {k: counts[k] for k in kinds.get(r["name"],
                                                              (r["name"],))
                              if k in counts}

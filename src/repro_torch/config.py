@@ -359,7 +359,7 @@ class TrainConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The production mesh's geometry, the reference's field for field
-    (``launch.mesh.make_production_mesh`` builds it over ranks)."""
+    (``sharding.mesh.make_production_mesh`` builds it over ranks)."""
 
     multi_pod: bool = False
 
@@ -383,8 +383,13 @@ class MeshConfig:
 class HardwareConfig:
     """One card's published figures (NVIDIA's data sheet, H100 SXM, dense
     rates without sparsity, at the full power limit): the bounds that
-    ``chip_smoke.py`` and ``PERF.md`` state a kernel's time against.  The
-    reference's table holds TPU v5e figures; none of them carries over."""
+    ``chip_smoke.py`` and ``PERF.md`` state a kernel's time against, and
+    ``launch.roofline``'s terms.  The links: NVLink 4 at 900 GB/s a GPU
+    (both directions together; NVIDIA H100 Tensor Core GPU data sheet)
+    within a node of ``gpus_per_node`` cards, and between nodes one
+    ConnectX-7 NIC a GPU at 400 Gb/s (NVIDIA ConnectX-7 data sheet; the
+    DGX H100 pairs one with each GPU).  The reference's table holds TPU
+    v5e figures; none of them carries over."""
 
     name: str = "NVIDIA H100 80GB HBM3"
     power_limit_w: float = 700.0
@@ -392,6 +397,9 @@ class HardwareConfig:
     hbm_bytes: float = 80e9
     peak_fp32: float = 67e12         # FLOP/s outside the tensor cores
     peak_bf16: float = 989e12        # FLOP/s on the tensor cores
+    nvlink_bw: float = 900e9         # bytes/s a GPU, NVLink 4
+    nic_bw: float = 400e9 / 8        # bytes/s a GPU, ConnectX-7 400 Gb/s
+    gpus_per_node: int = 8
 
 
 HARDWARE = HardwareConfig()

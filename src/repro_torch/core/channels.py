@@ -27,6 +27,17 @@ The LM scenario (``core.distributed``) scores any param tree by
 *factored* channel scores (``factored_scores``, ``factored_threshold``,
 ``apply_factored_mask``): the same two kernels, one launch each a table
 of at most ``MAX_LEAVES`` leaves (``leaf_tables``) of every client.
+
+Sharded gradients (DTensor leaves on a ``(data, model)`` mesh, each with
+its parameter's placements behind the client axis): each rank launches
+K1 and K2 on its local shards, one launch each a leaf table as on one
+device.  K1's partial column norms are summed over the mesh axes that
+split a leaf's rows and the column slices gathered over the axis that
+splits its columns (``comm.collectives.shard_sum`` / ``shard_gather``:
+N fp32 scores a leaf and client), so every rank holds the whole score
+pool and takes the one global threshold; K2 masks the local shard
+against its slice of the scores, and the kept counts are summed (int64)
+over the axes that split the leaf.
 """
 from __future__ import annotations
 
@@ -35,11 +46,13 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.kernels import channel_norm as channel_norm_kernel
 from repro_torch.kernels import select_mask as select_mask_kernel
 from repro_torch.kernels.channel_norm import channel_norms_leaves
 from repro_torch.kernels.select_mask import select_mask_leaves
 from repro_torch.params import tree_leaves, tree_unflatten
+from repro_torch.sharding.rules import like, local_shard
 
 # Materialise T exactly up to this many channels; sample beyond it.
 MAX_MATERIALIZED = 1 << 22
@@ -382,17 +395,62 @@ def _score_tables(leaves: Sequence[torch.Tensor],
     return tables
 
 
+class ShardAxes(NamedTuple):
+    """How a DTensor leaf (K, ..., N) splits: its mesh, the mesh axes that
+    split its rows (any dimension but the client axis and the last) and
+    the one that splits its columns (None if they are whole), and where
+    its local columns start."""
+
+    mesh: object
+    rows: Tuple[str, ...]
+    cols: Optional[str]
+    col_start: int
+
+
+def shard_axes(leaf) -> Optional[ShardAxes]:
+    """A DTensor leaf's ``ShardAxes``; None for a plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if not isinstance(leaf, DTensor):
+        return None
+    mesh, last = leaf.device_mesh, leaf.ndim - 1
+    rows, cols = [], None
+    for name, p in zip(mesh.mesh_dim_names, leaf.placements):
+        if isinstance(p, Shard):
+            if p.dim == 0:
+                raise ValueError("the client axis of a gradient never splits")
+            if p.dim == last:
+                cols = name
+            else:
+                rows.append(name)
+        elif not p.is_replicate():
+            raise ValueError(f"a gradient leaf placed {leaf.placements}: "
+                             "reduce its partial sums first")
+    _, offset = compute_local_shape_and_global_offset(
+        leaf.shape, mesh, leaf.placements)
+    return ShardAxes(mesh, tuple(rows), cols, int(offset[last]))
+
+
 def factored_scores_slots(grads_k) -> Tuple[list, list]:
     """(leaves, scores) of a slot-stacked tree: every leaf (K, ...); a leaf
     whose client part has ndim >= 2 gets its fp32 channel scores (K, N)
     from the channel-norm kernel (one launch a leaf table of one dtype,
-    ``_score_tables``), the others ``None`` (always uploaded)."""
+    ``_score_tables``), the others ``None`` (always uploaded).  A DTensor
+    leaf's launch takes its local shard; its whole (K, N) scores are
+    then summed and gathered over the mesh (module docstring)."""
     leaves = tree_leaves(grads_k)
     scores: List[Optional[torch.Tensor]] = [None] * len(leaves)
     idx = [i for i, leaf in enumerate(leaves) if leaf.ndim >= 3]
     for table in _score_tables(leaves, idx):
-        norms = channel_norms_leaves([_matrices(leaves[i]) for i in table])
+        norms = channel_norms_leaves([_matrices(local_shard(leaves[i]))
+                                      for i in table])
         for i, (_, col) in zip(table, norms):
+            ax = shard_axes(leaves[i])
+            if ax is not None:
+                col = collectives.shard_sum(col, ax.mesh, ax.rows)
+                col = collectives.shard_gather(
+                    col, ax.mesh, () if ax.cols is None else (ax.cols,))
             scores[i] = col
     return leaves, scores
 
@@ -447,24 +505,36 @@ def factored_mask_slots(leaves: Sequence[torch.Tensor],
     kept_of = {}
     idx = [i for i, s in enumerate(scores) if s is not None]
     if idx:
-        dev = leaves[idx[0]].device
+        local = {i: _matrices(local_shard(leaves[i])) for i in idx}
+        axes = {i: shard_axes(leaves[i]) for i in idx}
+        dev = local[idx[0]].device
         thr = torch.as_tensor(threshold, dtype=torch.float32, device=dev)
         below = torch.nextafter(thr, torch.full_like(thr, float("-inf")))
-        zeros = torch.zeros(max(_matrices(leaves[i]).shape[1] for i in idx),
+        zeros = torch.zeros(max(g.shape[1] for g in local.values()),
                             dtype=torch.float32, device=dev)
         rest = torch.zeros((), dtype=torch.float32, device=dev)
         slots = leaves[idx[0]].shape[0]
+
+        def cols(i):
+            """Leaf i's scores of its local columns."""
+            ax, n = axes[i], local[i].shape[-1]
+            return scores[i] if ax is None or n == scores[i].shape[-1] \
+                else scores[i][..., ax.col_start:ax.col_start + n] \
+                .contiguous()
         for group in _score_tables(leaves, idx):
-            table = [(_matrices(leaves[i]), zeros[:_matrices(leaves[i])
-                                                  .shape[1]],
-                      scores[i], below, rest) for i in group]
+            table = [(local[i], zeros[:local[i].shape[1]], cols(i), below,
+                      rest) for i in group]
             outs, _, counts = select_mask_leaves(
                 table, masks=False,
                 out=[t[0] for t in table] if in_place else None)
             counts = counts.view(len(group), slots)
             for j, i in enumerate(group):
-                masked[i] = outs[j].view(leaves[i].shape)
-                kept_of[i] = counts[j]
+                masked[i] = like(outs[j], leaves[i])
+                ax = axes[i]
+                kept_of[i] = counts[j] if ax is None else \
+                    collectives.shard_sum(
+                        counts[j].to(torch.int64), ax.mesh,
+                        ax.rows + (() if ax.cols is None else (ax.cols,)))
     slots, dev = leaves[0].shape[0], leaves[0].device
     kept = torch.zeros(slots, dtype=torch.float32, device=dev)
     total = 0

@@ -26,7 +26,7 @@ rebuilt by a scatter-add, plain torch as the reference's is plain
 ``jnp``.
 
 Pods (the reference's ``spmd_axis_name="pod"``, here a ``mesh`` from
-``launch.mesh.make_pod_mesh``): the K clients split contiguously over the
+``sharding.mesh.make_pod_mesh``): the K clients split contiguously over the
 P ranks, and each rank computes and masks its own clients' gradients (K1
 and K2 once a leaf table a rank).  Only masked gradients or compact
 buffers cross: the dense exchange all-reduces each rank's fp32 partial
@@ -35,6 +35,17 @@ once to the leaf's dtype after it; the compressed exchange all-gathers
 the clients' ``(idx, vals)`` buffers in client order and rebuilds the
 sum by the same scatter-add after the gather.  The mean loss is the sum
 of the ranks' partial loss sums over K.
+
+A ``(data, model)`` mesh (``(pod, data, model)`` with pods) shards each
+client's computation: the params are DTensors on the pod's ``(data,
+model)`` mesh (``sharding.rules.distribute_params``: FSDP over ``data``,
+tensor and expert parallel over ``model``), a client's batch splits over
+``data``, and each client's gradient comes out in its parameter's
+placements.  The selection runs K1 and K2 on every rank's local shards
+(``core.channels``), and the clients' sum and the update run shard by
+shard; across pods each shard's fp32 partial sum is all-reduced with the
+same shard of the other pods.  The compressed exchange is one-device or
+pods only.
 """
 from __future__ import annotations
 
@@ -42,9 +53,12 @@ from typing import Callable, Tuple
 
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.config import ScbfConfig
 from repro_torch.core import channels
-from repro_torch.launch import mesh as pod
+from repro_torch.sharding import mesh as meshes
+from repro_torch.sharding.rules import like, local_shard
+from repro_torch.models.common import from_block
 from repro_torch.models.model_zoo import sgd_leaf, sgd_update, value_and_grad
 from repro_torch.params import tree_leaves, tree_unflatten
 
@@ -56,18 +70,33 @@ def client_gradients(loss_fn: Callable, params, batch):
     the leaf's dtype, and let go before client k + 1's backward; params
     are left without ``requires_grad``."""
     k_clients = next(iter(batch.values())).shape[0]
-    grads = [torch.empty((k_clients,) + tuple(p.shape), dtype=p.dtype,
-                         device=p.device) for p in tree_leaves(params)]
+    leaves = tree_leaves(params)
+    grads = [torch.empty((k_clients,) + tuple(local_shard(p).shape),
+                         dtype=p.dtype, device=p.device) for p in leaves]
     losses = []
     for k in range(k_clients):
         loss, g = value_and_grad(loss_fn, params,
                                  {name: v[k] for name, v in batch.items()})
         g = tree_leaves(g)
         for i, buf in enumerate(grads):
-            buf[k].copy_(g[i])
+            buf[k].copy_(local_shard(g[i]))
         del g                   # gone before the next client's backward
         losses.append(loss)
-    return torch.stack(losses), tree_unflatten(params, grads)
+    return torch.stack(losses), tree_unflatten(params, [
+        _stacked(buf, p) for buf, p in zip(grads, leaves)])
+
+
+def _stacked(buf: torch.Tensor, p):
+    """A (K, ...) buffer of a param's local gradients as the leaf the
+    selection takes: a DTensor with the param's placements behind the
+    client axis when the param is one."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(p, DTensor):
+        return buf
+    return from_block(buf, p.device_mesh,
+                      [Shard(q.dim + 1) if isinstance(q, Shard) else q
+                       for q in p.placements],
+                      (buf.shape[0],) + tuple(p.shape))
 
 
 def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
@@ -75,26 +104,35 @@ def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
     """Returns step(params, batch) -> (mean_loss, new_params).
 
     ``batch`` leaves carry a leading client axis (K, ...).  ``mesh``: a
-    pod mesh of P ranks; rank r then takes clients ``[r·K/P, (r+1)·K/P)``
-    of the batch every rank is given (``K % P`` must be 0).
+    mesh with a pod axis of P ranks (a pod mesh, or ``(pod, data,
+    model)``); rank r's pod then takes clients ``[r·K/P, (r+1)·K/P)`` of
+    the batch every rank is given (``K % P`` must be 0).  A mesh with a
+    ``data`` or ``model`` axis above 1 takes params that are DTensors on
+    its ``(data, model)`` mesh and a ``loss_fn`` of a bundle built with
+    its ``make_shard_fn``.
     """
+    pods = mesh if mesh is not None and meshes.num_pods(mesh) > 1 else None
+    if scbf.compressed_exchange and meshes.is_sharded(mesh):
+        raise NotImplementedError(
+            "the compressed exchange of sharded gradients is ROADMAP A15b; "
+            "not ported yet")
 
     def step(params, batch):
-        if mesh is not None:
-            batch = _local_clients(batch, mesh)
+        if pods is not None:
+            batch = _local_clients(batch, pods)
         losses, grads_k = client_gradients(loss_fn, params, batch)
-        loss = torch.mean(losses) if mesh is None else \
-            pod.all_reduce_sum(torch.sum(losses, axis=0), mesh) / (
-                losses.shape[0] * mesh.size())
+        loss = torch.mean(losses) if pods is None else \
+            collectives.all_reduce_sum(torch.sum(losses, axis=0), pods) / (
+                losses.shape[0] * meshes.num_pods(pods))
         if scbf.compressed_exchange:
-            summed = _compressed_sum(grads_k, scbf.upload_rate, mesh)
+            summed = _compressed_sum(grads_k, scbf.upload_rate, pods)
             return loss, sgd_update(params, summed, lr)
         masked_k, _ = channels.apply_factored_mask_slots(
             grads_k, scbf.upload_rate, scbf.selection, in_place=True)
         del grads_k
         leaves = tree_leaves(masked_k)
         del masked_k
-        return loss, _sum_and_update(params, leaves, lr, mesh)
+        return loss, _sum_and_update(params, leaves, lr, pods)
 
     return step
 
@@ -102,11 +140,11 @@ def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
 def _local_clients(batch: dict, mesh) -> dict:
     """This rank's contiguous block of the batch's K clients."""
     k_clients = next(iter(batch.values())).shape[0]
-    p = mesh.size()
+    p = meshes.num_pods(mesh)
     if k_clients % p:
         raise ValueError(f"{k_clients} clients do not split over {p} pods")
     per = k_clients // p
-    r = pod.pod_rank(mesh)
+    r = meshes.pod_rank(mesh)
     return {name: v[r * per:(r + 1) * per] for name, v in batch.items()}
 
 
@@ -114,16 +152,18 @@ def _sum_and_update(params, masked: list, lr: float, mesh=None):
     """``sgd_update(params, Σ_k masked_k, lr)`` leaf by leaf, each client
     buffer of ``masked`` (the list's only reference) let go once it is
     summed and each sum once its param is updated.  On pods each rank's
-    fp32 partial sum is all-reduced and rounded once to the leaf dtype."""
+    fp32 partial sum is all-reduced and rounded once to the leaf dtype.
+    A DTensor param is summed and updated shard by shard."""
     new = []
     for i, p in enumerate(tree_leaves(params)):
+        local = local_shard(masked[i])
         if mesh is None:
-            summed = torch.sum(masked[i], axis=0)
+            summed = torch.sum(local, axis=0)
         else:
-            summed = pod.all_reduce_sum(torch.sum(
-                masked[i], axis=0, dtype=torch.float32), mesh).to(p.dtype)
-        masked[i] = None
-        new.append(sgd_leaf(p, summed, lr))
+            summed = collectives.all_reduce_sum(torch.sum(
+                local, axis=0, dtype=torch.float32), mesh).to(p.dtype)
+        masked[i] = local = None
+        new.append(like(sgd_leaf(local_shard(p), summed, lr), p))
         del summed
     return tree_unflatten(params, new)
 
@@ -145,12 +185,12 @@ def _compressed_sum(grads_k, rate: float, mesh=None):
             if mesh is None:
                 out.append(torch.sum(leaf, axis=0))
             else:
-                out.append(pod.all_reduce_sum(torch.sum(
+                out.append(collectives.all_reduce_sum(torch.sum(
                     leaf, axis=0, dtype=torch.float32), mesh).to(leaf.dtype))
             continue
         idx, vals = _top_channels(leaf, rate)
         if mesh is not None:
-            idx, vals = pod.all_gather_compact(idx, vals, mesh)
+            idx, vals = collectives.all_gather_compact(idx, vals, mesh)
         out.append(_scatter_sum(idx, vals, leaf.shape[-1]).to(leaf.dtype))
     return tree_unflatten(grads_k, out)
 

@@ -75,7 +75,7 @@ chunk.  Neither changes a parameter bit.
 
 Pods (``FedConfig.pods`` > 1, or a ``mesh``): the run is one rank of a
 ``torch.distributed`` group whose world size is ``pods``
-(``launch.mesh.make_pod_mesh``), each rank on
+(``sharding.mesh.make_pod_mesh``), each rank on
 ``cuda:{LOCAL_RANK % device_count}`` (ranks may share a card).  The
 batched engine splits every round's slots over the ranks
 (``fed.engine.BatchedEngine``); everything else — the plan, the draws
@@ -110,7 +110,8 @@ from repro_torch.fed.faults import (FaultInjector, Resilience,
 from repro_torch.fed.scheduler import make_scheduler
 from repro_torch.fed.strategy import (AdmissionPolicy, RoundContribution,
                                       admit_payloads, make_strategy)
-from repro_torch.launch import mesh as pod
+from repro_torch.comm import collectives
+from repro_torch.sharding import mesh as meshes
 from repro_torch.metrics.auc import auc_pr, auc_roc
 from repro_torch.models.mlp_net import hidden_sizes, init_mlp, mlp_forward
 from repro_torch.obs import checks as obschecks
@@ -424,9 +425,9 @@ def run_federated(cohort: MedicalCohort,
     dev = resolve_device(device)
     cfg, fed = train_cfg.scbf, train_cfg.fed
     if mesh is None and fed.pods > 1 and (engine or fed.engine) == "batched":
-        mesh = pod.make_pod_mesh(fed.pods)
+        mesh = meshes.make_pod_mesh(fed.pods, device=dev)
     if mesh is not None:
-        dev = pod.rank_device(dev)
+        dev = meshes.rank_device(dev)
     # the reference computes in full fp32: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -496,7 +497,7 @@ def run_federated(cohort: MedicalCohort,
     collect = train_cfg.obs.device_metrics or \
         obstrace.get_recorder() is not None
     if mesh is not None:
-        collect = pod.agree_any(collect, mesh)
+        collect = collectives.agree_any(collect, mesh)
     obstrace.event(
         "run_start", method=result.method, loops=train_cfg.global_loops,
         clients=cfg.num_clients, engine=eng.name,

@@ -99,7 +99,8 @@ from repro_torch.fed import graphs
 from repro_torch.fed.cohort import (PaddedCohort, bucket_size,
                                     horizon_slot_plan, pad_clients)
 from repro_torch.fed.strategy import fedavg_step, scbf_sum_step
-from repro_torch.launch import mesh as pod
+from repro_torch.comm import collectives
+from repro_torch.sharding import mesh as meshes
 from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obstrace
 from repro_torch.params import tree_map
@@ -442,12 +443,12 @@ class BatchedEngine:
     (``fed.cohort.bucket_size``).
 
     Pods (``pods`` > 1, or a ``mesh`` given): the round's slot axis splits
-    over the 1-D ``("pod",)`` mesh of ``launch.mesh`` (``make_pod_mesh``
+    over the 1-D ``("pod",)`` mesh of ``sharding.mesh`` (``make_pod_mesh``
     over the initialised group by default), one contiguous block of B/P
     slots a rank (``sharding.rules``); B is a multiple of P.  A rank
     trains, selects and noises its own slots — K1, K2 and K3's count
     once a round a rank — then the masked slot stacks, their masks and
-    the telemetry carry are gathered in slot order (``pod.gather_slots``),
+    the telemetry carry are gathered in slot order (``collectives.gather_slots``),
     so the server sum, the encode and the carry's reduction see all B
     slots exactly as on one device: the uploads and the sum are bitwise
     one device's.  Only masked deltas (zero outside their channels),
@@ -472,7 +473,7 @@ class BatchedEngine:
         self.device = torch.device(device)
         self.pods = max(1, int(pods))
         if mesh is None and self.pods > 1:
-            mesh = pod.make_pod_mesh(self.pods)
+            mesh = meshes.make_pod_mesh(self.pods, device=self.device)
         if mesh is not None:
             if self.pods not in (1, mesh.size()):
                 raise ValueError(f"a pod mesh of {mesh.size()} ranks for "
@@ -579,7 +580,7 @@ class BatchedEngine:
         """Every pod's slots of a round's masked deltas, masks (None stays
         None) and slot-stacked carry, in slot order."""
         def gather(t):
-            return None if t is None else pod.gather_slots(t, self.mesh)
+            return None if t is None else collectives.gather_slots(t, self.mesh)
         masked = tuple({k: gather(t) for k, t in layer.items()}
                        for layer in masked)
         masks = tuple({k: gather(t) for k, t in layer.items()}
@@ -591,9 +592,9 @@ class BatchedEngine:
     def _gather_trained(self, trained, losses=None):
         """Every pod's slots of a FedAvg round's trained weights (and
         losses), in slot order."""
-        return (tree_map(lambda t: pod.gather_slots(t, self.mesh), trained),
+        return (tree_map(lambda t: collectives.gather_slots(t, self.mesh), trained),
                 None if losses is None else
-                pod.gather_slots(losses, self.mesh))
+                collectives.gather_slots(losses, self.mesh))
 
     def scbf_round(self, params, participants, lr: float,
                    perms: Sequence[Sequence], cfg: ScbfConfig,
@@ -776,7 +777,7 @@ class BatchedEngine:
         if self.device.type != "cuda":
             return "eager"
         if self.mesh is not None and torch.distributed.get_backend(
-                self.mesh.get_group(pod.POD)) != "nccl":
+                self.mesh.get_group(meshes.POD)) != "nccl":
             return "two graphs"
         return "one graph"
 

@@ -133,3 +133,20 @@ def build_seconds() -> float:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+# where a wrapper runs its kernel's plain version: the CPU, and the meta
+# device, on which the plain version traces shapes and computes nothing
+# (``launch.dryrun``)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """Raise on a ``DTensor``: a kernel takes a rank's local shard
+    (``DTensor.to_local()``), whose partial results the caller combines
+    over the mesh, never a DTensor (neither the launcher nor the plain
+    version would see its shards)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what} takes a rank's local shard "
+                        "(DTensor.to_local()), not a DTensor")

@@ -57,6 +57,7 @@ def channel_norms_plain(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _check(g: torch.Tensor) -> None:
+    build.refuse_dtensor("channel_norms", g)
     if g.ndim not in (2, 3) or 0 in g.shape:
         raise ValueError(f"channel_norms takes a non-empty (M, N) matrix or "
                          f"(S, M, N) slots of one, got shape "
@@ -140,7 +141,7 @@ def channel_norms_leaves(gs: Sequence[torch.Tensor]
         raise ValueError("channel_norms: every leaf must be on one device")
     if any(g.dtype != dtype for g in gs):
         raise TypeError("channel_norms takes one dtype a table")
-    if device.type == "cpu":
+    if device.type in build.PLAIN_DEVICES:
         return [channel_norms_plain(g) for g in gs]
     if device.type != "cuda":
         raise ValueError(f"channel_norms runs on cpu or cuda, not {device}")

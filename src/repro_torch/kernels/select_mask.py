@@ -144,6 +144,7 @@ def _scalar(x: Scalar, device, slots: int) -> torch.Tensor:
 
 
 def _check(g, row, col) -> None:
+    build.refuse_dtensor("select_mask", g, row, col)
     if g.ndim not in (2, 3) or 0 in g.shape:
         raise ValueError(f"select_mask takes a non-empty (M, N) matrix or "
                          f"(S, M, N) slots of one, got shape "
@@ -188,7 +189,7 @@ def _leaves(leaves: Sequence[Leaf], what: str, limit: bool = True
     device = out[0][0].device
     if any(leaf[0].device != device for leaf in out):
         raise ValueError(f"{what}: every leaf must be on one device")
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what} runs on cpu or cuda, not {device}")
     if device.type == "cuda" and len({leaf[0].dtype for leaf in out}) > 1:
         raise TypeError(f"{what} takes one dtype a launch on cuda")
@@ -306,7 +307,7 @@ def _mask_table(leaves: List[tuple], device, masks: bool,
     """One launch over checked leaves, writing g̃ into ``out`` and the masks
     into ``mask_out`` where given (else into one new allocation)."""
     global mask_launches
-    if device.type == "cpu":
+    if device.type in build.PLAIN_DEVICES:
         res = [select_mask_plain(*leaf, out=None if out is None else out[l])
                for l, leaf in enumerate(leaves)]
         made = [m if masks else None for _, m, _ in res]

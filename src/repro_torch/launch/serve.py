@@ -33,15 +33,21 @@ def _sync(device: torch.device) -> None:
 def generate(bundle, params, prompts: torch.Tensor, gen: int,
              cache_len: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             aux: Optional[torch.Tensor] = None) -> Generation:
+             aux: Optional[torch.Tensor] = None,
+             follow: Optional[torch.Tensor] = None) -> Generation:
     """Prefill ``prompts`` (B, P) int32 into fresh ring-buffer caches of
     ``cache_len`` slots, then decode ``gen - 1`` more tokens one at a time
     (``gen`` in all): greedy at temperature 0, else sampled from
     softmax(logits / temperature) with ``generator``.  ``aux`` (B, T, D)
     is the context of a model with cross-attention (whisper's frame
     embeddings, a vision model's patch embeddings), handed to prefill
-    under its batch key; decode reads it from the caches.  The two phases
-    are timed apart, each ending in a device synchronise."""
+    under its batch key; decode reads it from the caches.  ``follow``
+    (B, gen) int32, where given, is fed in place of the sampled ids (a
+    run held to another's logits on the same ids).  The two phases
+    are timed apart, each ending in a device synchronise.  On a mesh (a
+    bundle built with ``shard=``, DTensor params) the caches and the
+    sampled ids stay DTensors through the loop, and the ids and logits
+    come back whole on every rank."""
     from repro_torch.models.model_zoo import context_input
 
     B, P = prompts.shape
@@ -67,17 +73,27 @@ def generate(bundle, params, prompts: torch.Tensor, gen: int,
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    out, seen = [sample(logits)], [logits]
+    def pick(logits, i):
+        return sample(logits) if follow is None else follow[:, i:i + 1]
+
+    out, seen = [pick(logits, 0)], [logits]
     t0 = time.perf_counter()
     for t in range(gen - 1):
         pos = torch.full((B, 1), P + t, dtype=torch.int32, device=dev)
         logits, caches = bundle.decode_step(
             params, {"token": out[-1], "pos": pos, "caches": caches})
-        out.append(sample(logits))
+        out.append(pick(logits, t + 1))
         seen.append(logits)
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    return Generation(torch.cat(out, axis=1), seen, t_prefill, t_decode)
+    return Generation(_full(torch.cat(out, axis=1)),
+                      [_full(t) for t in seen], t_prefill, t_decode)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor as the whole tensor on every rank (a plain one as is)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def parse_args(argv=None):

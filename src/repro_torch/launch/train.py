@@ -156,8 +156,8 @@ def run_lm(args):
     from repro_torch.config import ScbfConfig
     from repro_torch.core.distributed import make_federated_train_step
     from repro_torch.data.tokens import SyntheticTokenStream
-    from repro_torch.launch import mesh as pod
     from repro_torch.models import model_zoo
+    from repro_torch.sharding.mesh import make_pod_mesh
 
     cfg = configs.smoke_variant(configs.get(args.arch))
     bundle = model_zoo.build(cfg, device=args.device)
@@ -165,7 +165,7 @@ def run_lm(args):
     scbf = ScbfConfig(upload_rate=args.upload_rate, num_clients=args.clients)
     step = make_federated_train_step(
         bundle.loss_fn, scbf, lr=args.lr,
-        mesh=pod.make_pod_mesh(args.pods) if args.pods > 1 else None)
+        mesh=make_pod_mesh(args.pods) if args.pods > 1 else None)
 
     K, B, S = args.clients, args.batch_size, args.seq_len
     context = model_zoo.context_input(cfg)

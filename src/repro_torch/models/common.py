@@ -6,7 +6,8 @@ dimension, a comma-joined string leaf), in the reference's nested-dict
 layout, so a port tree flattens to the reference's leaves in the same
 order (``repro_torch.params.tree_paths``).  The axis names are the
 reference's vocabulary (``layers``, ``vocab``, ``embed``, ``heads``,
-``kv``, ``mlp``, ...); nothing in the port shards by them yet.
+``kv``, ``mlp``, ...), from which ``sharding.rules`` places params on a
+``(data, model)`` mesh.
 
 Randomness comes from one ``torch.Generator``, drawn leaf after leaf in
 init order; the tensors land on the generator's device.  ``gen=None``
@@ -121,3 +122,54 @@ def merge(*pairs_named):
     for name, (p, a) in pairs_named:
         params[name], axes[name] = p, a
     return params, axes
+
+
+def replicated(t, mesh):
+    """A tensor the same on every rank as a replicated DTensor on
+    ``mesh`` (a DTensor as it is)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def from_block(local, mesh, place, shape):
+    """This rank's block ``local`` of a row-major tensor of ``shape`` as a
+    DTensor placed ``place``."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    return DTensor.from_local(local.contiguous(), mesh, place,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _relaid(x, shape):
+    """DTensor ``x`` with every split that ``x.reshape(shape)`` cannot keep
+    gathered (module function ``reshape``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    k = next((i for i, (a, b) in enumerate(zip(x.shape, shape)) if a != b),
+             min(x.ndim, len(shape)))
+    mesh = x.device_mesh
+    place = [Replicate() if isinstance(p, Shard) and p.dim >= k and (
+        p.dim > k or k >= len(shape) or shape[k] % mesh.shape[i]) else p
+        for i, p in enumerate(x.placements)]
+    return x if place == list(x.placements) else x.redistribute(mesh, place)
+
+
+def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(shape)``.  A DTensor split over n ranks along a
+    dimension that the reshape changes, where the new dimension there
+    does not divide by n (14 query heads from a 896-wide projection split
+    16 ways), gathers that dimension first, in the forward and, through a
+    hook on the result, in the backward: GSPMD re-lays such a split
+    itself, DTensor refuses it."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    y = _relaid(x, shape).reshape(shape)
+    if y.requires_grad:
+        back = tuple(x.shape)
+        y.register_hook(lambda g: _relaid(g, back))
+    return y

@@ -12,6 +12,15 @@ Conventions, as in the reference:
   sliding-window and prefix-filled caches all mask uniformly.
 
 All softmax/norm math runs in fp32; activations stay in the model dtype.
+
+``ctx.shard(x, logical_axes)`` marks the reference's shard points: the
+identity on one device, and on a ``(data, model)`` mesh the callback of
+``sharding.rules.make_shard_fn``, which redistributes a DTensor
+activation (keys, values and caches on ``kv_seq``, the MLP's
+``mlp_act``).  Over DTensors, attention runs head parallel on each
+rank's local block (``_attention_shards``), so the scores' point places
+nothing there; a ring-cache write writes each rank's own slots of the
+ring (``_ring_write_shards``).
 The attention is the reference's arithmetic (fp32 scores, ``NEG_INF`` on
 masked slots, probabilities cast to ``v``'s dtype before the second
 product), not ``scaled_dot_product_attention``, whose numerics differ.
@@ -21,7 +30,7 @@ the latent ``{"ckv","krope","kpos"}`` ring buffer.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +38,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.common import dense_init, merge
+from repro_torch.models.common import (dense_init, from_block, merge,
+                                       replicated, reshape)
 
 NEG_INF = -1e30
+
+
+def no_shard(x, logical):
+    """``ctx.shard`` on one device: places nothing."""
+    return x
 
 
 @dataclass
@@ -40,10 +55,11 @@ class ModelCtx:
     dtype: torch.dtype
     q_chunk: int = 512                           # attention query chunk
     kv_quant: bool = False                       # int8 KV cache
-    # the reference's d_model-sharded MoE combine: it only places shards,
-    # so on one device it changes nothing (multi-device is ROADMAP A15)
+    # the reference's d_model-sharded MoE dispatch and combine: it only
+    # places shards, so on one device it changes nothing
     moe_dshard: bool = False
     moe_groups: int = 1                          # grouped routing; 1 = global
+    shard: Callable = no_shard                   # x, logical axes -> x
 
 
 # ---------------------------------------------------------------------------
@@ -140,15 +156,16 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
 # Attention core — query-chunked, fp32 softmax, window/causal masks
 # ---------------------------------------------------------------------------
 
-def _attend(q, k, v, kpos, qpos, causal: bool, window: int):
+def _attend(q, k, v, kpos, qpos, ctx: ModelCtx, causal: bool, window: int):
     """q (B,Sq,KV,G,hd); k,v (B,T,KV,hd); kpos (B,T) abs position or -1.
 
-    Returns (B,Sq,KV,G,hd).
+    Returns (B,Sq,KV,G,hd).  Scores shard on the T axis (``kv_seq``).
     """
     hd = q.shape[-1]
     scale = hd ** -0.5
     s = torch.einsum("bqkgh,btkh->bkgqt", q.to(torch.float32),
                      k.to(torch.float32)) * scale
+    s = ctx.shard(s, ("batch", "none", "none", "none", "kv_seq"))
     valid = kpos[:, None, None, None, :] >= 0
     if causal:
         rel = qpos[:, None, None, :, None] - kpos[:, None, None, None, :]
@@ -168,17 +185,136 @@ def attention_core(q, k, v, kpos, qpos, ctx: ModelCtx,
     chunk at a time against the whole of k/v, so the score block is
     (chunk x T) — the reference's scan over chunks.
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _attention_shards(q, k, v, kpos, qpos, ctx, causal, window)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd)
     chunk = ctx.q_chunk
     if Sq <= chunk or Sq % chunk:
-        o = _attend(qg, k, v, kpos, qpos, causal, window)
+        o = _attend(qg, k, v, kpos, qpos, ctx, causal, window)
         return o.reshape(B, Sq, H, hd)
     outs = [_attend(qg[:, i:i + chunk], k, v, kpos, qpos[:, i:i + chunk],
-                    causal, window) for i in range(0, Sq, chunk)]
+                    ctx, causal, window) for i in range(0, Sq, chunk)]
     return torch.cat(outs, axis=1).reshape(B, Sq, H, hd)
+
+
+def _rows(mesh, batch: int) -> dict:
+    """{"data": 0} where ``data`` splits the batch, else {}."""
+    n = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("data", 1)
+    return {"data": 0} if n > 1 and batch % n == 0 else {}
+
+
+def _split_dims(mesh, batch: int, heads: int, head_dim: int) -> dict:
+    """{mesh axis: tensor dim it splits} of an attention's operands: the
+    batch over ``data`` and the heads over ``model``, each where it
+    divides."""
+    out = _rows(mesh, batch)
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    if m > 1 and heads % m == 0:
+        out["model"] = head_dim
+    return out
+
+
+def _block(t, mesh, split: dict, partial=()):
+    """``t`` (a DTensor, or a tensor the same on every rank) re-laid so
+    that each mesh axis in ``split`` splits the tensor dim it names (the
+    others replicate): (this rank's local block, its placements).  The
+    block's gradient is a partial sum over the axes ``partial`` (where
+    the ranks of an axis use a replicated input for their own part)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = mesh.mesh_dim_names
+    place = [Shard(split[a]) if a in split else Replicate() for a in names]
+    grads = [Partial() if a in partial else q for a, q in zip(names, place)]
+    return replicated(t, mesh).redistribute(mesh, place).to_local(
+        grad_placements=grads), place
+
+
+def _attention_shards(q, k, v, kpos, qpos, ctx: ModelCtx, causal: bool,
+                      window: int):
+    """``attention_core`` over DTensors, head parallel: each rank attends
+    with its batch rows (split over ``data``) and its whole KV head
+    groups (over ``model``, where the KV heads divide) on its local
+    blocks, with the one-device arithmetic; the keys' ``kv_seq`` split
+    of the shard points gathers into it.  DTensor's own einsum would
+    flatten a split head axis into a batched product's batch, which
+    DTensor refuses without a re-layout in its backward.  Where the KV
+    heads do not divide ``model``, sequence parallel instead
+    (``_attention_seq_shards``)."""
+    mesh = q.device_mesh
+    split = _split_dims(mesh, q.shape[0], k.shape[2], 2)
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    if m > 1 and "model" not in split and k.shape[1] % m == 0:
+        return _attention_seq_shards(q, k, v, kpos, qpos, ctx, causal,
+                                     window)
+    rows = _rows(mesh, q.shape[0])
+    ql, place = _block(q, mesh, split)
+    kl, _ = _block(k, mesh, split)
+    vl, _ = _block(v, mesh, split)
+    o = attention_core(ql, kl, vl, _block(kpos, mesh, rows)[0],
+                       _block(qpos, mesh, rows)[0], ctx, causal, window)
+    return from_block(o, mesh, place, q.shape)
+
+
+def _attention_seq_shards(q, k, v, kpos, qpos, ctx: ModelCtx, causal: bool,
+                          window: int):
+    """``attention_core`` over DTensors whose KV heads do not divide
+    ``model``: sequence parallel over the keys' ``kv_seq`` split, as
+    GSPMD partitions the reference's scores.  Each rank scores the
+    queries of its batch rows (every head) against its own slots of the
+    keys in fp32 and keeps its rows' max, the sum of their exponentials
+    and the values weighted by them; one all-reduce of the max over
+    ``model`` (a constant of the softmax, outside the gradient), then one
+    of the sums and of the weighted values (partial sums), give the
+    softmax of each whole row.  Nothing of the keys, values or cache
+    crosses; the result is the one-device arithmetic up to the order of
+    its sums, with the values' product in fp32."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial
+    mesh = q.device_mesh
+    rows = _rows(mesh, q.shape[0])
+    seq = dict(rows, model=1)
+    ql, place = _block(q, mesh, rows, partial=("model",))
+    kl, _ = _block(k, mesh, seq)
+    vl, _ = _block(v, mesh, seq)
+    kp, _ = _block(kpos, mesh, seq)
+    qp, _ = _block(qpos, mesh, rows)
+    group = mesh.get_group("model")
+    parts = [Partial() if a == "model" else p
+             for a, p in zip(mesh.mesh_dim_names, place)]
+    B, Sq, H, hd = ql.shape
+    KV = kl.shape[2]
+    qg = ql.reshape(B, Sq, KV, H // KV, hd)
+    chunk = ctx.q_chunk
+    spans = [(0, Sq)] if Sq <= chunk or Sq % chunk else \
+        [(i, i + chunk) for i in range(0, Sq, chunk)]
+
+    def whole(t, shape):
+        return from_block(t, mesh, parts, shape).redistribute(
+            mesh, place).to_local()
+    outs = []
+    for a, b in spans:
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg[:, a:b].to(torch.float32),
+                         kl.to(torch.float32)) * hd ** -0.5
+        valid = kp[:, None, None, None, :] >= 0
+        if causal:
+            rel = qp[:, None, None, a:b, None] - kp[:, None, None, None, :]
+            valid = valid & (rel >= 0)
+            if window:
+                valid = valid & (rel < window)
+        s = s.masked_fill(~valid, NEG_INF)
+        top = funcol.all_reduce(s.amax(-1, keepdim=True).detach(), "max",
+                                group)
+        e = torch.exp(s - top)
+        num = torch.einsum("bkgqt,btkh->bqkgh", e, vl.to(torch.float32))
+        den = e.sum(-1).permute(0, 3, 1, 2)[..., None]
+        num = whole(num, (q.shape[0],) + num.shape[1:])
+        den = whole(den, (q.shape[0],) + den.shape[1:])
+        outs.append((num / den).to(v.dtype))
+    o = torch.cat(outs, axis=1).reshape(B, Sq, H, hd)
+    return from_block(o, mesh, place, q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +350,9 @@ def gqa_apply(p, x, ctx: ModelCtx, positions, *, kv_x=None, kv_positions=None,
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
-    q = _dense(p["q"], x).reshape(B, S, H, hd)
+    q = reshape(_dense(p["q"], x), B, S, H, hd)
     q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    q = ctx.shard(q, ("batch", "none", "none", "none"))
 
     if cache is not None and kv_x is not None and S == 1:
         # cross-attention DECODE: reuse the K/V computed at prefill
@@ -228,18 +365,20 @@ def gqa_apply(p, x, ctx: ModelCtx, positions, *, kv_x=None, kv_positions=None,
         kpos = (torch.arange(Skv, dtype=torch.int32,
                              device=x.device)[None].expand(B, Skv)
                 if kv_positions is None else kv_positions)
-        k = _dense(p["k"], src).reshape(B, Skv, KV, hd)
-        v = _dense(p["v"], src).reshape(B, Skv, KV, hd)
+        k = reshape(_dense(p["k"], src), B, Skv, KV, hd)
+        v = reshape(_dense(p["v"], src), B, Skv, KV, hd)
         if kv_x is None:                      # self-attention gets RoPE
             k = rope(k, kpos, cfg.rope_theta, cfg.rope_fraction)
+        k = ctx.shard(k, ("batch", "kv_seq", "none", "none"))
+        v = ctx.shard(v, ("batch", "kv_seq", "none", "none"))
         o = attention_core(q, k, v, kpos, positions, ctx, causal, window)
         # cross-attention PREFILL with a cache: store K/V for decode
         new_cache = ({"k": k.to(cache["k"].dtype),
                       "v": v.to(cache["v"].dtype), "kpos": kpos}
                      if (cache is not None and kv_x is not None) else None)
     else:
-        k_new = _dense(p["k"], src).reshape(B, S, KV, hd)
-        v_new = _dense(p["v"], src).reshape(B, S, KV, hd)
+        k_new = reshape(_dense(p["k"], src), B, S, KV, hd)
+        v_new = reshape(_dense(p["v"], src), B, S, KV, hd)
         k_new = rope(k_new, positions, cfg.rope_theta, cfg.rope_fraction)
         T = cache["k"].shape[1]
         slot = positions % T                                  # ring buffer
@@ -251,6 +390,8 @@ def gqa_apply(p, x, ctx: ModelCtx, positions, *, kv_x=None, kv_positions=None,
             ksc = _ring_write(cache["k_scale"], ks, slot)
             vsc = _ring_write(cache["v_scale"], vs, slot)
             kpos = _ring_write(cache["kpos"], positions, slot)
+            kc = ctx.shard(kc, ("batch", "kv_seq", "none", "none"))
+            vc = ctx.shard(vc, ("batch", "kv_seq", "none", "none"))
             k = dequantize_kv(kc, ksc, x.dtype)
             v = dequantize_kv(vc, vsc, x.dtype)
             new_cache = {"k": kc, "v": vc, "k_scale": ksc,
@@ -259,21 +400,52 @@ def gqa_apply(p, x, ctx: ModelCtx, positions, *, kv_x=None, kv_positions=None,
             k = _ring_write(cache["k"], k_new, slot)
             v = _ring_write(cache["v"], v_new, slot)
             kpos = _ring_write(cache["kpos"], positions, slot)
+            k = ctx.shard(k, ("batch", "kv_seq", "none", "none"))
+            v = ctx.shard(v, ("batch", "kv_seq", "none", "none"))
             new_cache = {"k": k, "v": v, "kpos": kpos}
         o = attention_core(q, k, v, kpos, positions, ctx, causal, window)
 
-    y = _dense(p["o"], o.reshape(B, S, H * hd))
+    y = _dense(p["o"], reshape(o, B, S, H * hd))
     return y, new_cache
 
 
 def _ring_write(buf, new, slot):
     """Write new (B,S,...) into a copy of buf (B,T,...) at per-token slots
     (B,S)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(buf, DTensor):
+        return _ring_write_shards(buf, new, slot)
     B, S = slot.shape
     bidx = torch.arange(B, device=buf.device)[:, None].expand(B, S)
     out = buf.clone()
     out[bidx, slot.to(torch.int64)] = new.to(buf.dtype)
     return out
+
+
+def _ring_write_shards(buf, new, slot):
+    """``_ring_write`` of a DTensor ring: each rank writes the tokens whose
+    slot falls in its own slots ``[lo, lo + T_l)`` of the ring (and its
+    own batch rows), the others into a scratch slot cut off after, so
+    nothing crosses but ``new`` and ``slot`` gathered to the ring's
+    batch split."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, place = buf.device_mesh, buf.placements
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in place]
+
+    def local(t):
+        return replicated(t, mesh).redistribute(mesh, rows).to_local()
+    b, n, sl = buf.to_local(), local(new), local(slot)
+    _, offset = compute_local_shape_and_global_offset(buf.shape, mesh, place)
+    t_l = b.shape[1]
+    s = sl.to(torch.int64) - offset[1]
+    s = torch.where((s >= 0) & (s < t_l), s, torch.full_like(s, t_l))
+    out = torch.cat([b, b[:, :1]], axis=1)
+    bidx = torch.arange(b.shape[0], device=b.device)[:, None].expand_as(s)
+    out[bidx, s] = n.to(b.dtype)
+    return from_block(out[:, :t_l], mesh, place, buf.shape)
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, cache_len: int, dtype,
@@ -324,7 +496,7 @@ def _mla_qkv(p, x, ctx: ModelCtx, positions):
     B, S, _ = x.shape
     H, hd, rd, r = cfg.num_heads, cfg.head_dim, cfg.qk_rope_dim, \
         cfg.kv_lora_rank
-    q = _dense(p["q"], x).reshape(B, S, H, hd + rd)
+    q = reshape(_dense(p["q"], x), B, S, H, hd + rd)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     down = _dense(p["kv_down"], x)                       # (B,S,r+rd)
@@ -337,7 +509,25 @@ def _mla_attend(q_nope, q_rope, ckv, krope, kpos, qpos, p, ctx: ModelCtx):
     """Absorbed MLA attention: scores in compressed (lora) space, fp32.
 
     q_nope (B,S,H,hd), q_rope (B,S,H,rd); ckv (B,T,r), krope (B,T,rd).
+    Over DTensors, head parallel as ``_attention_shards``: a rank takes
+    its batch rows and heads of the queries and of ``kv_up``, and the
+    whole latent cache of its rows.
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(q_nope, DTensor):
+        mesh = q_nope.device_mesh
+        split = _split_dims(mesh, q_nope.shape[0], q_nope.shape[2], 2)
+        rows = {a: d for a, d in split.items() if a == "data"}
+        heads = ("model",) if "model" in split else ()
+        qn, place = _block(q_nope, mesh, split)
+        qr, _ = _block(q_rope, mesh, split)
+        up = {"w": _block(p["kv_up"]["w"], mesh, {
+            a: 1 for a in split if a == "model"}, partial=tuple(rows))[0]}
+        o = _mla_attend(qn, qr, _block(ckv, mesh, rows, heads)[0],
+                        _block(krope, mesh, rows, heads)[0],
+                        _block(kpos, mesh, rows)[0],
+                        _block(qpos, mesh, rows)[0], {"kv_up": up}, ctx)
+        return from_block(o, mesh, place, q_nope.shape)
     cfg = ctx.cfg
     B, S, H, hd = q_nope.shape
     r = cfg.kv_lora_rank
@@ -351,6 +541,7 @@ def _mla_attend(q_nope, q_rope, ckv, krope, kpos, qpos, p, ctx: ModelCtx):
     s = (torch.einsum("bshr,btr->bhst", q_abs, ckv_f) +
          torch.einsum("bshd,btd->bhst", q_rope.to(torch.float32),
                       krope.to(torch.float32))) * scale
+    s = ctx.shard(s, ("batch", "none", "none", "kv_seq"))
     valid = (kpos[:, None, None, :] >= 0) & \
         (qpos[:, None, :, None] >= kpos[:, None, None, :])
     s = s.masked_fill(~valid, NEG_INF)
@@ -398,10 +589,11 @@ def mla_apply(p, x, ctx: ModelCtx, positions, *, cache=None):
         ckv_c = _ring_write(cache["ckv"], ckv, slot)
         krope_c = _ring_write(cache["krope"], krope, slot)
         kpos = _ring_write(cache["kpos"], positions, slot)
+        ckv_c = ctx.shard(ckv_c, ("batch", "kv_seq", "none"))
         o = _mla_attend(q_nope, q_rope, ckv_c, krope_c, kpos, positions, p,
                         ctx)
         new_cache = {"ckv": ckv_c, "krope": krope_c, "kpos": kpos}
-    y = _dense(p["o"], o.reshape(B, S, H * hd))
+    y = _dense(p["o"], reshape(o, B, S, H * hd))
     return y, new_cache
 
 
@@ -438,4 +630,5 @@ def mlp_apply(p, x, ctx: ModelCtx):
         h = act(h) * _dense(p["wg"], x)
     else:
         h = act(h)
+    h = ctx.shard(h, ("batch", "none", "mlp_act"))
     return _dense(p["wo"], h)

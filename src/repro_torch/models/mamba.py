@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.common import (dense_init, device_of, merge,
+from repro_torch.models.common import (dense_init, device_of, merge, reshape,
                                        trunc_normal)
 from repro_torch.models.layers import ModelCtx
 
@@ -146,7 +146,7 @@ def _ssd_heads(xh, dt, A, B_, C_, chunk, h0: Optional[torch.Tensor] = None):
         h = h * total[:, c, :, None, None] + state_c[:, c]
     y_inter = torch.einsum("bcqn,bcqh,bchnp->bcqhp", Cc, torch.exp(cs),
                            torch.stack(h_prev, axis=1))
-    return (y_intra + y_inter).reshape(B, S, NH, P), h
+    return reshape(y_intra + y_inter, B, S, NH, P), h
 
 
 def mamba_cache_init(cfg: ArchConfig, batch: int, dtype, device=None):
@@ -182,14 +182,18 @@ def mamba_apply(p, x, ctx: ModelCtx, *, cache=None):
     dt = F.softplus(dt.to(f32))
     A = -torch.exp(p["A_log"])                             # (NH,)
 
+    # one layout for the join (on a mesh the three products come out
+    # split differently, and DTensor's cat cannot reconcile them)
+    xz, Bp, Cp = (ctx.shard(t, ("batch", "none", "none"))
+                  for t in (xz, Bp, Cp))
     conv_in = torch.cat([xz, Bp, Cp], axis=-1)             # (B,S,DI+2N)
 
     if cache is None or S > 1:
         # full-sequence path (training, or prefill when a cache is given)
         conv_out = F.silu(_depthwise_causal_conv(conv_in, p["conv"]))
         xz_c, Bp_c, Cp_c = torch.split(conv_out, [DI, N, N], dim=-1)
-        # the reference's ctx.shard of xh only places shards: a no-op here
-        xh = xz_c.reshape(B, S, NH, P)
+        xh = reshape(xz_c, B, S, NH, P)
+        xh = ctx.shard(xh, ("batch", "none", "heads_act", "none"))
         chunk = min(cfg.ssm_chunk, S)
         if S % chunk:
             chunk = S            # smoke shapes: single chunk
@@ -206,7 +210,7 @@ def mamba_apply(p, x, ctx: ModelCtx, *, cache=None):
         conv_out = torch.einsum("bwc,wc->bc", window, p["conv"])[:, None, :]
         conv_out = F.silu(conv_out)
         xz_c, Bp_c, Cp_c = torch.split(conv_out, [DI, N, N], dim=-1)
-        xh = xz_c.reshape(B, 1, NH, P)
+        xh = reshape(xz_c, B, 1, NH, P)
         dA = torch.exp(dt[:, 0] * A[None, :])              # (B,NH)
         h = cache["h"] * dA[:, :, None, None] + torch.einsum(
             "bn,bh,bhp->bhnp", Bp_c[:, 0].to(f32), dt[:, 0],
@@ -216,6 +220,6 @@ def mamba_apply(p, x, ctx: ModelCtx, *, cache=None):
         new_cache = {"h": h, "conv": window[:, 1:, :]}
 
     y = y + xh.to(f32) * p["D_res"][None, None, :, None]
-    y = y.reshape(B, S, DI).to(x.dtype)
+    y = reshape(y, B, S, DI).to(x.dtype)
     y = y * F.silu(z)
     return y @ p["out"]["w"], new_cache

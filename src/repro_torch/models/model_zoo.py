@@ -19,9 +19,18 @@ embeddings (``audio_embeds``, through the encoder) or a vision model's
 patch embeddings (``image_embeds``, as given: the frontends are stubs);
 prefill returns the context as ``ctx_tokens`` beside the caches and
 decode reads it from there.
+
+``build(cfg, shard=make_shard_fn(mesh))`` runs the bundle on a ``(data,
+model)`` mesh: params are DTensors (``sharding.rules.distribute_params``),
+each step places the plain tensors of its batch and caches on the mesh
+(``place_inputs``) and runs under DTensor's implicit replication (a
+plain tensor the model makes, a RoPE frequency or an index, joins a
+DTensor as replicated); what it returns is DTensors.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -31,7 +40,7 @@ from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import DTYPES
-from repro_torch.models.layers import ModelCtx
+from repro_torch.models.layers import ModelCtx, no_shard
 from repro_torch.params import tree_leaves, tree_map, tree_unflatten
 
 
@@ -75,16 +84,53 @@ def _aux_from_batch(params, cfg: ArchConfig, batch, ctx):
         else embeds
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """DTensor's implicit replication, restored to what it was on exit
+    (``torch.distributed.tensor.experimental.implicit_replication`` turns
+    it off, which breaks a step that nests another: a loss inside a
+    gradient)."""
+    from torch.distributed.tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+def on_mesh(params):
+    """The context a step over ``params`` runs in: DTensor's implicit
+    replication when they are DTensors, else nothing."""
+    if not _is_dtensor(next(iter(tree_leaves(params)))):
+        return contextlib.nullcontext()
+    return _implicit_replication()
+
+
 def value_and_grad(loss_fn: Callable, params, batch):
     """(loss, grads) of ``loss_fn(params, batch)``: the grads a tree like
     ``params`` (each leaf's gradient in its dtype); params are left as
-    they are (no ``requires_grad`` on them)."""
+    they are (no ``requires_grad`` on them).  DTensor params get their
+    gradients in their own placements (a partial sum over the batch's
+    split reduced), and the loss as a plain replicated tensor."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), on_mesh(params):
         loss = loss_fn(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-    return loss.detach(), tree_unflatten(params, list(grads))
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
+        for i, (p, g) in enumerate(zip(leaves, grads)):
+            if _is_dtensor(g) and g.placements != p.placements:
+                grads[i] = g.redistribute(p.device_mesh, p.placements)
+    loss = loss.detach()
+    if _is_dtensor(loss):
+        loss = loss.full_tensor()
+    return loss, tree_unflatten(params, grads)
 
 
 def sgd_leaf(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
@@ -97,16 +143,33 @@ def sgd_update(params, grads, lr: float):
     return tree_map(lambda p, g: sgd_leaf(p, g, lr), params, grads)
 
 
-def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
-          kv_quant: bool = False, moe_dshard: bool = False,
-          moe_groups: int = 1, device=None) -> ModelBundle:
-    """``moe_groups`` > 1 routes MoE tokens in that many groups, as the
-    reference; ``moe_dshard`` places the reference's shards and changes
-    nothing on one device."""
+def build(cfg: ArchConfig, shard: Optional[Callable] = None,
+          q_chunk: int = 512, remat: bool = True, kv_quant: bool = False,
+          moe_dshard: bool = False, moe_groups: int = 1,
+          device=None) -> ModelBundle:
+    """``shard`` is ``sharding.rules.make_shard_fn(mesh)``'s callback (the
+    identity by default: one device); ``moe_groups`` > 1 routes MoE
+    tokens in that many groups, as the reference; ``moe_dshard`` places
+    the reference's d_model-split MoE dispatch and combine."""
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     ctx = ModelCtx(cfg=cfg, dtype=dtype, q_chunk=q_chunk, kv_quant=kv_quant,
-                   moe_dshard=moe_dshard, moe_groups=moe_groups)
+                   moe_dshard=moe_dshard, moe_groups=moe_groups,
+                   shard=shard or no_shard)
+    mesh = getattr(shard, "mesh", None)
+
+    def placed(step):
+        """``step`` with its batch placed on the mesh, under implicit
+        replication (the step itself where there is no mesh)."""
+        if mesh is None:
+            return step
+
+        @functools.wraps(step)
+        def run(params, batch, *args, **kw):
+            from repro_torch.sharding.rules import place_inputs
+            with on_mesh(params):
+                return step(params, place_inputs(batch, mesh), *args, **kw)
+        return run
 
     def init(gen: Union[int, torch.Generator]):
         """(params, axes) drawn from ``gen``: a generator on the bundle's
@@ -116,6 +179,7 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
         return T.init_model(cfg, gen)
 
     # ------------------------------------------------------------- train
+    @placed
     def loss_fn(params, batch, window: int = 0):
         aux = _aux_from_batch(params, cfg, batch, ctx)
         h, _ = T.forward_hidden(params, cfg, batch["tokens"], ctx, aux=aux,
@@ -128,6 +192,7 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
         return loss, sgd_update(params, grads, lr)
 
     # ----------------------------------------------------------- serving
+    @placed
     @torch.no_grad()
     def prefill_step(params, batch, window: int = 0):
         """Writes the whole prompt into fresh caches; returns last logits
@@ -143,6 +208,7 @@ def build(cfg: ArchConfig, q_chunk: int = 512, remat: bool = True,
             out["ctx_tokens"] = aux
         return logits, out
 
+    @placed
     @torch.no_grad()
     def decode_step(params, batch, window: int = 0):
         """One token (B,1) at absolute position pos (B,1) against caches."""

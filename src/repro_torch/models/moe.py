@@ -14,8 +14,22 @@ of the tables, which is cut off before any use.
 With ``ctx.moe_groups`` = G > 1 the tokens are routed in G independent
 groups, each with its own capacity (dropping is group-local), as in the
 reference; on one device that is the same arithmetic batched over a
-leading G axis.  ``ctx.moe_dshard`` only places shards in the reference,
-so it changes nothing here (multi-device is ROADMAP A15).
+leading G axis.
+
+On a ``(data, model)`` mesh (DTensor params, ``_experts_sharded``) the
+experts split over ``model`` (expert parallel) and the groups over
+``data`` where G divides it.  Routing (top-k, the stable argsort,
+``searchsorted``, the tables' ``index_put``) has no DTensor strategy
+over a split axis, so each rank routes its own groups whole, replicated
+over ``model``, on its local tensors: the tables are those of one
+device.  A rank then gathers the tokens of its own experts (no traffic),
+runs them, and adds its buckets back to token order: a partial sum over
+``model``, reduced where the sum is next read.  ``ctx.moe_dshard``
+instead splits the dispatch and the combine over ``d_model``: every rank
+gathers every expert's bucket of its own D slice, an all-to-all moves
+the buckets to their experts' ranks and back, and the combine leaves
+the output split over D, with no partial sum.  Either way the result is
+one device's but for the order of the combine's sums.
 """
 from __future__ import annotations
 
@@ -23,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.common import trunc_normal
+from repro_torch.models.common import from_block, trunc_normal
 from repro_torch.models.layers import ModelCtx, mlp_apply, mlp_init
 
 
@@ -136,11 +150,87 @@ def _experts(p, xg: torch.Tensor, table: torch.Tensor,
     return yf.reshape(G, Tg + 1, D)[:, :Tg]
 
 
+def _experts_sharded(p, xg, probs, k: int, capacity: int,
+                     ctx: ModelCtx):
+    """``_route`` and ``_experts`` over DTensors (module docstring): xg
+    (G, Tg, D) and probs (G, Tg, E) DTensors; returns (G, Tg, D) fp32."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = xg.device_mesh
+    G, Tg, D = xg.shape
+    E = probs.shape[-1]
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    # the groups split over data where they divide it; all else whole
+    split_g = "data" in sizes and sizes["data"] > 1 and G % sizes["data"] == 0
+    grp = [Shard(0) if split_g and n == "data" else Replicate()
+           for n in mesh.mesh_dim_names]
+    # the expert axis: where the experts' weights split their first dim
+    ex = [i for i, q in enumerate(p["wi"].placements)
+          if isinstance(q, Shard) and q.dim == 0] \
+        if isinstance(p["wi"], DTensor) else []
+    e_n = 1 if not ex else int(mesh.shape[ex[0]])
+    e_l = E // e_n
+    e_lo = 0 if not ex else mesh.get_local_rank(ex[0]) * e_l
+
+    def over_experts(q, when):
+        """``q``, or Partial on the expert axis."""
+        return [Partial() if i in ex and when else g for i, g in
+                enumerate(q)]
+
+    xg = ctx.shard(xg, ("group", "none", "none")).redistribute(mesh, grp)
+    probs = probs.redistribute(mesh, grp)
+    # a rank's routing gradient comes from its own experts' gates only
+    table, gate_tab = _route(probs.to_local(
+        grad_placements=over_experts(grp, True)), k, capacity)
+    g_l = table.shape[0]
+    g_idx = torch.arange(g_l, device=table.device)[:, None, None]
+    if ctx.moe_dshard:
+        # every expert's bucket of this rank's D slice, then an all-to-all
+        # to the experts' ranks
+        dsplit = [Shard(2) if i in ex else g for i, g in enumerate(grp)]
+        xl = xg.redistribute(mesh, dsplit).to_local()
+        xpad = torch.cat([xl, torch.zeros_like(xl[:, :1])], axis=1)
+        xe = from_block(xpad[g_idx, table], mesh,
+                        [Shard(3) if i in ex else g for i, g in enumerate(grp)],
+                        (G, E, capacity, D))
+    else:
+        xl = xg.to_local(grad_placements=over_experts(grp, True))
+        xpad = torch.cat([xl, torch.zeros_like(xl[:, :1])], axis=1)
+        xe = from_block(xpad[g_idx, table[:, e_lo:e_lo + e_l]], mesh,
+                        [Shard(1) if i in ex else g for i, g in enumerate(grp)],
+                        (G, E, capacity, D))
+    xe = ctx.shard(xe, ("group", "expert", "none", "none"))
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wi"])) * \
+        torch.einsum("gecd,edf->gecf", xe, p["wg"])
+    h = ctx.shard(h, ("group", "expert", "none", "none"))
+    ye = torch.einsum("gecf,efd->gecd", h, p["wo"])         # (G,E,C,D)
+    gates = from_block(gate_tab[:, e_lo:e_lo + e_l], mesh,
+                       [Shard(1) if i in ex else g for i, g in enumerate(grp)],
+                       (G, E, capacity))
+    yw = ye * gates[..., None].to(ye.dtype)
+    if ctx.moe_dshard:
+        yw = ctx.shard(yw, ("group", "none", "none", "mlp_act"))
+        place = [Shard(3) if i in ex else g for i, g in enumerate(grp)]
+        tab, out = table, [Shard(2) if i in ex else g
+                           for i, g in enumerate(grp)]
+    else:
+        place = [Shard(1) if i in ex else g for i, g in enumerate(grp)]
+        tab, out = table[:, e_lo:e_lo + e_l], over_experts(grp, True)
+    ywl = yw.redistribute(mesh, place).to_local()
+    rows = (tab + g_idx * (Tg + 1)).reshape(-1)
+    yf = torch.zeros((g_l * (Tg + 1), ywl.shape[-1]), dtype=torch.float32,
+                     device=ywl.device).index_add(
+        0, rows, ywl.reshape(-1, ywl.shape[-1]).to(torch.float32))
+    yf = from_block(yf.reshape(g_l, Tg + 1, -1)[:, :Tg], mesh, out,
+                    (G, Tg, D))
+    return ctx.shard(yf, ("group", "none", "none"))
+
+
 def moe_apply(p, x: torch.Tensor, ctx: ModelCtx) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D): the routed experts plus the shared expert.
 
     The B·S tokens route as ``_groups`` groups (one unless
     ``ctx.moe_groups`` > 1), each at the capacity of its own tokens."""
+    from torch.distributed.tensor import DTensor
     cfg = ctx.cfg
     B, S, D = x.shape
     T = B * S
@@ -149,9 +239,14 @@ def moe_apply(p, x: torch.Tensor, ctx: ModelCtx) -> torch.Tensor:
     xg = x.reshape(G, Tg, D)
     logits = (xg.to(torch.float32) @ p["router"]["w"]).to(torch.float32)
     probs = torch.softmax(logits, axis=-1)                  # (G,Tg,E)
-    table, gate_tab = _route(probs, cfg.experts_per_token,
-                             _capacity(cfg, Tg))
-    y = _experts(p, xg, table, gate_tab).reshape(B, S, D).to(x.dtype)
+    if isinstance(xg, DTensor):
+        y = _experts_sharded(p, xg, probs, cfg.experts_per_token,
+                             _capacity(cfg, Tg), ctx)
+    else:
+        table, gate_tab = _route(probs, cfg.experts_per_token,
+                                 _capacity(cfg, Tg))
+        y = _experts(p, xg, table, gate_tab)
+    y = y.reshape(B, S, D).to(x.dtype)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, ctx)
     return y

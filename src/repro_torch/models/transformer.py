@@ -14,7 +14,7 @@ the param tree (and the leaves SCBF scores and masks: a
 per-layer bias ``(N,)`` is a 2-D ``(R, N)`` leaf) is the reference's.  The
 reference's ``lax.scan`` over the repeats is a Python loop over ``R``
 over the stacked params and caches, each leaf split once into its units
-(``_unstack``); ``remat`` runs each unit
+(``_unstack``, DTensor params too); ``remat`` runs each unit
 under ``torch.utils.checkpoint`` (the backward recomputes the unit's
 activations), which changes no result.
 
@@ -37,8 +37,9 @@ from repro_torch.config import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
-from repro_torch.models.common import (DTYPES, dense_init, device_of, merge,
-                                       norm_init, stack_inits, trunc_normal)
+from repro_torch.models.common import (DTYPES, dense_init, device_of,
+                                       from_block, merge, norm_init,
+                                       replicated, stack_inits, trunc_normal)
 from repro_torch.models.layers import ModelCtx
 from repro_torch.params import tree_leaves, tree_map, tree_unflatten
 
@@ -228,9 +229,10 @@ def forward_hidden(params, cfg: ArchConfig, tokens, ctx: ModelCtx,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
-    h = params["embed"]["w"][tokens.to(torch.int64)]
+    h = _embed(params["embed"]["w"], tokens)
     if cfg.rope_theta == 0.0:             # whisper: sinusoidal abs positions
         h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+    h = ctx.shard(h, ("batch", "none", "none"))
 
     new_caches: Dict[str, Any] = {}
     if prefix:
@@ -267,6 +269,67 @@ def forward_hidden(params, cfg: ArchConfig, tokens, ctx: ModelCtx,
 
     h = L.norm_apply(params["final_norm"], h, cfg.norm)
     return h, (new_caches if caches is not None else None)
+
+
+def _embed(w, tokens):
+    """The rows of ``w`` (V, D) at ``tokens``.  A DTensor table keeps its
+    vocabulary split (over the mesh axes that do not split the token
+    rows) and gathers the rest, its FSDP split; each rank looks up the
+    ids in its own slice of the vocabulary (0 elsewhere), for its own
+    token rows, and the rows sum over the vocabulary's axes (a partial
+    sum, of one row and zeros), as GSPMD partitions the reference's
+    gather.  DTensor's sharded ``embedding`` loses a vocabulary split's
+    mask when the token ids split over another mesh axis."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if not isinstance(w, DTensor):
+        return w[tokens.to(torch.int64)]
+    mesh = w.device_mesh
+    tokens = replicated(tokens, mesh)
+    keep = [isinstance(p, Shard) and p.dim == 0 and not isinstance(r, Shard)
+            for p, r in zip(w.placements, tokens.placements)]
+    place = [Shard(0) if k else Replicate() for k in keep]
+    # a rank's table gradient is its own token rows' part of the sum
+    table = w.redistribute(mesh, place).to_local(grad_placements=[
+        Shard(0) if k else Partial() if isinstance(r, Shard) else Replicate()
+        for k, r in zip(keep, tokens.placements)])
+    _, offset = compute_local_shape_and_global_offset(w.shape, mesh, place)
+    at = tokens.to_local().to(torch.int64) - offset[0]
+    inside = (at >= 0) & (at < table.shape[0])
+    rows = torch.where(inside[..., None], table[torch.where(inside, at, 0)],
+                       0)
+    return from_block(rows, mesh, [Partial() if k else r for k, r in
+                                   zip(keep, tokens.placements)],
+                      tuple(tokens.shape) + (w.shape[1],))
+
+
+def _gold(logits, ti):
+    """``logits`` (B, S, V) at the ids ``ti`` (B, S).  Over a DTensor whose
+    vocabulary is split, each rank picks the ids in its own slice (0
+    elsewhere) and the picks sum over the vocabulary's axes (a partial
+    sum), as GSPMD partitions the reference's gather."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, ti[..., None])[..., 0]
+    mesh, place = logits.device_mesh, logits.placements
+    last = logits.ndim - 1
+    vocab = [isinstance(p, Shard) and p.dim == last for p in place]
+    rows = [Replicate() if v else p for v, p in zip(vocab, place)]
+    ti = replicated(ti, mesh)
+    ids = ti.redistribute(mesh, rows).to_local()
+    local = logits.to_local()
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                      place)
+    at = ids - offset[last]
+    inside = (at >= 0) & (at < local.shape[-1])
+    picked = torch.gather(local, -1, torch.where(inside, at, 0)[..., None])
+    picked = torch.where(inside, picked[..., 0], 0.0)
+    return from_block(picked, mesh,
+                      [Partial() if v else p for v, p in zip(vocab, rows)],
+                      ti.shape)
 
 
 def _unstack(stacked, repeats: int) -> List[Any]:
@@ -325,8 +388,9 @@ def chunked_ce_loss(params, cfg: ArchConfig, h, targets, ctx: ModelCtx,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, chunk):
         logits = (h[:, i:i + chunk] @ w).to(torch.float32)
+        logits = ctx.shard(logits, ("batch", "none", "vocab_act"))
         lse = torch.logsumexp(logits, axis=-1)
         ti = targets[:, i:i + chunk].to(torch.int64)
-        gold = torch.gather(logits, -1, ti[..., None])[..., 0]
+        gold = _gold(logits, ti)
         total = total + torch.sum(lse - gold)
     return total / (B * S)

@@ -19,10 +19,20 @@ A spec is a tuple with the entries of the reference's ``PartitionSpec``
 federated placements are ``torch.distributed`` placements on the 1-D pod
 mesh: a round's slot axis is ``Shard`` — contiguous rank ranges
 ``[r·B/P, (r+1)·B/P)`` (``slot_range``) — and weights
-and keep-masks are ``Replicate``.  Executing the zoo on a ``(data,
-model)`` mesh from these specs (FSDP, tensor and expert parallel) is
-ROADMAP A15b: ``make_shard_fn`` is the identity where those axes are 1
-and refuses the rest.
+and keep-masks are ``Replicate``.
+
+The zoo executes on a ``(data, model)`` mesh from these specs (FSDP,
+tensor and expert parallel): ``distribute_params`` makes every param a
+``DTensor`` with ``param_placements``' ``Shard``/``Replicate`` a mesh
+axis, ``place_inputs`` places a batch and its caches by ``input_specs``
+(the reference's ``dryrun._input_shardings`` and
+``_cache_in_shardings``), and ``make_shard_fn``'s callback redistributes
+an activation to ``activation_spec``'s placements at the model's shard
+points.  DTensor propagates the placements through every other op, as
+GSPMD does from the reference's specs: the math is the one-device math.
+On a mesh with ``pod`` the model lives on this rank's ``(data, model)``
+submesh (``model_mesh``): weights never split over pods, and a pod takes
+its own clients (or batch rows).
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.common import split_ax
+from repro_torch.models.common import from_block, split_ax
 from repro_torch.params import tree_map
 
 # priority order of logical axes for the 'model' mesh axis
@@ -193,19 +203,209 @@ def batch_spec(mesh, batch_size: int) -> tuple:
     return (None,)
 
 
+def model_mesh(mesh):
+    """The mesh the model's tensors live on: ``mesh`` itself, or this
+    rank's ``(data, model)`` submesh of a mesh with ``pod``."""
+    if "pod" in _axis_names(mesh):
+        return mesh["data", "model"]
+    return mesh
+
+
+def placements(spec: Sequence, mesh) -> list:
+    """A spec's DTensor placements on ``mesh``: one a mesh axis, ``Shard(d)``
+    where the spec names that axis at tensor dimension d (an entry that
+    names several axes splits d over them, the first outermost) and the
+    axis is above 1, else ``Replicate``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names, sizes = _axis_names(mesh), axis_sizes(mesh)
+    out = [Replicate()] * len(names)
+    for d, ax in enumerate(spec):
+        for a in (() if ax is None else ax if isinstance(ax, tuple)
+                  else (ax,)):
+            if sizes[a] > 1:       # a split in one part replicates
+                out[names.index(a)] = Shard(d)
+    return out
+
+
+def divisible_spec(spec: Sequence, shape: Sequence[int], mesh) -> tuple:
+    """``spec`` with every entry whose axes do not divide its dimension
+    replaced by None (the reference's divisibility guard)."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim, ax in zip(shape, spec):
+        n = 1 if ax is None else int(np.prod(
+            [sizes[a] for a in (ax if isinstance(ax, tuple) else (ax,))]))
+        out.append(ax if ax is not None and dim % n == 0 and dim >= n
+                   else None)
+    return tuple(out)
+
+
+def param_placements(axes_tree, mesh, rules: ShardingRules = ShardingRules(),
+                     shapes_tree=None):
+    """The tree of DTensor placements of params on ``model_mesh(mesh)``,
+    from ``spec_for`` (``param_shardings``' specs)."""
+    mm = model_mesh(mesh)
+    return tree_map(lambda axes, leaf: placements(rules.spec_for(
+        axes, tuple(leaf.shape), mm), mm), axes_tree, shapes_tree)
+
+
+def distribute(t: torch.Tensor, mesh, place) -> torch.Tensor:
+    """``t`` (the same on every rank) as a DTensor on ``mesh`` with
+    ``place``: each rank keeps its own slice, nothing is sent.  The
+    tensor must already live on the mesh's device type (DTensor would
+    move it there), or on the meta device (the dry run: a meta shard of
+    the local shape on any mesh)."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if t.is_meta:                  # shapes only: a meta shard, no data
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh,
+                                                         place)
+        return from_block(torch.empty(local, dtype=t.dtype, device="meta"),
+                          mesh, place, t.shape)
+    if t.device.type != mesh.device_type:
+        raise ValueError(f"a {t.device.type} tensor on a "
+                         f"{mesh.device_type} mesh: build the mesh for the "
+                         "tensors' device")
+    return distribute_tensor(t, mesh, place, src_data_rank=None)
+
+
+def distribute_params(params, axes_tree, mesh,
+                      rules: ShardingRules = ShardingRules()):
+    """Every param leaf as a DTensor on ``model_mesh(mesh)``, placed by
+    ``param_placements`` (FSDP over ``data``, tensor/expert parallel over
+    ``model``)."""
+    mm = model_mesh(mesh)
+    place = param_placements(axes_tree, mesh, rules, params)
+    return tree_map(lambda t, pl: distribute(t, mm, pl), params, place)
+
+
+def local_shard(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def like(local: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``local`` (a shard of ``t``'s local shape, or a view of one) as a
+    DTensor placed as ``t``; ``local`` shaped as ``t`` when ``t`` is
+    plain."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return local.view(t.shape)
+    return from_block(local.view(t.to_local().shape), t.device_mesh,
+                      t.placements, t.shape)
+
+
+# ---------------------------------------------------------------------------
+# Inputs and caches (the reference's dryrun._input_shardings and
+# _cache_in_shardings)
+# ---------------------------------------------------------------------------
+
+def _cache_spec(path: Sequence[str], ndim: int, bspec) -> tuple:
+    stacked = "stack" in path
+    leaf = path[-1]
+    lead = (None,) if stacked else ()
+    if leaf in ("k", "v"):
+        return lead + (bspec, "model", None, None)
+    if leaf in ("k_scale", "v_scale", "ckv", "krope"):
+        return lead + (bspec, "model", None)
+    if leaf == "kpos":
+        return lead + (bspec, "model")
+    if leaf == "h":
+        return lead + (bspec, "model", None, None)
+    if leaf == "conv":
+        return lead + (bspec, None, "model")
+    if leaf == "ctx_tokens":
+        return (bspec, None, None)
+    return (None,) * ndim
+
+
+def input_specs(batch, mesh, federated: bool = False) -> object:
+    """The spec tree of a batch (the reference's ``_input_shardings``):
+    token ids, positions and context embeddings split their batch over
+    the batch axes (over ``data`` behind a leading client axis,
+    ``federated``), caches go by ``cache_specs``, the rest replicates.
+    On ``model_mesh(mesh)``: a pod's rows or clients are its own."""
+    mm = model_mesh(mesh)
+    ids = batch["tokens"] if "tokens" in batch else batch["token"]
+    b = "data" if federated else batch_spec(mm, ids.shape[0])[0]
+    lead = (None,) if federated else ()
+
+    def leaf(path, t):
+        name = path[-1]
+        if path[0] == "caches":
+            s = _cache_spec(path, t.ndim, b)
+        elif name in ("tokens", "targets", "token", "pos"):
+            s = lead + (b, None)
+        elif name in ("audio_embeds", "image_embeds"):
+            s = lead + (b, None, None)
+        else:
+            s = (None,) * t.ndim
+        return divisible_spec(s, t.shape, mm)
+    return _path_map(leaf, batch)
+
+
+def place_inputs(batch, mesh, federated: bool = False):
+    """A batch of plain tensors (the same on every rank) as DTensors on
+    ``model_mesh(mesh)`` by ``input_specs``; DTensors (caches a previous
+    step returned) stay as they are."""
+    from torch.distributed.tensor import DTensor
+    mm = model_mesh(mesh)
+    specs = input_specs(batch, mesh, federated)
+    return _zip_map(lambda t, spec: t if isinstance(t, DTensor) else
+                    distribute(t, mm, placements(spec, mm)), batch, specs)
+
+
+def _path_map(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _path_map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_path_map(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# The model's shard points
+# ---------------------------------------------------------------------------
+
 def make_shard_fn(mesh, batch_shardable: bool = True,
                   group_axes=None, batch_override=None):
-    """The ``ctx.shard`` callback of model code under ``mesh``: the
-    identity where the mesh's ``data`` and ``model`` axes are 1 (nothing
-    to lay out on one device a pod).  Larger axes need the zoo's FSDP,
-    tensor and expert parallel execution: ROADMAP A15b."""
-    sizes = axis_sizes(mesh)
-    if sizes.get("data", 1) != 1 or sizes.get("model", 1) != 1:
-        raise NotImplementedError(
-            f"sharded execution over mesh axes {sizes} is ROADMAP A15b; "
-            "not ported yet")
-    activation_rules(mesh, batch_shardable, group_axes, batch_override)
+    """The ``ctx.shard`` callback of model code under ``mesh``: it
+    redistributes a DTensor activation to ``activation_spec``'s
+    placements on ``model_mesh(mesh)`` (entries that do not divide
+    dropped), as the reference's ``with_sharding_constraint``; a plain
+    tensor, and every tensor on a mesh whose ``data`` and ``model`` axes
+    are 1, pass through.  The callback carries the mesh as ``.mesh``
+    (None where it places nothing)."""
+    from repro_torch.sharding.mesh import is_sharded
+    mm = model_mesh(mesh) if hasattr(mesh, "mesh_dim_names") else mesh
+    if not hasattr(mesh, "mesh_dim_names") or not is_sharded(mm):
+        def shard(x: torch.Tensor, logical) -> torch.Tensor:
+            return x
+        shard.mesh = None
+        return shard
+    def no_pod(axes):
+        return None if axes is None else tuple(a for a in axes if a != "pod")
+    rules = activation_rules(mm, batch_shardable, no_pod(group_axes),
+                             no_pod(batch_override))
 
     def shard(x: torch.Tensor, logical) -> torch.Tensor:
-        return x
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        spec = divisible_spec(activation_spec(logical, rules), x.shape, mm)
+        want = placements(spec, mm)
+        return x if list(x.placements) == want else \
+            x.redistribute(mm, want)
+    shard.mesh = mm
     return shard

@@ -9,13 +9,15 @@ import numpy as np
 import torch
 
 from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
+from repro_torch.comm import collectives
 from repro_torch.launch import mesh as pod
+from repro_torch.sharding import mesh as meshes
 
 COLLECTIVES = ("gather_slots", "all_reduce_sum", "all_gather_compact")
 
 
 class CollectiveTap:
-    """Record every tensor that enters one of ``launch.mesh``'s collective
+    """Record every tensor that enters one of ``comm.collectives``' pod
     helpers (the callers reach them through the module) while active:
     ``seen`` holds ``(helper, [tensors])`` in call order."""
 
@@ -25,18 +27,18 @@ class CollectiveTap:
 
     def __enter__(self):
         for name in COLLECTIVES:
-            real = self._real[name] = getattr(pod, name)
+            real = self._real[name] = getattr(collectives, name)
 
             def wrapped(*args, _real=real, _name=name, **kw):
                 self.seen.append((_name, [a.detach().clone() for a in args
                                           if isinstance(a, torch.Tensor)]))
                 return _real(*args, **kw)
-            setattr(pod, name, wrapped)
+            setattr(collectives, name, wrapped)
         return self
 
     def __exit__(self, *exc):
         for name, real in self._real.items():
-            setattr(pod, name, real)
+            setattr(collectives, name, real)
 
 
 def masked_within_masks(seen) -> dict:
@@ -93,14 +95,14 @@ def engine_contracts(rank, world):
     many = make_engine("batched", clients, 8, 1, "cpu", pods=world)
     gen = torch.Generator().manual_seed(0)
     rounds = []
-    pod.reset_traffic()
+    collectives.reset_traffic()
     with CollectiveTap() as tap:
         for P in (1, 3, 4):
             part = np.arange(P)
             perms = _perms(gen, P)
             rounds.append((P, one.scbf_round(params, part, 0.1, perms, cfg),
                            many.scbf_round(params, part, 0.1, perms, cfg)))
-    traffic = (pod.calls, pod.bytes_sent)
+    traffic = (collectives.calls, collectives.bytes_sent)
     parts = [np.arange(4), np.array([0, 2]), np.array([], dtype=np.int64)]
     perms = [_perms(gen, p.size) for p in parts]
     fused = {}
@@ -257,7 +259,7 @@ def lm_case(world, dtype):
     from repro_torch.params import tree_leaves
 
     cfg, bundle, params = lm_model(dtype)
-    mesh = pod.make_pod_mesh(world)
+    mesh = meshes.make_pod_mesh(world)
     batch = {k: torch.from_numpy(v)
              for k, v in lm_batch(cfg.vocab_size).items()}
     out = {}
@@ -267,7 +269,7 @@ def lm_case(world, dtype):
         many = make_federated_train_step(bundle.loss_fn, scbf, lr=0.05,
                                          mesh=mesh)
         l1, p1 = one(params, batch)
-        pod.reset_traffic()
+        collectives.reset_traffic()
         with CollectiveTap() as tap:
             lp, pp = many(params, batch)
         out[compressed] = {
@@ -278,7 +280,7 @@ def lm_case(world, dtype):
                        [str(t.dtype) for t in tree_leaves(pp)]),
             "privacy": _lm_privacy(tap.seen, bundle, params, batch, scbf,
                                    mesh),
-            "traffic": (pod.calls, pod.bytes_sent)}
+            "traffic": (collectives.calls, collectives.bytes_sent)}
     three = {k: v[:3] for k, v in batch.items()}
     try:
         make_federated_train_step(bundle.loss_fn, ScbfConfig(), mesh=mesh)(
@@ -391,3 +393,277 @@ def launch_train(rank, world, out):
         builtins.open = real_open
     return {"written": sorted(written),
             "records": {m: _records(r) for m, r in res.items()}}
+
+
+# ---------------------------------------------------------------------------
+# the (data, model) mesh (tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+MESH_B, MESH_P, MESH_T, MESH_CACHE = 4, 8, 4, 10   # batch, prompt, decode
+
+
+def _mesh_cfg(arch: str, cfg_kw: dict):
+    from repro_torch import configs
+    return dataclasses.replace(configs.smoke_variant(configs.get(arch)),
+                               dtype="float32", **cfg_kw)
+
+
+def _serve(bundle, params, toks):
+    """Prefill ``MESH_P`` tokens into caches of ``MESH_CACHE`` slots, then
+    ``MESH_T`` decode steps (the ring wraps): every step's logits, full
+    tensors in numpy, and the types of the last caches' leaves."""
+    from repro_torch.params import tree_leaves
+    from torch.distributed.tensor import DTensor
+
+    def full(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).numpy()
+    t = torch.from_numpy(toks)
+    logits, caches = bundle.prefill_step(
+        params, {"tokens": t[:, :MESH_P],
+                 "caches": bundle.make_cache(MESH_B, MESH_CACHE)})
+    out = [full(logits)]
+    for s in range(MESH_P, MESH_P + MESH_T):
+        logits, caches = bundle.decode_step(params, {
+            "token": t[:, s:s + 1],
+            "pos": torch.full((MESH_B, 1), s, dtype=torch.int32),
+            "caches": caches})
+        out.append(full(logits))
+    return out, sorted({type(c).__name__ for c in tree_leaves(caches)})
+
+
+def mesh_serving(rank, world, cases):
+    """Each case ``(arch, cfg_kw, shape, numpy params, tokens)``: serving
+    logits unsharded and on a ``shape`` mesh of this group's ranks, the
+    cache leaves' types after the last step, and ``serve.generate``'s
+    ids and logits of 3 tokens, unsharded and on the mesh."""
+    from repro_torch.sharding import mesh as meshes
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo
+    from repro_torch.params import from_numpy_tree
+    from repro_torch.sharding import rules
+
+    torch.set_num_threads(1)
+    out = []
+    for arch, cfg_kw, shape, np_params, toks, build_kw in cases:
+        cfg = _mesh_cfg(arch, cfg_kw)
+        params = from_numpy_tree(np_params, "cpu")
+        _, axes = model_zoo.build(cfg, device="cpu").init(0)
+        one = model_zoo.build(cfg, device="cpu", remat=False, **build_kw)
+        mesh = meshes.make_host_mesh(shape, device="cpu")
+        sh = model_zoo.build(cfg, shard=rules.make_shard_fn(mesh),
+                             device="cpu", remat=False, **build_kw)
+        placed = rules.distribute_params(params, axes, mesh)
+        plain, _ = _serve(one, params, toks)
+        real, seq = L._attention_seq_shards, []
+
+        def counted(*a, **kw):
+            seq.append(1)
+            return real(*a, **kw)
+        L._attention_seq_shards = counted
+        try:
+            sharded, kinds = _serve(sh, placed, toks)
+        finally:
+            L._attention_seq_shards = real
+        prompts = torch.from_numpy(toks[:, :MESH_P])
+        gen = [generate(b, p, prompts, 3, MESH_CACHE)
+               for b, p in ((one, params), (sh, placed))]
+        out.append({"arch": arch, "cfg_kw": cfg_kw, "shape": shape,
+                    "plain": plain, "seq_parallel": len(seq),
+                    "sharded": sharded, "cache_types": kinds,
+                    "generate": [(g.tokens.numpy(),
+                                  [t.numpy() for t in g.logits])
+                                 for g in gen]})
+    return out
+
+
+def mesh_placements(rank, world, archs):
+    """``distribute_params`` on a (2, 2) mesh: each leaf's placements and
+    local shape, beside ``spec_for``'s spec."""
+    from repro_torch.sharding import mesh as meshes
+    from repro_torch.models import transformer as PT
+    from repro_torch.params import tree_leaves, tree_paths
+    from repro_torch.sharding import rules
+
+    mesh = meshes.make_host_mesh((2, 2), device="cpu")
+    out = {}
+    for arch in archs:
+        cfg = _mesh_cfg(arch, {})
+        params, axes = PT.init_model(cfg, torch.Generator().manual_seed(0))
+        placed = rules.distribute_params(params, axes, mesh)
+        out[arch] = [(rules.ShardingRules().spec_for(a, tuple(t.shape), mesh),
+                      [("Shard", p.dim) if p.is_shard() else ("Replicate",)
+                       for p in leaf.placements], tuple(leaf.shape),
+                      tuple(leaf.to_local().shape))
+                     for (_, a), t, leaf in zip(tree_paths(axes),
+                                                tree_leaves(params),
+                                                tree_leaves(placed))]
+    return out
+
+
+class KernelCalls:
+    """Counts the calls of K1's and K2's wrappers where ``core.channels``
+    reaches them (on the CPU a call is the plain version's, one a leaf
+    table as a launch on the card), and each call's leaves' types."""
+
+    def __enter__(self):
+        from repro_torch.core import channels
+        self.k1 = self.k2 = 0
+        self.types = set()
+        self._real = (channels.channel_norms_leaves,
+                      channels.select_mask_leaves)
+        real1, real2 = self._real
+
+        def k1(gs, *a, **kw):
+            self.k1 += 1
+            self.types |= {type(g).__name__ for g in gs}
+            return real1(gs, *a, **kw)
+
+        def k2(leaves, *a, **kw):
+            self.k2 += 1
+            self.types |= {type(leaf[0]).__name__ for leaf in leaves}
+            return real2(leaves, *a, **kw)
+        channels.channel_norms_leaves, channels.select_mask_leaves = k1, k2
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import channels
+        channels.channel_norms_leaves, channels.select_mask_leaves = \
+            self._real
+
+
+def _selection(grads, rate):
+    """Channel scores, threshold, kept fraction and masked leaves of a
+    slot-stacked gradient tree (plain, or DTensors), in numpy."""
+    from repro_torch.core import channels
+    from torch.distributed.tensor import DTensor
+
+    def full(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).numpy()
+    leaves, scores = channels.factored_scores_slots(grads)
+    thr = channels.factored_threshold(scores, rate)
+    masked, frac = channels.factored_mask_slots(leaves, scores, thr)
+    return ([None if s is None else s.numpy() for s in scores], thr.numpy(),
+            frac.numpy(), [full(m) for m in masked])
+
+
+def _placed_like(grads, params):
+    """One device's (K, ...) gradients placed as the DTensor params behind
+    the client axis."""
+    from repro_torch.params import tree_leaves, tree_unflatten
+    from repro_torch.sharding import rules
+    from torch.distributed.tensor import Shard
+    return tree_unflatten(grads, [rules.distribute(
+        g, p.device_mesh, [Shard(q.dim + 1) if isinstance(q, Shard) else q
+                           for q in p.placements])
+        for g, p in zip(tree_leaves(grads), tree_leaves(params))])
+
+
+def mesh_federated(rank, world, shapes, arch, np_params, batch,
+                   cfg_kw=None):
+    """The federated step (K clients, dense exchange) unsharded and on
+    each mesh shape: losses, params, the K1/K2 calls of the step and its
+    leaf tables, and the selection of this pod's clients' one-device
+    gradients, whole and placed as the params (scores, threshold,
+    fraction, masked values)."""
+    from repro_torch.comm import collectives
+    from repro_torch.config import ScbfConfig
+    from repro_torch.core import channels
+    from repro_torch.core.distributed import (_local_clients,
+                                              client_gradients,
+                                              make_federated_train_step)
+    from repro_torch.sharding import mesh as meshes
+    from repro_torch.models import model_zoo
+    from repro_torch.params import from_numpy_tree, tree_leaves
+    from repro_torch.sharding import rules
+
+    torch.set_num_threads(1)
+    cfg = _mesh_cfg(arch, cfg_kw or {})
+    params = from_numpy_tree(np_params, "cpu")
+    _, axes = model_zoo.build(cfg, device="cpu").init(0)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    one = model_zoo.build(cfg, device="cpu")
+    scbf = ScbfConfig(upload_rate=0.10)
+    l1, p1 = make_federated_train_step(one.loss_fn, scbf, lr=0.05)(
+        params, batch)
+    out = {"loss": float(l1),
+           "params": [t.numpy() for t in tree_leaves(p1)], "meshes": {}}
+    for shape in shapes:
+        mesh = meshes.make_host_mesh(shape, device="cpu")
+        sh = model_zoo.build(cfg, shard=rules.make_shard_fn(mesh),
+                             device="cpu")
+        placed = rules.distribute_params(params, axes, mesh)
+        # the selection on one device's gradients of this pod's clients,
+        # whole and as shards
+        _, grads = client_gradients(one.loss_fn, params,
+                                    _local_clients(batch, mesh))
+        plain = _selection(grads, scbf.upload_rate)
+        split = _selection(_placed_like(grads, placed), scbf.upload_rate)
+        leaves = tree_leaves(grads)
+        tables = channels._score_tables(
+            leaves, [i for i, t in enumerate(leaves) if t.ndim >= 3])
+        collectives.reset_traffic()
+        with KernelCalls() as calls:
+            l2, p2 = make_federated_train_step(
+                sh.loss_fn, scbf, lr=0.05, mesh=mesh)(placed, batch)
+        out["meshes"][shape] = {
+            "loss": float(l2),
+            "params": [t.full_tensor().numpy() for t in tree_leaves(p2)],
+            "selection": (plain, split), "tables": len(tables),
+            "k1": calls.k1, "k2": calls.k2,
+            "kernel_inputs": sorted(calls.types),
+            "traffic": {"pod": (collectives.calls, collectives.bytes_sent),
+                        "mesh": collectives.traffic("mesh")}}
+    return out
+
+
+def mesh_experts(rank, world, np_layer, x, cfg_kw):
+    """deepseek-v2's MoE layer on a (1, 2) mesh, experts split over
+    ``model``: the routing tables (those of one device) and the output
+    beside one device's, with ``moe_dshard`` off and on; and the experts
+    each rank holds."""
+    from repro_torch.sharding import mesh as meshes
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import ModelCtx
+    from repro_torch.params import from_numpy_tree
+    from repro_torch.sharding import rules
+
+    torch.set_num_threads(1)
+    cfg = _mesh_cfg("deepseek-v2-236b", cfg_kw)
+    p = from_numpy_tree(np_layer, "cpu")
+    _, axes = MOE.moe_init(torch.Generator().manual_seed(0), cfg,
+                           torch.float32)
+    mesh = meshes.make_host_mesh((1, 2), device="cpu")
+    xt = torch.from_numpy(x)
+    seen = []
+    real = MOE._route
+
+    def route(*a, **kw):
+        got = real(*a, **kw)
+        seen.append((got[0].numpy().copy(), got[1].detach().numpy().copy()))
+        return got
+    MOE._route = route
+    try:
+        plain = MOE.moe_apply(p, xt, ModelCtx(cfg=cfg, dtype=torch.float32))
+        out = {"plain": plain.numpy(), "routes": [seen.pop()]}
+        placed = rules.distribute_params(p, axes, mesh)
+        out["experts_local"] = tuple(placed["wi"].to_local().shape)
+        for dshard in (False, True):
+            ctx = ModelCtx(cfg=cfg, dtype=torch.float32, moe_dshard=dshard,
+                           shard=rules.make_shard_fn(mesh))
+            from repro_torch.models.model_zoo import on_mesh
+            with on_mesh(placed):
+                y = MOE.moe_apply(
+                    placed, rules.distribute(xt, mesh, rules.placements(
+                        (None, None, None), mesh)), ctx)
+            out[dshard] = y.full_tensor().numpy()
+            out["routes"].append(seen.pop())
+    finally:
+        MOE._route = real
+    return out
+
+
+def mesh_jobs(rank, world, jobs):
+    """Several rank bodies of this module in one group: ``jobs`` a list of
+    (name, args); returns their results in order."""
+    return [globals()[name](rank, world, *args) for name, args in jobs]

@@ -349,8 +349,8 @@ def test_compact_leaves_cpu_route_matches_plain_and_pallas(dtype, rest,
 def test_select_mask_refuses_int32_overflow():
     """K3's flat indices are int32, so its count pass refuses a table that
     holds a matrix of 2^31 entries; K2's wrapper masks one as row blocks
-    instead (``MAX_ENTRIES``), so it passes the size check and stops only
-    at the meta device."""
+    instead (``MAX_ENTRIES``), so it passes the size check: on the meta
+    device (the dry run's) its plain version traces the shapes."""
     big = torch.empty(2 ** 16, 2 ** 15, device="meta")    # no storage
     with pytest.raises(ValueError, match="2\\^31"):
         sm.compact_count([(torch.zeros(2, 2), torch.zeros(2),
@@ -358,9 +358,10 @@ def test_select_mask_refuses_int32_overflow():
                           (big, torch.zeros(2 ** 16, device="meta"),
                            torch.zeros(2 ** 15, device="meta"), 0.0, 0.0)])
     assert big.numel() == sm.MAX_ENTRIES
-    with pytest.raises(ValueError, match="cpu or cuda, not meta"):
-        sm.select_mask(big, torch.zeros(2 ** 16, device="meta"),
-                       torch.zeros(2 ** 15, device="meta"), 0.0)
+    out, mask, count = sm.select_mask(big, torch.zeros(2 ** 16, device="meta"),
+                                      torch.zeros(2 ** 15, device="meta"), 0.0)
+    assert out.is_meta and out.shape == big.shape and mask.shape == big.shape
+    assert count.dtype == torch.int64
 
 
 def _slot_table(dtype, seed):

@@ -418,6 +418,34 @@ def test_generate_needs_the_context_exactly_when_the_model_cross_attends():
             generate(bundle, None, prompts, 2, 8, aux=aux)
 
 
+def test_generate_follows_given_ids():
+    """``serve.generate`` fed ``follow``: its own greedy ids give back the
+    greedy run's ids and logits bitwise; other ids are fed as they are,
+    and change the logits after the first step."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model_zoo
+
+    cfg = configs.smoke_variant(configs.get("qwen2-0.5b"))
+    bundle = model_zoo.build(cfg, device="cpu")
+    params, _ = bundle.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 5),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32)
+    greedy = generate(bundle, params, prompts, 4, 16)
+    again = generate(bundle, params, prompts, 4, 16, follow=greedy.tokens)
+    assert torch.equal(again.tokens, greedy.tokens)
+    for a, b in zip(again.logits, greedy.logits):
+        assert torch.equal(a, b)
+    other = (greedy.tokens + 1) % cfg.vocab_size
+    fed = generate(bundle, params, prompts, 4, 16, follow=other)
+    assert torch.equal(fed.tokens, other)
+    assert torch.equal(fed.logits[0], greedy.logits[0])
+    assert not torch.equal(fed.logits[1], greedy.logits[1])
+
+
 def test_two_ranks_run_the_launcher_as_torchrun_would(tmp_path):
     """``launch.train.main`` on 2 spawned gloo ranks of one group (the
     environment torchrun gives: ``WORLD_SIZE`` 2): pods of 2, the same

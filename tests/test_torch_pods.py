@@ -44,6 +44,7 @@ from repro_torch.comm import wire
 from repro_torch.config import ScbfConfig
 from repro_torch.core import distributed as port_dist
 from repro_torch.launch import mesh as pod
+from repro_torch.sharding import mesh as meshes
 from repro_torch.models import transformer as PT
 from repro_torch.params import from_numpy_tree, tree_leaves, tree_paths
 from repro_torch.sharding import rules
@@ -193,13 +194,13 @@ def test_pod_refusals_in_a_group(run_group):
 def test_pods_without_a_group_are_refused():
     with pytest.raises(RuntimeError, match="need 2 devices for a pod mesh, "
                                            "have 0"):
-        pod.make_pod_mesh(2)
+        meshes.make_pod_mesh(2)
     with pytest.raises(RuntimeError, match=r"need 256 devices for mesh "
                                            r"\(16, 16\), have 0"):
-        pod.make_production_mesh()
+        meshes.make_production_mesh()
     with pytest.raises(RuntimeError, match=r"need 512 devices for mesh "
                                            r"\(2, 16, 16\)"):
-        pod.make_production_mesh(multi_pod=True)
+        meshes.make_production_mesh(multi_pod=True)
 
 
 @pytest.mark.parametrize("a,e", [(0, 1), (0, 2), (0, 12), (12, 24),
@@ -332,7 +333,7 @@ def test_one_pod_lm_step_matches_the_reference(world_one):
         rb.loss_fn, RefScbf(upload_rate=0.10), lr=0.05))(
         rp, {k: jnp.asarray(v) for k, v in batch.items()})
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    mesh = pod.make_pod_mesh(1)
+    mesh = meshes.make_pod_mesh(1)
     for m in (None, mesh):
         gl, got = port_dist.make_federated_train_step(
             bundle.loss_fn, ScbfConfig(upload_rate=0.10), lr=0.05,
@@ -434,16 +435,16 @@ def test_activation_spec():
 
 def test_host_mesh_constraint_runs(world_one):
     """``ctx.shard`` on a 1 × 1 host mesh (the reference's test of the
-    same name, which fails under its jax here): the identity; a mesh
-    with a data or model axis above 1 is A15b."""
-    mesh = pod.make_host_mesh()
+    same name, which fails under its jax here): the identity; on a mesh
+    with a data or model axis above 1 it places DTensors only, and a
+    plain tensor passes through."""
+    mesh = meshes.make_host_mesh()
     assert rules.axis_sizes(mesh) == {"data": 1, "model": 1}
     shard = rules.make_shard_fn(mesh)
     x = torch.ones((4, 8))
     y = shard(x, ("batch", "none")) * 2
     np.testing.assert_allclose(y.numpy(), 2.0)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        rules.make_shard_fn(MESHES["2x16x16"])
+    assert rules.make_shard_fn(MESHES["2x16x16"])(x, ("batch", "none")) is x
 
 
 def test_federated_placements(world_one):
@@ -451,12 +452,12 @@ def test_federated_placements(world_one):
     splits into contiguous rank ranges, weights and keep-masks
     replicate; a mesh without ``pod`` is refused as the reference's."""
     from torch.distributed.tensor import Replicate, Shard
-    mesh = pod.make_pod_mesh(1)
+    mesh = meshes.make_pod_mesh(1)
     assert rules.cohort_shardings(mesh) == (Shard(0), Replicate())
     assert rules.fused_plan_shardings(mesh) == (Shard(1), Replicate())
     assert rules.keep_mask_sharding(mesh) == Replicate()
     assert rules.slot_range(6, mesh) == (0, 6)
-    host = pod.make_host_mesh()
+    host = meshes.make_host_mesh()
     for fn in (rules.cohort_shardings, rules.keep_mask_sharding,
                rules.fused_plan_shardings):
         with pytest.raises(ValueError, match="no 'pod' axis"):
