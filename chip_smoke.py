@@ -168,16 +168,17 @@ its own failure:
    cache-less forward (the chunked SSD; LM_LOGIT_MAX / LM_LOGIT_MEAN,
    greedy ids equal), the same check in fp32 at full width logged beside
    it, and a 1 x 1024 prefill (4 chunks of 256 through the inter-chunk
-   loop) against one chunk of 1024; then 3 federated SCBF steps
-   (SSM_CLIENTS = 3 clients x 4 x 64 tokens, cut from 5 in PR 24 for the
-   command's time; K1 and K2 once a leaf table — a bf16 table
-   of 11 leaves and the fp32 one of ``A_log`` and ``D_res`` — from the
-   wrapper counts and, in the second step, from the profiler over its
-   selection; the peak under 60 GB; the third step's tables against the
-   plain versions through ``MoeStepTap``) and one of SSM_LONG_CLIENTS =
-   2 x 4 x 512 (2 chunks of 256, where the reference's gradients are NaN: a finite
-   loss and every gradient leaf finite); a client's gradient profiled
-   (device activity only); K1 and K2 timed a table beside its byte bound.
+   loop) against one chunk of 1024; then 3 federated SCBF steps, the
+   first of SSM_LONG_CLIENTS = 1 x 4 x 512 tokens (2 chunks of 256,
+   where the reference's gradients are NaN: a finite loss and every
+   gradient leaf finite), the others of SSM_CLIENTS = 2 clients x 4 x 64
+   (clients and steps cut for the command's time; K1 and K2 once a leaf
+   table — a bf16 table of 11 leaves and the fp32 one of ``A_log`` and
+   ``D_res`` — from the wrapper counts and, in the first two steps, from
+   the profiler over their selections; the peak under 60 GB; the third
+   step's tables against the plain versions through ``MoeStepTap``); a
+   client's gradient profiled (device activity only); K1 and K2 timed a
+   table beside its byte bound.
    Then jamba-1.5-large at one period of its layer pattern (8 layers: 7
    Mamba, 1 attention, MoE every other layer) with 8 of its 16 experts
    (top-2 kept), both cuts stated: 25,816,813,824 params, serving batch
@@ -245,14 +246,20 @@ its own failure:
    ``sharding.rules`` (DTensor's all-gathers and all-to-alls staged
    through host buffers, ``sharding.mesh.stage_gloo_gathers``).
    qwen2-0.5b uncut (bf16) on (1, 2) (tensor parallel) and (2, 1)
-   (FSDP): a prefill of 4 x 32 and 8 decode steps fed the one-rank run's
+   (FSDP): a prefill of 4 x 32 and 4 decode steps fed the one-rank run's
    greedy ids, within LM_LOGIT_MAX / LM_LOGIT_MEAN of the one-rank
    logits; a federated step of MESH_CLIENTS x 4 x 64 against the
    one-rank step of the same params and batch (loss MESH_LOSS_REL, the
    share of bf16 entries that differ MESH_BF16_DIFFER, the difference's
    norm MESH_UPDATE_REL of the update's), each rank's K1 and K2 launches
    equal to the step's leaf tables, the bytes a rank puts into
-   collectives (``launch.roofline.StepCounter``), walls and peaks.
+   collectives (``launch.roofline.StepCounter``), walls and peaks; then
+   the compressed exchange's step of the same batch against the one-rank
+   compressed step under the same gates, each rank's chosen channels the
+   top-k of the scores it holds and a choice that flips against the
+   one-rank run's within δ of the k-th score, K1 = K2 = 0; and each
+   step's memory counted by ``StepCounter`` within MESH_MEMORY_RATIO of
+   the rise of ``torch.cuda.max_memory_allocated`` over it.
    deepseek-v2 at depth 2, every published width, drop-free, on (1, 2):
    80 of 160 experts a rank, a prefill and MESH_MOE_DECODE decode steps
    against the one-rank logits, a row whose routing flipped only at a
@@ -262,6 +269,7 @@ its own failure:
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -3803,10 +3811,10 @@ def phase_lm_moe(torch, card: str) -> dict:
 # the published widths, bf16, random weights from a seed
 SSM_ARCH = "mamba2-2.7b"
 SSM_SERVE = dict(batch=4, prompt=32, gen=32, cache=128)
-SSM_STEPS = 3                         # cold, profiled selection, checked
-SSM_LONG_SEQ = 512                    # one more step: 2 SSD chunks of 256
-SSM_CLIENTS = 3                       # of LM_CLIENTS: the command's time
-SSM_LONG_CLIENTS = 2                  # of LM_CLIENTS: the command's time
+SSM_STEPS = 3                         # long and cold, profiled, checked
+SSM_LONG_SEQ = 512                    # the first step: 2 SSD chunks of 256
+SSM_CLIENTS = 2                       # of LM_CLIENTS: the command's time
+SSM_LONG_CLIENTS = 1                  # of LM_CLIENTS: the command's time
 SSM_TABLES = 2                        # a bf16 leaf table and an fp32 one
 # a profiled selection's window opens with a burst of this many
 # one-element kernels of its own (``bitwise_not``), left out of its
@@ -4076,14 +4084,14 @@ def ssm_gradient_profile(torch, bundle, params, batch, card: str,
 
 
 def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
-    """SSM_STEPS federated SCBF steps of mamba2 of SSM_CLIENTS clients (K1
-    and K2 once a leaf table a step from the wrapper counts, and from the
-    profiler in the second step's selection; the peak under SSM_PEAK_GB;
-    the last step's tables against the plain versions through
-    ``MoeStepTap``), one more step at SSM_LONG_CLIENTS x LM_BATCH x
-    SSM_LONG_SEQ
-    (2 SSD chunks of 256: a finite loss, every gradient leaf finite), a
-    client's gradient profiled, and K1 and K2 timed a table.  The
+    """SSM_STEPS federated SCBF steps of mamba2, the first at
+    SSM_LONG_CLIENTS x LM_BATCH x SSM_LONG_SEQ (2 SSD chunks of 256: a
+    finite loss, every gradient leaf finite), the others of SSM_CLIENTS
+    clients (K1 and K2 once a leaf table a step from the wrapper counts,
+    and from the profiler in the first two steps' selections; the peak
+    under SSM_PEAK_GB; the last step's tables against the plain versions
+    through ``MoeStepTap``), a client's gradient profiled, and K1 and K2
+    timed a table.  The
     selections of the untapped steps are profiled: no window may show
     more launches than the wrapper counts, and one at least all of
     them.  ``held``
@@ -4113,8 +4121,8 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
                              for g in tree_leaves(grads)))
         return loss, grads
 
-    shapes = [(LM_SEQ, s, SSM_CLIENTS) for s in range(SSM_STEPS)] + \
-        [(SSM_LONG_SEQ, 0, SSM_LONG_CLIENTS)]
+    shapes = [(SSM_LONG_SEQ, 0, SSM_LONG_CLIENTS)] + \
+        [(LM_SEQ, s, SSM_CLIENTS) for s in range(1, SSM_STEPS)]
     dist.client_gradients = client_gradients
     try:
         for i, (seq, seed, k) in enumerate(shapes):
@@ -4146,13 +4154,14 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
                  w["kernel_launches"]["select_mask"]) for w in sel.windows]
     largest = max(math.prod(s[1:-1]) * s[-1] for table in tap.tables
                   for s, _ in table)
-    log(f"lm-ssm: {SSM_STEPS} federated steps of {cfg.name} "
-        f"({SSM_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, rate "
-        f"{LM_RATE}, lr {LM_LR}) and one of {SSM_LONG_CLIENTS} x "
-        f"{LM_BATCH} x "
-        f"{SSM_LONG_SEQ} ({SSM_LONG_SEQ // cfg.ssm_chunk} SSD chunks of "
-        f"{cfg.ssm_chunk}): losses {losses}, step walls "
-        f"{[round(w, 4) for w in walls]} s (cold, steady, checked, long),"
+    log(f"lm-ssm: {SSM_STEPS} federated steps of {cfg.name}, the first "
+        f"of {SSM_LONG_CLIENTS} x {LM_BATCH} x {SSM_LONG_SEQ} tokens "
+        f"({SSM_LONG_SEQ // cfg.ssm_chunk} SSD chunks of "
+        f"{cfg.ssm_chunk}), the others of {SSM_CLIENTS} clients x "
+        f"{LM_BATCH} x {LM_SEQ} (rate {LM_RATE}, lr {LM_LR}): losses "
+        f"{losses}, step walls "
+        f"{[round(w, 4) for w in walls]} s (long and cold, steady, "
+        f"checked),"
         f" peaks {[round(p, 2) for p in peaks]} GB (under "
         f"{SSM_PEAK_GB} GB) from {before_gb:.2f} GB allocated before step "
         f"1, the gradient phase's {[round(p, 2) for p in grad_peaks]} GB; "
@@ -4161,7 +4170,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
         f"{tap_host[1]:.1f} GB available; K1 and K2 once a leaf table a "
         f"step "
         f"({SSM_TABLES} each; K1 and K2 in the profiled selections of "
-        f"steps 1, 2 and 4: {launched}): tables "
+        f"steps 1 and 2: {launched}): tables "
         + json.dumps(tap.tables) + f" (K2 row blocks: "
         f"{'none, ' if largest < sm.MAX_ENTRIES else ''}a client's largest "
         f"matrix {largest:,} entries against {sm.MAX_ENTRIES:,}); kept "
@@ -5229,7 +5238,8 @@ def phase_pods(torch, cohort, card: str, runs: dict) -> dict:
 
 MESH_RANKS = 2
 MESH_SHAPES = ((1, 2), (2, 1))          # tensor parallel; FSDP
-MESH_SERVE = dict(batch=4, prompt=32, decode=8, cache=128)
+# decode: 4 steps, cut from 8 for the command's time
+MESH_SERVE = dict(batch=4, prompt=32, decode=4, cache=128)
 MESH_MOE_DECODE = 4                    # deepseek's decode steps
 MESH_CLIENTS = 2                       # the step: 2 clients x LM_BATCH x LM_SEQ
 # the sharded step against the one-rank step of the same params and batch
@@ -5249,6 +5259,11 @@ MESH_UPDATE_REL = 0.25
 # gate: a bias's channel sums gradients that cancel, and its bf16 rounding
 # moved one near the threshold by 0.324 (runs DI, DJ)
 MESH_SCORE_REL = 0.2
+# a step's peak as ``launch.roofline.StepCounter`` counts it (each new
+# storage an op makes, held until freed) over the rise of the allocator's
+# max_memory_allocated above its state at the step's start (PERF.md
+# section 6)
+MESH_MEMORY_RATIO = (0.85, 1.15)
 MESH_TIMEOUT_S = 300.0
 MESH_JOIN_S = 600.0
 
@@ -5362,6 +5377,103 @@ def _selection_check(torch, one: tuple, sharded: tuple, names=None
             "thr": float(t1.max())}
 
 
+class TopTap:
+    """Keeps a compressed step's channel choices
+    (``core.distributed._top_channels``): each scored leaf's scores
+    (K, n), whole on every rank, and its chosen channels (K, k), on the
+    host."""
+
+    def __enter__(self):
+        from repro_torch.core import distributed
+        self.real = distributed._top_channels
+        self.scores, self.idx = [], []
+
+        def tapped(leaf, rate):
+            scores, idx = self.real(leaf, rate)
+            self.scores.append(scores.float().cpu())
+            self.idx.append(idx.cpu())
+            return scores, idx
+        distributed._top_channels = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import distributed
+        distributed._top_channels = self.real
+
+
+def _topk_check(torch, one: TopTap, sharded: TopTap) -> dict:
+    """Two compressed steps' choices: each run's chosen channels against
+    the top-k of its own scores (mismatches: a chosen channel below the
+    k-th score or one left out above it, exact); each leaf's
+    ``|Δscores| / |scores|`` (the largest, ``leaf_rel``); the channels
+    whose choice flips, each within δ = max |Δscore| + max |Δk-th score|
+    of the one-rank run's k-th score."""
+    def chosen(scores, idx):
+        return torch.zeros_like(scores, dtype=torch.bool).scatter_(
+            1, idx, True)
+
+    def kth(scores, idx):
+        return torch.topk(scores, idx.shape[1], axis=-1).values[:, -1:]
+    mismatch = [0, 0]
+    for r, tap in enumerate((one, sharded)):
+        for sc, ix in zip(tap.scores, tap.idx):
+            c, t = chosen(sc, ix), kth(sc, ix)
+            mismatch[r] += int(((c & (sc < t)) | (~c & (sc > t))).sum())
+    pairs = list(zip(one.scores, sharded.scores, one.idx, sharded.idx))
+    ds = max(float((b - a).abs().max()) for a, b, _, _ in pairs)
+    dk = max(float((kth(b, j) - kth(a, i)).abs().max())
+             for a, b, i, j in pairs)
+    flips, margin, leaf_rel = 0, 0.0, 0.0
+    for a, b, i, j in pairs:
+        f = chosen(a, i) != chosen(b, j)
+        flips += int(f.sum())
+        if f.any():
+            margin = max(margin, float((a - kth(a, i)).abs()[f].max()))
+        leaf_rel = max(leaf_rel, float((b - a).norm()
+                                       / a.norm().clamp_min(1e-30)))
+    return {"mismatch": tuple(mismatch), "leaves": len(pairs),
+            "channels": sum(a.numel() for a, _, _, _ in pairs),
+            "flips": flips, "worst_flip_margin": margin, "delta": ds + dk,
+            "leaf_rel": leaf_rel}
+
+
+def _memory_base(torch) -> int:
+    """The allocation a measured step starts from, with the peak reset:
+    earlier garbage collected first (a cycle freed during the step would
+    lower the allocator's rise and not the count)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _step_memory(torch, counter, base: int) -> dict:
+    """The step's peak as ``counter`` counted it, beside the rise of the
+    allocator's peak above ``base`` (``_memory_base``); and what each
+    holds at the step's end above it."""
+    rise = torch.cuda.max_memory_allocated() - base
+    counted = counter.peak_bytes.get("cuda", 0)
+    return {"counted": counted, "allocator_rise": rise,
+            "ratio": counted / rise,
+            "live": counter.live_bytes.get("cuda", 0),
+            "net": torch.cuda.memory_allocated() - base}
+
+
+def _update_gap(torch, new, want, params) -> tuple:
+    """(share of bf16 entries of ``new``, a sharded step's params, that
+    differ from the one-rank step's ``want``; the difference's norm over
+    the one-rank update's)."""
+    differ = total = 0
+    diff2 = upd2 = 0.0
+    for a, b, p0 in zip(new, want, params):
+        a = a.full_tensor()
+        differ += int(torch.count_nonzero(a != b))
+        total += b.numel()
+        diff2 += float(((a.float() - b.float()) ** 2).sum())
+        upd2 += float(((b.float() - p0.float()) ** 2).sum())
+    return differ / total, math.sqrt(diff2 / upd2)
+
+
 def _logit_gap(torch, got, want) -> tuple:
     """(max, mean) |Δlogit| over every step's logits."""
     d = [(a - b).abs() for a, b in zip(got, want)]
@@ -5376,7 +5488,9 @@ def _mesh_qwen(torch, rank: int) -> dict:
     one-rank step, with its wrapper launches, its collectives counted
     (``launch.roofline.StepCounter``: DTensor's, and SCBF's score
     exchange from ``comm.collectives``) and its wall with the counter
-    on."""
+    on; then the compressed step of the same batch held to the one-rank
+    compressed step, its channel choices kept (``TopTap``); each step's
+    counted peak beside the allocator's rise (``_step_memory``)."""
     import numpy as np
 
     from repro_torch import configs
@@ -5409,6 +5523,11 @@ def _mesh_qwen(torch, rank: int) -> dict:
         loss1, one_params = make_federated_train_step(
             one.loss_fn, scbf, lr=LM_LR)(params, batch)
     sel1 = tap.result()
+    packed = ScbfConfig(upload_rate=LM_RATE, num_clients=MESH_CLIENTS,
+                        compressed_exchange=True)
+    with TopTap() as top1:
+        loss1c, one_packed = make_federated_train_step(
+            one.loss_fn, packed, lr=LM_LR)(params, batch)
     names = ["/".join(p) for p, _ in tree_paths(params)]
     # the step's leaf tables, from the gradients' shapes and dtypes
     leaves = [torch.empty((MESH_CLIENTS,) + tuple(p.shape), dtype=p.dtype,
@@ -5429,8 +5548,7 @@ def _mesh_qwen(torch, rank: int) -> dict:
         logit_max, logit_mean = _logit_gap(torch, got, want)
         step = make_federated_train_step(sh.loss_fn, scbf, lr=LM_LR,
                                          mesh=mesh)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        base = _memory_base(torch)
         collectives.reset_traffic()
         _reset_launches()
         t0 = time.perf_counter()
@@ -5438,31 +5556,53 @@ def _mesh_qwen(torch, rank: int) -> dict:
             loss2, new = step(placed, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        memory = _step_memory(torch, counter, base)
         launches = _launch_counts()
         score_exchange = collectives.traffic("mesh")
         selection = _selection_check(torch, sel1, tap.result(), names)
-        differ = total = 0
-        diff2 = upd2 = 0.0
-        for a, b, p0 in zip(tree_leaves(new), tree_leaves(one_params),
-                            tree_leaves(params)):
-            a = a.full_tensor()
-            differ += int(torch.count_nonzero(a != b))
-            total += b.numel()
-            diff2 += float(((a.float() - b.float()) ** 2).sum())
-            upd2 += float(((b.float() - p0.float()) ** 2).sum())
+        differ, update_rel = _update_gap(torch, tree_leaves(new),
+                                         tree_leaves(one_params),
+                                         tree_leaves(params))
+        del new
+        # the compressed exchange's step of the same batch
+        step = make_federated_train_step(sh.loss_fn, packed, lr=LM_LR,
+                                         mesh=mesh)
+        base = _memory_base(torch)
+        collectives.reset_traffic()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with StepCounter(mesh) as packed_counter, TopTap() as top:
+            loss2c, new = step(placed, batch)
+        torch.cuda.synchronize()
+        packed_wall = time.perf_counter() - t0
+        packed_memory = _step_memory(torch, packed_counter, base)
+        packed_launches = _launch_counts()
+        packed_sent = {f"{fam} {kind}": v[2] for (fam, kind), v in
+                       collectives.by_kind.items()}
+        packed_differ, packed_update_rel = _update_gap(
+            torch, tree_leaves(new), tree_leaves(one_packed),
+            tree_leaves(params))
         out["meshes"][shape] = {
             "local_param_bytes": local, "logit_max": logit_max,
             "logit_mean": logit_mean, "prefill_s": t_prefill, "decode_s": t_decode,
             "loss": (float(loss2), float(loss1)),
-            "bf16_differ": differ / total,
-            "update_rel": math.sqrt(diff2 / upd2),
+            "bf16_differ": differ, "update_rel": update_rel,
             "launches": launches, "step_wall_s": wall,
-            "peak_gb": _peak_gb(torch),
+            "peak_gb": _peak_gb(torch), "memory": memory,
             "dtensor_collectives": counter.collectives(),
-            "score_exchange": score_exchange, "selection": selection}
+            "score_exchange": score_exchange, "selection": selection,
+            "compressed": {
+                "loss": (float(loss2c), float(loss1c)),
+                "bf16_differ": packed_differ,
+                "update_rel": packed_update_rel,
+                "launches": packed_launches, "step_wall_s": packed_wall,
+                "memory": packed_memory,
+                "dtensor_collectives": packed_counter.collectives(),
+                "sent": packed_sent,
+                "selection": _topk_check(torch, top1, top)}}
         del sh, placed, new
         torch.cuda.empty_cache()
-    del params, one_params
+    del params, one_params, one_packed
     torch.cuda.empty_cache()
     return out
 
@@ -5570,14 +5710,19 @@ def phase_mesh(torch, card: str) -> dict:
     ranks sharing cuda:0 (``spawn_ranks``; NCCL refuses two ranks on one
     card; DTensor's all-gathers and all-to-alls go through host buffers,
     ``sharding.mesh.stage_gloo_gathers``).  qwen2-0.5b uncut (bf16) on
-    (1, 2) (tensor parallel) and (2, 1) (FSDP): prefill of 4 x 32 and 8
-    decode steps fed the one-rank run's greedy ids, held to the one-rank
-    logits (LM_LOGIT_MAX / LM_LOGIT_MEAN); a federated step of
-    MESH_CLIENTS x LM_BATCH x LM_SEQ held to the one-rank step (MESH_*
-    gates), each rank's K1 and K2 launches equal to the leaf tables.
-    deepseek-v2 at depth 2, every published width, on (1, 2): 80 of its
-    160 experts a rank, prefill and MESH_MOE_DECODE decode steps served
-    against the one-rank logits under the MoE tie rule.  Logged: launches, bytes into collectives, walls, peaks.
+    (1, 2) (tensor parallel) and (2, 1) (FSDP): prefill of 4 x 32 and
+    MESH_SERVE['decode'] decode steps fed the one-rank run's greedy ids,
+    held to the one-rank logits (LM_LOGIT_MAX / LM_LOGIT_MEAN); a
+    federated step of MESH_CLIENTS x LM_BATCH x LM_SEQ held to the
+    one-rank step (MESH_* gates), each rank's K1 and K2 launches equal to
+    the leaf tables; the compressed step of the same batch held to the
+    one-rank compressed step under the same gates and ``_topk_check``'s,
+    K1 = K2 = 0; each step's counted memory within MESH_MEMORY_RATIO of
+    the allocator's rise.  deepseek-v2 at depth 2, every published
+    width, on (1, 2): 80 of its 160 experts a rank, prefill and
+    MESH_MOE_DECODE decode steps served against the one-rank logits under
+    the MoE tie rule.  Logged: launches, bytes into collectives, walls,
+    peaks.
     Two ranks on one card claim no speed.  Returns the launches for the
     kernel report."""
     from repro_torch.launch.mesh import spawn_ranks
@@ -5623,6 +5768,60 @@ def phase_mesh(torch, card: str) -> dict:
                     MESH_SCORE_REL or sel["thr_rel"] > MESH_SCORE_REL or \
                     sel["worst_flip_margin"] > sel["delta"]:
                 raise AssertionError(f"{tag}: selection {sel}")
+            c = m["compressed"]
+            launches[f"mesh_rank{rank}_{shape[0]}x{shape[1]}_compressed"] \
+                = c["launches"]
+            l2c, l1c = c["loss"]
+            relc = abs(l2c - l1c) / abs(l1c)
+            top = c["selection"]
+            lo, hi = MESH_MEMORY_RATIO
+            log(f"{tag}: compressed step of {MESH_CLIENTS} x {LM_BATCH} x "
+                f"{LM_SEQ}: loss {l2c:.6f} against the one-rank compressed "
+                f"{l1c:.6f} (rel {relc:.3g} <= {MESH_LOSS_REL}), bf16 "
+                f"params {c['bf16_differ']:.3g} of entries differ (<= "
+                f"{MESH_BF16_DIFFER}), the difference's norm "
+                f"{c['update_rel']:.3g} of the one-rank update's (<= "
+                f"{MESH_UPDATE_REL}); launches {c['launches']}; each "
+                f"rank's chosen channels the top-k of its own scores "
+                f"(mismatches {top['mismatch']}) on {top['leaves']} "
+                f"leaves; each leaf's scores within {top['leaf_rel']:.3g} "
+                f"of the one-rank run's (<= {MESH_SCORE_REL}); "
+                f"{top['flips']} of {top['channels']:,} channel choices "
+                f"flip, each within {top['worst_flip_margin']:.3g} <= δ = "
+                f"{top['delta']:.3g} of the k-th score; sent over a "
+                f"rank's links: SCBF {c['sent']} B, DTensor "
+                f"{c['dtensor_collectives']['bytes_by_kind']} B; step wall "
+                f"{c['step_wall_s']:.3f} s (the counter on) ({card})")
+            log(f"{tag}: memory a step (StepCounter's count against the "
+                f"allocator's, above the step's start): "
+                + "; ".join(
+                    f"{kind} peak {mem['counted']:,} / {mem['allocator_rise']:,}"
+                    f" B = {mem['ratio']:.4f} (within {lo}-{hi}), held at "
+                    f"its end {mem['live']:,} / {mem['net']:,} B"
+                    for kind, mem in (("dense", m["memory"]),
+                                      ("compressed", c["memory"])))
+                + f" ({card})")
+            if {k: c["launches"][k] for k in want} != {k: 0 for k in want}:
+                raise AssertionError(f"{tag}: the compressed step launched "
+                                     f"{c['launches']}, want K1 = K2 = 0")
+            if relc > MESH_LOSS_REL or c["bf16_differ"] > MESH_BF16_DIFFER \
+                    or c["update_rel"] > MESH_UPDATE_REL:
+                raise AssertionError(f"{tag}: compressed step loss rel err "
+                                     f"{relc}, {c['bf16_differ']:.3g} of "
+                                     "bf16 entries differ from the one-rank "
+                                     "compressed step, the difference "
+                                     f"{c['update_rel']:.3g} of its update")
+            if top["mismatch"] != (0, 0) or top["leaf_rel"] > \
+                    MESH_SCORE_REL or top["worst_flip_margin"] > top["delta"]:
+                raise AssertionError(f"{tag}: compressed selection {top}")
+            for kind, mem in (("dense", m["memory"]),
+                              ("compressed", c["memory"])):
+                if not lo <= mem["ratio"] <= hi:
+                    raise AssertionError(
+                        f"{tag}: the {kind} step's counted peak "
+                        f"{mem['counted']:,} B is {mem['ratio']:.4f} of the "
+                        f"allocator's rise {mem['allocator_rise']:,} B "
+                        f"(want {lo}-{hi})")
             coll = m["dtensor_collectives"]
             log(f"{tag}: selection: the select-mask launches kept exactly "
                 f"the channels at or above each run's threshold "

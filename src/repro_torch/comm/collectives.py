@@ -3,9 +3,11 @@
 Two families, each with its byte counter:
 
 * the pod axis (PR 23's federated exchange): ``gather_slots`` (every
-  rank's slot block, in rank and so in slot order), ``all_reduce_sum``
-  and ``all_gather_compact`` (``(idx, vals)`` buffers in client order),
-  and ``agree_any`` (a control flag, uncounted).  ``calls`` and
+  rank's slot block, in rank and so in slot order), ``all_reduce_sum``,
+  ``all_gather_compact`` (``(idx, vals)`` buffers in client order),
+  ``all_gather_ragged`` (entries whose count differs from pod to pod,
+  padded only to the largest count) and ``agree_any`` (a control flag,
+  uncounted).  ``calls`` and
   ``bytes_sent`` count what this rank put into them — SCBF's masked
   exchange, the only traffic that crosses pods;
 * the shards of one pod's ``(data, model)`` mesh, for SCBF's selection on
@@ -138,6 +140,30 @@ def all_gather_compact(idx: torch.Tensor, vals: torch.Tensor, mesh
     """Every pod's compact ``(idx (k, c), vals (k, …, c))`` buffers of its
     k clients, in pod (= client) order."""
     return gather_slots(idx, mesh), gather_slots(vals, mesh)
+
+
+def all_gather_ragged(idx: torch.Tensor, vals: torch.Tensor, mesh
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every pod's entries ``(idx (m,), vals (…, m))`` joined along the
+    last axis in pod (= client) order, where ``m`` differs from pod to
+    pod (a column-split leaf's selected channels that fall in this
+    rank's columns).  The counts are gathered first (one int64 each),
+    then every pod's buffers are padded to the largest count, not to a
+    capacity, and cut back after the gather.  On the meta device (the
+    dry run) the counts cross but hold nothing, and every pod's is taken
+    as this rank's."""
+    m = idx.shape[0]
+    counts = gather_slots(torch.tensor([m], dtype=torch.int64,
+                                       device=idx.device), mesh)
+    counts = [m] * _parts(mesh, POD) if idx.is_meta else counts.tolist()
+    pad = max(counts) - m
+    got_idx = gather_slots(torch.nn.functional.pad(idx, (0, pad))[None],
+                           mesh)
+    got_vals = gather_slots(torch.nn.functional.pad(vals, (0, pad))[None],
+                            mesh)
+    return (torch.cat([got_idx[p, :c] for p, c in enumerate(counts)]),
+            torch.cat([got_vals[p, ..., :c] for p, c in enumerate(counts)],
+                      axis=-1))
 
 
 def agree_any(flag: bool, mesh) -> bool:

@@ -44,8 +44,20 @@ tensor and expert parallel over ``model``), a client's batch splits over
 placements.  The selection runs K1 and K2 on every rank's local shards
 (``core.channels``), and the clients' sum and the update run shard by
 shard; across pods each shard's fp32 partial sum is all-reduced with the
-same shard of the other pods.  The compressed exchange is one-device or
-pods only.
+same shard of the other pods.
+
+The compressed exchange on such a mesh ranks a leaf's channels as the
+one-device step does, over the whole leaf: each rank's partial scores of
+its shard are summed over the mesh axes that split the rows and gathered
+over the one that splits the columns (``core.channels.shard_axes``), so
+every rank of a pod holds the same ``(K, n)`` scores and takes the same
+top-k, k from the whole width n.  A rank then reads the selected
+channels that fall in its own columns from its shard and scatter-adds
+them into its shard of the sum; across pods it exchanges those entries
+only with the ranks that hold the same shard (``all_gather_compact``
+where the columns are whole, ``all_gather_ragged`` where they split: the
+count in a rank's columns depends on the data), in client order, so the
+sum adds each column's clients in the one-device order.
 """
 from __future__ import annotations
 
@@ -59,7 +71,7 @@ from repro_torch.core import channels
 from repro_torch.sharding import mesh as meshes
 from repro_torch.sharding.rules import like, local_shard
 from repro_torch.models.common import from_block
-from repro_torch.models.model_zoo import sgd_leaf, sgd_update, value_and_grad
+from repro_torch.models.model_zoo import sgd_leaf, value_and_grad
 from repro_torch.params import tree_leaves, tree_unflatten
 
 
@@ -84,6 +96,18 @@ def client_gradients(loss_fn: Callable, params, batch):
         losses.append(loss)
     return torch.stack(losses), tree_unflatten(params, [
         _stacked(buf, p) for buf, p in zip(grads, leaves)])
+
+
+def _unstacked(local: torch.Tensor, leaf):
+    """A local shard of one of a (K, ...) leaf's slots (a client's, or
+    the clients' sum) placed as the leaf's param: ``_stacked``'s
+    inverse."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(leaf, DTensor):
+        return local
+    return from_block(local, leaf.device_mesh,
+                      [Shard(q.dim - 1) if isinstance(q, Shard) else q
+                       for q in leaf.placements], tuple(leaf.shape[1:]))
 
 
 def _stacked(buf: torch.Tensor, p):
@@ -112,10 +136,6 @@ def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
     its ``make_shard_fn``.
     """
     pods = mesh if mesh is not None and meshes.num_pods(mesh) > 1 else None
-    if scbf.compressed_exchange and meshes.is_sharded(mesh):
-        raise NotImplementedError(
-            "the compressed exchange of sharded gradients is ROADMAP A15b; "
-            "not ported yet")
 
     def step(params, batch):
         if pods is not None:
@@ -125,8 +145,10 @@ def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
             collectives.all_reduce_sum(torch.sum(losses, axis=0), pods) / (
                 losses.shape[0] * meshes.num_pods(pods))
         if scbf.compressed_exchange:
-            summed = _compressed_sum(grads_k, scbf.upload_rate, pods)
-            return loss, sgd_update(params, summed, lr)
+            summed = tree_leaves(_compressed_sum(grads_k, scbf.upload_rate,
+                                                 pods))
+            del grads_k
+            return loss, _update(params, summed, lr)
         masked_k, _ = channels.apply_factored_mask_slots(
             grads_k, scbf.upload_rate, scbf.selection, in_place=True)
         del grads_k
@@ -168,44 +190,108 @@ def _sum_and_update(params, masked: list, lr: float, mesh=None):
     return tree_unflatten(params, new)
 
 
+def _update(params, summed: list, lr: float):
+    """``sgd_update(params, summed, lr)`` shard by shard, each sum of
+    ``summed`` (the list's only reference) let go once its param is
+    updated."""
+    new = []
+    for i, p in enumerate(tree_leaves(params)):
+        new.append(like(sgd_leaf(local_shard(p), local_shard(summed[i]), lr),
+                        p))
+        summed[i] = None
+    return tree_unflatten(params, new)
+
+
 def _compressed_sum(grads_k, rate: float, mesh=None):
-    """Σ_k of top-α-channel compressed client gradients.
+    """Σ_k of top-α-channel compressed client gradients, each sum placed
+    as its leaf's param (a DTensor leaf's sum is computed on its local
+    shard; module docstring).
 
     Every leaf carries a leading client axis (K, ..., n).  Per client the
-    top-k output channels by factored score are taken and only (indices
-    (K,k), values (K,...,k)) exchanged — on pods all-gathered in client
-    order; the dense sum is reassembled by one scatter-add over the
-    stacked (K·k) buffers (``index_add_`` sums clients that selected the
-    same channel).  A vector leaf (always uploaded) is summed densely, on
-    pods as an all-reduced fp32 partial sum.
+    top-k output channels by factored score are taken and only their
+    entries exchanged — on pods all-gathered in client order; the dense
+    sum is reassembled by one scatter-add over the stacked entries
+    (``index_add_`` sums clients that selected the same channel).  A
+    vector leaf (always uploaded) is summed densely, on pods as an
+    all-reduced fp32 partial sum.
     """
     out = []
     for leaf in tree_leaves(grads_k):
+        local = local_shard(leaf)
         if leaf.ndim - 1 < 2:
             if mesh is None:
-                out.append(torch.sum(leaf, axis=0))
+                summed = torch.sum(local, axis=0)
             else:
-                out.append(collectives.all_reduce_sum(torch.sum(
-                    leaf, axis=0, dtype=torch.float32), mesh).to(leaf.dtype))
-            continue
-        idx, vals = _top_channels(leaf, rate)
-        if mesh is not None:
-            idx, vals = collectives.all_gather_compact(idx, vals, mesh)
-        out.append(_scatter_sum(idx, vals, leaf.shape[-1]).to(leaf.dtype))
+                summed = collectives.all_reduce_sum(torch.sum(
+                    local, axis=0, dtype=torch.float32), mesh)
+        else:
+            summed = _channel_sum(leaf, rate, mesh)
+        out.append(_unstacked(summed.to(leaf.dtype), leaf))
     return tree_unflatten(grads_k, out)
 
 
-def _top_channels(leaf: torch.Tensor, rate: float):
-    """Each client's top-k output channels of a (K, ..., n) leaf by
-    factored score: (idx (K, k), fp32 vals (K, ..., k))."""
-    K, n = leaf.shape[0], leaf.shape[-1]
-    k = max(1, int(rate * n))
-    lf = leaf.to(torch.float32)
-    dims = tuple(range(1, leaf.ndim - 1))
-    scores = torch.sum(lf * lf, axis=dims)                 # (K, n)
-    idx = torch.topk(scores, k, axis=-1).indices           # (K, k)
-    idx_b = idx.reshape((K,) + (1,) * (leaf.ndim - 2) + (k,))
-    return idx, torch.gather(lf, -1, idx_b.expand(leaf.shape[:-1] + (k,)))
+def _channel_sum(leaf, rate: float, mesh=None) -> torch.Tensor:
+    """The fp32 sum over the K clients of a (K, ..., n) leaf's top-k
+    channels, on its local shard: each client's whole ``k`` channels
+    where the leaf's columns are whole, else the selected entries in
+    this rank's columns, client by client."""
+    _, idx = _top_channels(leaf, rate)
+    local = local_shard(leaf)
+    ax = channels.shard_axes(leaf)
+    if ax is None or ax.cols is None:
+        K, k = idx.shape
+        idx_b = idx.reshape((K,) + (1,) * (local.ndim - 2) + (k,))
+        vals = torch.gather(local, -1, idx_b.expand(
+            local.shape[:-1] + (k,))).to(torch.float32)
+        if mesh is not None:
+            idx, vals = collectives.all_gather_compact(idx, vals, mesh)
+        return _scatter_sum(idx, vals, local.shape[-1])
+    cols, vals = _in_columns(local, idx, ax.col_start, leaf.shape[-1])
+    if mesh is not None:
+        cols, vals = collectives.all_gather_ragged(cols, vals, mesh)
+    dense = torch.zeros(local.shape[1:], dtype=torch.float32,
+                        device=local.device)
+    dense.index_add_(dense.ndim - 1, cols, vals)
+    return dense
+
+
+def _top_channels(leaf, rate: float):
+    """The fp32 channel scores (K, n) of a (K, ..., n) leaf — a DTensor's
+    partial scores of its shard summed and gathered over the mesh — and
+    each client's top-k channels by them, idx (K, k) with k from the
+    whole width n."""
+    local = local_shard(leaf)
+    lf = local.to(torch.float32)
+    scores = torch.sum(lf * lf, axis=tuple(range(1, local.ndim - 1)))
+    del lf
+    ax = channels.shard_axes(leaf)
+    if ax is not None:
+        scores = collectives.shard_gather(
+            collectives.shard_sum(scores, ax.mesh, ax.rows), ax.mesh,
+            () if ax.cols is None else (ax.cols,))
+    k = max(1, int(rate * leaf.shape[-1]))
+    return scores, torch.topk(scores, k, axis=-1).indices
+
+
+def _in_columns(local: torch.Tensor, idx: torch.Tensor, start: int, n: int):
+    """The selected channels ``idx`` (K, k) of K clients that fall in the
+    columns [start, start + n_local) of a local shard (K, ..., n_local):
+    (local column (m,), fp32 values (..., m)), client by client, each
+    client's in ``idx``'s order.  On the meta device (the dry run, which
+    has no scores to read) each client's entries are the expected share,
+    ceil(k · n_local / n)."""
+    K, k = idx.shape
+    n_local = local.shape[-1]
+    if local.is_meta:
+        m = K * -(-k * n_local // n)
+        return (torch.empty((m,), dtype=idx.dtype, device="meta"),
+                torch.empty(local.shape[1:-1] + (m,), dtype=torch.float32,
+                            device="meta"))
+    inside = (idx >= start) & (idx < start + n_local)
+    client = torch.arange(K, device=idx.device)[:, None].expand(K, k)[inside]
+    cols = idx[inside] - start
+    return cols, torch.movedim(local, 0, -2)[..., client, cols].to(
+        torch.float32)
 
 
 def _scatter_sum(idx: torch.Tensor, vals: torch.Tensor, n: int

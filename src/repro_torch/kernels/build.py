@@ -12,6 +12,7 @@ There is no fallback: a missing ``nvcc`` or a failed compile raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -139,6 +140,20 @@ def check(err: int, what: str) -> None:
 # device, on which the plain version traces shapes and computes nothing
 # (``launch.dryrun``)
 PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain_version() -> contextlib.ExitStack:
+    """The context a wrapper runs its kernel's plain version in: each
+    active dispatch mode with a ``plain_version`` context of its own
+    enters it (``launch.roofline.StepCounter`` counts the call's memory
+    as its outputs only, since the kernel allocates none of the plain
+    version's temporaries)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    stack = contextlib.ExitStack()
+    for mode in _get_current_dispatch_mode_stack():
+        if hasattr(mode, "plain_version"):
+            stack.enter_context(mode.plain_version())
+    return stack
 
 
 def refuse_dtensor(what: str, *tensors) -> None:

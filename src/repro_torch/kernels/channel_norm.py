@@ -142,7 +142,8 @@ def channel_norms_leaves(gs: Sequence[torch.Tensor]
     if any(g.dtype != dtype for g in gs):
         raise TypeError("channel_norms takes one dtype a table")
     if device.type in build.PLAIN_DEVICES:
-        return [channel_norms_plain(g) for g in gs]
+        with build.plain_version():
+            return [channel_norms_plain(g) for g in gs]
     if device.type != "cuda":
         raise ValueError(f"channel_norms runs on cpu or cuda, not {device}")
     # per leaf rows then cols, each from a 16-byte boundary

@@ -308,15 +308,19 @@ def _mask_table(leaves: List[tuple], device, masks: bool,
     into ``mask_out`` where given (else into one new allocation)."""
     global mask_launches
     if device.type in build.PLAIN_DEVICES:
-        res = [select_mask_plain(*leaf, out=None if out is None else out[l])
-               for l, leaf in enumerate(leaves)]
-        made = [m if masks else None for _, m, _ in res]
-        if mask_out is not None and masks:
-            for mo, m in zip(mask_out, made):
-                mo.copy_(m)
-            made = list(mask_out)
-        return ([o for o, _, _ in res], made,
-                torch.cat([c.reshape(-1) for _, _, c in res]))
+        with build.plain_version():
+            res = [select_mask_plain(*leaf,
+                                     out=None if out is None else out[l])
+                   for l, leaf in enumerate(leaves)]
+            made = [m if masks else None for _, m, _ in res]
+            if mask_out is not None and masks:
+                for mo, m in zip(mask_out, made):
+                    mo.copy_(m)
+                made = list(mask_out)
+            outs = [o for o, _, _ in res]
+            counts = torch.cat([c.reshape(-1) for _, _, c in res])
+            del res                     # the per-leaf counts: temporaries
+        return outs, made, counts
     dtype = leaves[0][0].dtype
     item = dtype.itemsize
     # per leaf g̃ then its mask (each only where not given), then the counts

@@ -7,6 +7,8 @@ Usage:
         --shape decode_32k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
         --out experiments/dryrun_torch
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi \\
+        --compressed --tag compressed
 
 One process stands for rank 0 of the production mesh's 256 (``single``,
 ``(data, model)`` = (16, 16)) or 512 (``multi``, (2, 16, 16) with
@@ -19,17 +21,26 @@ allocates nothing on any device, as the reference compiles without
 running.  The kernels' wrappers trace their plain versions there.
 
 The record's keys are the reference's where they still mean something:
-``state_bytes_per_dev`` (the local shards of params, inputs and caches:
-the counterpart of ``argument_size_in_bytes``), ``flops_per_dev`` and
-``bytes_per_dev`` (``launch.roofline.StepCounter`` on the local ops),
-``collectives`` (by kind; DTensor's redistributions and the port's
-SCBF exchange, cross-pod and cross-node bytes apart) and the H100
-roofline ``terms``.  With pods, each pod runs its own clients (training)
-or its own rows of the batch (serving) on its ``(data, model)`` mesh,
-and exchanges SCBF's dense masked update (the compressed exchange of
-sharded gradients, the reference's ``--compressed``, is ROADMAP A15b).
-A combination that fails is recorded ``ok: false`` with its error.
-Records go under ``experiments/dryrun_torch/``.
+``state_bytes_per_dev`` (the local shards of params, inputs and caches),
+``memory`` (``argument_size_in_bytes``: that state;
+``output_size_in_bytes``: the local shards of the step's outputs;
+``temp_size_in_bytes``: the most the step's ops hold at once above the
+state, ``launch.roofline.StepCounter``'s ``peak_bytes`` on the meta
+device) and
+``peak_bytes_per_dev`` (argument plus temp), ``flops_per_dev`` and
+``bytes_per_dev`` (``StepCounter`` on the local ops), ``collectives``
+(by kind; DTensor's redistributions and the port's SCBF exchange,
+cross-pod and cross-node bytes apart) and the H100 roofline ``terms``.
+With pods, each pod runs its own clients (training) or its own rows of
+the batch (serving) on its ``(data, model)`` mesh, and exchanges SCBF's
+dense masked update, or with ``--compressed`` (train shapes only) each
+client's top-α channels (``core.distributed``).  Meta tensors hold no
+scores, so how many selected channels fall in a rank's columns of a
+column-split leaf cannot be read: the compressed record counts each
+client's expected share, ceil(k · n_local / n) entries
+(``compact_entries``), on every pod.  A combination that fails is
+recorded ``ok: false`` with its error.  Records go under
+``experiments/dryrun_torch/``.
 """
 from __future__ import annotations
 
@@ -97,6 +108,7 @@ def _pod_share(shape: ShapeConfig, pods: int) -> ShapeConfig:
 
 def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
                federated: Optional[bool] = None,
+               compressed: bool = False,
                q_chunk: int = 512,
                kv_quant: bool = False,
                fsdp: bool = True,
@@ -114,7 +126,7 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
         "kind": shape.kind, "window": 0,
         "federated": bool(federated and shape.kind == "train"),
-        "kv_quant": kv_quant, "fsdp": fsdp,
+        "compressed": compressed, "kv_quant": kv_quant, "fsdp": fsdp,
         "q_chunk": q_chunk, "tag": extra_tag, "ok": False,
         "hardware": HARDWARE.name,
     }
@@ -149,7 +161,11 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
             # a leading client axis over the pods; a pod takes its own
             specs = {k: v.reshape((pods, v.shape[0] // pods) + v.shape[1:])
                      for k, v in specs.items()}
-            scbf = ScbfConfig(upload_rate=0.10)
+            scbf = ScbfConfig(upload_rate=0.10,
+                              compressed_exchange=compressed)
+            if compressed:
+                rec["compact_entries"] = "expected share: ceil(k * " \
+                    "n_local / n) a client in a rank's columns"
             from repro_torch.core.distributed import make_federated_train_step
             step = make_federated_train_step(
                 lambda p, b: bundle.loss_fn(p, b, window=window), scbf,
@@ -170,11 +186,12 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
         state = _local_bytes(params) + state_in
         collectives.reset_traffic()
         with StepCounter(mesh) as counter:
-            step(params, specs)
+            out = step(params, specs)
         for (family, kind), (calls, _, n) in collectives.by_kind.items():
             # the production mesh's axes each span more than one node
             counter.add_collective(kind, n, cross_pod=family == "pod",
                                    cross_node=True, calls=calls)
+        temp = counter.peak_bytes.get("meta", 0)
         terms = roofline_terms(counter.flops, counter.bytes,
                                counter.total_bytes,
                                cross_node_bytes=counter.cross_node_bytes,
@@ -187,7 +204,10 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
             "ok": True,
             "trace_s": round(time.time() - t0, 1),
             "state_bytes_per_dev": state,
-            "memory": {"argument_size_in_bytes": state},
+            "memory": {"argument_size_in_bytes": state,
+                       "output_size_in_bytes": _local_bytes(out),
+                       "temp_size_in_bytes": temp},
+            "peak_bytes_per_dev": state + temp,
             "flops_per_dev": counter.flops,
             "bytes_per_dev": counter.bytes,
             "collectives": counter.collectives(),
@@ -214,6 +234,9 @@ def main(argv=None):
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--compressed", action="store_true",
+                    help="compressed SCBF cross-pod exchange (multi-pod "
+                         "train; --all takes the train shapes only)")
     ap.add_argument("--q-chunk", type=int, default=512)
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache (decode shapes)")
@@ -230,14 +253,16 @@ def main(argv=None):
     combos = []
     if args.all:
         for arch in configs.ASSIGNED:
-            for shape in INPUT_SHAPES:
-                combos.append((arch, shape, args.mesh))
+            for shape, sc in INPUT_SHAPES.items():
+                if sc.kind == "train" or not args.compressed:
+                    combos.append((arch, shape, args.mesh))
     else:
         combos.append((args.arch, args.shape, args.mesh))
 
     records = []
     for arch, shape, mesh_kind in combos:
-        rec = dryrun_one(arch, shape, mesh_kind, q_chunk=args.q_chunk,
+        rec = dryrun_one(arch, shape, mesh_kind, compressed=args.compressed,
+                         q_chunk=args.q_chunk,
                          kv_quant=args.kv_quant, fsdp=not args.no_fsdp,
                          moe_dshard=args.moe_dshard,
                          moe_groups=args.moe_groups, extra_tag=args.tag)

@@ -68,7 +68,8 @@ def _rank_main(rank: int, fn: Callable, world: int, args: tuple, tmp: str,
 
 
 def spawn_ranks(fn: Callable, world: int, args: Sequence = (), *,
-                device: str = "cpu", timeout_s: float = INIT_TIMEOUT_S,
+                device: Optional[str] = None,
+                timeout_s: float = INIT_TIMEOUT_S,
                 join_timeout_s: float = JOIN_TIMEOUT_S,
                 backend: Optional[str] = None) -> list:
     """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks of one
@@ -81,9 +82,13 @@ def spawn_ranks(fn: Callable, world: int, args: Sequence = (), *,
     collectives, so a hung collective fails its rank; the parent waits
     ``join_timeout_s`` in all, then kills what is left and raises
     ``TimeoutError``.  A rank that raises or exits non-zero makes this
-    raise (the others are terminated).  ``backend`` defaults to
+    raise (the others are terminated).  ``device`` resolves through
+    ``repro_torch.device.resolve_device`` (None: cuda, which raises
+    without a card; ``"cpu"`` on request).  ``backend`` defaults to
     ``backend_for(device, world)``; a CUDA rank r uses
     ``cuda:{r % device_count}``."""
+    from repro_torch.device import resolve_device
+    device = resolve_device(device).type
     backend = backend or backend_for(device, world)
     tmp = tempfile.mkdtemp(prefix="pod-ranks-")
     try:

@@ -30,13 +30,28 @@ come back here), so its counts are per device:
   ``gpus_per_node`` ranks, apart.  (The reference counts a collective's
   output shape.)  On a CPU mesh DTensor runs an all-to-all as an
   all-gather and a chunk; it counts as the all-to-all a card's mesh
-  runs.
+  runs;
+* memory, by device type: the bytes of each new storage an op creates,
+  counted once when it is made and given back when it is freed (a weak
+  reference to the storage, as ``torch.distributed._tools.mem_tracker``
+  keeps); views, aliases and in-place results add nothing, and the
+  state a step finds at entry is not counted.  ``peak_bytes[type]`` is
+  the most held at once on that device type — XLA's
+  ``temp_size_in_bytes`` counterpart, the step's rise above its state
+  (the dry run reads ``"meta"``, a card ``"cuda"``: DTensor makes meta
+  tensors for shapes on any device, which hold nothing there).  A
+  kernel wrapper's plain version (what the wrappers run on the CPU and
+  the meta device) counts as its outputs only: its temporaries are the
+  plain version's, not the kernel's (``kernels.build.plain_version``).
 
 Ops of DTensor's own sharding propagation (run on fake tensors of the
 global shapes) are not counted.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import weakref
 from typing import Dict
 
 import torch
@@ -60,14 +75,28 @@ MOVES_NOTHING = frozenset({"empty", "empty_strided", "empty_like",
                            "alias", "detach", "lift_fresh"})
 
 
+def _tensors(tree, out: list) -> list:
+    """The tensors of an op's arguments or results (nested lists, tuples
+    and dicts), in order: ``out``, extended."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
+
+
 def _group_ranks(name: str):
     from torch.distributed.distributed_c10d import _resolve_process_group
     return dist.get_process_group_ranks(_resolve_process_group(name))
 
 
 class StepCounter(TorchDispatchMode):
-    """Per-device FLOPs, bytes and collectives of the ops run while
-    active (module docstring)."""
+    """Per-device FLOPs, bytes, collectives and memory of the ops run
+    while active (module docstring)."""
 
     def __init__(self, mesh=None, hw: HardwareConfig = HARDWARE):
         super().__init__()
@@ -84,6 +113,10 @@ class StepCounter(TorchDispatchMode):
             self._pod.add(mesh.get_group("pod").group_name)
         self._ranks: Dict[str, list] = {}
         self._alltoall = False
+        self.live_bytes: Dict[str, int] = {}
+        self.peak_bytes: Dict[str, int] = {}
+        self._storages: Dict[int, weakref.ref] = {}
+        self._plain = 0
 
     def _group(self, group: str) -> list:
         if group not in self._ranks:
@@ -120,10 +153,11 @@ class StepCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
-        tensors = [a for a in torch.utils._pytree.tree_leaves((args, kwargs))
-                   if isinstance(a, torch.Tensor)]
+        tensors = _tensors(kwargs, _tensors(args, []))
         if any(isinstance(t, FakeTensor) for t in tensors):
             return out               # DTensor's sharding propagation
+        if not func.is_view:         # a view's storage is its input's
+            self._hold(out, tensors)
         comm = func.namespace in ("_c10d_functional", "_dtensor")
         kind = KINDS.get(func._opname) if comm else None
         if kind is not None:
@@ -141,11 +175,50 @@ class StepCounter(TorchDispatchMode):
             self.flops += int(flop_registry[packet](*args, **kwargs,
                                                     out_val=out))
         if not (comm or func.is_view or func._opname in MOVES_NOTHING):
-            outs = [o for o in torch.utils._pytree.tree_leaves(out)
-                    if isinstance(o, torch.Tensor)]
             self.bytes += sum(t.numel() * t.element_size()
-                              for t in tensors + outs)
+                              for t in _tensors(out, tensors[:]))
         return out
+
+    def _hold(self, out, inputs) -> None:
+        """Count each storage of ``out`` that no input shares and that is
+        not counted yet, until it is freed."""
+        shared = None
+        for t in _tensors(out, []):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._storages:
+                continue
+            if shared is None:
+                shared = {a.untyped_storage()._cdata for a in inputs}
+            if key in shared:
+                continue
+            n, kind = st.nbytes(), st.device.type
+            self._storages[key] = weakref.ref(
+                st, functools.partial(self._freed, key, kind, n))
+            self.live_bytes[kind] = self.live_bytes.get(kind, 0) + n
+            if not self._plain:
+                self._update_peak(kind)
+
+    def _update_peak(self, kind: str) -> None:
+        self.peak_bytes[kind] = max(self.peak_bytes.get(kind, 0),
+                                    self.live_bytes[kind])
+
+    def _freed(self, key: int, kind: str, n: int, _ref) -> None:
+        del self._storages[key]
+        self.live_bytes[kind] -= n
+
+    @contextlib.contextmanager
+    def plain_version(self):
+        """A kernel wrapper's plain version: what it holds when it
+        returns (its outputs) counts, its temporaries do not."""
+        self._plain += 1
+        try:
+            yield
+        finally:
+            self._plain -= 1
+            if not self._plain:
+                for kind in self.live_bytes:
+                    self._update_peak(kind)
 
     def add_collective(self, kind: str, n: int, cross_pod: bool,
                        cross_node: bool, calls: int = 1) -> None:

@@ -165,7 +165,8 @@ def run_lm(args):
     scbf = ScbfConfig(upload_rate=args.upload_rate, num_clients=args.clients)
     step = make_federated_train_step(
         bundle.loss_fn, scbf, lr=args.lr,
-        mesh=make_pod_mesh(args.pods) if args.pods > 1 else None)
+        mesh=make_pod_mesh(args.pods, device=bundle.device)
+        if args.pods > 1 else None)
 
     K, B, S = args.clients, args.batch_size, args.seq_len
     context = model_zoo.context_input(cfg)

@@ -139,10 +139,13 @@ def from_block(local, mesh, place, shape):
     DTensor placed ``place``."""
     from torch.distributed.tensor import DTensor
     shape = tuple(shape)
+    stride, n = [], 1
+    for d in reversed(shape):        # row-major, computed: no allocation
+        stride.append(n)
+        n *= max(d, 1)
     return DTensor.from_local(local.contiguous(), mesh, place,
                               run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
+                              stride=tuple(reversed(stride)))
 
 
 def _relaid(x, shape):

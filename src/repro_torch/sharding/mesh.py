@@ -13,9 +13,9 @@ type is the device its tensors live on: ``cuda`` for ranks on cards
 (under NCCL, or gloo ranks sharing one card), ``cpu`` for CPU ranks.
 DTensor places its shards on the mesh's device type, so a mesh of
 another type than the tensors would move them; ``device`` says it, and
-left out it is cuda under NCCL and otherwise cuda exactly when this
-process has a card.  Too few ranks raise ``RuntimeError`` in the
-reference's words.
+left out it is cuda (``repro_torch.device.resolve_device``: without a
+card that raises, and only a caller that asks for ``"cpu"`` gets a CPU
+mesh).  Too few ranks raise ``RuntimeError`` in the reference's words.
 """
 from __future__ import annotations
 
@@ -35,12 +35,10 @@ def world_size() -> int:
 
 
 def _device_type(device=None) -> str:
-    """The device type of a mesh whose tensors live on ``device``."""
-    if device is not None:
-        return torch.device(device).type
-    if dist.get_backend() == "nccl" or torch.cuda.is_available():
-        return "cuda"
-    return "cpu"
+    """The device type of a mesh whose tensors live on ``device`` (None:
+    cuda, which raises without a card)."""
+    from repro_torch.device import resolve_device
+    return resolve_device(device).type
 
 
 def build_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], need: str,

@@ -259,7 +259,7 @@ def lm_case(world, dtype):
     from repro_torch.params import tree_leaves
 
     cfg, bundle, params = lm_model(dtype)
-    mesh = meshes.make_pod_mesh(world)
+    mesh = meshes.make_pod_mesh(world, device="cpu")
     batch = {k: torch.from_numpy(v)
              for k, v in lm_batch(cfg.vocab_size).items()}
     out = {}
@@ -561,11 +561,12 @@ def _placed_like(grads, params):
 
 def mesh_federated(rank, world, shapes, arch, np_params, batch,
                    cfg_kw=None):
-    """The federated step (K clients, dense exchange) unsharded and on
-    each mesh shape: losses, params, the K1/K2 calls of the step and its
-    leaf tables, and the selection of this pod's clients' one-device
-    gradients, whole and placed as the params (scores, threshold,
-    fraction, masked values)."""
+    """The federated step (K clients) unsharded and on each mesh shape,
+    with the dense exchange and with the compressed one: losses and
+    params; for the dense step the K1/K2 calls and its leaf tables, and
+    the selection of this pod's clients' one-device gradients, whole and
+    placed as the params (scores, threshold, fraction, masked values);
+    for the compressed step ``_compressed_check``."""
     from repro_torch.comm import collectives
     from repro_torch.config import ScbfConfig
     from repro_torch.core import channels
@@ -584,10 +585,17 @@ def mesh_federated(rank, world, shapes, arch, np_params, batch,
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     one = model_zoo.build(cfg, device="cpu")
     scbf = ScbfConfig(upload_rate=0.10)
+    packed = ScbfConfig(upload_rate=0.10, compressed_exchange=True)
     l1, p1 = make_federated_train_step(one.loss_fn, scbf, lr=0.05)(
         params, batch)
+    lc, pc = make_federated_train_step(one.loss_fn, packed, lr=0.05)(
+        params, batch)
+    _, grads_all = client_gradients(one.loss_fn, params, batch)
     out = {"loss": float(l1),
-           "params": [t.numpy() for t in tree_leaves(p1)], "meshes": {}}
+           "params": [t.numpy() for t in tree_leaves(p1)],
+           "compressed": {"loss": float(lc),
+                          "params": [t.numpy() for t in tree_leaves(pc)]},
+           "meshes": {}}
     for shape in shapes:
         mesh = meshes.make_host_mesh(shape, device="cpu")
         sh = model_zoo.build(cfg, shard=rules.make_shard_fn(mesh),
@@ -606,6 +614,7 @@ def mesh_federated(rank, world, shapes, arch, np_params, batch,
         with KernelCalls() as calls:
             l2, p2 = make_federated_train_step(
                 sh.loss_fn, scbf, lr=0.05, mesh=mesh)(placed, batch)
+        dense_pod = _sent("pod")
         out["meshes"][shape] = {
             "loss": float(l2),
             "params": [t.full_tensor().numpy() for t in tree_leaves(p2)],
@@ -613,8 +622,85 @@ def mesh_federated(rank, world, shapes, arch, np_params, batch,
             "k1": calls.k1, "k2": calls.k2,
             "kernel_inputs": sorted(calls.types),
             "traffic": {"pod": (collectives.calls, collectives.bytes_sent),
-                        "mesh": collectives.traffic("mesh")}}
+                        "mesh": collectives.traffic("mesh")},
+            "compressed": _compressed_check(
+                sh, placed, batch, packed, mesh, grads_all, grads,
+                dense_pod)}
     return out
+
+
+def _sent(family: str) -> int:
+    """Bytes this rank sent over its links in one family's collectives
+    since the counters were reset."""
+    from repro_torch.comm import collectives
+    return sum(v[2] for (f, _), v in collectives.by_kind.items()
+               if f == family)
+
+
+def _compressed_check(sh, placed, batch, packed, mesh, grads_all, grads,
+                      dense_pod) -> dict:
+    """The compressed step on ``mesh`` (loss, params, its K1/K2 calls and
+    the bytes this rank sent over its links by family); the sharded
+    ``_compressed_sum`` of this pod's clients' one-device gradients
+    ``grads``, placed as the params, against the one-device sum of all
+    the clients' ``grads_all`` (bitwise); the scores within 1e-6 of each
+    client's k-th (``near``); and the pod bytes a rank sends counted by
+    hand from ``grads_all``'s selection and the leaves' placements."""
+    from repro_torch.comm import collectives
+    from repro_torch.comm.collectives import link_bytes
+    from repro_torch.core import channels
+    from repro_torch.core.distributed import (_compressed_sum,
+                                              _top_channels,
+                                              make_federated_train_step)
+    from repro_torch.params import tree_leaves
+    from repro_torch.sharding import mesh as meshes
+    from torch.distributed.tensor import DTensor
+
+    rate = packed.upload_rate
+    pods = mesh if meshes.num_pods(mesh) > 1 else None
+    collectives.reset_traffic()
+    with KernelCalls() as calls:
+        loss, new = make_federated_train_step(
+            sh.loss_fn, packed, lr=0.05, mesh=mesh)(placed, batch)
+    sent = {f: _sent(f) for f in ("pod", "mesh")}
+    want = tree_leaves(_compressed_sum(grads_all, rate))
+    got = tree_leaves(_compressed_sum(_placed_like(grads, placed), rate,
+                                      pods))
+    got = [g.full_tensor() if isinstance(g, DTensor) else g for g in got]
+    sums = [(w.ndim >= 2, bool(torch.equal(g, w)),
+             float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+            for g, w in zip(got, want)]
+    near = hand = 0
+    P, K = meshes.num_pods(mesh), tree_leaves(grads_all)[0].shape[0]
+    loss_bytes = link_bytes("all-reduce", 4, P)
+    for g, p in zip(tree_leaves(_placed_like(grads_all, placed)),
+                    tree_leaves(placed)):
+        local = p.to_local()
+        if g.ndim < 3:
+            hand += link_bytes("all-reduce", local.numel() * 4, P)
+            continue
+        scores, idx = _top_channels(g, rate)
+        k = idx.shape[1]
+        kth = torch.topk(scores, k, axis=-1).values[:, -1:]
+        near += int(torch.count_nonzero(
+            (scores - kth).abs() <= 1e-6 * kth.abs())) - K
+        ax = channels.shard_axes(g)
+        rows = local.numel() // local.shape[-1]
+        if ax.cols is None:        # every client's k channels
+            hand += (P - 1) * (K // P) * k * (8 + 4 * rows)
+            continue
+        lo, hi = ax.col_start, ax.col_start + local.shape[-1]
+        inside = ((idx >= lo) & (idx < hi)).reshape(P, -1)
+        top = int(torch.count_nonzero(inside, axis=1).max())
+        hand += (P - 1) * (8 + top * (8 + 4 * rows))
+    return {"loss": float(loss),
+            "params": [t.full_tensor().numpy() for t in tree_leaves(new)],
+            "k1": calls.k1, "k2": calls.k2, "sent": sent,
+            "sums": sums, "near": near,
+            "pod_bytes": collectives.traffic("pod")[1],
+            "pod_sent": sent["pod"], "hand_pod_sent":
+                hand + loss_bytes if pods is not None else 0,
+            "dense_pod_sent": dense_pod}
 
 
 def mesh_experts(rank, world, np_layer, x, cfg_kw):

@@ -2,10 +2,13 @@
 roofline (``launch.roofline``), in this process on a ``"fake"`` group of
 the production mesh's 256 or 512 ranks, every tensor on the meta device.
 
-Each record must be ``ok`` with its state under one card's 80 GB, every
-roofline term positive and a ``dominant`` one; a step over the meta
-device allocates nothing.  ``roofline_terms`` is held to values worked
-by hand from the H100 table.
+Each record must be ``ok`` with its state under one card's 80 GB, its
+memory counted (outputs, the step's rise above its state, the peak),
+every roofline term positive and a ``dominant`` one; a step over the
+meta device allocates nothing.  ``roofline_terms`` is held to values
+worked by hand from the H100 table, ``StepCounter``'s collectives and
+memory to counts worked by hand, and the compressed exchange's bytes
+across pods to a hand count from the leaves' local shapes.
 """
 import dataclasses
 import json
@@ -39,8 +42,11 @@ def _smoke(arch):
 def _check(rec):
     assert rec["ok"], rec.get("traceback", rec.get("error"))
     assert 0 < rec["state_bytes_per_dev"] < HARDWARE.hbm_bytes
-    assert rec["memory"]["argument_size_in_bytes"] == \
-        rec["state_bytes_per_dev"]
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == rec["state_bytes_per_dev"]
+    assert mem["output_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
+    assert rec["peak_bytes_per_dev"] == mem["argument_size_in_bytes"] + \
+        mem["temp_size_in_bytes"]
     terms = rec["terms"]
     assert terms["dominant"] in ("compute_s", "memory_s", "collective_s")
     assert min(terms["compute_s"], terms["memory_s"],
@@ -78,6 +84,97 @@ def test_smoke_train_step(mesh):
         assert rec["collectives"]["cross_pod_bytes"] == 0
 
 
+def test_compressed_cross_pod_bytes_by_hand():
+    """A smoke-width ``--compressed`` train step on (2, 16, 16), a client
+    a pod: the bytes a rank sends across pods (P = 2: an all-gather
+    sends the other pod its buffer, an all-reduce 2·(P-1)/P of its
+    input) by hand from the leaves' local shards — the loss's fp32 sum;
+    each vector leaf's fp32 sum; each scored leaf's int64 indices and
+    fp32 values of k = max(1, int(0.1·n)) channels where its columns are
+    whole, and where they split, a count of 8 bytes and the expected
+    share ceil(k·n_local/n) of them (meta tensors hold no scores) — and
+    under the dense exchange's."""
+    from repro_torch.models import transformer as T
+    from repro_torch.params import tree_leaves
+    from repro_torch.sharding.rules import distribute_params
+    cfg = _smoke("qwen2-0.5b")
+    dense = dryrun.dryrun_one("qwen2-0.5b", "train_4k", "multi", cfg=cfg)
+    rec = dryrun.dryrun_one("qwen2-0.5b", "train_4k", "multi",
+                            compressed=True, cfg=cfg)
+    _check(rec)
+    assert rec["compressed"] and rec["federated"] and \
+        "ceil" in rec["compact_entries"]
+    mesh = meshes.make_production_mesh(multi_pod=True, device="cpu")
+    params, axes = T.init_model(cfg, None)
+    hand = 4
+    for p in tree_leaves(distribute_params(params, axes, mesh)):
+        local = p.to_local()
+        if p.ndim < 2:
+            hand += 4 * local.numel()
+            continue
+        n, n_local = p.shape[-1], local.shape[-1]
+        k, rows = max(1, int(0.1 * n)), local.numel() // n_local
+        if n_local == n:
+            hand += k * (8 + 4 * rows)
+        else:
+            hand += 8 + -(-k * n_local // n) * (8 + 4 * rows)
+    assert rec["collectives"]["cross_pod_bytes"] == hand
+    assert hand < dense["collectives"]["cross_pod_bytes"]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_step_counter_memory_by_hand(device):
+    """``StepCounter``'s memory on a chain of ops, by device type: the
+    state at entry counts nothing; a view and in-place ops add nothing;
+    a temporary counts while it is held and gives its bytes back when
+    freed; the peak is the most held at once; a storage on another
+    device type counts there."""
+    import torch
+    x = torch.ones((256, 64), device=device)      # state: 65,536 B
+    with StepCounter() as c:
+        y = x * 2
+        v = y.view(64, 256).t()
+        assert (c.live_bytes, c.peak_bytes) == ({device: 65_536},) * 2
+        z = y + 1
+        del y, v                                  # y's storage freed
+        assert (c.live_bytes, c.peak_bytes) == ({device: 65_536},
+                                                {device: 131_072})
+        z.sum(0)                                  # 256 B, dropped
+        z.add_(1)
+        x.mul_(2)
+        w = z.sum(1)                              # 1,024 B, kept
+        other = "meta" if device == "cpu" else "cpu"
+        shape = torch.empty((1024, 1024), device=other).stride()
+    assert c.live_bytes == {device: 65_536 + 1_024, other: 0}
+    assert c.peak_bytes == {device: 131_072, other: 4 << 20}
+    assert w.shape == (256,) and shape == (1024, 1)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_step_counter_takes_a_wrapper_as_its_outputs(device):
+    """Off the card the kernel wrappers run their plain versions, whose
+    temporaries the kernels never allocate: K1's call counts its fp32
+    (S, M) and (S, N) norms only, where the plain version alone holds a
+    slot's fp32 squares (M·N·4 bytes) too; K2's its g̃, mask and int32
+    counts."""
+    import torch
+    from repro_torch.kernels import channel_norm, select_mask
+    g = torch.ones((3, 256, 64), device=device)
+    with StepCounter() as c:
+        channel_norm.channel_norms_leaves([g])
+    assert c.peak_bytes == {device: 3 * (256 + 64) * 4}
+    with StepCounter() as c:
+        channel_norm.channel_norms_plain(g)
+    assert c.peak_bytes[device] >= 256 * 64 * 4
+    leaf = (g, torch.zeros(256, device=device),
+            torch.zeros((3, 64), device=device), 0.0, 0.0)
+    with StepCounter() as c:
+        got = select_mask.select_mask_leaves([leaf])
+    assert c.peak_bytes == c.live_bytes == \
+        {device: 3 * 256 * 64 * (4 + 1) + 3 * 4}
+    assert got[2].shape == (3,)
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_qwen2_full_width_decode(mesh, tmp_path):
     """qwen2-0.5b uncut at decode_32k through the CLI: the record file,
@@ -100,6 +197,19 @@ def test_qwen2_full_width_decode(mesh, tmp_path):
 def test_a_failure_is_recorded():
     rec = dryrun.dryrun_one("no-such-arch", "decode_32k", "single")
     assert not rec["ok"] and "no-such-arch" in rec["error"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_needs_a_card_unless_asked(monkeypatch, multi_pod):
+    """Given no device, ``make_production_mesh`` takes cuda and raises
+    without a card; the dry run asks for the CPU."""
+    import torch
+    dryrun.fake_group(512 if multi_pod else 256)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        meshes.make_production_mesh(multi_pod=multi_pod)
+    assert meshes.make_production_mesh(
+        multi_pod=multi_pod, device="cpu").device_type == "cpu"
 
 
 def test_roofline_terms_by_hand():

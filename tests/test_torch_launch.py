@@ -455,8 +455,8 @@ def test_two_ranks_run_the_launcher_as_torchrun_would(tmp_path):
     from repro_torch.launch import mesh as pod
 
     out = str(tmp_path / "out")
-    r0, r1 = pod.spawn_ranks(ranks.launch_train, 2, (out,), timeout_s=60.0,
-                             join_timeout_s=240.0)
+    r0, r1 = pod.spawn_ranks(ranks.launch_train, 2, (out,), device="cpu",
+                             timeout_s=60.0, join_timeout_s=240.0)
     assert r0["records"] == r1["records"]
     assert set(r0["records"]) == {"scbf", "fedavg"}
     assert all(len(v) == 2 for v in r0["records"].values())

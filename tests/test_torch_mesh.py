@@ -14,16 +14,25 @@ places data and changes no math.  At the smoke widths in fp32:
   equal; attention head parallel where the KV heads divide ``model``,
   and sequence parallel where they do not (qwen2 with one KV head,
   ``MQA``, on (1, 2));
-* the federated step (4 clients, dense exchange) on (2, 2) and on
-  (2, 1, 2) with pods: the loss within 1e-6 relative, params within
-  atol 1e-6, and K1 and K2 called once a leaf table a rank, on plain
-  local shards; and the selection of one device's gradients of a pod's
-  clients, whole and placed as the params: every client's channel
-  scores and threshold within rtol 1e-6, the kept columns' values
-  equal and the dropped ones 0 but at scores within 1e-6 relative of
-  the threshold (counted: 0 with these inputs), the fraction within
-  rtol 1e-6; and the same for the sequence-parallel attention (``MQA``
-  on (1, 2));
+* the federated step (4 clients, dense exchange) on (2, 2), and on
+  (2, 1, 2) and (2, 2, 1) with pods: the loss within 1e-6 relative,
+  params within atol 1e-6, and K1 and K2 called once a leaf table a
+  rank, on plain local shards; and the selection of one device's
+  gradients of a pod's clients, whole and placed as the params: every
+  client's channel scores and threshold within rtol 1e-6, the kept
+  columns' values equal and the dropped ones 0 but at scores within
+  1e-6 relative of the threshold (counted: 0 with these inputs), the
+  fraction within rtol 1e-6; and the same for the sequence-parallel
+  attention (``MQA`` on (1, 2)) and ``MQA`` on (2, 1);
+* the compressed exchange on the same five meshes, against the
+  one-device compressed step: the loss within 1e-6 relative, params
+  within atol 1e-6, no K1 or K2 call, no channel score within 1e-6 of
+  a client's k-th; ``_compressed_sum`` of one device's gradients placed
+  as the params bitwise the one-device sum (a vector leaf across pods
+  within 1e-6 relative: each pod's fp32 partial sum is all-reduced, so
+  its clients add in another order); the bytes a rank sends across
+  pods equal to a hand count of its in-range entries, padded to the
+  pod group's largest count, and below the dense exchange's;
 * expert parallelism for the MoE smoke config on (1, 2): routing tables
   equal, outputs allclose, with and without ``moe_dshard``;
 * a DTensor handed to a kernel wrapper raises.
@@ -56,7 +65,8 @@ SERVE = [("qwen2-0.5b", {}, {}), ("deepseek-v2-236b", NO_DROPS, {}),
 
 
 def _spawn(fn, world, *args):
-    return pod.spawn_ranks(fn, world, args, timeout_s=GROUP_TIMEOUT_S,
+    return pod.spawn_ranks(fn, world, args, device="cpu",
+                           timeout_s=GROUP_TIMEOUT_S,
                            join_timeout_s=JOIN_TIMEOUT_S)
 
 
@@ -122,12 +132,12 @@ def groups():
             ("mesh_serving", (two,)),
             ("mesh_experts", (jax.tree_util.tree_map(np.asarray, layer), x,
                               NO_DROPS)),
-            ("mesh_federated", ([(1, 2)], "qwen2-0.5b", mqa_params, batch,
-                                MQA))])
+            ("mesh_federated", ([(1, 2), (2, 1)], "qwen2-0.5b", mqa_params,
+                                batch, MQA))])
         four_ranks = pool.submit(_spawn, ranks.mesh_jobs, 4, [
             ("mesh_serving", (four,)),
-            ("mesh_federated", ([(2, 2), (2, 1, 2)], "qwen2-0.5b",
-                                fed_params, batch)),
+            ("mesh_federated", ([(2, 2), (2, 1, 2), (2, 2, 1)],
+                                "qwen2-0.5b", fed_params, batch)),
             ("mesh_placements", (["qwen2-0.5b", "deepseek-v2-236b",
                                   "mamba2-2.7b"],))])
         got2, got4 = two_ranks.result(), four_ranks.result()
@@ -182,11 +192,21 @@ def federated(groups):
     return groups
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (2, 1, 2), "mqa"])
-def test_sharded_federated_step(federated, shape):
-    group = federated["federated"]
+FEDERATED = [(2, 2), (2, 1, 2), "mqa", (2, 2, 1), "mqa-2x1"]
+
+
+def _federated_group(federated, shape):
+    """The rank results and the mesh shape of a ``FEDERATED`` case."""
     if shape == "mqa":            # sequence-parallel attention on (1, 2)
-        group, shape = federated["federated_mqa"], (1, 2)
+        return federated["federated_mqa"], (1, 2)
+    if shape == "mqa-2x1":
+        return federated["federated_mqa"], (2, 1)
+    return federated["federated"], shape
+
+
+@pytest.mark.parametrize("shape", FEDERATED)
+def test_sharded_federated_step(federated, shape):
+    group, shape = _federated_group(federated, shape)
     for res in group:
         got = res["meshes"][shape]
         assert abs(got["loss"] - res["loss"]) <= 1e-6 * abs(res["loss"])
@@ -224,20 +244,27 @@ def test_sharded_federated_step(federated, shape):
         assert (got["traffic"]["pod"][0] > 0) == (len(shape) == 3)
 
 
-def test_federated_step_refusals():
-    """The compressed exchange of sharded gradients waits (A15b)."""
-    from repro_torch.config import ScbfConfig
-    from repro_torch.core.distributed import make_federated_train_step
-
-    class Mesh:                           # a (1, 2) mesh's surface
-        mesh_dim_names = ("data", "model")
-
-        def size(self, i=None):
-            return 2 if i == 1 else 1
-    with pytest.raises(NotImplementedError, match="A15b"):
-        make_federated_train_step(
-            lambda p, b: 0, ScbfConfig(compressed_exchange=True),
-            mesh=Mesh())
+@pytest.mark.parametrize("shape", FEDERATED)
+def test_sharded_compressed_step(federated, shape):
+    """The compressed exchange of sharded gradients (module docstring)."""
+    group, shape = _federated_group(federated, shape)
+    pods = len(shape) == 3
+    for res in group:
+        want, got = res["compressed"], res["meshes"][shape]["compressed"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
+        for a, b in zip(got["params"], want["params"]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        assert got["k1"] == got["k2"] == 0      # plain torch, no kernel
+        assert got["near"] == 0                 # no tie at the k-th score
+        for scored, exact, rel in got["sums"]:
+            assert exact or (pods and not scored and rel <= 1e-6), \
+                (scored, rel)
+        assert got["sent"]["mesh"] > 0          # the scores' exchange
+        assert got["pod_sent"] == got["hand_pod_sent"]
+        if pods:
+            assert 0 < got["pod_sent"] < got["dense_pod_sent"]
+        else:
+            assert got["pod_sent"] == got["dense_pod_sent"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -304,6 +331,24 @@ def test_shard_fn_is_the_identity_where_nothing_splits(world_one):
     assert shard(x, ("batch", "none")) is x
     d = DTensor.from_local(x, mesh, rules.placements((None, None), mesh))
     assert shard(d, ("batch", "vocab_act")) is d
+
+
+def test_from_block_allocates_nothing(world_one):
+    """Placing a local block as a DTensor makes no storage: its global
+    stride is computed, not read off a tensor of the global shape (a
+    meta one would count as memory in ``launch.roofline.StepCounter``'s
+    step)."""
+    from repro_torch.launch.roofline import StepCounter
+    from repro_torch.models.common import from_block
+    from torch.distributed.tensor import Replicate
+    mesh = meshes.make_host_mesh((1, 1), device="cpu")
+    x = torch.ones((2, 0, 3))
+    with StepCounter() as c:
+        d = from_block(x, mesh, [Replicate(), Replicate()], (2, 0, 3))
+        e = from_block(torch.ones(4, 5), mesh, [Replicate(), Replicate()],
+                       (4, 5))
+    assert (d.stride(), e.stride()) == ((3, 3, 1), (5, 1))
+    assert c.peak_bytes == {"cpu": 80}       # e's 4 x 5 fp32 block
 
 
 def test_kernel_wrappers_refuse_a_dtensor(world_one):

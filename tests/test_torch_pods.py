@@ -56,7 +56,8 @@ JOIN_TIMEOUT_S = 240.0
 
 
 def _spawn(fn, world, *args):
-    return pod.spawn_ranks(fn, world, args, timeout_s=GROUP_TIMEOUT_S,
+    return pod.spawn_ranks(fn, world, args, device="cpu",
+                           timeout_s=GROUP_TIMEOUT_S,
                            join_timeout_s=JOIN_TIMEOUT_S)
 
 
@@ -262,7 +263,7 @@ def test_spawn_ranks_raises_when_a_rank_fails():
     the others terminated."""
     from torch.multiprocessing.spawn import ProcessException
     with pytest.raises(ProcessException):
-        pod.spawn_ranks(ranks.fail_on_last, 2, timeout_s=20.0,
+        pod.spawn_ranks(ranks.fail_on_last, 2, device="cpu", timeout_s=20.0,
                         join_timeout_s=60.0)
 
 
@@ -333,7 +334,7 @@ def test_one_pod_lm_step_matches_the_reference(world_one):
         rb.loss_fn, RefScbf(upload_rate=0.10), lr=0.05))(
         rp, {k: jnp.asarray(v) for k, v in batch.items()})
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    mesh = meshes.make_pod_mesh(1)
+    mesh = meshes.make_pod_mesh(1, device="cpu")
     for m in (None, mesh):
         gl, got = port_dist.make_federated_train_step(
             bundle.loss_fn, ScbfConfig(upload_rate=0.10), lr=0.05,
@@ -438,7 +439,7 @@ def test_host_mesh_constraint_runs(world_one):
     same name, which fails under its jax here): the identity; on a mesh
     with a data or model axis above 1 it places DTensors only, and a
     plain tensor passes through."""
-    mesh = meshes.make_host_mesh()
+    mesh = meshes.make_host_mesh(device="cpu")
     assert rules.axis_sizes(mesh) == {"data": 1, "model": 1}
     shard = rules.make_shard_fn(mesh)
     x = torch.ones((4, 8))
@@ -452,18 +453,40 @@ def test_federated_placements(world_one):
     splits into contiguous rank ranges, weights and keep-masks
     replicate; a mesh without ``pod`` is refused as the reference's."""
     from torch.distributed.tensor import Replicate, Shard
-    mesh = meshes.make_pod_mesh(1)
+    mesh = meshes.make_pod_mesh(1, device="cpu")
     assert rules.cohort_shardings(mesh) == (Shard(0), Replicate())
     assert rules.fused_plan_shardings(mesh) == (Shard(1), Replicate())
     assert rules.keep_mask_sharding(mesh) == Replicate()
     assert rules.slot_range(6, mesh) == (0, 6)
-    host = meshes.make_host_mesh()
+    host = meshes.make_host_mesh(device="cpu")
     for fn in (rules.cohort_shardings, rules.keep_mask_sharding,
                rules.fused_plan_shardings):
         with pytest.raises(ValueError, match="no 'pod' axis"):
             fn(host)
         with pytest.raises(ValueError, match="no 'pod' axis"):
             getattr(ref_rules, fn.__name__)(MESHES["16x16"])
+
+
+NO_CARD = {
+    "spawn_ranks": lambda: pod.spawn_ranks(ranks.fail_on_last, 2),
+    "make_pod_mesh": lambda: meshes.make_pod_mesh(1),
+    "make_host_mesh": lambda: meshes.make_host_mesh(),
+    "make_host_mesh_3d": lambda: meshes.make_host_mesh((1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("call", list(NO_CARD))
+def test_ranks_and_meshes_need_a_card_unless_asked(world_one, monkeypatch,
+                                                   call):
+    """Given no device, ``spawn_ranks`` and the mesh builders take cuda
+    (``repro_torch.device``'s rule) and raise without a card, before a
+    rank starts or a mesh is built; only ``device="cpu"`` gives CPU ranks
+    and meshes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        NO_CARD[call]()
+    if call != "spawn_ranks":
+        assert meshes.make_host_mesh(device="cpu").device_type == "cpu"
 
 
 def test_package_names_are_the_references():
