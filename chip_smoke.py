@@ -261,9 +261,13 @@ its own failure:
    step's memory counted by ``StepCounter`` within MESH_MEMORY_RATIO of
    the rise of ``torch.cuda.max_memory_allocated`` over it.
    deepseek-v2 at depth 2, every published width, drop-free, on (1, 2):
-   80 of 160 experts a rank, a prefill and MESH_MOE_DECODE decode steps
-   against the one-rank logits, a row whose routing flipped only at a
-   router near-tie.  No speed is claimed.  Its lines start with
+   80 of 160 experts a rank, a prefill into caches of MESH_MOE_CACHE
+   slots and MESH_MOE_DECODE decode steps against the one-rank logits, a
+   row whose routing flipped only at a router near-tie; every decode step
+   through the sequence-parallel MLA on the latent cache's split
+   (``models.layers._mla_attend_seq_shards``, counted), and the last one's
+   collectives counted by kind, the MLA's held to a hand count and none
+   taking a block of the cache.  No speed is claimed.  Its lines start with
    ``mesh:``; the kernel report adds each rank's step launches.
 18. the card line, the kernel report line and the final ok line.
 """
@@ -5241,6 +5245,9 @@ MESH_SHAPES = ((1, 2), (2, 1))          # tensor parallel; FSDP
 # decode: 4 steps, cut from 8 for the command's time
 MESH_SERVE = dict(batch=4, prompt=32, decode=4, cache=128)
 MESH_MOE_DECODE = 4                    # deepseek's decode steps
+# deepseek's cache: large enough that the latent cache's gather, which the
+# sequence-parallel MLA leaves out, outweighs what it sends instead
+MESH_MOE_CACHE = 4096
 MESH_CLIENTS = 2                       # the step: 2 clients x LM_BATCH x LM_SEQ
 # the sharded step against the one-rank step of the same params and batch
 # (stated before the first card run, PERF.md section 6): the loss, the
@@ -5269,16 +5276,15 @@ MESH_JOIN_S = 600.0
 
 
 def _mesh_serve(torch, bundle, params, prompts, follow=None,
-                n: int = MESH_SERVE["decode"]):
+                n: int = MESH_SERVE["decode"],
+                cache: int = MESH_SERVE["cache"]):
     """``serve.generate``: prefill ``prompts`` into fresh caches of
-    MESH_SERVE['cache'] slots, then ``n`` greedy decode steps, fed
-    ``follow``'s ids (the one-rank run's) where given: (ids (B, 1 + n),
-    the logits of each step in fp32, whole on every rank, prefill s,
-    decode s)."""
+    ``cache`` slots, then ``n`` greedy decode steps, fed ``follow``'s ids
+    (the one-rank run's) where given: (ids (B, 1 + n), the logits of each
+    step in fp32, whole on every rank, prefill s, decode s)."""
     from repro_torch.launch.serve import generate
 
-    res = generate(bundle, params, prompts, 1 + n, MESH_SERVE["cache"],
-                   follow=follow)
+    res = generate(bundle, params, prompts, 1 + n, cache, follow=follow)
     return res.tokens, [t.float() for t in res.logits], res.prefill_s, \
         res.decode_s
 
@@ -5607,11 +5613,108 @@ def _mesh_qwen(torch, rank: int) -> dict:
     return out
 
 
+def _latents(tree) -> list:
+    """The ``ckv`` and ``krope`` leaves of a cache tree."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in ([v] if k in ("ckv", "krope") else _latents(v))]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _latents(v)]
+    return []
+
+
+class MlaDecodeTap:
+    """Counts the sequence-parallel MLA's runs
+    (``models.layers._mla_attend_seq_shards``) and the query positions of
+    each, and runs the ``n``-th decode step of a bundle it wraps under
+    ``launch.roofline.StepCounter``: every collective that step issues
+    (kind, the local input's shape, the bytes sent over the rank's
+    links), and apart the bytes the MLA sends, by kind."""
+
+    def __init__(self, torch, mesh, n: int):
+        self.torch, self.mesh, self.n = torch, mesh, n
+        self.positions, self.seen, self.mla = [], [], {}
+        self.counter = None
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.real = real = layers._mla_attend_seq_shards
+
+        def counted(q_nope, *args, **kw):
+            self.positions.append(q_nope.shape[1])
+            c = self.counter
+            before = dict(c.bytes_by_kind) if c is not None else None
+            out = real(q_nope, *args, **kw)
+            if c is not None:
+                for k, v in c.bytes_by_kind.items():
+                    self.mla[k] = self.mla.get(k, 0) + v - before.get(k, 0)
+            return out
+        layers._mla_attend_seq_shards = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers._mla_attend_seq_shards = self.real
+
+    def wrap(self, bundle):
+        """``bundle`` whose ``n``-th decode step runs under the counter."""
+        import dataclasses
+
+        from repro_torch.launch.roofline import StepCounter
+        seen, torch = self.seen, self.torch
+        steps = []
+
+        class Seen(StepCounter):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                self.shape = tuple(args[0].shape) if args and isinstance(
+                    args[0], torch.Tensor) else None
+                return super().__torch_dispatch__(func, types, args, kwargs)
+
+            def add_collective(self, kind, n, *a, **kw):
+                seen.append((kind, self.shape, n))
+                super().add_collective(kind, n, *a, **kw)
+
+        def decode_step(params, batch, **kw):
+            steps.append(1)
+            if len(steps) != self.n:
+                return bundle.decode_step(params, batch, **kw)
+            self.blocks = sorted({tuple(c.to_local().shape[-3:])
+                                  for c in _latents(batch["caches"])})
+            with Seen(self.mesh) as self.counter:
+                out = bundle.decode_step(params, batch, **kw)
+            self.total = self.counter.collectives()
+            self.counter = None
+            return out
+        return dataclasses.replace(bundle, decode_step=decode_step)
+
+    def result(self, cfg, batch: int) -> dict:
+        """The counts, and the MLA's bytes by hand on (1, 2), a layer: the
+        all-gathers of ``q_abs`` (B, 1, H/2, r) fp32 and ``q_rope`` (B,
+        1, H/2, rd) in the model's dtype, (P - 1) times their bytes; the
+        all-reduces of the rows' max and of the sums of exponentials (B,
+        H, 1, 1) fp32, 2(P - 1)/P times theirs; the reduce-scatter of
+        ``o_c`` (B, 1, H, r) fp32, (P - 1)/P times its bytes."""
+        B, H, r, rd, P = batch, cfg.num_heads, cfg.kv_lora_rank, \
+            cfg.qk_rope_dim, 2
+        item = self.torch.empty((), dtype=getattr(
+            self.torch, cfg.dtype)).element_size()
+        L = cfg.num_layers
+        hand = {"all-gather": L * (P - 1) * B * (H // P) * (r * 4 + rd * item),
+                "all-reduce": L * 2 * (2 * (P - 1) * B * H * 4 // P),
+                "reduce-scatter": L * (P - 1) * B * H * r * 4 // P}
+        shapes = {shape for _, shape, _ in self.seen}
+        return {"positions": self.positions, "mla": self.mla, "hand": hand,
+                "cache_blocks": self.blocks,
+                "cache_gathers": sorted(shapes & set(self.blocks)),
+                "step": self.total}
+
+
 def _mesh_deepseek(torch, rank: int) -> dict:
     """deepseek-v2 at depth MOE_DEPTH, every published width, drop-free,
-    served on the (1, 2) mesh (80 of its 160 experts a rank) against the
-    one-rank logits of the same ids, with the router probabilities of
-    both runs kept (``RouteTap``)."""
+    served from caches of MESH_MOE_CACHE slots on the (1, 2) mesh (80 of
+    its 160 experts a rank) against the one-rank logits of the same ids,
+    with the router probabilities of both runs kept (``RouteTap``) and
+    the sequence-parallel MLA counted (``MlaDecodeTap``)."""
     import dataclasses
 
     from repro_torch import configs
@@ -5631,7 +5734,8 @@ def _mesh_deepseek(torch, rank: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with RouteTap(torch, cfg.num_experts, keep=True) as r1:
         ids, want, _, _ = _mesh_serve(torch, one, params, prompts,
-                                      n=MESH_MOE_DECODE)
+                                      n=MESH_MOE_DECODE,
+                                      cache=MESH_MOE_CACHE)
     mesh = meshes.make_host_mesh((1, 2), device="cuda")
     sh = model_zoo.build(cfg, shard=rules.make_shard_fn(mesh), device="cuda")
     placed = rules.distribute_params(params, axes, mesh)
@@ -5640,11 +5744,14 @@ def _mesh_deepseek(torch, rank: int) -> dict:
                 for t in tree_leaves(placed))
     del params
     torch.cuda.empty_cache()
-    with RouteTap(torch, cfg.num_experts, keep=True) as r2:
-        _, got, t_prefill, t_decode = _mesh_serve(torch, sh, placed, prompts,
-                                                  follow=ids,
-                                                  n=MESH_MOE_DECODE)
+    with RouteTap(torch, cfg.num_experts, keep=True) as r2, \
+            MlaDecodeTap(torch, mesh, MESH_MOE_DECODE) as tap:
+        _, got, t_prefill, t_decode = _mesh_serve(
+            torch, tap.wrap(sh), placed, prompts, follow=ids,
+            n=MESH_MOE_DECODE, cache=MESH_MOE_CACHE)
     return {"experts_local": experts, "local_param_bytes": local,
+            "mla": tap.result(cfg, MESH_SERVE["batch"]),
+            "layers": cfg.num_layers,
             "want": [w.cpu() for w in want], "got": [g.cpu() for g in got],
             "probs": ([p.cpu() for p in r1.probs],
                       [p.cpu() for p in r2.probs]),
@@ -5863,6 +5970,24 @@ def phase_mesh(torch, card: str) -> dict:
         if chk["far_flips"] or not (chk["logit_max"] <= LM_LOGIT_MAX and
                                     chk["logit_mean"] <= LM_LOGIT_MEAN):
             raise AssertionError(f"{tag}: {chk}")
+        mla = ds["mla"]
+        runs = MESH_MOE_DECODE * ds["layers"]
+        if mla["positions"] != [1] * runs:
+            raise AssertionError(f"{tag}: the sequence-parallel MLA ran "
+                                 f"on queries of {mla['positions']} "
+                                 f"positions, want {runs} decode runs")
+        if mla["mla"] != mla["hand"] or mla["cache_gathers"]:
+            raise AssertionError(f"{tag}: the MLA sent {mla['mla']} B, by "
+                                 f"hand {mla['hand']} B; collectives of "
+                                 f"cache blocks {mla['cache_gathers']}")
+        log(f"{tag}: decode sequence parallel on the latent cache's split "
+            f"({MESH_MOE_CACHE} slots, blocks {mla['cache_blocks']} a "
+            f"rank): {len(mla['positions'])} MLA runs of one position, "
+            f"none at prefill; the last decode step sent over a rank's "
+            f"links {mla['step']['bytes_by_kind']} B in "
+            f"{mla['step']['count_by_kind']} calls, the MLA's part "
+            f"{mla['mla']} B = the hand count {mla['hand']} B; no "
+            f"collective took a block of the cache ({card})")
         log(f"{tag}: {ds['experts_local']} of {ds['num_experts']} experts "
             f"and {ds['local_param_bytes']:,} B of params a rank; served 4 "
             f"x {MESH_SERVE['prompt']} + {MESH_MOE_DECODE} decode "

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.comm import wire
 from repro_torch.kernels.apoz import apoz_batch_fractions
-from repro_torch.models.mlp_net import hidden_sizes
+from repro_torch.models import mlp_net
 
 
 def apoz_scores(params: Sequence[dict], x_val, batch_size: int = 2048,
@@ -46,7 +46,7 @@ def apoz_scores(params: Sequence[dict], x_val, batch_size: int = 2048,
                          "got 0 examples (disable pruning or provide "
                          "validation data)")
     device = params[0]["w"].device
-    splits = np.cumsum(hidden_sizes(params))[:-1]
+    splits = np.cumsum(mlp_net.hidden_sizes(params))[:-1]
     totals, count = None, 0
     for start in range(0, n_val, batch_size):
         xb = torch.as_tensor(x_val[start:start + batch_size]).to(device)
@@ -155,6 +155,12 @@ def apply_structure(params: Sequence[dict], keep: Sequence[np.ndarray]
     return tuple(new)
 
 
+def hidden_sizes(params: Sequence[dict]) -> List[int]:
+    """The hidden widths of an MLP's layers, as a list (the reference's
+    ``core.pruning.hidden_sizes``; ``models.mlp_net``'s is a tuple)."""
+    return list(mlp_net.hidden_sizes(params))
+
+
 def expand_payloads(payloads: Sequence[wire.Payload],
                     keep: Sequence[np.ndarray],
                     params: Sequence[dict]) -> List[wire.Payload]:
@@ -216,7 +222,7 @@ class Pruner:
         self.prune_total = prune_total
         self.device = params[0]["w"].device
         self.x_val = torch.as_tensor(x_val).to(self.device)
-        self._full_hidden = list(hidden_sizes(params))
+        self._full_hidden = hidden_sizes(params)
         self.original_hidden = sum(self._full_hidden)
         self.limit = int(prune_total * self.original_hidden)
         # kept neuron ids per hidden layer, in ORIGINAL geometry

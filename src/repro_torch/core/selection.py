@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.comm import wire
 from repro_torch.core import channels
+from repro_torch.params import tree_map
 
 
 @dataclass
@@ -97,3 +98,20 @@ def select_gradients(grads: Sequence[dict], upload_rate: float,
     ops = channels.edge_operands(grads, scores, thr)
     masked, masks = channels.mask_by_operands(grads, ops)
     return masked, masks, thr, ops
+
+
+def tree_sub(a, b):
+    """Gradient tree a - b (the paper's G = W_after - W_before)."""
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_add(a, b):
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_scale(a, c):
+    return tree_map(lambda x: x * c, a)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)

@@ -2,9 +2,9 @@
 bucketed-P padding, round scheduling and pluggable aggregation (port of
 ``repro.fed``).
 
-The reference's exports, resolved on first use (``lazy_exports``), but
-its jit-cache hooks (``scbf_compile_count`` and its reset), which have no
-counterpart (ROADMAP A15).
+The reference's exports, resolved on first use (``lazy_exports``).  Its
+jit-cache hooks (``scbf_compile_count`` and its reset) count what the
+port compiles per shape, which is nothing (``fed.engine``).
 """
 from repro_torch import lazy_exports
 
@@ -13,7 +13,7 @@ __all__, __getattr__ = lazy_exports(__name__, {
         "PaddedCohort", "bucket_size", "pad_clients")},
     **{name: ("repro_torch.fed.engine", name) for name in (
         "BatchedEngine", "SequentialEngine", "make_engine",
-        "stack_pytrees")},
+        "reset_scbf_compile_count", "scbf_compile_count", "stack_pytrees")},
     **{name: ("repro_torch.fed.scheduler", name) for name in (
         "FedBuffScheduler", "RoundPlan", "SyncScheduler",
         "make_scheduler")},

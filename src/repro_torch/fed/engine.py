@@ -1087,6 +1087,29 @@ def _store_round(out: FusedOutputs, r: int, masked, masks,
 ENGINES = {"batched": BatchedEngine, "sequential": SequentialEngine}
 
 
+def scbf_compile_count() -> int:
+    """The reference's jit-cache size of its batched SCBF pass.  The
+    port runs the pass eagerly and compiles nothing per shape: 0."""
+    return 0
+
+
+def reset_scbf_compile_count() -> None:
+    """The reference clears its pass's jit cache; the port holds none."""
+
+
+def fused_compile_count() -> int:
+    """The reference's jit-cache size of its fused chunk programs: here
+    the fused round programs captured as CUDA graphs since the last
+    reset (``fed.graphs.captures``; a CPU run captures none)."""
+    return graphs.captures
+
+
+def reset_fused_compile_count() -> None:
+    """Set the count of captured round programs to 0 (the replays'
+    count stays)."""
+    graphs.captures = 0
+
+
 def make_engine(kind: str, clients, batch_size: int, epochs: int, device,
                 bucket: str = "pow2", pods: int = 1, mesh=None):
     """``mesh``: the batched engine's pod mesh (``BatchedEngine``)."""

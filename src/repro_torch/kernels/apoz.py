@@ -14,8 +14,9 @@ when ``B % 512 == 0`` and ``N % 256 == 0`` and a ``jnp`` mean otherwise;
 the port takes the kernel for every CUDA shape: count · fl(1/B), which
 both of the reference's branches compute, is the same number either way.
 
-The reference's jit-cache hooks (``apoz_scorer_compile_count``) have no
-counterpart: PyTorch runs eagerly and compiles nothing per shape.
+The reference's jit-cache hooks (``apoz_scorer_compile_count`` and its
+reset) count what the port compiles per shape: PyTorch runs the scorer
+eagerly, so 0.
 """
 from __future__ import annotations
 
@@ -37,6 +38,16 @@ launches = 0
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def apoz_scorer_compile_count() -> int:
+    """The reference's jit-cache size of its APoZ scorer: the port
+    compiles none, 0."""
+    return 0
+
+
+def reset_apoz_scorer_compile_count() -> None:
+    """The reference clears its scorer's jit cache; the port holds none."""
 
 
 def apoz_counts_plain(acts: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,12 @@ _PHI_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
 _PHI_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
 
 
+def ax(*names: str) -> str:
+    """Logical axis names joined into an axes leaf (``ax("embed", "mlp")``
+    is ``"embed,mlp"``)."""
+    return ",".join(names)
+
+
 def split_ax(axes: str):
     return tuple(axes.split(",")) if axes else ()
 

@@ -218,18 +218,26 @@ def _split_dims(mesh, batch: int, heads: int, head_dim: int) -> dict:
     return out
 
 
-def _block(t, mesh, split: dict, partial=()):
+def _placed(t, mesh, split: dict):
     """``t`` (a DTensor, or a tensor the same on every rank) re-laid so
     that each mesh axis in ``split`` splits the tensor dim it names (the
-    others replicate): (this rank's local block, its placements).  The
+    others replicate)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return replicated(t, mesh).redistribute(mesh, [
+        Shard(split[a]) if a in split else Replicate()
+        for a in mesh.mesh_dim_names])
+
+
+def _block(t, mesh, split: dict, partial=()):
+    """``_placed(t, mesh, split)``'s local block and placements.  The
     block's gradient is a partial sum over the axes ``partial`` (where
     the ranks of an axis use a replicated input for their own part)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    names = mesh.mesh_dim_names
-    place = [Shard(split[a]) if a in split else Replicate() for a in names]
-    grads = [Partial() if a in partial else q for a, q in zip(names, place)]
-    return replicated(t, mesh).redistribute(mesh, place).to_local(
-        grad_placements=grads), place
+    from torch.distributed.tensor import Partial
+    t = _placed(t, mesh, split)
+    place = list(t.placements)
+    grads = [Partial() if a in partial else q
+             for a, q in zip(mesh.mesh_dim_names, place)]
+    return t.to_local(grad_placements=grads), place
 
 
 def _attention_shards(q, k, v, kpos, qpos, ctx: ModelCtx, causal: bool,
@@ -511,12 +519,20 @@ def _mla_attend(q_nope, q_rope, ckv, krope, kpos, qpos, p, ctx: ModelCtx):
     q_nope (B,S,H,hd), q_rope (B,S,H,rd); ckv (B,T,r), krope (B,T,rd).
     Over DTensors, head parallel as ``_attention_shards``: a rank takes
     its batch rows and heads of the queries and of ``kv_up``, and the
-    whole latent cache of its rows.
+    whole latent sequence of its rows.  A query of one position a row
+    (decode) against slots that split over ``model`` runs sequence
+    parallel instead (``_mla_attend_seq_shards``).
     """
     from torch.distributed.tensor import DTensor
     if isinstance(q_nope, DTensor):
         mesh = q_nope.device_mesh
         split = _split_dims(mesh, q_nope.shape[0], q_nope.shape[2], 2)
+        m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+        if m > 1 and q_nope.shape[1] == 1 and ckv.shape[1] % m == 0:
+            q_nope, q_rope = (_placed(q, mesh, split)
+                              for q in (q_nope, q_rope))
+            return _mla_attend_seq_shards(q_nope, q_rope, ckv, krope, kpos,
+                                          qpos, p, ctx)
         rows = {a: d for a, d in split.items() if a == "data"}
         heads = ("model",) if "model" in split else ()
         qn, place = _block(q_nope, mesh, split)
@@ -550,6 +566,84 @@ def _mla_attend(q_nope, q_rope, ckv, krope, kpos, qpos, p, ctx: ModelCtx):
     o_c = torch.einsum("bhst,btr->bshr", pr, ckv_f)
     o = torch.einsum("bshr,rhd->bshd", o_c, wv)
     return o.to(ckv.dtype)
+
+
+def _mla_attend_seq_shards(q_nope, q_rope, ckv, krope, kpos, qpos, p,
+                           ctx: ModelCtx):
+    """``_mla_attend`` over DTensors at decode, sequence parallel on the
+    latent cache's ``kv_seq`` split over ``model``, as GSPMD partitions
+    the reference's scores.  Each rank absorbs ``wk`` into the queries of
+    its heads (its slice of ``kv_up``) and gathers ``q_abs`` (B,1,H,r)
+    and ``q_rope`` over ``model``; scores every head against its own
+    slots of ``ckv`` and ``krope`` in fp32; all-reduces the rows' max (a
+    constant of the softmax, outside the gradient) and then the sums of
+    their exponentials; forms ``o_c`` as a partial sum over its slots and
+    reduce-scatters it over the heads, so that it holds the whole
+    ``o_c`` of its own heads, which its ``wv`` decompresses.  Nothing of
+    ``ckv``, ``krope`` or ``kpos`` crosses a rank; the result is the
+    one-device arithmetic up to the order of its sums.  The queries come
+    in split by rows over ``data`` and by heads over ``model`` (where
+    they divide), as ``_mla_attend`` places them.
+
+    Why at decode only.  A rank sends (m-1)/m of 2·H·r·4 B a row (the
+    fp32 ``q_abs`` gathered and ``o_c`` reduced; ``q_rope`` and the two
+    (B,H) reductions add H·rd·2 B and less), where gathering the row's
+    cache sends (m-1)/m of T·(r + rd)·2 B: with deepseek-v2's H = 128,
+    r = 512 and rd = 64, 2·128·512·4 B = 524,288 B against 1,152 B a
+    slot, so the gather costs more once the cache holds more than ≈ 455
+    slots (≈ 470 with ``q_rope``).  A longer query turns the other way:
+    a 512-query chunk of prefill reduces 512·H·r·4 B ≈ 134 MB a row,
+    while the row's whole 32,768-slot cache is gathered once, 37.7 MB,
+    for every chunk; so prefill and the cache-less step stay head
+    parallel."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial
+    cfg = ctx.cfg
+    mesh = q_nope.device_mesh
+    B, S, H, hd = q_nope.shape
+    r = cfg.kv_lora_rank
+    split = _split_dims(mesh, B, H, 2)
+    rows = _rows(mesh, B)
+    seq = dict(rows, model=1)
+    qn, place = _block(q_nope, mesh, split)
+    up = _block(p["kv_up"]["w"], mesh, {a: 1 for a in split if a == "model"},
+                partial=tuple(rows))[0]
+    wu = up.reshape(r, qn.shape[2], 2 * hd)
+    wk = wu[..., :hd].to(torch.float32)                  # (r,H_l,hd)
+    wv = wu[..., hd:].to(torch.float32)
+    q_abs = torch.einsum("bshd,rhd->bshr", qn.to(torch.float32), wk)
+
+    def all_heads(t):
+        """A block of this rank's heads as the block of every head."""
+        return _block(from_block(t, mesh, place, (B, S, H, t.shape[-1])),
+                      mesh, rows)
+    q_abs = all_heads(q_abs)[0]                          # (B_l,1,H,r)
+    qr, row_place = all_heads(_block(q_rope, mesh, split)[0])
+    cl, _ = _block(ckv, mesh, seq)
+    kr, _ = _block(krope, mesh, seq)
+    kp, _ = _block(kpos, mesh, seq)
+    qp, _ = _block(qpos, mesh, rows)
+    group = mesh.get_group("model")
+    ckv_f = cl.to(torch.float32)
+    scale = (hd + cfg.qk_rope_dim) ** -0.5
+    s = (torch.einsum("bshr,btr->bhst", q_abs, ckv_f) +
+         torch.einsum("bshd,btd->bhst", qr.to(torch.float32),
+                      kr.to(torch.float32))) * scale
+    valid = (kp[:, None, None, :] >= 0) & \
+        (qp[:, None, :, None] >= kp[:, None, None, :])
+    s = s.masked_fill(~valid, NEG_INF)
+    top = funcol.all_reduce(s.amax(-1, keepdim=True).detach(), "max", group)
+    e = torch.exp(s - top)
+    parts = [Partial() if a == "model" else q
+             for a, q in zip(mesh.mesh_dim_names, row_place)]
+    den = e.sum(-1, keepdim=True)                        # (B_l,H,1,1)
+    den = from_block(den, mesh, parts, (B,) + den.shape[1:]).redistribute(
+        mesh, row_place).to_local()
+    num = torch.einsum("bhst,btr->bshr", e / den, ckv_f)  # over my slots
+    o_c = from_block(num, mesh, parts, (B, S, H, r)).redistribute(
+        mesh, place).to_local()                          # (B_l,1,H_l,r)
+    o = torch.einsum("bshr,rhd->bshd", o_c, wv)
+    return from_block(o.to(ckv.dtype), mesh, place, q_nope.shape)
 
 
 def mla_apply(p, x, ctx: ModelCtx, positions, *, cache=None):

@@ -35,9 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.common import (dense_init, device_of, merge, reshape,
-                                       trunc_normal)
-from repro_torch.models.layers import ModelCtx
+from repro_torch.models.common import (dense_init, device_of, from_block,
+                                       merge, reshape, trunc_normal)
+from repro_torch.models.layers import ModelCtx, _block, _rows, _split_dims
 
 
 def mamba_init(gen, cfg: ArchConfig, dtype):
@@ -87,7 +87,11 @@ def _ssd_chunked(xh, dt, A, B_, C_, chunk, ctx=None,
     over blocks of ``head_block`` heads (the reference's ``lax.map``)
     keeps the live set to one block's worth — the blocks are independent.
     ``ctx`` is the reference's signature; nothing here reads it.
+    Over DTensors, head parallel (``_ssd_shards``).
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(xh, DTensor):
+        return _ssd_shards(xh, dt, A, B_, C_, chunk, h0, head_block)
     NH = xh.shape[2]
     hb = head_block
     while hb > 1 and NH % hb:
@@ -102,6 +106,35 @@ def _ssd_chunked(xh, dt, A, B_, C_, chunk, ctx=None,
         ys.append(y_b)
         hs.append(h_b)
     return torch.cat(ys, axis=2), torch.cat(hs, axis=1)
+
+
+def _ssd_shards(xh, dt, A, B_, C_, chunk, h0, head_block: int):
+    """``_ssd_chunked`` over DTensors, head parallel as
+    ``layers._attention_shards``: each rank runs its batch rows (split
+    over ``data``) and its heads (over ``model``, where they divide) of
+    ``xh``, ``dt``, ``A`` and ``h0`` on its local blocks, with ``B_`` and
+    ``C_`` of its rows, which every head shares.  The heads are
+    independent, so this is the one-device arithmetic; where nothing
+    splits them the SSD runs whole on every ``model`` rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = xh.device_mesh
+    B, S, NH, P = xh.shape
+    split = _split_dims(mesh, B, NH, 2)
+    rows = _rows(mesh, B)
+    heads = {a: 0 for a in split if a == "model"}
+    xl, place = _block(xh, mesh, split)
+    dl, _ = _block(dt, mesh, split)
+    al, _ = _block(A, mesh, heads, partial=tuple(rows))
+    bl, _ = _block(B_, mesh, rows, partial=tuple(heads))
+    cl, _ = _block(C_, mesh, rows, partial=tuple(heads))
+    at_h = dict(rows, **{a: 1 for a in heads})
+    hl = None if h0 is None else _block(h0, mesh, at_h)[0]
+    y, h = _ssd_chunked(xl, dl, al, bl, cl, chunk, h0=hl,
+                        head_block=head_block)
+    h_place = [Shard(at_h[a]) if a in at_h else Replicate()
+               for a in mesh.mesh_dim_names]
+    return from_block(y, mesh, place, xh.shape), \
+        from_block(h, mesh, h_place, (B, NH) + tuple(h.shape[2:]))
 
 
 def _ssd_heads(xh, dt, A, B_, C_, chunk, h0: Optional[torch.Tensor] = None):
@@ -174,6 +207,10 @@ def mamba_apply(p, x, ctx: ModelCtx, *, cache=None):
         cfg.ssm_head_dim
     f32 = torch.float32
 
+    # the input whole over ``model`` before the projections: a residual
+    # stream that is a partial sum there would have DTensor gather the
+    # weights and run every projection on every ``model`` rank
+    x = ctx.shard(x, ("batch", "none", "none"))
     xz = x @ p["in_x"]["w"]                                # (B,S,DI)
     z = x @ p["in_z"]["w"]
     Bp = x @ p["in_B"]["w"]                                # (B,S,N)
@@ -222,4 +259,35 @@ def mamba_apply(p, x, ctx: ModelCtx, *, cache=None):
     y = y + xh.to(f32) * p["D_res"][None, None, :, None]
     y = reshape(y, B, S, DI).to(x.dtype)
     y = y * F.silu(z)
-    return y @ p["out"]["w"], new_cache
+    return _out_proj(y, p["out"]["w"], ctx), new_cache
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose gradient a DTensor makes whole (``Replicate``)
+    over every mesh axis where it is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate
+        if not any(isinstance(p, Partial) for p in g.placements):
+            return g
+        return g.redistribute(g.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in g.placements])
+
+
+def _out_proj(y, w, ctx: ModelCtx):
+    """``y @ w`` of the block's output projection, made whole over
+    ``model`` (a row-parallel product's partial sums all-reduced).  Its
+    gradient comes in whole too: where the residual stream's gradient is
+    a partial sum over ``model`` (the vocabulary-split logits' is),
+    DTensor would run the product's backward on weights gathered whole on
+    every ``model`` rank."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(y, DTensor):
+        return y @ w
+    return ctx.shard(_WholeGrad.apply(y @ w), ("batch", "none", "none"))

@@ -456,25 +456,101 @@ def mesh_serving(rank, world, cases):
         placed = rules.distribute_params(params, axes, mesh)
         plain, _ = _serve(one, params, toks)
         real, seq = L._attention_seq_shards, []
+        real_mla, mla = L._mla_attend_seq_shards, []
 
         def counted(*a, **kw):
             seq.append(1)
             return real(*a, **kw)
+
+        def counted_mla(q_nope, *a, **kw):
+            mla.append(q_nope.shape[1])          # the query's positions
+            return real_mla(q_nope, *a, **kw)
         L._attention_seq_shards = counted
+        L._mla_attend_seq_shards = counted_mla
         try:
             sharded, kinds = _serve(sh, placed, toks)
         finally:
             L._attention_seq_shards = real
+            L._mla_attend_seq_shards = real_mla
         prompts = torch.from_numpy(toks[:, :MESH_P])
         gen = [generate(b, p, prompts, 3, MESH_CACHE)
                for b, p in ((one, params), (sh, placed))]
         out.append({"arch": arch, "cfg_kw": cfg_kw, "shape": shape,
                     "plain": plain, "seq_parallel": len(seq),
+                    "mla_seq_parallel": mla, "layers": cfg.num_layers,
                     "sharded": sharded, "cache_types": kinds,
                     "generate": [(g.tokens.numpy(),
                                   [t.numpy() for t in g.logits])
                                  for g in gen]})
     return out
+
+
+def _latents(tree):
+    """The ``ckv`` and ``krope`` leaves of a cache tree."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in ([v] if k in ("ckv", "krope") else _latents(v))]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _latents(v)]
+    return []
+
+
+def mesh_mla_decode(rank, world, np_params, toks, cfg_kw):
+    """deepseek-v2's smoke variant on (1, 2): a prefill of ``MESH_P``
+    tokens, then one decode step under ``launch.roofline.StepCounter``:
+    every collective the step issues (kind, the local input's shape and
+    the bytes it sends) and, apart, the bytes by kind that the
+    sequence-parallel MLA sends, with the cache blocks' local shapes."""
+    from repro_torch.launch.roofline import StepCounter
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo
+    from repro_torch.params import from_numpy_tree
+    from repro_torch.sharding import mesh as meshes
+    from repro_torch.sharding import rules
+
+    torch.set_num_threads(1)
+    cfg = _mesh_cfg("deepseek-v2-236b", cfg_kw)
+    _, axes = model_zoo.build(cfg, device="cpu").init(0)
+    mesh = meshes.make_host_mesh((1, 2), device="cpu")
+    sh = model_zoo.build(cfg, shard=rules.make_shard_fn(mesh), device="cpu",
+                         remat=False)
+    placed = rules.distribute_params(from_numpy_tree(np_params, "cpu"), axes,
+                                     mesh)
+    t = torch.from_numpy(toks)
+    _, caches = sh.prefill_step(placed, {
+        "tokens": t[:, :MESH_P], "caches": sh.make_cache(MESH_B, MESH_CACHE)})
+    blocks = sorted({tuple(c.to_local().shape[-3:])
+                     for c in _latents(caches)})
+
+    class Seen(StepCounter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.shape = tuple(args[0].shape) if args and isinstance(
+                args[0], torch.Tensor) else None
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def add_collective(self, kind, n, *a, **kw):
+            seen.append((kind, self.shape, n))
+            super().add_collective(kind, n, *a, **kw)
+    seen, inside = [], {}
+    real = L._mla_attend_seq_shards
+
+    def counted(*a, **kw):
+        before = dict(counter.bytes_by_kind)
+        out = real(*a, **kw)
+        for k, v in counter.bytes_by_kind.items():
+            inside[k] = inside.get(k, 0) + v - before.get(k, 0)
+        return out
+    L._mla_attend_seq_shards = counted
+    try:
+        with Seen(mesh) as counter:
+            sh.decode_step(placed, {
+                "token": t[:, MESH_P:MESH_P + 1],
+                "pos": torch.full((MESH_B, 1), MESH_P, dtype=torch.int32),
+                "caches": caches})
+    finally:
+        L._mla_attend_seq_shards = real
+    return {"collectives": seen, "mla": inside, "cache_blocks": blocks,
+            "total": counter.collectives()}
 
 
 def mesh_placements(rank, world, archs):

@@ -7,8 +7,9 @@ memory counted (outputs, the step's rise above its state, the peak),
 every roofline term positive and a ``dominant`` one; a step over the
 meta device allocates nothing.  ``roofline_terms`` is held to values
 worked by hand from the H100 table, ``StepCounter``'s collectives and
-memory to counts worked by hand, and the compressed exchange's bytes
-across pods to a hand count from the leaves' local shapes.
+memory to counts worked by hand, the compressed exchange's bytes
+across pods to a hand count from the leaves' local shapes, and mamba2's
+federated step to half its plain step's FLOPs a device.
 """
 import dataclasses
 import json
@@ -82,6 +83,22 @@ def test_smoke_train_step(mesh):
         assert rec["collectives"]["cross_pod_bytes"] > 0
     else:
         assert rec["collectives"]["cross_pod_bytes"] == 0
+
+
+def test_mamba2_federated_flops_are_a_device_share():
+    """mamba2's smoke variant at train_4k: a device of the federated step
+    on (2, 16, 16) holds 8 rows of a pod's client where a device of the
+    plain step on (16, 16) holds 16, so it counts half the FLOPs.  (A
+    layer whose input arrived as a partial sum over ``model`` once had
+    DTensor run its projections on gathered weights on every ``model``
+    rank: 1.04 of the plain step's FLOPs here, 5.0 at full width.)"""
+    cfg = _smoke("mamba2-2.7b")
+    one = dryrun.dryrun_one("mamba2-2.7b", "train_4k", "single", cfg=cfg)
+    fed = dryrun.dryrun_one("mamba2-2.7b", "train_4k", "multi", cfg=cfg)
+    for rec in (one, fed):
+        _check(rec)
+    assert fed["federated"] and not one["federated"]
+    assert 2 * fed["flops_per_dev"] == one["flops_per_dev"]
 
 
 def test_compressed_cross_pod_bytes_by_hand():

@@ -13,7 +13,10 @@ places data and changes no math.  At the smoke widths in fp32:
   reference's (``tests/test_torch_models.py``'s gate), greedy tokens
   equal; attention head parallel where the KV heads divide ``model``,
   and sequence parallel where they do not (qwen2 with one KV head,
-  ``MQA``, on (1, 2));
+  ``MQA``, on (1, 2)); deepseek-v2 also on (2, 2), its decode steps
+  through the sequence-parallel MLA wherever ``model`` splits the
+  latent cache, its prefill never; one decode step's collectives on
+  (1, 2) a hand count, none of them a block of the cache;
 * the federated step (4 clients, dense exchange) on (2, 2), and on
   (2, 1, 2) and (2, 2, 1) with pods: the loss within 1e-6 relative,
   params within atol 1e-6, and K1 and K2 called once a leaf table a
@@ -23,7 +26,8 @@ places data and changes no math.  At the smoke widths in fp32:
   columns' values equal and the dropped ones 0 but at scores within
   1e-6 relative of the threshold (counted: 0 with these inputs), the
   fraction within rtol 1e-6; and the same for the sequence-parallel
-  attention (``MQA`` on (1, 2)) and ``MQA`` on (2, 1);
+  attention (``MQA`` on (1, 2)), ``MQA`` on (2, 1) and mamba2 on (1, 2)
+  (the SSD head parallel, the projections tensor parallel);
 * the compressed exchange on the same five meshes, against the
   one-device compressed step: the loss within 1e-6 relative, params
   within atol 1e-6, no K1 or K2 call, no channel score within 1e-6 of
@@ -120,6 +124,12 @@ def groups():
         elif arch == "qwen2-0.5b":
             four.append((arch, cfg_kw, (2, 2), np_params, toks, build_kw))
             fed_params = np_params
+        elif arch == "deepseek-v2-236b":
+            four.append((arch, cfg_kw, (2, 2), np_params, toks, build_kw))
+            mla = (np_params, toks, cfg_kw)
+        elif arch == "mamba2-2.7b":
+            ssm = ([(1, 2)], arch, np_params,
+                   ranks.lm_batch(rb.cfg.vocab_size))
     cfg = _ref_cfg("deepseek-v2-236b", NO_DROPS)
     from repro.models import moe as ref_moe
     layer, _ = ref_moe.moe_init(jax.random.PRNGKey(1), cfg, jnp.float32)
@@ -133,7 +143,9 @@ def groups():
             ("mesh_experts", (jax.tree_util.tree_map(np.asarray, layer), x,
                               NO_DROPS)),
             ("mesh_federated", ([(1, 2), (2, 1)], "qwen2-0.5b", mqa_params,
-                                batch, MQA))])
+                                batch, MQA)),
+            ("mesh_mla_decode", mla),
+            ("mesh_federated", ssm)])
         four_ranks = pool.submit(_spawn, ranks.mesh_jobs, 4, [
             ("mesh_serving", (four,)),
             ("mesh_federated", ([(2, 2), (2, 1, 2), (2, 2, 1)],
@@ -144,6 +156,8 @@ def groups():
     return {"refs": refs, "serving2": [r[0] for r in got2],
             "experts": [r[1] for r in got2],
             "federated_mqa": [r[2] for r in got2],
+            "mla_decode": [r[3] for r in got2],
+            "federated_ssm": [r[4] for r in got2],
             "serving4": [r[0] for r in got4],
             "federated": [r[1] for r in got4], "placements": got4[0][2]}
 
@@ -158,7 +172,8 @@ def _label(arch, cfg_kw):
 
 
 CASES = [(_label(a, kw), s) for a, kw, _ in SERVE
-         for s in ((2, 1), (1, 2))] + [("qwen2-0.5b", (2, 2))]
+         for s in ((2, 1), (1, 2))] + [("qwen2-0.5b", (2, 2)),
+                                       ("deepseek-v2-236b", (2, 2))]
 
 
 @pytest.mark.parametrize("label,shape", CASES)
@@ -173,6 +188,11 @@ def test_sharded_serving_matches_one_device_and_the_reference(serving,
         # sequence parallel where the KV heads do not divide ``model``
         assert (case["seq_parallel"] > 0) == (label.endswith("-mqa")
                                               and shape == (1, 2))
+        # MLA sequence parallel on the latent cache's slots at every
+        # decode step where ``model`` splits them, and never at prefill
+        want = ranks.MESH_T * case["layers"] if label == "deepseek-v2-236b" \
+            and shape[1] == 2 else 0
+        assert case["mla_seq_parallel"] == [1] * want
         for plain, sharded, ref in zip(case["plain"], case["sharded"],
                                        refs[label]):
             np.testing.assert_allclose(sharded, plain, rtol=1e-5, atol=1e-5)
@@ -187,18 +207,47 @@ def test_sharded_serving_matches_one_device_and_the_reference(serving,
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
 
 
+def test_mla_decode_sends_no_cache(groups):
+    """One decode step of deepseek-v2 on (1, 2) under ``StepCounter``
+    (fp32, 4 rows, a cache of 10 slots, 5 a rank): no collective takes a
+    block of the latent cache, and what the sequence-parallel MLA sends a
+    layer is, by hand, with P = 2 ranks of ``model`` and H / 2 heads a
+    rank: the all-gathers of ``q_abs`` (B, 1, H/2, r) and of ``q_rope``
+    (B, 1, H/2, rd), (P - 1) times their bytes; the all-reduces of the
+    rows' max and of the sums of exponentials, (B, H, 1, 1) each,
+    2(P - 1)/P times theirs; the reduce-scatter of ``o_c`` (B, 1, H, r),
+    (P - 1)/P times its bytes."""
+    cfg = ranks._mesh_cfg("deepseek-v2-236b", NO_DROPS)
+    B, H, r, rd, P = ranks.MESH_B, cfg.num_heads, cfg.kv_lora_rank, \
+        cfg.qk_rope_dim, 2
+    f32, L = 4, cfg.num_layers
+    hand = {"all-gather": L * (P - 1) * B * (H // P) * (r + rd) * f32,
+            "all-reduce": L * 2 * (2 * (P - 1) * B * H * f32 // P),
+            "reduce-scatter": L * (P - 1) * B * H * r * f32 // P}
+    for res in groups["mla_decode"]:             # every rank
+        assert res["cache_blocks"] == sorted([
+            (B, ranks.MESH_CACHE // P, r), (B, ranks.MESH_CACHE // P, rd)])
+        assert res["mla"] == hand
+        shapes = {shape for _, shape, _ in res["collectives"]}
+        assert not shapes & set(res["cache_blocks"])
+        total = res["total"]["bytes_by_kind"]
+        assert all(total[k] >= v for k, v in hand.items())
+
+
 @pytest.fixture(scope="module")
 def federated(groups):
     return groups
 
 
-FEDERATED = [(2, 2), (2, 1, 2), "mqa", (2, 2, 1), "mqa-2x1"]
+FEDERATED = [(2, 2), (2, 1, 2), "mqa", (2, 2, 1), "mqa-2x1", "mamba2"]
 
 
 def _federated_group(federated, shape):
     """The rank results and the mesh shape of a ``FEDERATED`` case."""
     if shape == "mqa":            # sequence-parallel attention on (1, 2)
         return federated["federated_mqa"], (1, 2)
+    if shape == "mamba2":         # the head-parallel SSD on (1, 2)
+        return federated["federated_ssm"], (1, 2)
     if shape == "mqa-2x1":
         return federated["federated_mqa"], (2, 1)
     return federated["federated"], shape

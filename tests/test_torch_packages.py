@@ -1,7 +1,11 @@
 """The port's package-level surface against the reference's on the CPU:
 the names ``repro.{comm,data,fed,kernels,metrics}`` export and their
-counterparts in ``repro_torch`` (the reference's jit-cache hooks the
-only names left out: ROADMAP A15), the ``kernels`` wrappers against the
+counterparts in ``repro_torch``, the reference's jit-cache hooks given
+their port meaning (0 where the port compiles nothing, the fused round
+programs captured for ``fused_compile_count``; the resets clear them),
+the module-level names ``core.selection``'s tree helpers,
+``core.pruning.hidden_sizes`` and ``models.common.ax`` on small trees
+against the reference's, the ``kernels`` wrappers against the
 reference's ``ops`` (K1 within 1e-6, K2 and K4 exact), ``tree_dense_bytes``
 exact, ``linear_warmup_cosine`` within 1e-7, and
 ``benchmarks/torch_table_communication.py`` with the reference's draws
@@ -24,7 +28,7 @@ from repro_torch.params import from_numpy_tree
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGES = ["comm", "data", "fed", "kernels", "metrics"]
-# the reference's jit-cache hooks: no counterpart (ROADMAP A15)
+# the reference's jit-cache hooks, which ``repro.fed`` exports too
 A15_HOOKS = {"reset_scbf_compile_count", "scbf_compile_count"}
 
 
@@ -37,7 +41,7 @@ def _public(mod) -> set:
 def test_package_names_are_the_references(package):
     ref = importlib.import_module(f"repro.{package}")
     port = importlib.import_module(f"repro_torch.{package}")
-    want = set(getattr(ref, "__all__", None) or _public(ref)) - A15_HOOKS
+    want = set(getattr(ref, "__all__", None) or _public(ref))
     assert set(port.__all__) == want
     for name in port.__all__:
         got = getattr(port, name)
@@ -46,7 +50,7 @@ def test_package_names_are_the_references(package):
     with pytest.raises(AttributeError):
         getattr(port, "no_such_name")
     if package == "fed":
-        assert A15_HOOKS <= _public(ref)
+        assert A15_HOOKS <= _public(ref) and A15_HOOKS <= set(port.__all__)
 
 
 def test_from_imports_work():
@@ -55,6 +59,102 @@ def test_from_imports_work():
     from repro_torch.fed import make_engine, stack_pytrees  # noqa: F401
     from repro_torch.metrics import auc_roc  # noqa: F401
     from repro_torch.optim import linear_warmup_cosine  # noqa: F401
+
+
+def _mlp(feats=(12, 6, 3, 1), seed=0):
+    """A reference MLP tree and the port's copy of it."""
+    ref = ref_init_mlp(feats, jax.random.PRNGKey(seed))
+    return ref, from_numpy_tree(jax.tree_util.tree_map(np.asarray, ref),
+                                "cpu")
+
+
+def _same_tree(got, want):
+    got = [(k, v.numpy()) for layer in got for k, v in sorted(layer.items())]
+    want = [(k, np.asarray(v)) for layer in want
+            for k, v in sorted(layer.items())]
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g, w)
+
+
+def test_selection_tree_helpers_are_the_references():
+    """``tree_sub``, ``tree_add``, ``tree_scale`` and ``tree_zeros_like``
+    of two MLP trees: the reference's leaves, bitwise."""
+    from repro.core import selection as ref_sel
+    from repro_torch.core import selection as sel
+    ra, pa = _mlp(seed=0)
+    rb, pb = _mlp(seed=1)
+    _same_tree(sel.tree_sub(pa, pb), ref_sel.tree_sub(ra, rb))
+    _same_tree(sel.tree_add(pa, pb), ref_sel.tree_add(ra, rb))
+    _same_tree(sel.tree_scale(pa, 0.37), ref_sel.tree_scale(ra, 0.37))
+    _same_tree(sel.tree_zeros_like(pa), ref_sel.tree_zeros_like(ra))
+
+
+def test_pruning_hidden_sizes_is_the_references():
+    """A full and a compacted MLP tree: the same list of hidden widths."""
+    from repro.core import pruning as ref_pruning
+    from repro_torch.core import pruning
+    ref, port = _mlp((40, 16, 8, 1))
+    keep = [np.array([0, 2, 5, 7, 9]), np.arange(8)[::2]]
+    for r, p in ((ref, port), (ref_pruning.apply_structure(ref, keep),
+                               pruning.apply_structure(port, keep))):
+        got = pruning.hidden_sizes(p)
+        assert type(got) is list and got == ref_pruning.hidden_sizes(r)
+    assert got == [5, 4]
+
+
+def test_common_ax_is_the_references():
+    """Axis names joined as the reference joins them, and split back."""
+    from repro.models import common as ref_common
+    from repro_torch.models import common
+    for names in ((), ("embed",), ("embed", "mlp"), ("layers", "lora",
+                                                     "heads")):
+        assert common.ax(*names) == ref_common.ax(*names)
+        assert common.split_ax(common.ax(*names)) == names
+
+
+def test_compile_count_hooks(monkeypatch):
+    """The reference's six jit-cache hooks in their port modules (and
+    ``scbf_compile_count`` with its reset re-exported by ``fed``, as the
+    reference's): the batched pass and the APoZ scorer compile nothing,
+    0; ``fused_compile_count`` reads the round programs captured
+    (``fed.graphs.captures``: none in a fused CPU run, which calls the
+    round body itself; two when two programs were captured) and its reset
+    sets it to 0, the replays' count untouched."""
+    import repro.fed as ref_fed
+    import repro_torch.fed as fed
+    from repro_torch.config import FedConfig, ScbfConfig, TrainConfig
+    from repro_torch.core.scbf import run_federated
+    from repro_torch.data.medical import generate_cohort
+    from repro_torch.fed import engine, graphs
+    from repro_torch.kernels import apoz
+    assert fed.scbf_compile_count is engine.scbf_compile_count
+    assert fed.reset_scbf_compile_count is engine.reset_scbf_compile_count
+    assert {"scbf_compile_count", "reset_scbf_compile_count"} <= \
+        set(ref_fed.__all__ if hasattr(ref_fed, "__all__")
+            else _public(ref_fed))
+    engine.reset_fused_compile_count()
+    res = run_federated(
+        generate_cohort(num_admissions=800, num_medicines=40, seed=0),
+        TrainConfig(learning_rate=0.05, global_loops=2, local_batch_size=64,
+                    local_epochs=1, scbf=ScbfConfig(num_clients=3),
+                    fed=FedConfig(fuse_rounds=2)),
+        mlp_features=(40, 8, 1), device="cpu")
+    assert len(res.records) == 2
+    assert engine.fused_compile_count() == 0
+    assert engine.scbf_compile_count() == 0
+    assert apoz.apoz_scorer_compile_count() == 0
+    monkeypatch.setattr(graphs, "captures", 2)
+    monkeypatch.setattr(graphs, "replays", 7)
+    assert engine.fused_compile_count() == 2
+    engine.reset_fused_compile_count()
+    assert engine.fused_compile_count() == 0 and graphs.replays == 7
+    for reset in (engine.reset_scbf_compile_count,
+                  apoz.reset_apoz_scorer_compile_count):
+        assert reset() is None
+    assert engine.scbf_compile_count() == 0
+    assert apoz.apoz_scorer_compile_count() == 0
 
 
 def test_kernel_wrappers_are_the_references_ops():
