@@ -259,7 +259,9 @@ its own failure:
    top-k of the scores it holds and a choice that flips against the
    one-rank run's within δ of the k-th score, K1 = K2 = 0; and each
    step's memory counted by ``StepCounter`` within MESH_MEMORY_RATIO of
-   the rise of ``torch.cuda.max_memory_allocated`` over it.
+   the rise of ``torch.cuda.max_memory_allocated`` over it, and 0 B
+   counted on ``"meta"`` in every counter window (the deepseek decode
+   step's too): DTensor's sharding propagation holds no device's memory.
    deepseek-v2 at depth 2, every published width, drop-free, on (1, 2):
    80 of 160 experts a rank, a prefill into caches of MESH_MOE_CACHE
    slots and MESH_MOE_DECODE decode steps against the one-rank logits, a
@@ -5462,7 +5464,8 @@ def _step_memory(torch, counter, base: int) -> dict:
     return {"counted": counted, "allocator_rise": rise,
             "ratio": counted / rise,
             "live": counter.live_bytes.get("cuda", 0),
-            "net": torch.cuda.memory_allocated() - base}
+            "net": torch.cuda.memory_allocated() - base,
+            "meta": counter.peak_bytes.get("meta", 0)}
 
 
 def _update_gap(torch, new, want, params) -> tuple:
@@ -5683,6 +5686,8 @@ class MlaDecodeTap:
             with Seen(self.mesh) as self.counter:
                 out = bundle.decode_step(params, batch, **kw)
             self.total = self.counter.collectives()
+            self.peaks = {k: self.counter.peak_bytes.get(k, 0)
+                          for k in ("cuda", "meta")}
             self.counter = None
             return out
         return dataclasses.replace(bundle, decode_step=decode_step)
@@ -5706,7 +5711,7 @@ class MlaDecodeTap:
         return {"positions": self.positions, "mla": self.mla, "hand": hand,
                 "cache_blocks": self.blocks,
                 "cache_gathers": sorted(shapes & set(self.blocks)),
-                "step": self.total}
+                "step": self.total, "peaks": self.peaks}
 
 
 def _mesh_deepseek(torch, rank: int) -> dict:
@@ -5825,7 +5830,8 @@ def phase_mesh(torch, card: str) -> dict:
     the leaf tables; the compressed step of the same batch held to the
     one-rank compressed step under the same gates and ``_topk_check``'s,
     K1 = K2 = 0; each step's counted memory within MESH_MEMORY_RATIO of
-    the allocator's rise.  deepseek-v2 at depth 2, every published
+    the allocator's rise, 0 B of it on "meta" (also in the counted
+    deepseek decode step).  deepseek-v2 at depth 2, every published
     width, on (1, 2): 80 of its 160 experts a rank, prefill and
     MESH_MOE_DECODE decode steps served against the one-rank logits under
     the MoE tie rule.  Logged: launches, bytes into collectives, walls,
@@ -5904,7 +5910,8 @@ def phase_mesh(torch, card: str) -> dict:
                 + "; ".join(
                     f"{kind} peak {mem['counted']:,} / {mem['allocator_rise']:,}"
                     f" B = {mem['ratio']:.4f} (within {lo}-{hi}), held at "
-                    f"its end {mem['live']:,} / {mem['net']:,} B"
+                    f"its end {mem['live']:,} / {mem['net']:,} B, on "
+                    f"\"meta\" {mem['meta']:,} B (want 0)"
                     for kind, mem in (("dense", m["memory"]),
                                       ("compressed", c["memory"])))
                 + f" ({card})")
@@ -5923,6 +5930,11 @@ def phase_mesh(torch, card: str) -> dict:
                 raise AssertionError(f"{tag}: compressed selection {top}")
             for kind, mem in (("dense", m["memory"]),
                               ("compressed", c["memory"])):
+                if mem["meta"]:
+                    raise AssertionError(
+                        f"{tag}: the {kind} step's counter held "
+                        f"{mem['meta']:,} B on \"meta\": DTensor's "
+                        "sharding propagation was counted as a device's")
                 if not lo <= mem["ratio"] <= hi:
                     raise AssertionError(
                         f"{tag}: the {kind} step's counted peak "
@@ -5980,6 +5992,11 @@ def phase_mesh(torch, card: str) -> dict:
             raise AssertionError(f"{tag}: the MLA sent {mla['mla']} B, by "
                                  f"hand {mla['hand']} B; collectives of "
                                  f"cache blocks {mla['cache_gathers']}")
+        if mla["peaks"]["meta"]:
+            raise AssertionError(f"{tag}: the counted decode step held "
+                                 f"{mla['peaks']['meta']:,} B on \"meta\" "
+                                 "(DTensor's sharding propagation of the "
+                                 "stacked caches)")
         log(f"{tag}: decode sequence parallel on the latent cache's split "
             f"({MESH_MOE_CACHE} slots, blocks {mla['cache_blocks']} a "
             f"rank): {len(mla['positions'])} MLA runs of one position, "
@@ -5987,7 +6004,9 @@ def phase_mesh(torch, card: str) -> dict:
             f"links {mla['step']['bytes_by_kind']} B in "
             f"{mla['step']['count_by_kind']} calls, the MLA's part "
             f"{mla['mla']} B = the hand count {mla['hand']} B; no "
-            f"collective took a block of the cache ({card})")
+            f"collective took a block of the cache; its counted peak "
+            f"{mla['peaks']['cuda']:,} B on \"cuda\", "
+            f"{mla['peaks']['meta']:,} B on \"meta\" (want 0) ({card})")
         log(f"{tag}: {ds['experts_local']} of {ds['num_experts']} experts "
             f"and {ds['local_param_bytes']:,} B of params a rank; served 4 "
             f"x {MESH_SERVE['prompt']} + {MESH_MOE_DECODE} decode "

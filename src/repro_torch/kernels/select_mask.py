@@ -129,7 +129,7 @@ def select_compact_plain(g: torch.Tensor, row: torch.Tensor,
     return idx, vals, count
 
 
-def _scalar(x: Scalar, device, slots: int) -> torch.Tensor:
+def _scalar(x: Scalar, device: torch.device, slots: int) -> torch.Tensor:
     """thr or rest as fp32 on ``device``: 0-d, or (slots,) for a
     slot-stacked leaf."""
     if isinstance(x, torch.Tensor) and x.dtype == torch.float32 and \

@@ -44,8 +44,21 @@ come back here), so its counts are per device:
   the meta device) counts as its outputs only: its temporaries are the
   plain version's, not the kernel's (``kernels.build.plain_version``).
 
-Ops of DTensor's own sharding propagation (run on fake tensors of the
-global shapes) are not counted.
+DTensor's sharding propagation counts for nothing: not its storages,
+FLOPs or bytes.  It derives an op's output metadata by running the op
+under a ``FakeTensorMode`` on fake arguments it builds from the specs'
+*global* shapes (``ShardingPropagator._propagate_tensor_meta_non_cached``
+→ ``OpSchema.gen_fake_args`` → ``torch.empty_strided(global shape)``).
+Those factory calls have no tensor input, and the fake mode runs them on
+the meta device below this mode, so they arrive here as plain meta
+storages of the global shape: a (128, 32768, 512) cache block where the
+rank holds (8, 2048, 512).  ``__enter__`` therefore wraps that method
+and every op run inside it is skipped, as is any op with a FakeTensor
+input.  The method is wrapped rather than the mode stack read because a
+mode is off the stack while it dispatches: when the fake mode hands an
+op down, neither it nor this mode is on the stack to be seen.  Where
+torch has no such method the counter raises rather than count as
+before.
 """
 from __future__ import annotations
 
@@ -89,6 +102,23 @@ def _tensors(tree, out: list) -> list:
     return out
 
 
+# the method of DTensor's propagator that builds fake global-shape
+# arguments and runs the op on them (torch 2.11 and 2.13)
+PROPAGATE = "_propagate_tensor_meta_non_cached"
+
+
+def _propagator():
+    """The class whose ``PROPAGATE`` method the counter wraps; raises
+    where this torch has none, rather than count its tensors."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    if not callable(getattr(ShardingPropagator, PROPAGATE, None)):
+        raise RuntimeError(
+            f"torch {torch.__version__}: ShardingPropagator has no "
+            f"{PROPAGATE}; StepCounter cannot leave DTensor's sharding "
+            "propagation out of its counts")
+    return ShardingPropagator
+
+
 def _group_ranks(name: str):
     from torch.distributed.distributed_c10d import _resolve_process_group
     return dist.get_process_group_ranks(_resolve_process_group(name))
@@ -117,6 +147,7 @@ class StepCounter(TorchDispatchMode):
         self.peak_bytes: Dict[str, int] = {}
         self._storages: Dict[int, weakref.ref] = {}
         self._plain = 0
+        self._propagating = 0
 
     def _group(self, group: str) -> list:
         if group not in self._ranks:
@@ -138,11 +169,23 @@ class StepCounter(TorchDispatchMode):
             finally:
                 self._alltoall = False
         placement_types.shard_dim_alltoall = alltoall
+        # DTensor's metadata pass, on fake tensors of the global shapes
+        prop = _propagator()
+        meta = self._meta_pass = getattr(prop, PROPAGATE)
+
+        def propagate(*args, **kwargs):
+            self._propagating += 1
+            try:
+                return meta(*args, **kwargs)
+            finally:
+                self._propagating -= 1
+        setattr(prop, PROPAGATE, propagate)
         return super().__enter__()
 
     def __exit__(self, *exc):
         from torch.distributed.tensor import placement_types
         placement_types.shard_dim_alltoall = self._inner
+        setattr(_propagator(), PROPAGATE, self._meta_pass)
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -153,9 +196,11 @@ class StepCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
+        if self._propagating:
+            return out               # DTensor's sharding propagation
         tensors = _tensors(kwargs, _tensors(args, []))
         if any(isinstance(t, FakeTensor) for t in tensors):
-            return out               # DTensor's sharding propagation
+            return out               # shapes only
         if not func.is_view:         # a view's storage is its input's
             self._hold(out, tensors)
         comm = func.namespace in ("_c10d_functional", "_dtensor")

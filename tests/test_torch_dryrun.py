@@ -301,3 +301,33 @@ def test_step_counter_by_hand():
     assert c.total_bytes == c.cross_node_bytes          # 16 > 8 a node
     assert c.cross_pod_bytes == 0
     assert link_bytes("broadcast", 100, 16) == 100
+
+
+def test_step_counter_holds_the_local_shards_of_a_stack():
+    """``torch.stack`` of N DTensor cache shards, as the decode step
+    stacks its layers' caches: the counter holds N local shards (8, 2048,
+    512) fp32 by hand, not the N global (128, 32768, 512) blocks that
+    DTensor's sharding propagation builds its fake arguments from, and
+    the propagation adds no FLOPs or bytes."""
+    import torch
+    from torch.distributed.tensor import Shard
+    dryrun.fake_group(256)
+    mesh = meshes.make_production_mesh(device="cpu")
+    n, local, glob = 4, (8, 2048, 512), (128, 32768, 512)
+    caches = [_meta(mesh, local, [Shard(0), Shard(1)], glob)
+              for _ in range(n)]
+    with StepCounter(mesh) as c:
+        out = torch.stack(caches)
+    assert out.to_local().shape == (n,) + local
+    assert c.peak_bytes == c.live_bytes == {"meta": n * 8 * 2048 * 512 * 4}
+    assert (c.flops, c.total_bytes) == (0, 0)
+    assert c.bytes == 2 * n * 8 * 2048 * 512 * 4   # read once, written once
+
+
+def test_deepseek_decode_temporaries_are_a_device_share():
+    """deepseek-v2 uncut at decode_32k on (16, 16): the step's rise above
+    its state stays under 4 GB a device (254.5 GB while the counter took
+    DTensor's global-shape propagation tensors for storage)."""
+    rec = dryrun.dryrun_one("deepseek-v2-236b", "decode_32k", "single")
+    _check(rec)
+    assert rec["memory"]["temp_size_in_bytes"] < 4e9
