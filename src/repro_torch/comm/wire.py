@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core.channels import slot_groups, slot_range
 from repro_torch.kernels.select_mask import compact_count, compact_scatter
+from repro_torch.obs import trace as obstrace
 from repro_torch.params import tree_leaves
 
 INDEX_BYTES = 4                      # int32 flat index (coo)
@@ -278,7 +279,10 @@ def _encode_slots(masked: Sequence[dict], operands: Sequence, a: int,
     nnz, host, dense = {}, {}, {}
     if ops:
         cc = compact_count(ops, drop_zeros=True)
-        counts = cc.counts.tolist()
+        # the host's first read of the device's results: it blocks until
+        # the work queued before it has run
+        with obstrace.span("encode.wait"):
+            counts = cc.counts.tolist()
         nnz = dict(zip(cc.pairs, counts))
         codec = {p: cheapest_bytes(c, int(np.prod(shapes[p[0]])), 4)[0]
                  for p, c in nnz.items()}

@@ -323,11 +323,10 @@ class FedConfig:
 class ObsConfig:
     """Flight-recorder knobs (``repro_torch.obs``): ``device_metrics``
     turns the on-device telemetry on without a recorder (a run under
-    ``recording`` collects whatever it says); ``annotate`` marks the fused
-    chunk span in a ``torch.profiler`` trace while recording."""
+    ``recording`` collects whatever it says).  Every span reaches a
+    running ``torch.profiler`` on its own (``obs.trace.span``)."""
 
     device_metrics: bool = False
-    annotate: bool = True
 
 
 @dataclass(frozen=True)

@@ -548,53 +548,57 @@ def run_federated(cohort: MedicalCohort,
         included; fedavg: ``up_params`` whole from each participant), the
         model after the loop, the loop's wall and its device metrics
         ``dm`` (None: not collected).  ``check_at``: the debug checks'
-        boundary label, run after the record is appended."""
+        boundary label, run after the record is appended.  All of it,
+        the evaluation included, inside the ``record`` span."""
         nonlocal prev_eps
-        P = plan.num_participants
-        if method == "scbf":
-            payloads, stats = emitted
-            up_frac = float(np.mean([st.upload_fraction for st in stats])) \
-                if stats else 0.0
-            sparse_bytes = int(sum(p.nbytes for p in wire_payloads))
-            dense_bytes = int(sum(p.dense_nbytes for p in payloads))
-        else:
-            up_frac = 1.0 if P else 0.0
-            dense_bytes = num_params(up_params) * 4 * P
-            sparse_bytes = dense_bytes
-        roc, pr, evaluated = _metrics(
-            params_now, do_eval, pruner.masks if pruner is not None else None)
-        if pruner is not None:
-            # the effective model, whether neurons are masked or gone
-            n_params = pruner.effective_param_count(params_now)
-            hidden = pruner.hidden_sizes()
-        else:
-            n_params = num_params(params_now)
-            hidden = hidden_sizes(params_now)
-        eps, eps_un = _epsilons(loop)
-        rec = LoopRecord(
-            loop=loop, auc_roc=roc, auc_pr=pr, upload_fraction=up_frac,
-            sparse_bytes=sparse_bytes, dense_bytes=dense_bytes,
-            wall_time=wall,
-            flops_proxy=float(n_params) * cohort.x_train.shape[0],
-            hidden_sizes=hidden, num_participants=P, epsilon=eps,
-            evaluated=evaluated, epsilon_unamplified=eps_un,
-            train_loss=dm.get("train_loss") if dm else None,
-            wall_is_amortized=amortized)
-        result.records.append(rec)
-        if check_at is not None:
-            # host-side, on values already offloaded: the device program
-            # is the same with the checks on or off
-            obschecks.verify_round(params_now, dm, where=check_at)
-        obstrace.event("round", **_round_event_fields(
-            rec, plan, pruner, dm,
-            eps_step=(eps - prev_eps) if eps is not None else None))
-        prev_eps = eps if eps is not None else 0.0
-        if verbose:
-            print(f"[{result.method}] loop {loop:02d} "
-                  f"auc_roc={roc:.4f} auc_pr={pr:.4f} "
-                  f"upload={up_frac:.2%} hidden={hidden} clients={P} "
-                  f"t={wall:.2f}s"
-                  + ("" if evaluated else " (metrics carried)"))
+        with obstrace.span("record"):
+            P = plan.num_participants
+            if method == "scbf":
+                payloads, stats = emitted
+                up_frac = float(np.mean([st.upload_fraction
+                                         for st in stats])) \
+                    if stats else 0.0
+                sparse_bytes = int(sum(p.nbytes for p in wire_payloads))
+                dense_bytes = int(sum(p.dense_nbytes for p in payloads))
+            else:
+                up_frac = 1.0 if P else 0.0
+                dense_bytes = num_params(up_params) * 4 * P
+                sparse_bytes = dense_bytes
+            roc, pr, evaluated = _metrics(
+                params_now, do_eval,
+                pruner.masks if pruner is not None else None)
+            if pruner is not None:
+                # the effective model, whether neurons are masked or gone
+                n_params = pruner.effective_param_count(params_now)
+                hidden = pruner.hidden_sizes()
+            else:
+                n_params = num_params(params_now)
+                hidden = hidden_sizes(params_now)
+            eps, eps_un = _epsilons(loop)
+            rec = LoopRecord(
+                loop=loop, auc_roc=roc, auc_pr=pr, upload_fraction=up_frac,
+                sparse_bytes=sparse_bytes, dense_bytes=dense_bytes,
+                wall_time=wall,
+                flops_proxy=float(n_params) * cohort.x_train.shape[0],
+                hidden_sizes=hidden, num_participants=P, epsilon=eps,
+                evaluated=evaluated, epsilon_unamplified=eps_un,
+                train_loss=dm.get("train_loss") if dm else None,
+                wall_is_amortized=amortized)
+            result.records.append(rec)
+            if check_at is not None:
+                # host-side, on values already offloaded: the device
+                # program is the same with the checks on or off
+                obschecks.verify_round(params_now, dm, where=check_at)
+            obstrace.event("round", **_round_event_fields(
+                rec, plan, pruner, dm,
+                eps_step=(eps - prev_eps) if eps is not None else None))
+            prev_eps = eps if eps is not None else 0.0
+            if verbose:
+                print(f"[{result.method}] loop {loop:02d} "
+                      f"auc_roc={roc:.4f} auc_pr={pr:.4f} "
+                      f"upload={up_frac:.2%} hidden={hidden} clients={P} "
+                      f"t={wall:.2f}s"
+                      + ("" if evaluated else " (metrics carried)"))
 
     draws = _RunDraws(train_cfg, eng, gen, dp_gen, perms, dp_noise)
     # the fused loop needs sync planning, run-constant shapes (no reshape
@@ -857,44 +861,45 @@ def _run_fused(train_cfg: TrainConfig, method: str, eng, resil: Resilience,
     while loop0 < total_loops:
         prune_active = pruner is not None and pruner.active
         chunk = fused_chunk_len(total_loops - loop0, S, prune_active)
-        with obstrace.span("fused_chunk", annotate=train_cfg.obs.annotate,
-                           loop0=loop0, rounds=chunk) as sp:
-            ars = [resil.plan_round(loop0 + i, state.version)
-                   for i in range(chunk)]
-            plans = [ar.plan for ar in ars]
-            params = state.params
-            nmasks = pruner.masks if pruner is not None else None
-            sampled = _sampled(method, params)
-            parts, rperms, wts, noise, samples = [], [], [], [], []
-            for r, (ar, plan) in enumerate(zip(ars, plans)):
-                part, P = plan.participants, plan.num_participants
-                parts.append(part)
-                rperms.append(draws.round_perms(loop0 + r, part) if P
-                              else [])
-                if sampled:
-                    samples.append(draws.sample_idx(
-                        params, P, None if nmasks is None else pruner.keep))
-                if dp_on:
-                    noise.append(draws.noise(loop0 + r, params, P))
-                if method == "fedavg":
-                    if P and ar.quorum_ok:
-                        n = eng.counts[np.asarray(part)].astype(np.float64)
-                        wts.append((n / n.sum()).astype(np.float32))
-                    else:
-                        # a quorum-missed round must not step: all-zero
-                        # weights pass the model through bitwise
-                        wts.append(np.zeros(P, np.float32))
-            keep_eff = pruner.emission_keep if pruner is not None else None
-            fplan = eng.prepare_fused_plan(
-                parts, lrs[loop0:loop0 + chunk], rperms, horizon=chunk,
-                num_slots=B, weights=wts if method == "fedavg" else None,
-                noise=noise if dp_on else None,
-                sample_idx=samples if sampled else None,
-                admit=[ar.admit_mask() for ar in ars] if resil.active
-                else None,
-                eff_sizes=obsm.effective_leaf_sizes(params, keep_eff)
-                if collect and method == "scbf" and keep_eff is not None
-                else None)
+        with obstrace.span("fused_chunk", loop0=loop0, rounds=chunk) as sp:
+            with obstrace.span("plan"):
+                ars = [resil.plan_round(loop0 + i, state.version)
+                       for i in range(chunk)]
+                plans = [ar.plan for ar in ars]
+                params = state.params
+                nmasks = pruner.masks if pruner is not None else None
+                sampled = _sampled(method, params)
+                parts, rperms, wts, noise, samples = [], [], [], [], []
+                for r, (ar, plan) in enumerate(zip(ars, plans)):
+                    part, P = plan.participants, plan.num_participants
+                    parts.append(part)
+                    rperms.append(draws.round_perms(loop0 + r, part) if P
+                                  else [])
+                    if sampled:
+                        samples.append(draws.sample_idx(
+                            params, P,
+                            None if nmasks is None else pruner.keep))
+                    if dp_on:
+                        noise.append(draws.noise(loop0 + r, params, P))
+                    if method == "fedavg":
+                        if P and ar.quorum_ok:
+                            n = eng.counts[np.asarray(part)].astype(np.float64)
+                            wts.append((n / n.sum()).astype(np.float32))
+                        else:
+                            # a quorum-missed round must not step: all-zero
+                            # weights pass the model through bitwise
+                            wts.append(np.zeros(P, np.float32))
+                keep_eff = pruner.emission_keep if pruner is not None else None
+                fplan = eng.prepare_fused_plan(
+                    parts, lrs[loop0:loop0 + chunk], rperms, horizon=chunk,
+                    num_slots=B, weights=wts if method == "fedavg" else None,
+                    noise=noise if dp_on else None,
+                    sample_idx=samples if sampled else None,
+                    admit=[ar.admit_mask() for ar in ars] if resil.active
+                    else None,
+                    eff_sizes=obsm.effective_leaf_sizes(params, keep_eff)
+                    if collect and method == "scbf" and keep_eff is not None
+                    else None)
             new_params, emitted, round_metrics = eng.run_fused_chunk(
                 method, params, fplan, cfg, nmasks=nmasks, keep=keep_eff,
                 collect=collect)

@@ -954,15 +954,16 @@ class BatchedEngine:
         params, ``[(payloads, stats), …]`` a real round — empty for
         FedAvg, which ships dense weights — and with ``collect`` the
         rounds' telemetry dicts, offloaded in one copy after the emission,
-        else None)."""
+        else None).  The rounds' replays run in the ``replay`` span."""
         if method == "fedavg":
-            out = self.fused_fedavg_chunk(params, plan, collect=collect)
+            with obstrace.span("replay"):
+                out = self.fused_fedavg_chunk(params, plan, collect=collect)
             new_params, met = out if collect else (out, None)
             emitted = [([], []) for _ in range(plan.rounds)]
         else:
-            new_params, res = self.fused_scbf_chunk(params, plan, cfg,
-                                                    nmasks=nmasks,
-                                                    collect=collect)
+            with obstrace.span("replay"):
+                new_params, res = self.fused_scbf_chunk(
+                    params, plan, cfg, nmasks=nmasks, collect=collect)
             emitted = self.emit_fused_payloads(res, plan, keep=keep)
             met = res.metrics
         dms = obsm.offload(met, rounds=plan.rounds) if collect else None

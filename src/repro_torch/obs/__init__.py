@@ -3,7 +3,9 @@
 Three layers, as in the reference:
 
 * ``repro_torch.obs.trace``   — host spans and the JSONL run event log,
-  in the reference's ``events.jsonl`` schema;
+  which keeps the reference's ``events.jsonl`` schema; every span is
+  also a range of any torch profiler that is running, with or without
+  a recorder;
 * ``repro_torch.obs.metrics`` — ``MetricsCarry``, the per-round
   telemetry computed on the device (inside the captured round of the
   fused loop) and offloaded in one copy a round or a chunk;

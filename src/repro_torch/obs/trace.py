@@ -19,16 +19,23 @@ of ``repro.obs.trace``).
     wall-clock source with or without a recorder.  A span does not
     synchronise with the device: the caller does where the wall must
     cover device work (``run_federated``'s round and fused-chunk spans).
-    With ``annotate=True`` and an active recorder the region is also a
-    ``torch.profiler.record_function`` range, so a device profile shows
-    the event log's names.
+    While a torch profiler is running, with or without a recorder, the
+    region is also a ``torch.profiler.record_function`` range, so the
+    profiler's timeline shows every span on the clock of its device
+    events; with no profiler running a span costs one check more.
 
-Host-only code: no tensor is touched here.
+The log keeps the reference's schema: the same span events and
+counters.  The spans the reference does not have (``TIMELINE_ONLY``)
+reach the profiler's timeline only.
+
+Host-only code: no tensor is touched here, and torch is not imported
+(a profiler can only run once something else has loaded it).
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import sys
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
@@ -37,6 +44,11 @@ from typing import Any, Dict, Iterable, List, Optional
 EVENT_SCHEMA = 1
 
 EMITTER = f"repro_torch.obs/{EVENT_SCHEMA}"
+
+# The port's spans at the fused loop's layer boundaries that the
+# reference's log does not have: they reach a running profiler only, so
+# the log's span events and counters stay the reference's.
+TIMELINE_ONLY = frozenset({"plan", "replay", "encode.wait", "record"})
 
 
 class Span:
@@ -152,27 +164,34 @@ def count(name: str, n: int = 1) -> None:
         rec.count(name, n)
 
 
+def _profiler_running() -> bool:
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
 @contextlib.contextmanager
-def span(name: str, annotate: bool = False, **attrs):
-    """Timed region: always measures, records when a recorder is active;
-    ``annotate=True`` (recorder active only) also marks it in a
-    ``torch.profiler`` trace."""
-    rec = get_recorder()
-    if rec is None:
-        sp = _NullSpan(name, attrs)
-        try:
-            yield sp
-        finally:
-            sp.stop()
-        return
-    if annotate:
-        import torch.profiler
-        with torch.profiler.record_function(name):
+def span(name: str, **attrs):
+    """Timed region: always measures; records when a recorder is active
+    and the reference's log has the span (not ``TIMELINE_ONLY``); is a
+    ``record_function`` range while a torch profiler is running."""
+    rf = None
+    if _profiler_running():
+        rf = sys.modules["torch"].profiler.record_function(name)
+        rf.__enter__()
+    rec = None if name in TIMELINE_ONLY else get_recorder()
+    try:
+        if rec is None:
+            sp = _NullSpan(name, attrs)
+            try:
+                yield sp
+            finally:
+                sp.stop()
+        else:
             with rec.span(name, **attrs) as sp:
                 yield sp
-    else:
-        with rec.span(name, **attrs) as sp:
-            yield sp
+    finally:
+        if rf is not None:
+            rf.__exit__(None, None, None)
 
 
 def to_chrome_trace(events: Iterable[Dict[str, Any]]) -> Dict[str, Any]:

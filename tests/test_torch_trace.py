@@ -31,7 +31,7 @@ def _drive(mod):
                       client=3)
             mod.count("payloads_rejected")
             mod.count("rejected_checksum", 2)
-            with mod.span("inner", annotate=False, depth=1):
+            with mod.span("inner", depth=1):
                 pass
         mod.event("run_end", **rec.counters)
     assert mod.get_recorder() is None
