@@ -482,6 +482,39 @@ def _same(torch, got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _scatter_forms(cheapest_bytes, nnz, sizes, which) -> tuple:
+    """K3's scatter forms over the pairs ``which`` (counts ``nnz``, sizes
+    ``sizes``), three lists: every pair coo; each pair in its wire codec's
+    form, as ``comm/wire`` asks (coo where the codec is coo or dense);
+    every pair bitmap."""
+    codecs = [cheapest_bytes(nnz[k], sizes[k])[0] for k in which]
+    return (["coo"] * len(which),
+            ["bitmap" if c == "bitmap" else "coo" for c in codecs],
+            ["bitmap"] * len(which))
+
+
+def _same_payload(a, b) -> bool:
+    """Two payloads alike layer by layer: codec, kept count, wire bytes,
+    values, a coo layer's indices and a bitmap layer's packed bitmap."""
+    import numpy as np
+
+    def same(x, y) -> bool:
+        return (x is None) == (y is None) and (
+            x is None or x.dtype == y.dtype and np.array_equal(x, y))
+    return a.nbytes == b.nbytes and len(a.layers) == len(b.layers) and all(
+        x.codec == y.codec and x.nnz == y.nnz and x.nbytes == y.nbytes
+        and all(same(getattr(x, f), getattr(y, f))
+                for f in ("values", "idx", "bitmap"))
+        for x, y in zip(a.layers, b.layers))
+
+
+def _bitmap_leaves(payloads) -> int:
+    """The weight leaves of ``payloads`` that ship as bitmaps: the pairs
+    K3's scatter writes in the bitmap form."""
+    return sum(k == "w" and lp.codec == "bitmap"
+               for p in payloads for (_, k), lp in zip(p.keys, p.layers))
+
+
 def check_leaf_tables(torch, gen) -> None:
     """K2 and K3 over leaf tables — one launch (K2), one count and one
     scatter launch (K3) for a table of mixed shapes — bitwise against the
@@ -491,7 +524,10 @@ def check_leaf_tables(torch, gen) -> None:
     1,024 tiles (K3's offsets from the count launch); -inf scores, a
     threshold per leaf at a quantile or an exact tie, rest 0 or 0.37 in
     turn, kept-but-zero rows of g.  K3 scatters at capacity M*N, at half
-    the count and at the count, over all leaves and over every other."""
+    the count and at the count, over all leaves and over every other,
+    each in three forms: every leaf coo, each in its wire codec's, every
+    leaf bitmap."""
+    from repro_torch.comm.wire import cheapest_bytes
     from repro_torch.core.channels import quantile
     from repro_torch.kernels import channel_norm as cn
     from repro_torch.kernels import select_mask as sm
@@ -537,24 +573,30 @@ def check_leaf_tables(torch, gen) -> None:
                     raise AssertionError(f"select_compact table counts "
                                          f"{cc.counts.tolist()} != {nnz}")
                 odd = list(range(1, len(leaves), 2))
+                sizes = [leaf[0].numel() for leaf in leaves]
                 for which, caps in (
-                        (None, [leaf[0].numel() for leaf in leaves]),
-                        (None, [c // 2 for c in nnz]), (None, nnz),
-                        (odd, [nnz[k] for k in odd])):
-                    _, views = sm.compact_scatter(cc, caps, which)
-                    for k, cap, (idx, vals) in zip(
-                            which or range(len(leaves)), caps, views):
-                        want = sm.select_compact_plain(*leaves[k], cap, drop)
-                        if not _same(torch, (idx, vals), want):
-                            raise AssertionError(
-                                f"select_compact table differs from plain "
-                                f"at leaf {k} {tuple(leaves[k][0].shape)} "
-                                f"{dtype} drop_zeros={drop} capacity={cap}")
-                        checks += 1
+                        (None, sizes), (None, [c // 2 for c in nnz]),
+                        (None, nnz), (odd, [nnz[k] for k in odd])):
+                    ks = range(len(leaves)) if which is None else which
+                    for forms in _scatter_forms(cheapest_bytes, nnz, sizes,
+                                                ks):
+                        _, views = sm.compact_scatter(cc, caps, which, forms)
+                        for k, cap, form, view in zip(ks, caps, forms,
+                                                      views):
+                            want = sm.select_compact_plain(
+                                *leaves[k], cap, drop, form)
+                            if not _same(torch, view, want):
+                                raise AssertionError(
+                                    f"select_compact table differs from "
+                                    f"plain at leaf {k} "
+                                    f"{tuple(leaves[k][0].shape)} {dtype} "
+                                    f"drop_zeros={drop} capacity={cap} "
+                                    f"form={form}")
+                            checks += 1
     torch.cuda.synchronize()
     log(f"kernels vs plain: leaf tables, {checks} leaf cases bitwise "
         f"(select_mask one launch a table, select_compact count + "
-        f"scatter)")
+        f"scatter, coo and bitmap forms)")
 
 
 def check_channel_norm_tables(torch, gen) -> float:
@@ -627,8 +669,10 @@ def check_slot_tables(torch, gen) -> float:
     1e-5 / atol 1e-6 against the plain version (another summation order),
     K2 and K3 bitwise against it; all three bitwise against the one-slot
     launch of each slot and across two launches.  K3 scatters every pair
-    at its count and at M*N, and every other pair at half its count.
-    Returns K1's max abs error."""
+    at its count and at M*N, and every other pair at half its count, each
+    in three forms: every pair coo, each in its wire codec's, every pair
+    bitmap.  Returns K1's max abs error."""
+    from repro_torch.comm.wire import cheapest_bytes
     from repro_torch.core.channels import quantile
     from repro_torch.kernels import channel_norm as cn
     from repro_torch.kernels import select_mask as sm
@@ -691,45 +735,52 @@ def check_slot_tables(torch, gen) -> float:
                                          f"!= {plain}")
                 odd = list(range(1, len(cc.pairs), 2))
                 sizes = [leaves[l][0][s].numel() for l, s in cc.pairs]
-                at_count = None
+                at_count = {}      # a form list's views at the counts
                 for which, caps in ((None, nnz), (None, sizes),
                                     (odd, [nnz[k] // 2 for k in odd])):
-                    _, views = sm.compact_scatter(cc, caps, which)
-                    cc2 = sm.compact_count(leaves, drop_zeros=drop)
-                    _, views2 = sm.compact_scatter(cc2, caps, which)
-                    for k, cap, v, v2 in zip(which or range(len(nnz)), caps,
-                                             views, views2):
-                        l, s = cc.pairs[k]
-                        want = sm.select_compact_plain(
-                            *sm.leaf_slot(leaves[l], s), cap, drop)
-                        if not (_same(torch, v, want) and
-                                _same(torch, v, v2)):
-                            raise AssertionError(
-                                f"select_compact slot pair {(l, s)} differs "
-                                f"(S={s_count} {dtype} drop_zeros={drop} "
-                                f"capacity={cap})")
-                        cases["select_compact"] += 1
-                    if at_count is None:
-                        at_count = views
+                    ks = range(len(nnz)) if which is None else which
+                    for f, forms in enumerate(_scatter_forms(
+                            cheapest_bytes, nnz, sizes, ks)):
+                        _, views = sm.compact_scatter(cc, caps, which, forms)
+                        cc2 = sm.compact_count(leaves, drop_zeros=drop)
+                        _, views2 = sm.compact_scatter(cc2, caps, which,
+                                                       forms)
+                        for k, cap, form, v, v2 in zip(ks, caps, forms,
+                                                       views, views2):
+                            l, s = cc.pairs[k]
+                            want = sm.select_compact_plain(
+                                *sm.leaf_slot(leaves[l], s), cap, drop, form)
+                            if not (_same(torch, v, want) and
+                                    _same(torch, v, v2)):
+                                raise AssertionError(
+                                    f"select_compact slot pair {(l, s)} "
+                                    f"differs (S={s_count} {dtype} "
+                                    f"drop_zeros={drop} capacity={cap} "
+                                    f"form={form})")
+                            cases["select_compact"] += 1
+                        at_count.setdefault(f, (forms, views))
                 for s in range(s_count):       # the one-slot launches
                     one = [sm.leaf_slot(leaf, s) for leaf in leaves]
                     cc1 = sm.compact_count(one, drop_zeros=drop)
-                    caps = [nnz[cc.pairs.index((l, s))]
-                            for l in range(len(leaves))]
-                    _, views1 = sm.compact_scatter(cc1, caps)
-                    for l, v1 in enumerate(views1):
-                        if not _same(torch, v1,
-                                     at_count[cc.pairs.index((l, s))]):
-                            raise AssertionError(
-                                f"select_compact slot {s} of leaf {l} is "
-                                f"not its one-slot launch (S={s_count} "
-                                f"{dtype} drop_zeros={drop})")
+                    ks = [cc.pairs.index((l, s)) for l in range(len(leaves))]
+                    for forms, views in at_count.values():
+                        _, views1 = sm.compact_scatter(
+                            cc1, [nnz[k] for k in ks], None,
+                            [forms[k] for k in ks])
+                        for l, (k, v1) in enumerate(zip(ks, views1)):
+                            if not _same(torch, v1, views[k]):
+                                raise AssertionError(
+                                    f"select_compact slot {s} of leaf {l} "
+                                    f"is not its one-slot launch "
+                                    f"(S={s_count} {dtype} drop_zeros={drop}"
+                                    f" form={forms[k]})")
     torch.cuda.synchronize()
     log(f"kernels vs plain: slot tables S in {list(SLOTS)} over "
         f"{len(SLOT_SHAPES)} leaves, fp32 and bf16 — channel_norm "
         f"{cases['channel_norm']} slot cases (max abs err {err:.3g}), "
         f"select_mask {cases['select_mask']} and select_compact "
-        f"{cases['select_compact']} pair cases bitwise; every slot bitwise "
+        f"{cases['select_compact']} pair cases (coo and bitmap forms) "
+        f"bitwise; every slot bitwise "
         f"its one-slot launch and across two launches")
     return err
 
@@ -839,18 +890,84 @@ def device_us(torch, fn, names, launches: int, iters: int = 20,
     return None, None
 
 
+def time_encoder(torch, leaves, read_bytes: int, flops: int) -> dict:
+    """K3 on the encoder's route over ``leaves`` (a client pass or a
+    round's slot-stacked table): count, the counts read on the host,
+    scatter of the coo and bitmap pairs at their counts, each pair in its
+    wire codec's form as ``comm/wire`` asks, first held bitwise against
+    the plain version.  Beside it, for comparison, the same pairs all in
+    the coo form (``"coo"``), timed in turns.  Each: CUDA-event ms,
+    profiler device µs (L2 flushed, and L2-warm), the buffer's bytes and
+    their pageable copy to the host (ms), and the bound: ``read_bytes``
+    (g, the scores, the counts) plus what the scatter writes — 8 bytes a
+    compacted entry of a coo pair, 4 and ceil(size/8) a pair of a bitmap
+    pair."""
+    from repro_torch.comm.wire import cheapest_bytes
+    from repro_torch.kernels import select_mask as sm
+
+    cc = sm.compact_count(leaves, drop_zeros=True)
+    nnz = cc.counts.tolist()
+    sizes = [leaves[l][0].shape[-2:].numel() for l, _ in cc.pairs]
+    sparse = [k for k, (c, size) in enumerate(zip(nnz, sizes))
+              if c and cheapest_bytes(c, size)[0] != "dense"]
+    _, wire, _ = _scatter_forms(cheapest_bytes, nnz, sizes, sparse)
+    routes = {}
+    for name, forms in (("wire", wire), ("coo", ["coo"] * len(sparse))):
+        def route(forms=forms):
+            c = sm.compact_count(leaves, drop_zeros=True)
+            counts = c.counts.tolist()
+            return sm.compact_scatter(c, [counts[k] for k in sparse],
+                                      sparse, forms)
+        routes[name] = route
+    buf, views = routes["wire"]()
+    for k, form, view in zip(sparse, wire, views):
+        l, s = cc.pairs[k]
+        want = sm.select_compact_plain(*sm.leaf_slot(leaves[l], s), nnz[k],
+                                       True, form)
+        if not _same(torch, view, want):
+            raise AssertionError(f"select_compact encoder pair {(l, s)} "
+                                 f"differs from plain (form={form})")
+    coo_ms, wire_ms = in_turns(routes["coo"], routes["wire"])
+    out = {"scattered_pairs": len(sparse), "bitmap_pairs": wire.count(
+        "bitmap"), "compacted_entries": sum(nnz[k] for k in sparse)}
+    for name, forms, ms in (("wire", wire, wire_ms),
+                            ("coo", ["coo"] * len(sparse), coo_ms)):
+        written = sum(4 * nnz[k] + (4 * nnz[k] if form == "coo" else
+                                    -(-sizes[k] // 8))
+                      for k, form in zip(sparse, forms))
+        bound, by = bound_ms(read_bytes + written, flops)
+        buf = routes[name]()[0]
+        torch.cuda.synchronize()
+        copies = 20
+        t0 = time.perf_counter()
+        for _ in range(copies):
+            buf.cpu()
+        d2h_ms = (time.perf_counter() - t0) * 1e3 / copies
+        row = {"ms": ms,
+               "device_us": device_us(torch, routes[name], ("compact_",),
+                                      1 + bool(sparse), flush=True)[0],
+               "device_us_l2_warm": device_us(torch, routes[name],
+                                              ("compact_",),
+                                              1 + bool(sparse))[0],
+               "bound_us": bound * 1e3, "bound_by": by,
+               "buffer_bytes": buf.numel() * 4, "d2h_ms": d2h_ms}
+        if name == "wire":
+            out.update(row)
+        else:
+            out["coo"] = row
+    return out
+
+
 def time_rounds(torch, gen) -> dict:
     """K1, K2 and K3 timed a round of the batched engine at a time:
     ROUND_SLOTS slots of the main path's three matrices (fp32), one table
     launch each (K3: count + scatter of every pair at capacity M*N with
-    drop_zeros, and the encoder's route: count, the counts read on the
-    host, scatter of the coo and bitmap pairs at their counts), beside
-    the plain versions (a loop over slots); profiler device µs with each
+    drop_zeros, and the encoder's route, ``time_encoder``), beside the
+    plain versions (a loop over slots); profiler device µs with each
     window's event count checked, with L2 flushed between calls (the
     reported device time) and without (back to back, L2-warm), and the
     bound at S x a pass's bytes.  Thresholds at the 0.9 quantile of each
     slot's pair sums."""
-    from repro_torch.comm.wire import cheapest_bytes
     from repro_torch.core.channels import quantile
     from repro_torch.kernels import channel_norm as cn
     from repro_torch.kernels import select_mask as sm
@@ -874,19 +991,11 @@ def time_rounds(torch, gen) -> dict:
             nbytes[name] = nbytes.get(name, 0) + s_count * b
             flops[name] = flops.get(name, 0) + s_count * f
     gs = [leaf[0] for leaf in leaves]
-    cc = sm.compact_count(leaves, drop_zeros=True)
-    pairs, nnz = cc.pairs, cc.counts.tolist()
+    pairs = sm.compact_count(leaves, drop_zeros=True).pairs
     sizes = [leaves[l][0][s].numel() for l, s in pairs]
-    sparse = [k for k, (c, size) in enumerate(zip(nnz, sizes))
-              if c and cheapest_bytes(c, size)[0] != "dense"]
 
     def compact_table():
         sm.compact_scatter(sm.compact_count(leaves, drop_zeros=True), sizes)
-
-    def compact_encoder():
-        c = sm.compact_count(leaves, drop_zeros=True)
-        counts = c.counts.tolist()
-        sm.compact_scatter(c, [counts[k] for k in sparse], sparse)
 
     routes = {
         "channel_norm": (lambda: [cn.channel_norms_plain(g) for g in gs],
@@ -912,18 +1021,10 @@ def time_rounds(torch, gen) -> dict:
                      "device_us_l2_warm": device_us(torch, kernel, names,
                                                     launches)[0],
                      "bound_ms": bound, "bound_by": by}
-    enc_bytes = s_count * sum(4 * m * n + 4 * (m + n) + 12
-                              for m, n in MAIN_SHAPES) \
-        + sum(8 * nnz[k] for k in sparse)
-    enc_bound, enc_by = bound_ms(enc_bytes, flops["select_compact"])
-    out["select_compact"]["encoder"] = {
-        "ms": cuda_ms(compact_encoder),
-        "device_us": device_us(torch, compact_encoder, ("compact_",),
-                               1 + bool(sparse), flush=True)[0],
-        "device_us_l2_warm": device_us(torch, compact_encoder,
-                                       ("compact_",), 1 + bool(sparse))[0],
-        "bound_us": enc_bound * 1e3, "bound_by": enc_by,
-        "scattered_pairs": len(sparse)}
+    out["select_compact"]["encoder"] = time_encoder(
+        torch, leaves, s_count * sum(4 * m * n + 4 * (m + n) + 12
+                                     for m, n in MAIN_SHAPES),
+        flops["select_compact"])
     return out
 
 
@@ -935,14 +1036,12 @@ def time_kernels(torch, gen, errs: dict) -> list:
     sums): K1 and K2 as one table launch and as three single-leaf calls;
     K3 at capacity M*N with drop_zeros as one table (count + scatter
     launch) and as three single-leaf calls (PR 12's timing), and on the
-    encoder's route: count, the counts read on the host, scatter of the
-    coo and bitmap leaves at their counts.  K4 is timed a prune step at a
+    encoder's route (``time_encoder``).  K4 is timed a prune step at a
     time: a table a validation batch with the fractions (the main path's
     route) and four single-leaf count calls, beside the library's count
     of nonzeros; the memsets on each route are counted too."""
     import numpy as np
 
-    from repro_torch.comm.wire import cheapest_bytes
     from repro_torch.core.channels import quantile
     from repro_torch.kernels import apoz as az
     from repro_torch.kernels import channel_norm as cn
@@ -968,9 +1067,6 @@ def time_kernels(torch, gen, errs: dict) -> list:
         flops["select_compact"] += 4 * m * n
     gs = [leaf[0] for leaf in leaves]
     sizes = [g.numel() for g in gs]
-    nnz = sm.compact_count(leaves, drop_zeros=True).counts.tolist()
-    sparse = [k for k, (c, size) in enumerate(zip(nnz, sizes))
-              if c and cheapest_bytes(c, size)[0] != "dense"]
     # one SCBFwP prune step: 2 validation batches x 2 hidden layers
     batches = []
     for k in range(VAL_BATCHES):
@@ -985,11 +1081,6 @@ def time_kernels(torch, gen, errs: dict) -> list:
 
     def compact_table():
         sm.compact_scatter(sm.compact_count(leaves, drop_zeros=True), sizes)
-
-    def compact_encoder():
-        cc = sm.compact_count(leaves, drop_zeros=True)
-        counts = cc.counts.tolist()
-        sm.compact_scatter(cc, [counts[k] for k in sparse], sparse)
 
     layers, steps = len(MAIN_SHAPES), VAL_BATCHES * HIDDEN_LAYERS
     # plain, table route, single-leaf route, kernel names, launches a
@@ -1035,15 +1126,9 @@ def time_kernels(torch, gen, errs: dict) -> list:
     t["apoz"]["library"] = cuda_ms(
         lambda: [torch.count_nonzero(a, dim=0)
                  for acts, _ in batches for a in acts])
-    enc_bytes = sum(4 * m * n + 4 * (m + n) + 12 for m, n in MAIN_SHAPES) \
-        + sum(8 * nnz[k] for k in sparse)
-    enc_bound, enc_by = bound_ms(enc_bytes, flops["select_compact"])
-    extra["select_compact"]["encoder"] = {
-        "ms": cuda_ms(compact_encoder),
-        "device_us": device_us(torch, compact_encoder, ("compact_",),
-                               1 + bool(sparse))[0],
-        "bound_us": enc_bound * 1e3, "bound_by": enc_by,
-        "nnz": nnz, "scattered_leaves": sparse}
+    extra["select_compact"]["encoder"] = time_encoder(
+        torch, leaves, sum(4 * m * n + 4 * (m + n) + 12
+                           for m, n in MAIN_SHAPES), flops["select_compact"])
     main_txt = "+".join(f"{m}x{n}" for m, n in MAIN_SHAPES) + " fp32"
     apoz_txt = "+".join(f"{b}x{n}" for b, n in APOZ_SHAPES) + " fp32"
     meta = {
@@ -2437,8 +2522,9 @@ def phase_big_round(torch, cohort, card: str) -> None:
     """C1 on the card: one batched round of 256 participants at the
     paper's widths (the cohort split 256 ways, batch 32), past the 2^22
     words of partials K1's library once held: one launch each of K1, K2
-    and K3's count, and slot s of the round's selection and encoding
-    bitwise the one-slot calls on slot s."""
+    and K3's count, K3's scatter writing every bitmap leaf in the bitmap
+    form, and slot s of the round's selection and encoding bitwise the
+    one-slot calls on slot s (payloads field for field)."""
     import numpy as np
 
     from repro_torch.comm import wire
@@ -2448,6 +2534,7 @@ def phase_big_round(torch, cohort, card: str) -> None:
     from repro_torch.data.medical import federated_split
     from repro_torch.fed.engine import BatchedEngine, _train_slots
     from repro_torch.kernels import channel_norm as cn
+    from repro_torch.kernels import select_mask as sm
     from repro_torch.models.mlp_net import init_mlp
 
     shards = federated_split(cohort.x_train, cohort.y_train, BIG_ROUND,
@@ -2471,11 +2558,15 @@ def phase_big_round(torch, cohort, card: str) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _launch_counts()
+    bitmaps = sm.compact_bitmap_pairs
     want = {"channel_norm": 1, "select_mask": 1, "select_compact_count": 1,
             "select_compact_scatter": _scatter_pairs(payloads), "apoz": 0}
-    if counts != want or len(payloads) != BIG_ROUND or words <= 1 << 22:
+    if counts != want or len(payloads) != BIG_ROUND or words <= 1 << 22 \
+            or bitmaps != _bitmap_leaves(payloads):
         raise AssertionError(f"C1 round: launches {counts} (want {want}), "
-                             f"{len(payloads)} payloads, {words} words")
+                             f"{len(payloads)} payloads, {words} words, "
+                             f"{bitmaps} bitmap pairs scattered for "
+                             f"{_bitmap_leaves(payloads)} bitmap leaves")
     # the same round's delta, then its selection a slot at a time
     rows, valid, pm = eng._slot_inputs(part, perms, BIG_ROUND)
     g = client_delta(*_train_slots(params, eng.cohort, rows, valid, 0.01,
@@ -2492,22 +2583,18 @@ def phase_big_round(torch, cohort, card: str) -> None:
         p1 = wire.encode_selected(m1, o1)
         ok = all(torch.equal(m1[l][k], masked[l][k][s])
                  for l in range(len(m1)) for k in m1[l]) and \
-            p1.nbytes == stacked[s].nbytes and all(
-                np.array_equal(a.values, b.values)
-                for a, b in zip(p1.layers, stacked[s].layers))
+            _same_payload(p1, stacked[s])
         same += int(ok)
     if same != BIG_ROUND:
         raise AssertionError(f"C1: {BIG_ROUND - same} of {BIG_ROUND} slots "
                              "differ from their one-slot calls")
-    round_same = all(a.nbytes == b.nbytes and all(
-        np.array_equal(x.values, y.values)
-        for x, y in zip(a.layers, b.layers))
-        for a, b in zip(payloads, stacked))
+    round_same = all(_same_payload(a, b) for a, b in zip(payloads, stacked))
     log("c1: " + json.dumps({
         "round": f"{BIG_ROUND} participants, widths {feats}, batch "
                  f"{BIG_BATCH}", "card": card,
         "channel_norm_workspace_words": words, "old_scratch_words": 1 << 22,
-        "launches": counts, "round_wall_s": wall,
+        "launches": counts, "compact_bitmap_pairs": bitmaps,
+        "round_wall_s": wall,
         "slots_bitwise_their_one_slot_calls": same,
         "engine_round_equals_stacked_pass": round_same,
         "upload_fraction_mean": float(np.mean([s.upload_fraction
@@ -4832,13 +4919,13 @@ def phase_comm_table(torch, card: str) -> dict:
     """``benchmarks/torch_table_communication.run(quick=False)`` on the card:
     the paper's MLP 2917-256-64-1, one client's upload at each rate (K1
     and K2 in the selection, K3 in the encode: once each a row, K3's
-    scatter once a row whose weight leaves ship coo or bitmap), each
-    payload's bytes, codecs and values those of the host ``wire.encode``
-    of the same masked delta."""
-    import numpy as np
-
+    scatter once a row whose weight leaves ship coo or bitmap, each
+    bitmap leaf in the bitmap form), each payload the host
+    ``wire.encode`` of the same masked delta field for field: codecs,
+    bytes, values, indices, packed bitmaps and checksum."""
     import benchmarks.torch_table_communication as tc
     from repro_torch.comm import wire
+    from repro_torch.kernels import select_mask as sm
 
     seen = []
     real = wire.encode_selected
@@ -4855,12 +4942,13 @@ def phase_comm_table(torch, card: str) -> dict:
     finally:
         wire.encode_selected = real
     counts = _launch_counts()
+    bitmaps = sm.compact_bitmap_pairs
     scatters = 0
     for masked, payload in seen:
         want = wire.encode(masked)
-        if not (want.nbytes == payload.nbytes and all(
-                a.codec == b.codec and np.array_equal(a.values, b.values)
-                for a, b in zip(want.layers, payload.layers))):
+        if not _same_payload(want, payload) or \
+                wire.payload_checksum(want) != \
+                wire.payload_checksum(payload):
             raise AssertionError("comm-table: the card's encode differs "
                                  "from the host encode")
         scatters += any(lp.codec != "dense" for (_, k), lp in
@@ -4868,8 +4956,9 @@ def phase_comm_table(torch, card: str) -> dict:
     want = {"channel_norm": len(rows), "select_mask": len(rows),
             "select_compact_count": len(rows),
             "select_compact_scatter": scatters, "apoz": 0}
-    if counts != want:
-        raise AssertionError(f"comm-table: launches {counts}, want {want}")
+    if counts != want or bitmaps != _bitmap_leaves(p for _, p in seen):
+        raise AssertionError(f"comm-table: launches {counts}, want {want}; "
+                             f"{bitmaps} bitmap pairs scattered")
     for line in tc.csv_lines(rows):
         log(f"comm-table: {line}")
     frac = next(r[2] for r in rows if r[:2] == ("positive", 0.10))
@@ -4877,7 +4966,8 @@ def phase_comm_table(torch, card: str) -> dict:
         f"selection at alpha 0.10 uploads {frac:.4f} of the params of a "
         f"random-normal delta (the paper: ~{COMM_PAPER_FRACTION}; a real "
         f"local-training delta: {COMM_TRAINED_FRACTION}); launches "
-        f"{counts}; every payload the host encode's ({card})")
+        f"{counts}, {bitmaps} pairs scattered as bitmaps; every payload "
+        f"the host encode's, field for field ({card})")
     return {"rows": rows, "launches": counts}
 
 

@@ -12,8 +12,10 @@ Encoding keeps *nonzero* entries (``np.flatnonzero``) and is lossless.
 from the selection's slot-stacked operands: the select-compact kernel
 counts every (weight leaf, slot)'s kept *and* nonzero entries on the
 device in one launch, the counts pick the codecs, and only the coo and
-bitmap pairs are compacted (row-major, at their counts, one launch) and
-cross to the host; ``encode_selected`` is a round of one slot.
+bitmap pairs are compacted (row-major, at their counts, one launch, each
+in its codec's wire form: a coo pair's indices, a bitmap pair's packed
+bitmap, then the values) and cross to the host, where the payloads view
+them; ``encode_selected`` is a round of one slot.
 Payloads hold host numpy buffers — they
 model bytes crossing the network — as in the reference.  Where the
 reference keeps a JAX treedef, a ``Payload`` keeps its layer-key
@@ -198,25 +200,24 @@ def encode(tree: Sequence[dict], codec: str = "auto") -> Payload:
 
 
 def _leaf_from_compact(shape: Tuple[int, ...], nnz: int,
-                       nz: Optional[np.ndarray], values: Optional[np.ndarray],
+                       head: Optional[np.ndarray],
+                       values: Optional[np.ndarray],
                        dense: Optional[np.ndarray]) -> LayerPayload:
     """``encode_leaf`` of a masked fp32 leaf of ``shape`` from its nonzero
-    count and, for coo and bitmap, its ``nnz`` row-major flat indices and
-    values (host arrays); dense copies ``dense``, the masked leaf on the
-    host."""
+    count and, for coo and bitmap, its compacted wire buffers (host
+    arrays): ``head``, the ``nnz`` row-major flat indices (coo) or the
+    packed bitmap (bitmap), and the ``nnz`` values; dense copies
+    ``dense``, the masked leaf on the host."""
     size = int(np.prod(shape, dtype=np.int64))
     codec, nbytes = cheapest_bytes(nnz, size, 4)
     if codec == "dense":
         return LayerPayload(codec, shape, np.dtype(np.float32), size,
                             nbytes, idx=None, bitmap=None,
                             values=dense.reshape(-1).copy())
-    if codec == "coo":
-        return LayerPayload(codec, shape, np.dtype(np.float32), nnz, nbytes,
-                            idx=nz, bitmap=None, values=values)
-    mask = np.zeros(size, np.uint8)
-    mask[nz] = 1
     return LayerPayload(codec, shape, np.dtype(np.float32), nnz, nbytes,
-                        idx=None, bitmap=np.packbits(mask), values=values)
+                        idx=head if codec == "coo" else None,
+                        bitmap=head if codec == "bitmap" else None,
+                        values=values)
 
 
 def encode_selected(masked: Sequence[dict], operands: Sequence) -> Payload:
@@ -251,10 +252,13 @@ def encode_round(masked: Sequence[dict], operands: Sequence, num: int
     One count launch of the select-compact kernel covers every (weight
     leaf, slot < num) pair; one host read of the counts picks every pair's
     codec; one scatter launch compacts the coo and bitmap pairs, each at
-    capacity = its count (no tail), and its buffer reaches the host in one
-    copy.  A round of more pairs than one launch takes is encoded a group
-    of slots at a time (``core.channels.slot_groups``).  A weight leaf with a dense pair, and every bias leaf (vectors
-    no kernel computes, encoded by ``encode_leaf`` on the host), cross to
+    capacity = its count (no tail) and in its codec's wire form (the
+    bitmap packed on the device), and its buffer reaches the host in one
+    copy, of which the payloads' buffers are views.  A round of more
+    pairs than one launch takes is encoded a group of slots at a time
+    (``core.channels.slot_groups``).  A weight leaf with a dense pair, and
+    every bias leaf (vectors no kernel computes, encoded by
+    ``encode_leaf`` on the host), cross to
     the host in one copy a leaf.  Weight leaves are fp32.  Under DP the
     operands' ``g`` is the noised leaf, so what is compacted is what the
     mechanism released.
@@ -289,14 +293,17 @@ def _encode_slots(masked: Sequence[dict], operands: Sequence, a: int,
         sparse = [k for k, p in enumerate(cc.pairs)
                   if nnz[p] and codec[p] != "dense"]
         if sparse:
-            buf, views = compact_scatter(cc, [counts[k] for k in sparse],
-                                         sparse)
+            buf, views = compact_scatter(
+                cc, [counts[k] for k in sparse], sparse,
+                [codec[cc.pairs[k]] for k in sparse])
             flat = buf.cpu().numpy()
-            for k, (idx, vals) in zip(sparse, views):
-                at, vat = idx.storage_offset(), vals.storage_offset()
-                host[cc.pairs[k]] = (flat[at:at + counts[k]],
-                                     flat[vat:vat + counts[k]]
-                                     .view(np.float32))
+            as_bytes, as_float = flat.view(np.uint8), flat.view(np.float32)
+            for k, (head, vals) in zip(sparse, views):
+                at, n = head.storage_offset(), head.numel()
+                vat = vals.storage_offset()
+                host[cc.pairs[k]] = ((flat if head.dtype == torch.int32
+                                      else as_bytes)[at:at + n],
+                                     as_float[vat:vat + counts[k]])
         for l in sorted({p[0] for p, c in codec.items() if c == "dense"}):
             dense[l] = _host(masked[l]["w"])
     others = {(l, k): _host(masked[l][k]) for l, k in keys if k != "w"}
@@ -306,10 +313,10 @@ def _encode_slots(masked: Sequence[dict], operands: Sequence, a: int,
         layers = []
         for l, k in keys:
             if k == "w":
-                nz, values = host.get((l, s), empty)
+                head, values = host.get((l, s), empty)
                 d = dense.get(l)
                 layers.append(_leaf_from_compact(
-                    shapes[l], int(nnz[(l, s)]), nz, values,
+                    shapes[l], int(nnz[(l, s)]), head, values,
                     None if d is None else d[s]))
             else:
                 layers.append(encode_leaf(others[(l, k)][s]))

@@ -29,18 +29,28 @@
 //   2. scatter: over any subset of the pairs (the leaves passed by value,
 //               the pairs' table copied by the launcher into the library's
 //               device memory on the launch's stream), each at its own
-//               capacity and into its own idx and vals; the grid is the
-//               concatenation of the pairs' tiles.  Each warp finds its
-//               block's pair by a 32-way search of the table (one round
-//               of loads up to 32 pairs, two up to 1,024).  Block t adds
-//               the counts of the tiles before it in its pair
-//               (L2-resident; a read of offsets[t] for a large leaf) while
-//               its loads of g are in flight, ranks its kept entries
+//               capacity, in its own form and into its own output; the
+//               grid is the concatenation of the pairs' tiles.  Each warp
+//               finds its block's pair by a 32-way search of the table
+//               (one round of loads up to 32 pairs, two up to 1,024).
+//               Block t adds the counts of the tiles before it in its
+//               pair (L2-resident; a read of offsets[t] for a large leaf)
+//               while its loads of g are in flight, ranks its kept entries
 //               row-major with warp ballots, gathers them in shared memory
 //               and writes them out as one contiguous run at its offset, in
 //               16-byte stores; entries past the capacity drop in order.
 //               The leaf's blocks then write the unused tail
 //               [min(count, cap), cap) with -1 / 0.
+// A pair's form is coo (idx and vals, above) or bitmap, the wire codec's
+// (repro/comm/wire.py encode_leaf): a packed bitmap of ceil(M*N/8) bytes
+// in np.packbits order (row-major; entry 8k + i is bit 7 - i of byte k,
+// the last byte zero-padded) whose bits are the compacted entries — the
+// first min(count, cap) kept ones — then vals as in coo, and no idx.  A
+// tile's 2,048 entries are its 256 bytes at byte tile * 256 of the
+// bitmap, so no scan: each warp turns the keep bits it ranked with into
+// its 16 bytes a round (a lane's 4 entries are a nibble, 8 lanes a word,
+// by three shuffles), staged in shared memory and written as 16-byte
+// stores over the bitmap's 16-byte-padded length (the padding zeros).
 // The caller may read the counts between the two launches (the upload
 // encoder does, to size the buffers at the count) or not (the wrapper's
 // contract route launches both back to back with no host sync).  The
@@ -58,8 +68,9 @@
 //
 // Bound on an H100: bytes — g read once (the scatter reads it again,
 // mostly from L2), the outputs written once: 8 bytes a kept entry and a
-// tail entry.  A pass over the main path's matrices, (2917, 256) +
-// (256, 64) + (64, 1) fp32, at capacity M*N moves about 9.2 MB: about
+// tail entry in coo (in bitmap 4, and ceil(M*N/8) bytes a pair).  A pass
+// over the main path's matrices, (2917, 256) + (256, 64) + (64, 1) fp32,
+// in coo at capacity M*N moves about 9.2 MB: about
 // 2.7 us at 3.35 TB/s; at capacity = count (the encoder) fewer.  There are
 // no products (tensor cores buy nothing) and the reads are 16-byte vector
 // loads (TMA buys nothing).  As in select_mask.cu: flat indices are 32
@@ -80,7 +91,8 @@ constexpr int MAX_LEAVES = 16;
 constexpr int MAX_SLOTS = 4096;                 // pairs a launch
 constexpr int MAX_PREFIX_TILES = 1024;
 constexpr int LEAF_WORDS = 15;                  // int64 words a leaf row
-constexpr int PAIR_WORDS = 5;                   // int64 words a pair row
+constexpr int PAIR_WORDS = 6;                   // int64 words a pair row
+constexpr int TILE_BYTES = TILE / 8;            // a tile's bitmap bytes
 
 // a slot-stacked leaf: S matrices (M, N) and their operands
 struct Leaf {
@@ -99,15 +111,17 @@ struct Leaf {
   int vec;                  // 16-byte (bf16: 8-byte) loads of g
 };
 
-// a (leaf, slot) pair the scatter launch compacts: idx at out + idx_at,
-// vals at out + vals_at, cap entries each
+// a (leaf, slot) pair the scatter launch compacts: idx (coo) or the
+// packed bitmap (bitmap) at out + idx_at, vals at out + vals_at, cap
+// entries each
 struct Pair {
   int first;                // first block of the pair in the grid
   int cap;
   int idx_at, vals_at;      // in ints from the launch's out
   unsigned short leaf, slot;
+  int bitmap;               // the form: 0 coo, 1 bitmap
 };
-static_assert(sizeof(Pair) == 20, "a pair is 5 words");
+static_assert(sizeof(Pair) == 24, "a pair is 6 words");
 
 struct CountTable {
   Leaf leaf[MAX_LEAVES];
@@ -127,8 +141,9 @@ struct View {
   const float* col;
   float thr, rest;
   int* count;
-  int* idx;
+  int* idx;                 // coo; null in the bitmap form
   float* vals;
+  int4* bits;               // the bitmap form's packed bitmap, else null
   long long cap;
   int M, N;
   int tiles;
@@ -148,6 +163,7 @@ __device__ __forceinline__ View slot_view(const Leaf& lf, int slot) {
   v.count = lf.count + slot;
   v.idx = nullptr;
   v.vals = nullptr;
+  v.bits = nullptr;
   v.cap = 0;
   v.out_vec = 0;
   v.M = lf.M;
@@ -396,26 +412,30 @@ __device__ void write_run(const View& lf, const int* s_idx,
     a1 = stop & ~3LL;
     if (a1 < a0) a1 = a0;
   }
+  const bool coo = lf.idx != nullptr;
   for (long long p = base + threadIdx.x; p < a0; p += THREADS) {
-    lf.idx[p] = s_idx[p - base];
+    if (coo) lf.idx[p] = s_idx[p - base];
     lf.vals[p] = s_val[p - base];
   }
   for (long long q = a0 + 4LL * threadIdx.x; q < a1; q += 4LL * THREADS) {
     const int s = (int)(q - base);
-    *reinterpret_cast<int4*>(lf.idx + q) =
-        make_int4(s_idx[s], s_idx[s + 1], s_idx[s + 2], s_idx[s + 3]);
+    if (coo)
+      *reinterpret_cast<int4*>(lf.idx + q) =
+          make_int4(s_idx[s], s_idx[s + 1], s_idx[s + 2], s_idx[s + 3]);
     *reinterpret_cast<float4*>(lf.vals + q) =
         make_float4(s_val[s], s_val[s + 1], s_val[s + 2], s_val[s + 3]);
   }
   for (long long p = a1 + threadIdx.x; p < stop; p += THREADS) {
-    lf.idx[p] = s_idx[p - base];
+    if (coo) lf.idx[p] = s_idx[p - base];
     lf.vals[p] = s_val[p - base];
   }
 }
 
-// idx / vals [from, cap) = -1 / 0, spread over the leaf's blocks
+// idx / vals [from, cap) = -1 / 0 (no idx in the bitmap form), spread
+// over the leaf's blocks
 __device__ void write_tail(const View& lf, int tile, long long from) {
   const long long cap = lf.cap;
+  const bool coo = lf.idx != nullptr;
   const long long gi = (long long)tile * THREADS + threadIdx.x;
   const long long stride = (long long)lf.tiles * THREADS;
   long long a0 = cap, a1 = cap;
@@ -426,17 +446,25 @@ __device__ void write_tail(const View& lf, int tile, long long from) {
     if (a1 < a0) a1 = a0;
   }
   for (long long p = from + gi; p < a0; p += stride) {
-    lf.idx[p] = -1;
+    if (coo) lf.idx[p] = -1;
     lf.vals[p] = 0.0f;
   }
   for (long long q = a0 + 4 * gi; q < a1; q += 4 * stride) {
-    *reinterpret_cast<int4*>(lf.idx + q) = make_int4(-1, -1, -1, -1);
+    if (coo)
+      *reinterpret_cast<int4*>(lf.idx + q) = make_int4(-1, -1, -1, -1);
     *reinterpret_cast<float4*>(lf.vals + q) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   for (long long p = a1 + gi; p < cap; p += stride) {
-    lf.idx[p] = -1;
+    if (coo) lf.idx[p] = -1;
     lf.vals[p] = 0.0f;
   }
+}
+
+// a lane's 4 keep bits (bit k: entry e + k) as its nibble of a packed
+// byte: entry 0 at the nibble's high bit (np.packbits order)
+__device__ __forceinline__ unsigned packbits_nibble(unsigned b) {
+  return ((b & 1u) << 3) | ((b & 2u) << 1) | ((b & 4u) >> 1) |
+         ((b & 8u) >> 3);
 }
 
 template <typename T>
@@ -446,6 +474,7 @@ compact_scatter_kernel(const ScatterTable t, int drop_zeros,
                        const int* __restrict__ offsets) {
   __shared__ int s_idx[TILE];
   __shared__ float s_val[TILE];
+  __shared__ int4 s_bits[TILE_BYTES / 16];  // the bitmap form's tile bytes
   __shared__ int run[VPT * WARPS];   // kept a (round, warp), then its offset
   __shared__ int before_warp[WARPS];
   __shared__ int s_base, s_kept;
@@ -453,7 +482,10 @@ compact_scatter_kernel(const ScatterTable t, int drop_zeros,
   const int warp = threadIdx.x >> 5;
   const Pair pr = scatter_pairs[find_pair(t.P)];
   View lf = slot_view<T>(t.leaf[pr.leaf], pr.slot);
-  lf.idx = t.out + pr.idx_at;
+  if (pr.bitmap)
+    lf.bits = reinterpret_cast<int4*>(t.out + pr.idx_at);
+  else
+    lf.idx = t.out + pr.idx_at;
   lf.vals = reinterpret_cast<float*>(t.out + pr.vals_at);
   lf.cap = pr.cap;
   lf.out_vec = (reinterpret_cast<size_t>(lf.idx) & 15) == 0 &&
@@ -511,20 +543,39 @@ compact_scatter_kernel(const ScatterTable t, int drop_zeros,
     }
   }
   __syncthreads();
+  const long long base = s_base;
 #pragma unroll
   for (int r = 0; r < VPT; ++r) {
     int p = run[r * WARPS + warp] + lane_before[r];
+    unsigned packed = 0;                // the entries that fit the capacity
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if ((bits[r] >> k) & 1u) {
         s_idx[p] = (int)(e[r] + k);
         s_val[p] = to_float(v[r][k]);
+        if (base + p < lf.cap) packed |= 1u << k;
         ++p;
       }
     }
+    if (lf.bits) {                      // the warp's 16 bytes of round r
+      unsigned w = packbits_nibble(packed)
+                   << (8 * ((lane & 7) >> 1) + ((lane & 1) ? 0 : 4));
+      w |= __shfl_xor_sync(0xffffffffu, w, 1);
+      w |= __shfl_xor_sync(0xffffffffu, w, 2);
+      w |= __shfl_xor_sync(0xffffffffu, w, 4);
+      if ((lane & 7) == 0)
+        reinterpret_cast<unsigned*>(s_bits)[(r * THREADS + warp * 32) / 8 +
+                                            (lane >> 3)] = w;
+    }
   }
   __syncthreads();
-  const long long base = s_base;
+  if (lf.bits && threadIdx.x < TILE_BYTES / 16) {
+    // the bitmap's 16-byte-padded length; the last tile's bytes past the
+    // matrix are zeros
+    const long long bytes = (((long long)lf.M * lf.N + 7) / 8 + 15) & ~15LL;
+    const long long at = (long long)tile * TILE_BYTES + 16 * threadIdx.x;
+    if (at < bytes) lf.bits[at / 16] = s_bits[threadIdx.x];
+  }
   long long stop = base + s_kept;
   if (stop > lf.cap) stop = lf.cap;
   if (stop > base) write_run(lf, s_idx, s_val, base, stop);
@@ -611,11 +662,13 @@ extern "C" int select_compact_count_launch(const long long* rows, int L,
 // The scatter launch over P (leaf, slot) pairs (1 <= P <= MAX_SLOTS) of a
 // table whose counts a count launch with the same rows and drop_zeros has
 // written on this stream.  pairs: PAIR_WORDS int64 words a pair (host
-// memory) — leaf, slot, cap, idx_at, vals_at: the pair's idx and vals hold
-// cap entries from out + idx_at and out + vals_at (offsets in ints, below
-// 2^31).  The launcher copies the pairs to the device on the stream, then
-// launches; two scatter launches must not run at once (one stream).
-// Returns a cudaError_t.
+// memory) — leaf, slot, cap, idx_at, vals_at, bitmap: the pair's vals hold
+// cap entries from out + vals_at, and its idx (bitmap 0: coo) cap entries
+// from out + idx_at, or its packed bitmap (bitmap 1) ceil(M * N / 8)
+// bytes padded to 16 from out + idx_at, 16-byte aligned (offsets in ints,
+// below 2^31).  The launcher copies the pairs to the device on the
+// stream, then launches; two scatter launches must not run at once (one
+// stream).  Returns a cudaError_t.
 extern "C" int select_compact_scatter_launch(const long long* rows, int L,
                                              const long long* pairs, int P,
                                              int* out, int dtype,
@@ -636,7 +689,9 @@ extern "C" int select_compact_scatter_launch(const long long* rows, int L,
     const long long* r = pairs + (long long)k * PAIR_WORDS;
     if (r[0] < 0 || r[0] >= L || r[1] < 0 || r[1] >= t.leaf[r[0]].S ||
         r[2] < 0 || r[2] > 0x7fffffffLL || r[3] < 0 ||
-        r[3] > 0x7fffffffLL || r[4] < 0 || r[4] > 0x7fffffffLL)
+        r[3] > 0x7fffffffLL || r[4] < 0 || r[4] > 0x7fffffffLL ||
+        (r[5] != 0 && r[5] != 1) ||
+        (r[5] && (reinterpret_cast<size_t>(out + r[3]) & 15) != 0))
       return (int)cudaErrorInvalidValue;
     Pair& p = staged_pairs[k];
     p.leaf = (unsigned short)r[0];
@@ -644,6 +699,7 @@ extern "C" int select_compact_scatter_launch(const long long* rows, int L,
     p.cap = (int)r[2];
     p.idx_at = (int)r[3];
     p.vals_at = (int)r[4];
+    p.bitmap = (int)r[5];
     p.first = (int)blocks;
     blocks += t.leaf[r[0]].tiles;
   }

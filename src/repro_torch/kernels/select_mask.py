@@ -6,6 +6,7 @@ and column scores, or compact its kept entries into COO buffers (port of
     keep[i, j] = (row[i] + col[j]) + rest > thr
     select_mask:     g̃ = where(keep, g, 0);  mask = keep;  count = Σ keep
     select_compact:  row-major (idx, vals) of the kept entries;  count
+      bitmap form:   (packed bitmap of the kept entries, vals);  count
 
 ``rest`` (the best completion through the other layers) is added after
 the pair sum, exactly as ``core/channels.py`` orders it; ``rest = 0`` is
@@ -26,7 +27,9 @@ leaf's g is ``(S, M, N)`` — the same matrix of S clients — with row
 or 0-d (an operand without the slot dimension serves every slot: slot
 stride 0).  A (leaf, slot) pair is one matrix; slot s of a launch is
 bitwise a one-slot launch on it.  ``compact_scatter`` takes any subset
-of the count pass's pairs, each at its own capacity.
+of the count pass's pairs, each at its own capacity and in its own form:
+``coo`` (idx, vals) or ``bitmap``, the wire codec's — ``np.packbits`` of
+the compacted entries' mask (row-major, zero-padded), then their vals.
 
 Each wrapper dispatches on the tensors' device: CPU tensors go to the
 ``*_plain`` versions (leaf by leaf, slot by slot); CUDA tensors launch
@@ -41,6 +44,8 @@ indices) as row blocks of the same columns, its blocks' counts summed.
 ``compact_scatter_launches`` count kernel launches only: a
 ``select_mask_leaves`` call under CUDA graph capture records its launch
 into the graph and is not counted (the graph's replays launch it).
+``compact_bitmap_pairs`` counts the pairs a scatter wrote in the bitmap
+form, on either device.
 """
 from __future__ import annotations
 
@@ -59,10 +64,12 @@ MAX_LEAVES = 16        # leaves a launch takes: MAX_LEAVES in both sources
 MAX_SLOTS = 4096       # (leaf, slot) pairs a launch: MAX_SLOTS in both
 MAX_ENTRIES = 2 ** 31  # entries of a matrix a launch takes: int32 indices
 _ALIGN = 16            # bytes: every output view starts 16-byte aligned
+FORMS = ("coo", "bitmap")  # what compact_scatter writes for a pair
 
 mask_launches = 0
 compact_count_launches = 0
 compact_scatter_launches = 0
+compact_bitmap_pairs = 0
 
 Scalar = Union[float, torch.Tensor]
 # one weight matrix's operands: (g, row, col, thr, rest), or S slots of them
@@ -71,7 +78,9 @@ Leaf = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Scalar, Scalar]
 
 def reset_launches() -> None:
     global mask_launches, compact_count_launches, compact_scatter_launches
+    global compact_bitmap_pairs
     mask_launches = compact_count_launches = compact_scatter_launches = 0
+    compact_bitmap_pairs = 0
 
 
 def leaf_slot(leaf: tuple, s: int) -> tuple:
@@ -111,21 +120,31 @@ def select_mask_plain(g: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
 def select_compact_plain(g: torch.Tensor, row: torch.Tensor,
                          col: torch.Tensor, thr: torch.Tensor,
                          rest: torch.Tensor, capacity: int,
-                         drop_zeros: bool = False
+                         drop_zeros: bool = False, form: str = "coo"
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(idx (capacity,) int32, vals (capacity,) fp32, count int32 0-d) of
-    one matrix (M, N)."""
+    one matrix (M, N); in the ``bitmap`` form idx gives way to the packed
+    bitmap (ceil(M*N/8),) uint8 of the compacted entries, ``np.packbits``
+    order."""
     gf = g.to(torch.float32)
     keep = (row[:, None] + col[None, :]) + rest > thr
     if drop_zeros:
         keep = keep & (gf != 0)
     nz = torch.nonzero(keep.reshape(-1)).reshape(-1)    # row-major order
     k = min(int(nz.numel()), capacity)
-    idx = torch.full((capacity,), -1, dtype=torch.int32, device=g.device)
     vals = torch.zeros((capacity,), dtype=torch.float32, device=g.device)
-    idx[:k] = nz[:k].to(torch.int32)
     vals[:k] = gf.reshape(-1)[nz[:k]]
     count = torch.tensor(nz.numel(), dtype=torch.int32, device=g.device)
+    if form == "bitmap":
+        bits = torch.zeros(_pad(g.numel(), 8), dtype=torch.uint8,
+                           device=g.device)
+        bits[nz[:k]] = 1
+        weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1],
+                               dtype=torch.uint8, device=g.device)
+        return (bits.view(-1, 8) * weights).sum(1, dtype=torch.uint8), \
+            vals, count
+    idx = torch.full((capacity,), -1, dtype=torch.int32, device=g.device)
+    idx[:k] = nz[:k].to(torch.int32)
     return idx, vals, count
 
 
@@ -444,41 +463,54 @@ def compact_count(leaves: Sequence[Leaf], drop_zeros: bool = False
 
 
 def compact_scatter(cc: CompactCounts, capacities: Sequence[int],
-                    which: Optional[Sequence[int]] = None
+                    which: Optional[Sequence[int]] = None,
+                    forms: Optional[Sequence[str]] = None
                     ) -> Tuple[torch.Tensor,
                                List[Tuple[torch.Tensor, torch.Tensor]]]:
     """The scatter pass over the pairs ``which`` (indices into
-    ``cc.pairs``, default all) of a count pass, at ``capacities``:
-    (buffer, [(idx (cap,) int32, vals (cap,) fp32)]), every idx and vals a
-    view of the one int32 buffer (vals reinterpreted), at its
-    ``storage_offset()``.  The unused tail is idx -1 / val 0, entries past
-    a capacity drop in order.  On CUDA one launch (none for an empty
+    ``cc.pairs``, default all) of a count pass, at ``capacities`` and in
+    ``forms`` (one of ``FORMS`` a pair, default coo): (buffer, [(head,
+    vals (cap,) fp32)]), where a coo pair's head is its idx (cap,) int32
+    and a bitmap pair's its packed bitmap (ceil(M*N/8),) uint8 — whose
+    bits are the entries in vals — every head and vals a view of the one
+    int32 buffer (reinterpreted), at its ``storage_offset()`` (in its
+    dtype's units).  The unused tail is idx -1 / val 0, entries past a
+    capacity drop in order.  On CUDA one launch (none for an empty
     ``which``) on the count pass's stream, which first copies the pairs'
     table to the device; no host sync."""
-    global compact_scatter_launches
+    global compact_scatter_launches, compact_bitmap_pairs
     which = list(range(len(cc.pairs))) if which is None else list(which)
+    forms = ["coo"] * len(which) if forms is None else list(forms)
     if len(capacities) != len(which) or any(c < 0 for c in capacities):
         raise ValueError(f"one capacity >= 0 a pair, got {capacities} for "
                          f"pairs {which}")
+    if len(forms) != len(which) or any(f not in FORMS for f in forms):
+        raise ValueError(f"one form of {FORMS} a pair, got {forms} for "
+                         f"pairs {which}")
     device = cc.counts.device
-    # idx then vals, a pair, each padded to 16 bytes
-    spans, pieces, size = [], [], 0
-    for cap in capacities:
-        pad = _pad(cap, 4)
-        spans.append((size, size + pad))
-        pieces += [cap, pad - cap] * 2
-        size += 2 * pad
+    # head (idx, or the bitmap) then vals, a pair, each padded to 16
+    # bytes; offsets in ints
+    bitmap_bytes = [-(-cc.leaves[cc.pairs[k][0]][0].shape[-2:].numel() // 8)
+                    for k in which]
+    spans, size = [], 0
+    for cap, form, nb in zip(capacities, forms, bitmap_bytes):
+        head = _pad(nb) // 4 if form == "bitmap" else _pad(cap, 4)
+        spans.append((size, size + head))
+        size += head + _pad(cap, 4)
     buf = torch.empty(size, dtype=torch.int32, device=device)
-    as_int = buf.split(pieces)
-    as_float = buf.view(torch.float32).split(pieces)
-    views = [(as_int[4 * k], as_float[4 * k + 2])
-             for k in range(len(capacities))]
+    as_bytes, as_float = buf.view(torch.uint8), buf.view(torch.float32)
+    views = [(as_bytes[4 * a:4 * a + nb] if form == "bitmap" else
+              buf[a:a + cap], as_float[b:b + cap])
+             for cap, form, nb, (a, b) in zip(capacities, forms,
+                                              bitmap_bytes, spans)]
+    compact_bitmap_pairs += forms.count("bitmap")
     if device.type == "cpu":
-        for k, cap, (idx, vals) in zip(which, capacities, views):
+        for k, cap, form, (head, vals) in zip(which, capacities, forms,
+                                              views):
             l, s = cc.pairs[k]
-            pidx, pvals, _ = select_compact_plain(
-                *leaf_slot(cc.leaves[l], s), cap, cc.drop_zeros)
-            idx.copy_(pidx)
+            phead, pvals, _ = select_compact_plain(
+                *leaf_slot(cc.leaves[l], s), cap, cc.drop_zeros, form)
+            head.copy_(phead)
             vals.copy_(pvals)
         return buf, views
     if not which:
@@ -486,8 +518,10 @@ def compact_scatter(cc: CompactCounts, capacities: Sequence[int],
     head = _pad(len(cc.pairs), 4)
     work = cc.work.data_ptr()
     rows = _table([x for row in cc.rows for x in row])
-    pairs = _table([x for k, cap, (a, b) in zip(which, capacities, spans)
-                    for x in (*cc.pairs[k], cap, a, b)])
+    pairs = _table([x for k, cap, form, (a, b) in zip(which, capacities,
+                                                     forms, spans)
+                    for x in (*cc.pairs[k], cap, a, b,
+                              int(form == "bitmap"))])
     lib = build.libraries()["select_compact"]
     build.check(lib.select_compact_scatter_launch(
         rows.buffer_info()[0], len(cc.leaves), pairs.buffer_info()[0],

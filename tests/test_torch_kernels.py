@@ -346,6 +346,42 @@ def test_compact_leaves_cpu_route_matches_plain_and_pallas(dtype, rest,
                     np.asarray(jwant[1], np.float32).tobytes()
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("rest", [0.0, 0.37])
+@pytest.mark.parametrize("drop_zeros", [False, True])
+def test_compact_leaves_cpu_route_bitmap_form(dtype, rest, drop_zeros):
+    """compact_scatter with bitmap and coo pairs in one call (capacities
+    at the count and at half of it): a bitmap pair holds np.packbits of
+    its coo indices' mask, then the coo values; with rest = 0 and
+    drop_zeros off, indices and values are the Pallas kernel's
+    (interpret mode)."""
+    leaves, jax_leaves = _table(dtype, rest, 40, tie=rest > 0)
+    cc = sm.compact_count(leaves, drop_zeros=drop_zeros)
+    nnz = cc.counts.tolist()
+    forms = [("bitmap", "coo")[k % 2] for k in range(len(leaves))]
+    for caps in (nnz, [c // 2 for c in nnz]):
+        buf, views = sm.compact_scatter(cc, caps, None, forms)
+        for k, cap, form, (head, vals) in zip(range(len(leaves)), caps,
+                                              forms, views):
+            assert head.untyped_storage().data_ptr() == \
+                buf.untyped_storage().data_ptr()
+            idx, want, _ = sm.select_compact_plain(*leaves[k], cap,
+                                                   drop_zeros)
+            idx, want = idx.numpy(), want.numpy()
+            if rest == 0.0 and not drop_zeros:
+                jwant = ops.select_compact(*jax_leaves[k], capacity=cap)
+                idx = np.asarray(jwant[0])
+                want = np.asarray(jwant[1], np.float32)
+            assert vals.numpy().tobytes() == want.tobytes()
+            if form == "coo":
+                assert np.array_equal(head.numpy(), idx)
+                continue
+            mask = np.zeros(leaves[k][0].numel(), np.uint8)
+            mask[idx] = 1
+            assert head.dtype == torch.uint8
+            assert np.array_equal(head.numpy(), np.packbits(mask))
+
+
 def test_select_mask_refuses_int32_overflow():
     """K3's flat indices are int32, so its count pass refuses a table that
     holds a matrix of 2^31 entries; K2's wrapper masks one as row blocks

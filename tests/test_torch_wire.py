@@ -264,3 +264,65 @@ def test_encode_selected_count_first_matches_encode(case):
         assert codecs[0] == "dense"
     if case == "all_zero":
         assert codecs[2] == "coo" and got.layers[5].nnz == 0
+
+
+def _selected_round(densities, seed):
+    """A slot-stacked round, slot s a ``_selected_delta`` at
+    ``densities[s]``: (masked, operands) as the engine's emission gives
+    them (every operand with its slot dimension)."""
+    slots = [_selected_delta(seed + s, d) for s, d in enumerate(densities)]
+    masked = tuple({k: torch.stack([m[l][k] for m, _ in slots])
+                    for k in slots[0][0][l]}
+                   for l in range(len(slots[0][0])))
+    ops = [port_ch.EdgeOperands(*(torch.stack([o[l][f] for _, o in slots])
+                                  for f in range(5)))
+           for l in range(len(slots[0][1]))]
+    return masked, ops
+
+
+@pytest.mark.parametrize("case", ["bitmap_only", "coo_only", "mixed",
+                                  "slot_groups", "one_slot"])
+def test_encode_round_wire_forms_match_encode(monkeypatch, case):
+    """The scatter writes a bitmap pair in its wire form (the packed
+    bitmap, then the values) and a coo pair as indices and values; the
+    payloads built on views of the buffer are ``encode``'s and the
+    reference's field for field and seal to their checksums; the bitmap
+    pairs are counted (none in a coo-only round) — in one launch of coo
+    and bitmap pairs, and in a round split over ``slot_groups``."""
+    densities = {"bitmap_only": [0.3, 0.4, 0.3], "coo_only": [0.02] * 3,
+                 "mixed": [0.02, 0.3, 1.0, 0.3], "slot_groups": [0.3] * 5,
+                 "one_slot": [0.3]}[case]
+    masked, ops = _selected_round(densities, 30)
+    if case == "coo_only":          # W2 (10 x 1) keeps nothing: one kept
+        ops[2] = ops[2]._replace(thr=ops[2].thr + 10.0)   # would be bitmap
+        masked[2]["w"].zero_()
+    if case == "slot_groups":
+        monkeypatch.setattr(sm, "MAX_SLOTS", 4)
+        assert port_ch.slot_groups(5, 3) == [(s, s + 1) for s in range(5)]
+    sm.reset_launches()
+    if case == "one_slot":
+        got = [port_wire.encode_selected(
+            tuple({k: v[0] for k, v in layer.items()} for layer in masked),
+            [port_ch.EdgeOperands(*(t[0] for t in op)) for op in ops])]
+    else:
+        got = port_wire.encode_round(masked, ops, len(densities))
+    assert len(got) == len(densities)
+    bitmaps = 0
+    for s, payload in enumerate(got):
+        one = tuple({k: v[s] for k, v in layer.items()} for layer in masked)
+        want = ref_wire.encode(np_tree(one))
+        _assert_same_payload(payload, port_wire.encode(one))
+        _assert_same_payload(payload, want)
+        assert port_wire.seal(payload, s, 7).meta.checksum == \
+            ref_wire.seal(want, s, 7).meta.checksum
+        bitmaps += sum(lp.codec == "bitmap" for (_, k), lp in
+                       zip(payload.keys, payload.layers) if k == "w")
+    assert sm.compact_bitmap_pairs == bitmaps
+    if case == "coo_only":
+        assert bitmaps == 0
+    elif case == "mixed":
+        codecs = {lp.codec for p in got for (_, k), lp in
+                  zip(p.keys, p.layers) if k == "w"}
+        assert codecs == {"coo", "bitmap", "dense"}
+    else:
+        assert bitmaps >= len(densities)
