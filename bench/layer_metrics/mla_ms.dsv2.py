@@ -1,0 +1,9 @@
+"""mla_ms.dsv2: device ms a traced step busy under the program's span
+``mla``: multi-head latent attention, forward and remat's recompute
+(models/layers.mla_apply).  Read from the span's device-side extents
+(``harness/device_spans``); nothing when the window holds none."""
+from harness.device_spans import per_step_ms
+
+
+def read(ctx):
+    return per_step_ms(ctx, "mla")

@@ -51,6 +51,16 @@ class ArchConfig:
     use_mla: bool = False
     kv_lora_rank: int = 0
     qk_rope_dim: int = 64
+    q_lora_rank: int = 0             # 0: one dense q projection
+    mla_kv_norm: bool = False        # RMSNorm on the latent before kv_up
+
+    # --- YaRN rope scaling (DeepSeek-V2's rope_scaling; factor <= 1: off) ---
+    yarn_factor: float = 0.0
+    yarn_original_len: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     # --- MoE ---
     num_experts: int = 0
@@ -58,7 +68,20 @@ class ArchConfig:
     experts_per_token: int = 0
     moe_every: int = 1               # apply MoE every k-th layer
     first_dense_layers: int = 0      # deepseek: first layer is dense
+    dense_d_ff: int = 0              # the leading dense layers' width; 0 = d_ff
     moe_capacity_factor: float = 1.25
+    # the router's expert groups (DeepSeek-V2's n_group / topk_group: a
+    # token's experts come from its top ``router_topk_groups`` groups); not
+    # ``ModelCtx.moe_groups``, which are groups of tokens
+    router_expert_groups: int = 1
+    router_topk_groups: int = 1
+    router_norm_topk: bool = True    # gates renormalised to sum to 1
+    router_scale: float = 1.0        # routed_scaling_factor
+    # the experts held here, [experts_offset, experts_offset + experts_held)
+    # of the router's num_experts (0: all of them; expert parallelism's
+    # share of one device)
+    experts_held: int = 0
+    experts_offset: int = 0
 
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
@@ -94,6 +117,12 @@ class ArchConfig:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     @property
+    def held_experts(self) -> int:
+        """The experts this device holds (all of them unless a share is
+        set)."""
+        return self.experts_held or self.num_experts
+
+    @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
@@ -125,7 +154,12 @@ class ArchConfig:
         d, H, KV, hd = self.d_model, self.num_heads, self.num_kv_heads, self.head_dim
         if self.use_mla:
             r, rd = self.kv_lora_rank, self.qk_rope_dim
-            n = d * H * (hd + rd)                    # q proj (nope+rope)
+            if self.q_lora_rank:                     # q_a, its norm, q_b
+                ql = self.q_lora_rank
+                n = d * ql + ql + ql * H * (hd + rd)
+            else:
+                n = d * H * (hd + rd)                # q proj (nope+rope)
+            n += r if self.mla_kv_norm else 0        # latent norm
             n += d * (r + rd)                        # kv down (+ shared k_rope)
             n += r * H * (hd + hd)                   # kv up (k_nope + v)
             n += H * hd * d                          # out
@@ -169,9 +203,11 @@ class ArchConfig:
                                       == self.cross_attn_every - 1):
             n += self._attn_params() + d
         if self._is_moe_layer(layer):
-            n += self.num_experts * self._mlp_params(self.d_ff)
+            n += self.held_experts * self._mlp_params(self.d_ff)
             n += self.num_shared_experts * self._mlp_params(self.d_ff)
             n += d * self.num_experts                # router
+        elif layer < self.first_dense_layers and self.dense_d_ff:
+            n += self._mlp_params(self.dense_d_ff)
         else:
             n += self._mlp_params(self.d_ff)
         return n
@@ -187,7 +223,7 @@ class ArchConfig:
         n = self.param_count()
         for layer in range(L):
             if self._is_moe_layer(layer):
-                inactive = self.num_experts - self.experts_per_token
+                inactive = self.held_experts - self.experts_per_token
                 n -= inactive * self._mlp_params(self.d_ff)
         return n
 

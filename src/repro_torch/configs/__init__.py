@@ -3,7 +3,9 @@
 Every assigned architecture lives in its own module defining ``CONFIG``;
 this package collects them into ``ARCHS`` and provides ``smoke_variant``
 (the reduced config the per-arch smoke tests run on CPU: 2 layers,
-d_model <= 512, <= 4 experts).
+d_model <= 512, <= 4 experts; a config with router groups keeps 8
+experts in 4 groups, 2 of them kept, and holds half of them where it
+holds a share).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from repro_torch.config import ArchConfig
 from repro_torch.configs import (
     mlp_medical,
     deepseek_v2_236b,
+    deepseek_v2_published,
     qwen2_5_32b,
     qwen1_5_0_5b,
     jamba_1_5_large_398b,
@@ -31,6 +34,7 @@ ARCHS: Dict[str, ArchConfig] = {
     for m in (
         mlp_medical,
         deepseek_v2_236b,
+        deepseek_v2_published,
         qwen2_5_32b,
         qwen1_5_0_5b,
         jamba_1_5_large_398b,
@@ -43,7 +47,8 @@ ARCHS: Dict[str, ArchConfig] = {
     )
 }
 
-# The ten pool-assigned architectures (paper's own MLP excluded).
+# The ten pool-assigned architectures (paper's own MLP excluded); the
+# port-only ``deepseek-v2-published`` is in ``ARCHS`` alone.
 ASSIGNED = [
     "deepseek-v2-236b",
     "qwen2.5-32b",
@@ -93,8 +98,18 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
             moe_every=1 if cfg.moe_every == 1 else 2,
             first_dense_layers=min(cfg.first_dense_layers, 1),
         )
+    if cfg.router_expert_groups > 1:
+        kw.update(num_experts=8, router_expert_groups=4,
+                  router_topk_groups=2)
+    if cfg.experts_held:
+        kw.update(experts_held=kw.get("num_experts", cfg.num_experts) // 2,
+                  experts_offset=0)
+    if cfg.dense_d_ff:
+        kw.update(dense_d_ff=min(cfg.dense_d_ff, 768))
     if cfg.use_mla:
         kw.update(kv_lora_rank=32, qk_rope_dim=16)
+    if cfg.q_lora_rank:
+        kw.update(q_lora_rank=48)
     if cfg.ssm_state:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
     if cfg.attention_every > 1:

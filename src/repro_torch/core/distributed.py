@@ -46,6 +46,10 @@ placements.  The selection runs K1 and K2 on every rank's local shards
 shard; across pods each shard's fp32 partial sum is all-reduced with the
 same shard of the other pods.
 
+Spans (``obs.trace.span``, on a running profiler's timeline only):
+``client_grad`` a client's gradient and its copy into the slot buffer,
+``select`` the selection, ``sum_update`` the clients' sum and the update.
+
 The compressed exchange on such a mesh ranks a leaf's channels as the
 one-device step does, over the whole leaf: each rank's partial scores of
 its shard are summed over the mesh axes that split the rows and gathered
@@ -72,6 +76,7 @@ from repro_torch.sharding import mesh as meshes
 from repro_torch.sharding.rules import like, local_shard
 from repro_torch.models.common import from_block
 from repro_torch.models.model_zoo import sgd_leaf, value_and_grad
+from repro_torch.obs.trace import span
 from repro_torch.params import tree_leaves, tree_unflatten
 
 
@@ -87,12 +92,13 @@ def client_gradients(loss_fn: Callable, params, batch):
                          dtype=p.dtype, device=p.device) for p in leaves]
     losses = []
     for k in range(k_clients):
-        loss, g = value_and_grad(loss_fn, params,
-                                 {name: v[k] for name, v in batch.items()})
-        g = tree_leaves(g)
-        for i, buf in enumerate(grads):
-            buf[k].copy_(local_shard(g[i]))
-        del g                   # gone before the next client's backward
+        with span("client_grad"):
+            loss, g = value_and_grad(loss_fn, params,
+                                     {name: v[k] for name, v in batch.items()})
+            g = tree_leaves(g)
+            for i, buf in enumerate(grads):
+                buf[k].copy_(local_shard(g[i]))
+            del g               # gone before the next client's backward
         losses.append(loss)
     return torch.stack(losses), tree_unflatten(params, [
         _stacked(buf, p) for buf, p in zip(grads, leaves)])
@@ -149,12 +155,14 @@ def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
                                                  pods))
             del grads_k
             return loss, _update(params, summed, lr)
-        masked_k, _ = channels.apply_factored_mask_slots(
-            grads_k, scbf.upload_rate, scbf.selection, in_place=True)
+        with span("select"):
+            masked_k, _ = channels.apply_factored_mask_slots(
+                grads_k, scbf.upload_rate, scbf.selection, in_place=True)
         del grads_k
         leaves = tree_leaves(masked_k)
         del masked_k
-        return loss, _sum_and_update(params, leaves, lr, pods)
+        with span("sum_update"):
+            return loss, _sum_and_update(params, leaves, lr, pods)
 
     return step
 

@@ -25,10 +25,14 @@ The attention is the reference's arithmetic (fp32 scores, ``NEG_INF`` on
 masked slots, probabilities cast to ``v``'s dtype before the second
 product), not ``scaled_dot_product_attention``, whose numerics differ.
 MLA (DeepSeek-V2) attends in the compressed (kv-lora) space, its cache
-the latent ``{"ckv","krope","kpos"}`` ring buffer.
+the latent ``{"ckv","krope","kpos"}`` ring buffer; where the config sets
+them, its query is low-rank (``q_lora_rank``), its latent RMS-normalised
+before ``kv_up`` and the cache (``mla_kv_norm``), and its rotary parts
+YaRN-scaled (``yarn_*``, ``Yarn``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -39,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models.common import (dense_init, from_block, merge,
-                                       replicated, reshape)
+                                       norm_init, replicated, reshape)
+from repro_torch.obs.trace import span
 
 NEG_INF = -1e30
 
@@ -119,13 +124,69 @@ def _inv_freq(half: int, theta: float, device) -> torch.Tensor:
     return torch.pow(theta, exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1·mscale·ln(factor) + 1`` (1 where the
+    factor does not stretch)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclass(frozen=True)
+class Yarn:
+    """YaRN's rope scaling (arXiv:2309.00071, as DeepSeek-V2's
+    ``rope_scaling``): the inverse frequencies of dims that turn fewer
+    than ``beta_slow`` times over ``original`` positions are divided by
+    ``factor``, those that turn more than ``beta_fast`` times kept, and a
+    linear ramp blends the band between; cos and sin are scaled by
+    ``yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim)``."""
+
+    factor: float
+    original: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+    @staticmethod
+    def of(cfg: ArchConfig) -> Optional["Yarn"]:
+        if cfg.yarn_factor <= 1.0:
+            return None
+        return Yarn(cfg.yarn_factor, cfg.yarn_original_len,
+                    cfg.yarn_beta_fast, cfg.yarn_beta_slow, cfg.yarn_mscale,
+                    cfg.yarn_mscale_all_dim)
+
+    def band(self, dim: int, theta: float):
+        """(low, high): the ramp's ends, in pair indices."""
+        def at(turns):
+            return dim * math.log(self.original / (turns * 2 * math.pi)) / (
+                2 * math.log(theta))
+        return (max(math.floor(at(self.beta_fast)), 0),
+                min(math.ceil(at(self.beta_slow)), dim - 1))
+
+    def inv_freq(self, half: int, theta: float, device) -> torch.Tensor:
+        extra = _inv_freq(half, theta, device)
+        inter = extra / self.factor
+        low, high = self.band(2 * half, theta)
+        if low == high:
+            high += 0.001
+        ramp = torch.clamp((torch.arange(half, dtype=torch.float32,
+                                         device=device) - low) / (high - low),
+                           0.0, 1.0)
+        return inter * ramp + extra * (1.0 - ramp)
+
+    @property
+    def cos_scale(self) -> float:
+        return yarn_mscale(self.factor, self.mscale) / yarn_mscale(
+            self.factor, self.mscale_all_dim)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-         fraction: float = 1.0) -> torch.Tensor:
+         fraction: float = 1.0, yarn: Optional[Yarn] = None) -> torch.Tensor:
     """Apply RoPE to x (..., S, H, hd) with positions (..., S).
 
     The rotation pairs dim i with dim i + rot/2 (half split, not
     interleaved).  fraction < 1 rotates only the first ``fraction*hd``
-    dims (ChatGLM's 2d RoPE); theta == 0 disables RoPE entirely (whisper).
+    dims (ChatGLM's 2d RoPE); theta == 0 disables RoPE entirely (whisper);
+    ``yarn`` gives YaRN's frequencies and cos/sin scale.
     """
     if theta == 0.0:
         return x
@@ -134,10 +195,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     rot -= rot % 2
     xr, xp = x[..., :rot], x[..., rot:]
     half = rot // 2
-    freq = _inv_freq(half, theta, x.device)
+    freq = _inv_freq(half, theta, x.device) if yarn is None else \
+        yarn.inv_freq(half, theta, x.device)
     ang = positions[..., None].to(torch.float32) * freq      # (..., S, half)
     cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
+    if yarn is not None and yarn.cos_scale != 1.0:
+        cos, sin = cos * yarn.cos_scale, sin * yarn.cos_scale
     x1 = xr[..., :half].to(torch.float32)
     x2 = xr[..., half:].to(torch.float32)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], axis=-1)
@@ -473,18 +537,49 @@ def attn_cache_init(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 # MLA — Multi-head Latent Attention (DeepSeek-V2), absorbed decode path
 # ---------------------------------------------------------------------------
 
+def _lora_norm(dim: int, dtype, device):
+    """An RMSNorm's scale over a lora axis (replicated on a mesh)."""
+    p, _ = norm_init(dim, dtype, device=device)
+    return p, {"scale": "lora"}
+
+
 def mla_init(gen, cfg: ArchConfig, dtype):
+    """The query (one dense ``q``, or with ``q_lora_rank`` the low-rank
+    ``q_a`` → RMSNorm ``q_norm`` → ``q_b``), the latent's ``kv_down`` (and
+    its RMSNorm ``kv_norm`` with ``mla_kv_norm``), ``kv_up`` and ``o``."""
     D, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
     r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
-    return merge(
+    dev = torch.device("meta") if gen is None else gen.device
+    if cfg.q_lora_rank:
+        ql = cfg.q_lora_rank
+        query = [("q_a", dense_init(gen, D, ql, "embed,lora", dtype)),
+                 ("q_norm", _lora_norm(ql, dtype, dev)),
+                 ("q_b", dense_init(gen, ql, H * (hd + rd), "lora,heads",
+                                    dtype))]
+    else:
         # per-head query: nope part (hd) + rope part (rd)
-        ("q", dense_init(gen, D, H * (hd + rd), "embed,heads", dtype)),
-        # compressed kv (lora) + shared rope key
-        ("kv_down", dense_init(gen, D, r + rd, "embed,lora", dtype)),
+        query = [("q", dense_init(gen, D, H * (hd + rd), "embed,heads",
+                                  dtype))]
+    # compressed kv (lora) + shared rope key
+    kv = [("kv_down", dense_init(gen, D, r + rd, "embed,lora", dtype))]
+    if cfg.mla_kv_norm:
+        kv.append(("kv_norm", _lora_norm(r, dtype, dev)))
+    return merge(
+        *query, *kv,
         # decompress: k_nope (hd) + v (hd) per head
         ("kv_up", dense_init(gen, r, H * 2 * hd, "lora,heads", dtype)),
         ("o", dense_init(gen, H * hd, D, "heads,embed", dtype)),
     )
+
+
+def mla_scale(cfg: ArchConfig) -> float:
+    """The softmax scale: (hd + rd)^-1/2, times YaRN's
+    ``yarn_mscale(factor, mscale_all_dim)`` squared where it is set."""
+    scale = (cfg.head_dim + cfg.qk_rope_dim) ** -0.5
+    if cfg.yarn_factor > 1.0 and cfg.yarn_mscale_all_dim:
+        m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+        scale = scale * m * m
+    return scale
 
 
 def mla_cache_init(cfg: ArchConfig, batch: int, cache_len: int, dtype,
@@ -499,17 +594,31 @@ def mla_cache_init(cfg: ArchConfig, batch: int, cache_len: int, dtype,
     }
 
 
+def _query(p, x):
+    """The queries before the head split: ``q(x)``, or with q-lora
+    ``q_b(RMSNorm(q_a(x)))``."""
+    if "q" in p:
+        return _dense(p["q"], x)
+    return _dense(p["q_b"], rmsnorm_apply(p["q_norm"], _dense(p["q_a"], x)))
+
+
 def _mla_qkv(p, x, ctx: ModelCtx, positions):
+    """(q_nope, q_rope, ckv, krope); ``ckv`` the (normalised, with
+    ``kv_norm``) latent that ``kv_up`` decompresses and the cache holds."""
     cfg = ctx.cfg
     B, S, _ = x.shape
     H, hd, rd, r = cfg.num_heads, cfg.head_dim, cfg.qk_rope_dim, \
         cfg.kv_lora_rank
-    q = reshape(_dense(p["q"], x), B, S, H, hd + rd)
+    yarn = Yarn.of(cfg)
+    q = reshape(_query(p, x), B, S, H, hd + rd)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    q_rope = rope(q_rope, positions, cfg.rope_theta, yarn=yarn)
     down = _dense(p["kv_down"], x)                       # (B,S,r+rd)
     ckv, krope = down[..., :r], down[..., r:]
-    krope = rope(krope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    if "kv_norm" in p:
+        ckv = rmsnorm_apply(p["kv_norm"], ckv)
+    krope = rope(krope[:, :, None, :], positions, cfg.rope_theta,
+                 yarn=yarn)[:, :, 0]
     return q_nope, q_rope, ckv, krope
 
 
@@ -553,7 +662,7 @@ def _mla_attend(q_nope, q_rope, ckv, krope, kpos, qpos, p, ctx: ModelCtx):
     ckv_f = ckv.to(torch.float32)
     # absorb k-decompression into q:  q' = q_nope · wkᵀ  -> (B,S,H,r)
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32), wk)
-    scale = (hd + cfg.qk_rope_dim) ** -0.5
+    scale = mla_scale(cfg)
     s = (torch.einsum("bshr,btr->bhst", q_abs, ckv_f) +
          torch.einsum("bshd,btd->bhst", q_rope.to(torch.float32),
                       krope.to(torch.float32))) * scale
@@ -625,7 +734,7 @@ def _mla_attend_seq_shards(q_nope, q_rope, ckv, krope, kpos, qpos, p,
     qp, _ = _block(qpos, mesh, rows)
     group = mesh.get_group("model")
     ckv_f = cl.to(torch.float32)
-    scale = (hd + cfg.qk_rope_dim) ** -0.5
+    scale = mla_scale(cfg)
     s = (torch.einsum("bshr,btr->bhst", q_abs, ckv_f) +
          torch.einsum("bshd,btd->bhst", qr.to(torch.float32),
                       kr.to(torch.float32))) * scale
@@ -652,7 +761,14 @@ def mla_apply(p, x, ctx: ModelCtx, positions, *, cache=None):
     A cache-less query longer than ``ctx.q_chunk`` (and a multiple of it)
     attends one chunk at a time against the whole latent sequence, each
     chunk under ``torch.utils.checkpoint`` while autograd records (the
-    reference's ``jax.checkpoint`` over its scan of chunks)."""
+    reference's ``jax.checkpoint`` over its scan of chunks).  The whole
+    layer is the span ``mla``; under remat it opens again in the
+    backward's recompute."""
+    with span("mla"):
+        return _mla_apply(p, x, ctx, positions, cache)
+
+
+def _mla_apply(p, x, ctx: ModelCtx, positions, cache):
     cfg = ctx.cfg
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
@@ -717,12 +833,15 @@ def _gelu(x):
 
 def mlp_apply(p, x, ctx: ModelCtx):
     """``act(wi·x) * (wg·x)`` when gated (the activation is on ``wi``),
-    else ``act(wi·x)``; then ``wo``."""
+    else ``act(wi·x)``; then ``wo``.  The span ``mlp`` (a dense layer's
+    MLP or an MoE layer's shared experts); under remat it opens again in
+    the backward's recompute."""
     act = F.silu if ctx.cfg.activation != "gelu" else _gelu
-    h = _dense(p["wi"], x)
-    if "wg" in p:
-        h = act(h) * _dense(p["wg"], x)
-    else:
-        h = act(h)
-    h = ctx.shard(h, ("batch", "none", "mlp_act"))
-    return _dense(p["wo"], h)
+    with span("mlp"):
+        h = _dense(p["wi"], x)
+        if "wg" in p:
+            h = act(h) * _dense(p["wg"], x)
+        else:
+            h = act(h)
+        h = ctx.shard(h, ("batch", "none", "mlp_act"))
+        return _dense(p["wo"], h)

@@ -30,6 +30,25 @@ gathers every expert's bucket of its own D slice, an all-to-all moves
 the buckets to their experts' ranks and back, and the combine leaves
 the output split over D, with no partial sum.  Either way the result is
 one device's but for the order of the combine's sums.
+
+DeepSeek-V2's router (``ArchConfig.router_*``): with
+``router_expert_groups`` > 1 a token's top-k come from the
+``router_topk_groups`` expert groups whose largest probability is
+highest (group-limited greedy; the other groups' probabilities masked to
+0), and with ``router_norm_topk`` off its gates are its probabilities,
+not renormalised; either way they are scaled by ``router_scale``.
+
+An expert share (``experts_held`` < ``num_experts``): the layer holds
+experts ``[experts_offset, experts_offset + experts_held)``, routes each
+token over all ``num_experts`` (the capacity too is reckoned from that
+count) and builds dispatch tables for its own experts only; what the
+experts held elsewhere would add is not computed, and nothing crosses.
+
+Spans: ``moe.route`` (the router's product and softmax, the group limit,
+top-k and the tables) and ``moe.experts`` (the held experts' gather,
+products and combine); under remat both open again in the backward's
+recompute.  ``slot_counts`` counts, while it is on, the routed slots
+the held experts were given and those dropped past capacity.
 """
 from __future__ import annotations
 
@@ -39,19 +58,22 @@ import torch.nn.functional as F
 from repro_torch.config import ArchConfig
 from repro_torch.models.common import from_block, trunc_normal
 from repro_torch.models.layers import ModelCtx, mlp_apply, mlp_init
+from repro_torch.obs.trace import span
 
 
 def moe_init(gen, cfg: ArchConfig, dtype):
-    """(params, axes): the router in fp32 whatever ``dtype``, the experts'
-    ``wi``, ``wg`` (E, D, F) and ``wo`` (E, F, D), and the shared expert
-    (an MLP of ``d_ff * num_shared_experts``) when there is one."""
+    """(params, axes): the router (D, num_experts) in fp32 whatever
+    ``dtype``, the held experts' ``wi``, ``wg`` (E_h, D, F) and ``wo``
+    (E_h, F, D), and the shared expert (an MLP of ``d_ff *
+    num_shared_experts``) when there is one."""
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    held = cfg.held_experts
     scale = 1.0 / (D ** 0.5)
     params = {
         "router": {"w": trunc_normal(gen, (D, E), scale, torch.float32)},
-        "wi": trunc_normal(gen, (E, D, Fd), scale, dtype),
-        "wg": trunc_normal(gen, (E, D, Fd), scale, dtype),
-        "wo": trunc_normal(gen, (E, Fd, D), 1.0 / (Fd ** 0.5), dtype),
+        "wi": trunc_normal(gen, (held, D, Fd), scale, dtype),
+        "wg": trunc_normal(gen, (held, D, Fd), scale, dtype),
+        "wo": trunc_normal(gen, (held, Fd, D), 1.0 / (Fd ** 0.5), dtype),
     }
     axes = {
         "router": {"w": "embed,none"},
@@ -81,30 +103,100 @@ def _groups(ctx: ModelCtx, num_tokens: int) -> int:
     return g
 
 
-def _route(probs: torch.Tensor, k: int, capacity: int):
+class SlotCounts:
+    """The routed slots the held experts were given and those dropped
+    past capacity, summed over the MoE layers' forward passes: two int64
+    device tensors that ``_route`` adds to while ``on`` and nothing reads
+    inside a step (``read`` synchronises).  A remat recompute in the
+    backward adds nothing, so a step counts each forward once."""
+
+    def __init__(self):
+        self.on = False
+        self.routed = self.dropped = None
+
+    def add(self, routed: torch.Tensor, dropped: torch.Tensor) -> None:
+        if routed.is_meta or torch._C._current_graph_task_id() != -1:
+            return
+        if self.routed is None or self.routed.device != routed.device:
+            self.routed = torch.zeros((), dtype=torch.int64,
+                                      device=routed.device)
+            self.dropped = torch.zeros_like(self.routed)
+        self.routed.add_(routed)
+        self.dropped.add_(dropped)
+
+    def read(self):
+        """(routed, dropped) as ints (0, 0 before any count)."""
+        if self.routed is None:
+            return 0, 0
+        return int(self.routed), int(self.dropped)
+
+    def reset(self) -> None:
+        self.routed = self.dropped = None
+
+
+slot_counts = SlotCounts()
+
+
+def _group_limited(probs: torch.Tensor, groups: int, top: int
+                   ) -> torch.Tensor:
+    """``probs`` (..., E) with every expert outside each token's ``top``
+    groups (E / ``groups`` consecutive experts each, scored by their
+    largest probability) set to 0."""
+    g = probs.reshape(probs.shape[:-1] + (groups, probs.shape[-1] // groups))
+    best = torch.topk(g.amax(-1), top, axis=-1).indices
+    kept = torch.zeros(g.shape[:-1], dtype=torch.bool,
+                       device=probs.device).scatter_(-1, best, True)
+    return torch.where(kept[..., None], g, 0.0).reshape(probs.shape)
+
+
+def _select(probs: torch.Tensor, k: int, cfg=None):
+    """(gate, eidx) (..., k): each token's top-k experts (within its
+    top groups where ``cfg`` limits them) and their gates, renormalised to
+    sum to 1 unless ``cfg.router_norm_topk`` is off, then scaled by
+    ``cfg.router_scale``."""
+    scores = probs
+    if cfg is not None and cfg.router_expert_groups > 1:
+        scores = _group_limited(probs, cfg.router_expert_groups,
+                                cfg.router_topk_groups)
+    gate, eidx = torch.topk(scores, k, axis=-1)             # (G,Tg,k)
+    if cfg is None or cfg.router_norm_topk:
+        # the k gates summed left to right, as XLA sums so short a row (a
+        # vectorised ``sum`` rounds another way), so the gates are bitwise
+        total = gate[..., :1]
+        for j in range(1, k):
+            total = total + gate[..., j:j + 1]
+        gate = gate / torch.clamp(total, min=1e-9)
+    if cfg is not None and cfg.router_scale != 1.0:
+        gate = gate * cfg.router_scale
+    return gate, eidx
+
+
+def _route(probs: torch.Tensor, k: int, capacity: int, cfg=None):
     """The dispatch tables of G groups of routed tokens.
 
-    probs (G, Tg, E) fp32 router probabilities -> (table (G, E, C) int64
-    token ids, ``Tg`` for an empty slot; gate_tab (G, E, C) fp32 gates,
-    0 for an empty slot).  Each token's top-k gates are renormalised to
-    sum to 1; a token's slot in an expert is its rank among the expert's
-    tokens in token order (a stable sort); ranks past the capacity go to
-    the scratch column ``C``, which is cut off.  Every write to a slot
-    that is kept is the only one; the scratch column's duplicates all
-    write the same value (``Tg``, 0), so ``index_put`` without
-    accumulation is deterministic.
+    probs (G, Tg, E) fp32 router probabilities -> (table (G, E_h, C)
+    int64 token ids, ``Tg`` for an empty slot; gate_tab (G, E_h, C) fp32
+    gates, 0 for an empty slot), E_h the experts held (``cfg``'s share;
+    all E without one).  Each token's top-k experts and gates come from
+    ``_select``; a token's slot in an expert is its rank among the
+    expert's tokens in token order (a stable sort); ranks past the
+    capacity go to the scratch column ``C``, which is cut off, and the
+    slots of experts held elsewhere to a scratch expert row, cut off too.
+    Every write to a slot that is kept is the only one; the scratch
+    slots' duplicates all write the same value (``Tg``, 0), so
+    ``index_put`` without accumulation is deterministic.
     """
     G, Tg, E = probs.shape
     dev = probs.device
-    gate, eidx = torch.topk(probs, k, axis=-1)              # (G,Tg,k)
-    # the k gates summed left to right, as XLA sums so short a row (a
-    # vectorised ``sum`` rounds another way), so the gates are bitwise
-    total = gate[..., :1]
-    for j in range(1, k):
-        total = total + gate[..., j:j + 1]
-    gate = gate / torch.clamp(total, min=1e-9)
+    gate, eidx = _select(probs, k, cfg)
     n = Tg * k
     flat_e = eidx.reshape(G, n)
+    held, rows = E, E
+    if cfg is not None and cfg.held_experts < E:
+        held, rows = cfg.held_experts, cfg.held_experts + 1
+        local = flat_e - cfg.experts_offset
+        flat_e = torch.where((local >= 0) & (local < held), local,
+                             torch.full_like(local, held))
     flat_t = torch.arange(Tg, device=dev).repeat_interleave(k)[None] \
         .expand(G, n)
     flat_g = gate.reshape(G, n)
@@ -113,19 +205,24 @@ def _route(probs: torch.Tensor, k: int, capacity: int):
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     pos = torch.arange(n, device=dev)[None] - first         # rank in expert
     keep = pos < capacity
+    if rows > held:
+        keep = keep & (sorted_e < held)
+    if slot_counts.on:
+        routed = torch.count_nonzero(sorted_e < held)
+        slot_counts.add(routed, routed - torch.count_nonzero(keep))
     col = torch.where(keep, pos, torch.full_like(pos, capacity))
     g_idx = torch.arange(G, device=dev)[:, None].expand(G, n)
     tok = torch.gather(flat_t, -1, order)
-    table = torch.full((G, E, capacity + 1), Tg, dtype=torch.int64,
+    table = torch.full((G, rows, capacity + 1), Tg, dtype=torch.int64,
                        device=dev).index_put(
         (g_idx, sorted_e, col), torch.where(keep, tok, torch.full_like(
             tok, Tg)))
     gates = torch.gather(flat_g, -1, order)
-    gate_tab = torch.zeros((G, E, capacity + 1), dtype=torch.float32,
+    gate_tab = torch.zeros((G, rows, capacity + 1), dtype=torch.float32,
                            device=dev).index_put(
         (g_idx, sorted_e, col), torch.where(keep, gates,
                                             torch.zeros_like(gates)))
-    return table[..., :capacity], gate_tab[..., :capacity]
+    return table[:, :held, :capacity], gate_tab[:, :held, :capacity]
 
 
 def _experts(p, xg: torch.Tensor, table: torch.Tensor,
@@ -176,11 +273,14 @@ def _experts_sharded(p, xg, probs, k: int, capacity: int,
         return [Partial() if i in ex and when else g for i, g in
                 enumerate(q)]
 
+    if ctx.cfg.held_experts < E:
+        raise ValueError("an expert share runs on one device: its layer "
+                         "holds experts_held of num_experts")
     xg = ctx.shard(xg, ("group", "none", "none")).redistribute(mesh, grp)
     probs = probs.redistribute(mesh, grp)
     # a rank's routing gradient comes from its own experts' gates only
     table, gate_tab = _route(probs.to_local(
-        grad_placements=over_experts(grp, True)), k, capacity)
+        grad_placements=over_experts(grp, True)), k, capacity, ctx.cfg)
     g_l = table.shape[0]
     g_idx = torch.arange(g_l, device=table.device)[:, None, None]
     if ctx.moe_dshard:
@@ -237,15 +337,19 @@ def moe_apply(p, x: torch.Tensor, ctx: ModelCtx) -> torch.Tensor:
     G = _groups(ctx, T)
     Tg = T // G
     xg = x.reshape(G, Tg, D)
-    logits = (xg.to(torch.float32) @ p["router"]["w"]).to(torch.float32)
-    probs = torch.softmax(logits, axis=-1)                  # (G,Tg,E)
-    if isinstance(xg, DTensor):
-        y = _experts_sharded(p, xg, probs, cfg.experts_per_token,
-                             _capacity(cfg, Tg), ctx)
-    else:
-        table, gate_tab = _route(probs, cfg.experts_per_token,
-                                 _capacity(cfg, Tg))
-        y = _experts(p, xg, table, gate_tab)
+    with span("moe.route"):
+        logits = (xg.to(torch.float32) @ p["router"]["w"]).to(torch.float32)
+        probs = torch.softmax(logits, axis=-1)              # (G,Tg,E)
+        sharded = isinstance(xg, DTensor)
+        if not sharded:
+            table, gate_tab = _route(probs, cfg.experts_per_token,
+                                     _capacity(cfg, Tg), cfg)
+    with span("moe.experts"):
+        if sharded:
+            y = _experts_sharded(p, xg, probs, cfg.experts_per_token,
+                                 _capacity(cfg, Tg), ctx)
+        else:
+            y = _experts(p, xg, table, gate_tab)
     y = y.reshape(B, S, D).to(x.dtype)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, ctx)

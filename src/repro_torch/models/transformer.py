@@ -5,6 +5,8 @@ Every architecture is expressed as:
 
     prefix layers (unrolled)  +  R repeats of a layer *unit*
 
+(the prefix's dense MLPs ``dense_d_ff`` wide where the config sets it)
+
 where a unit is the architecture's repeating pattern — 1 layer for dense
 models, Mamba2 and DeepSeek-V2 (after its dense prefix layer), [dense,
 moe] for Llama-4, 8 layers (7 Mamba, 1 attention) for Jamba, [4 x self,
@@ -84,7 +86,10 @@ def unit_pattern(cfg: ArchConfig) -> Tuple[List[LayerSpec], List[LayerSpec], int
 # Init
 # ---------------------------------------------------------------------------
 
-def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype):
+def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype,
+                d_ff: int = 0):
+    """One layer's params; ``d_ff`` the width of its dense MLP (0: the
+    config's ``d_ff``)."""
     dev = device_of(gen)
     ln = cfg.norm == "layernorm"
     pairs = [("norm1", norm_init(cfg.d_model, dtype, bias=ln, device=dev))]
@@ -102,7 +107,7 @@ def _layer_init(gen, cfg: ArchConfig, spec: LayerSpec, dtype):
         pairs.append(("norm2", norm_init(cfg.d_model, dtype, bias=ln,
                                          device=dev)))
         pairs.append(("moe", MOE.moe_init(gen, cfg, dtype)) if spec.moe
-                     else ("mlp", L.mlp_init(gen, cfg, dtype)))
+                     else ("mlp", L.mlp_init(gen, cfg, dtype, d_ff=d_ff)))
     return merge(*pairs)
 
 
@@ -139,7 +144,7 @@ def init_model(cfg: ArchConfig, gen: Optional[torch.Generator]
 
     if prefix:
         params["prefix"], axes["prefix"] = merge(
-            *[(f"p{i}", _layer_init(gen, cfg, s, dtype))
+            *[(f"p{i}", _layer_init(gen, cfg, s, dtype, cfg.dense_d_ff))
               for i, s in enumerate(prefix)])
 
     params["stack"], axes["stack"] = stack_inits(

@@ -74,15 +74,33 @@ def _tokens(cfg, b, s, seed=1):
         0, cfg.vocab_size, size=(b, s)).astype(np.int32)
 
 
+# the port's own configs (DeepSeek-V2 as published, whose fields the JAX
+# package's ArchConfig lacks) and the port's own fields, each left at its
+# default by every config the two packages share
+PORT_ONLY = {"deepseek-v2-published"}
+
+
+def _as_reference(port) -> dict:
+    """A port ArchConfig's fields that the reference's has; the others
+    must sit at their defaults."""
+    ref_fields = {f.name for f in dataclasses.fields(ref_configs.ArchConfig)}
+    out = dataclasses.asdict(port)
+    for f in dataclasses.fields(port):
+        if f.name not in ref_fields:
+            assert out.pop(f.name) == f.default, f.name
+    return out
+
+
 def test_configs_are_the_references():
-    assert sorted(port_configs.ARCHS) == sorted(ref_configs.ARCHS)
+    assert sorted(port_configs.ARCHS) == sorted(
+        set(ref_configs.ARCHS) | PORT_ONLY)
     assert port_configs.ASSIGNED == ref_configs.ASSIGNED
     for name, ref in ref_configs.ARCHS.items():
         port = port_configs.get(name)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert _as_reference(port) == dataclasses.asdict(ref)
         assert port.param_count() == ref.param_count()
         assert port.active_param_count() == ref.active_param_count()
-        assert dataclasses.asdict(port_configs.smoke_variant(port)) == \
+        assert _as_reference(port_configs.smoke_variant(port)) == \
             dataclasses.asdict(ref_configs.smoke_variant(ref))
     assert {k: dataclasses.astuple(v) for k, v in INPUT_SHAPES.items()} == \
         {k: dataclasses.astuple(v) for k, v in REF_SHAPES.items()}
