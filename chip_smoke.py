@@ -8,7 +8,7 @@ its own failure:
 
 1. device — needs a CUDA device; prints the card's name and power limit
    (nvidia-smi) and the torch/CUDA versions.
-2. build — compiles the four Hopper kernels from ``src/repro_torch/
+2. build — compiles the five Hopper kernels from ``src/repro_torch/
    kernels/csrc`` with nvcc (one process per source, in parallel).
 3. kernels vs plain — each kernel against its plain PyTorch version on
    the card, at the main path's shapes and ragged ones: channel_norm to
@@ -122,8 +122,9 @@ its own failure:
    path (chunks of 512) against an unchunked forward.  Then 3 federated
    SCBF steps through ``core.distributed.make_federated_train_step`` (5
    clients x 4 sequences x 64 tokens, rate 0.10, lr 0.05): losses
-   finite, K1 and K2 launched once a step and nothing else (one table of
-   14 leaves x 5 slots), the step wall and peak memory, the kept
+   finite, K1 and K2 launched once a step, the sum-and-step kernel once a
+   leaf and nothing else (one table of 14 leaves x 5 slots; the counters
+   reset before each step), the step wall and peak memory, the kept
    fraction a client; on the last step's own gradient table K1's column
    norms within rtol 1e-5 of the plain version with no absolute floor,
    the channels its scores keep those the plain scores keep but at the
@@ -133,9 +134,10 @@ its own failure:
    events with the queue held ahead, and profiler device µs, beside
    their byte bounds); then torch.profiler over 3 steady decode steps
    and one more federated step (busy share, device events, top kernels;
-   K1 and K2 once in the step, and a window with no event fails).  Its
-   lines start with ``lm:``; the kernel report adds its launches to K1's
-   and K2's and its timings as ``lm``.
+   K1 and K2 once in the step and the sum-and-step kernel once a leaf,
+   and a window with no event fails).  Its
+   lines start with ``lm:``; the kernel report adds its launches to K1's,
+   K2's and the sum-and-step kernel's and its timings as ``lm``.
 12. lm-moe — the MoE models at every published width, cut to one period
    of their layer pattern (depth 2), bf16, weights drawn on the card from
    a seed, each freed before the next.  llama4-maverick ([dense, moe]:
@@ -153,8 +155,10 @@ its own failure:
    router) and a 1 x 1024 prefill over MLA's chunked path against an
    unchunked one; then 4 federated SCBF steps of 2 clients x 4 x 64
    tokens (losses finite, step walls, the peak memory under 60 GB, K1
-   and K2 once a leaf table — two bf16 tables and the fp32 router's — and
-   nothing else, one step profiled, the last step's tables against the
+   and K2 once a leaf table — two bf16 tables and the fp32 router's —,
+   the sum-and-step kernel once a leaf and nothing else, one step
+   profiled (its kernel events the sum-and-step kernel once a leaf too),
+   the last step's tables against the
    plain versions: K1 within LM_K1_RTOL with no floor, K2 in place
    bitwise), and K1 and K2 timed on each table beside its byte bound.
    Its lines start with ``lm-moe:``; the kernel report adds its launches
@@ -174,7 +178,8 @@ its own failure:
    gradient leaf finite), the others of SSM_CLIENTS = 2 clients x 4 x 64
    (clients and steps cut for the command's time; K1 and K2 once a leaf
    table — a bf16 table of 11 leaves and the fp32 one of ``A_log`` and
-   ``D_res`` — from the wrapper counts and, in the first two steps, from
+   ``D_res`` — and the sum-and-step kernel once a leaf, from the wrapper
+   counts and, K1 and K2 in the first two steps, from
    the profiler over their selections; the peak under 60 GB; the third
    step's tables against the plain versions through ``MoeStepTap``); a
    client's gradient profiled (device activity only); K1 and K2 timed a
@@ -208,7 +213,8 @@ its own failure:
    D): whisper uncut, the vision model at one period of its pattern (5
    layers: the 40 layers' step would need about 80.8 GB; the cut is
    stated in its lines): losses finite and within 1.0 of ln V, K1 and K2
-   once a leaf table (whisper 2, the vision period 4) and nothing else,
+   once a leaf table (whisper 2, the vision period 4), the sum-and-step
+   kernel once a leaf and nothing else,
    the peak under 60 GB, the gradient phase timed apart, the last step's
    tables against the plain versions (``MoeStepTap``), a client's
    gradient profiled, and K1 and K2 timed a table.  Its lines start with
@@ -237,7 +243,9 @@ its own failure:
    the same ranks: 2 dense steps and a compressed one of 4 clients x 4
    x 64 tokens, each against the one-rank step of the same params and
    batch (loss 1e-6 relative, bf16 params within one ulp, fp32 leaves
-   1e-6), K1 = K2 = 1 a dense step a rank, bytes put into collectives,
+   1e-6), K1 = K2 = 1 a dense step a rank and the sum-and-step kernel
+   once a leaf a step a rank (dense and compressed), bytes put into
+   collectives,
    walls and peaks.  Two ranks on one card are no measure of scaling:
    their walls are logged, nothing is claimed.  Its lines start with
    ``pods:``.
@@ -252,12 +260,14 @@ its own failure:
    one-rank step of the same params and batch (loss MESH_LOSS_REL, the
    share of bf16 entries that differ MESH_BF16_DIFFER, the difference's
    norm MESH_UPDATE_REL of the update's), each rank's K1 and K2 launches
-   equal to the step's leaf tables, the bytes a rank puts into
+   equal to the step's leaf tables and its sum-and-step launches to its
+   leaves with a non-empty local shard, the bytes a rank puts into
    collectives (``launch.roofline.StepCounter``), walls and peaks; then
    the compressed exchange's step of the same batch against the one-rank
    compressed step under the same gates, each rank's chosen channels the
    top-k of the scores it holds and a choice that flips against the
-   one-rank run's within δ of the k-th score, K1 = K2 = 0; and each
+   one-rank run's within δ of the k-th score, K1 = K2 = 0 and the
+   sum-and-step kernel as in the dense step; and each
    step's memory counted by ``StepCounter`` within MESH_MEMORY_RATIO of
    the rise of ``torch.cuda.max_memory_allocated`` over it, and 0 B
    counted on ``"meta"`` in every counter window (the deepseek decode
@@ -271,7 +281,29 @@ its own failure:
    collectives counted by kind, the MLA's held to a hand count and none
    taking a block of the cache.  No speed is claimed.  Its lines start with
    ``mesh:``; the kernel report adds each rank's step launches.
-18. the card line, the kernel report line and the final ok line.
+18. sum-sgd — the port's own sum-and-step kernel (``kernels/sum_sgd``)
+   bitwise its plain version ``sgd_leaf(p, torch.sum(g, 0), lr)`` at
+   every leaf shape of the dsv2-fedstep-s256 cell (``bench/configs/
+   dsv2-ep8-stage.json``) at K = 2 and at K = 1 (the pods' and the
+   compressed exchange's one slot), on tails past the last vector, K from
+   3 to 9 and 16 (torch.sum's four partial sums; the launcher's default is
+   5), views off 16-byte alignment and special values, bf16 and fp32; an
+   empty leaf launches nothing; at K = 5 the kernel's sum (read through
+   the step at p = 0, lr = -1) within one ulp of the leaf dtype plus
+   K·2^-24·Σ|g| of the fp64 sum, asserted; one-entry leaves at K from 3
+   to 6 (which torch.sum sums across threads) counted against the plain
+   version and held to the same fp64 bound.  Then two steps of the cell
+   (its configuration, 2 clients x 4 x 256 tokens) through
+   ``make_federated_train_step``, the sum-and-step kernel once a leaf (31)
+   a step asserted from the step's own counters; then the cell's update
+   layer (``core.distributed._sum_and_update``, 31 leaves at K = 2) timed
+   by CUDA events against its byte bound beside the plain route, in
+   turns, and each route's peak memory above its inputs logged.  Its
+   lines start with ``sum-sgd:``; its row joins the kernel report.
+   It runs last: run after the kernels, it was followed by the obs
+   phase's graph capture failing with cudaErrorStreamCaptureInvalidated,
+   the signature of a collection inside a capture (ROADMAP C10).
+19. the card line, the kernel report line and the final ok line.
 """
 from __future__ import annotations
 
@@ -1189,6 +1221,286 @@ def phase_kernels(torch) -> list:
     return time_kernels(torch, gen, errs)
 
 
+
+# ---------------------------------------------------------------------------
+# sum-sgd: the clients' sum and the SGD step in one pass (kernels/sum_sgd)
+
+SUM_SGD_CONFIG = Path(__file__).resolve().parent / "bench" / "configs" / \
+    "dsv2-ep8-stage.json"
+SUM_SGD_LR = 1e-3                     # the dsv2-fedstep-s256 cell's lr
+SUM_SGD_CLIENTS = 2                   # the cell's K
+SUM_SGD_ITERS = 10                    # steps a timing, after 2 warm-up
+# (n, K, offset in entries): tails past the last vector, K on the generic
+# path, views off 16-byte alignment
+SUM_SGD_ODD = ((1, 1, 0), (1, 2, 0), (13, 1, 0), (8 * 100_000 + 5, 1, 0),
+               (8 * 100_000 + 5, 2, 0), (1_000_003, 2, 1), (1 << 20, 2, 1),
+               (1 << 20, 1, 3), (1 << 20, 3, 0), (1 << 20, 4, 0),
+               (999_999, 4, 0), (2, 5, 0), (1 << 20, 5, 0), (1 << 20, 5, 1),
+               (999_999, 5, 0), (1 << 20, 6, 0), (1 << 20, 7, 0),
+               (1 << 20, 8, 0), (1 << 20, 9, 0), (100_003, 16, 0))
+SUM_SGD_PROBE_K = 5                  # the launcher's default client count
+SUM_SGD_ONE_ENTRY = 200              # one-entry leaves drawn a K in 3..6
+SUM_SGD_SEQ = 256                    # the cell's tokens a sequence
+SUM_SGD_BATCH = 4                    # and sequences a client
+
+
+def _bits(torch, t):
+    return t.reshape(-1).view(torch.int32 if t.dtype == torch.float32
+                              else torch.int16)
+
+
+def _sum_sgd_leaves(torch):
+    """The dsv2-ep8-stage cell's param leaves (shape, dtype), in the
+    step's order, from its configuration's ``port`` block on the meta
+    device."""
+    from repro_torch.config import ArchConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.params import tree_leaves
+    port = json.loads(SUM_SGD_CONFIG.read_text())["port"]
+    skeleton, _ = T.init_model(ArchConfig(**port), None)
+    return skeleton, [(tuple(p.shape), p.dtype)
+                      for p in tree_leaves(skeleton)]
+
+
+def _sum_sgd_draw(torch, gen, n: int, k: int, dtype, offset: int = 0):
+    """(p (n,), slots (k, n)) drawn on the card: p like bf16 weights,
+    slots like gradients, some entries of slot 0 zero (masked); each a
+    view ``offset`` entries into its allocation."""
+    p = torch.empty(n + offset, dtype=dtype, device="cuda")
+    p[offset:].normal_(0.0, 0.02, generator=gen)
+    g = torch.empty(k * n + offset, dtype=dtype, device="cuda")
+    g[offset:].normal_(0.0, 1.0, generator=gen)
+    g[offset:offset + n // 2].zero_()
+    return p[offset:], g[offset:].view(k, n)
+
+
+def _sum_sgd_specials(torch, dtype):
+    """p and two slots over the values a rounding can trip on: signed
+    zeros, infinities, NaN, the smallest and largest, halfway cases."""
+    vals = [0.0, -0.0, 1.0, -1.0, float("inf"), float("-inf"), float("nan"),
+            1e-38, -1e-38, 3e38, 1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, 2.0 ** -8,
+            65504.0, 1e-3, -1e-3]
+    x = torch.tensor(vals, dtype=torch.float32)
+    a, b = torch.meshgrid(x, x, indexing="ij")
+    p = torch.roll(a.reshape(-1), 7)
+    slots = torch.stack([a.reshape(-1), b.reshape(-1)])
+    return p.to(dtype).cuda(), slots.to(dtype).cuda()
+
+
+def _sum_fp64_gap(torch, ss, g) -> float:
+    """The kernel's sum of the slots ``g`` (read through the step: p = 0
+    and lr = -1 give new = round(0 + s) = s) against their fp64 sum, as
+    the largest share of the bound one ulp of the leaf dtype at |s| plus
+    K·2^-24·Σ_k |g_k| (fp32 accumulation of K terms, then one rounding):
+    at most 1 when every entry is within it."""
+    k = g.shape[0]
+    got = ss.sum_sgd(torch.zeros_like(g[0]), g, -1.0).double()
+    exact = g.double().sum(0)
+    mag = g.double().abs().sum(0)
+    ulp = torch.finfo(g.dtype).eps * torch.maximum(
+        got.abs(), torch.tensor(torch.finfo(g.dtype).tiny, dtype=torch.float64,
+                                device=g.device))
+    bound = ulp + k * 2.0 ** -24 * mag
+    return float(((got - exact).abs() / bound).max())
+
+
+def phase_sum_sgd(torch, card: str) -> dict:
+    """The sum-and-step kernel bitwise its plain version
+    (``sgd_leaf(p, torch.sum(g, 0), lr)``) at every leaf shape of the
+    dsv2-fedstep-s256 cell at K = 2 and K = 1, on odd tails, K from 3 to
+    16 (the four partial sums), misaligned views, an empty leaf and
+    special values; the launcher's K = 5 also against the fp64 sum within
+    a stated bound; one-entry leaves at K from 3 to 6 counted.  Then one
+    step of the cell through ``make_federated_train_step``, its launches
+    (one a leaf) asserted from the step's own counters, and the cell's
+    update layer (``core.distributed._sum_and_update`` over the 31 leaves
+    at K = 2) timed against its byte bound and the plain route, in turns,
+    with each route's peak memory.  Returns the kernel report's row."""
+    from repro_torch.config import ArchConfig, ScbfConfig
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.kernels import sum_sgd as ss
+    from repro_torch.models import model_zoo
+    from repro_torch.params import tree_leaves, tree_unflatten
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    skeleton, leaves = _sum_sgd_leaves(torch)
+
+    def differ(p, g, lr=SUM_SGD_LR):
+        got = ss.sum_sgd(p, g, lr)
+        return int((_bits(torch, got) != _bits(torch, ss.sum_sgd_plain(
+            p, g, lr))).sum())
+
+    checked = 0
+    for k in (SUM_SGD_CLIENTS, 1):
+        for shape, dtype in leaves:
+            n = math.prod(shape)
+            p, g = _sum_sgd_draw(torch, gen, n, k, dtype)
+            bad = differ(p.view(shape), g.view((k,) + shape))
+            if bad:
+                raise AssertionError(f"sum-sgd: leaf {shape} {dtype} K = "
+                                     f"{k}: {bad} entries differ from the "
+                                     "plain version")
+            checked += 1
+            del p, g
+    probe, one_entry = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for case in list(SUM_SGD_ODD) + [None]:
+            if case is None:
+                p, g = _sum_sgd_specials(torch, dtype)
+            else:
+                p, g = _sum_sgd_draw(torch, gen, *case[:2], dtype, case[2])
+            bad = differ(p, g)
+            if bad:
+                raise AssertionError(f"sum-sgd: {dtype} case "
+                                     f"{case or 'specials'}: {bad} entries "
+                                     "differ from the plain version")
+            checked += 1
+        before = ss.launches
+        empty = ss.sum_sgd(torch.empty(0, dtype=dtype, device="cuda"),
+                           torch.empty(2, 0, dtype=dtype, device="cuda"),
+                           SUM_SGD_LR)
+        if empty.shape != (0,) or ss.launches != before:
+            raise AssertionError(f"sum-sgd: an empty leaf gave "
+                                 f"{tuple(empty.shape)} in "
+                                 f"{ss.launches - before} launches")
+        _, g = _sum_sgd_draw(torch, gen, 1 << 20, SUM_SGD_PROBE_K, dtype)
+        probe[name] = _sum_fp64_gap(torch, ss, g)
+        if probe[name] > 1.0:
+            raise AssertionError(f"sum-sgd: {dtype} K = {SUM_SGD_PROBE_K}: "
+                                 f"the sum is {probe[name]:.3g} times its "
+                                 "bound from the fp64 sum")
+        for k in (3, 4, 5, 6):
+            gaps = []
+            bad = 0
+            for _ in range(SUM_SGD_ONE_ENTRY):
+                p, g = _sum_sgd_draw(torch, gen, 1, k, dtype)
+                g.normal_(0.0, 1.0, generator=gen)
+                bad += differ(p, g)
+                gaps.append(_sum_fp64_gap(torch, ss, g))
+            one_entry[f"{name} K={k}"] = [bad, max(gaps)]
+            if max(gaps) > 1.0:
+                raise AssertionError(f"sum-sgd: a one-entry {dtype} leaf at "
+                                     f"K = {k}: the sum is {max(gaps):.3g} "
+                                     "times its bound from the fp64 sum")
+    torch.cuda.synchronize()
+    log(f"sum-sgd: bitwise the plain version in {checked} cases: the "
+        f"{len(leaves)} leaves of dsv2-ep8-stage at K = "
+        f"{SUM_SGD_CLIENTS} and K = 1, odd tails, K from 1 to 9 and 16, "
+        f"misaligned views, special values, bf16 and fp32; an empty leaf "
+        f"launches nothing; at K = {SUM_SGD_PROBE_K} on {1 << 20:,} entries "
+        f"the sum's largest gap from the fp64 sum, as a share of one ulp of "
+        f"the leaf dtype plus K 2^-24 sum|g|: {probe}; one-entry "
+        f"leaves ({SUM_SGD_ONE_ENTRY} a case; torch.sum sums their slots "
+        f"across threads) [draws differing from the plain version, that "
+        f"share]: {one_entry} ({time.perf_counter() - t0:.1f}s)")
+
+    # one step of the cell, its launches from the step's own counters
+    port = json.loads(SUM_SGD_CONFIG.read_text())["port"]
+    fed = json.loads(SUM_SGD_CONFIG.read_text())["federated"]
+    arch = ArchConfig(**port)
+    bundle = model_zoo.build(arch, device="cuda")
+    params, _ = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    step = dist.make_federated_train_step(
+        bundle.loss_fn, ScbfConfig(upload_rate=fed["upload_rate"],
+                                   num_clients=fed["clients"]),
+        lr=fed["lr"])
+    nb = next(iter(SyntheticTokenStream(fed["clients"] * SUM_SGD_BATCH,
+                                        SUM_SGD_SEQ, arch.vocab_size,
+                                        seed=0)))
+    batch = {k: torch.from_numpy(v).cuda().reshape(
+        fed["clients"], SUM_SGD_BATCH, SUM_SGD_SEQ) for k, v in nb.items()}
+    step_counts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _reset_launches()
+        loss, params = step(params, batch)
+        torch.cuda.synchronize()
+        step_counts.append(_launch_counts())
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"sum-sgd: the cell's step lost {loss}")
+    if any(c["sum_sgd"] != len(leaves) for c in step_counts):
+        raise AssertionError(f"sum-sgd: the cell's steps launched "
+                             f"{step_counts}, want the sum-and-step kernel "
+                             f"once a leaf ({len(leaves)})")
+    log(f"sum-sgd: two steps of dsv2-fedstep-s256 ({fed['clients']} clients"
+        f" x {SUM_SGD_BATCH} x {SUM_SGD_SEQ} tokens) through "
+        f"make_federated_train_step: launches a step {step_counts} "
+        f"({card})")
+    del params, batch, step, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the cell's update layer at K = 2, every leaf at once
+    params, slots = [], []
+    for shape, dtype in leaves:
+        p, g = _sum_sgd_draw(torch, gen, math.prod(shape), SUM_SGD_CLIENTS,
+                             dtype)
+        params.append(p.view(shape))
+        slots.append(g.view((SUM_SGD_CLIENTS,) + shape))
+    tree = tree_unflatten(skeleton, params)
+    entries = sum(p.numel() for p in params)
+    nbytes = sum((SUM_SGD_CLIENTS + 2) * p.numel() * p.element_size()
+                 for p in params)
+    bound = nbytes / PEAK_BYTES_S * 1e3
+
+    def kernel_step():
+        return dist._sum_and_update(tree, list(slots), SUM_SGD_LR)
+
+    def plain_step():
+        return [ss.sum_sgd_plain(p, g, SUM_SGD_LR)
+                for p, g in zip(params, slots)]
+
+    for a, b in zip(tree_leaves(kernel_step()), plain_step()):
+        if not torch.equal(_bits(torch, a), _bits(torch, b)):
+            raise AssertionError("sum-sgd: the step's update differs from "
+                                 "the plain route")
+    torch.cuda.synchronize()
+    rises = {}
+    for name, fn in (("kernel", kernel_step), ("plain", plain_step)):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        rises[name] = torch.cuda.max_memory_allocated() - base
+        del out
+    p1, k1, k2, p2 = (cuda_ms(f, iters=SUM_SGD_ITERS, warmup=2)
+                      for f in (plain_step, kernel_step, kernel_step,
+                                plain_step))
+    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    res = {"leaves": len(leaves), "entries": entries, "bytes": nbytes,
+           "bound_ms": bound, "kernel_ms": kernel_ms,
+           "kernel_ms_runs": [k1, k2], "plain_ms": plain_ms,
+           "plain_ms_runs": [p1, p2], "roofline": bound / kernel_ms,
+           "gb_s": nbytes / kernel_ms / 1e6,
+           "peak_rise_bytes": rises, "step_launches": step_counts,
+           "k5_fp64_share": probe, "one_entry": one_entry, "card": card}
+    log(f"sum-sgd: the cell's update layer, {len(leaves)} leaves, "
+        f"{entries:,} entries at K = {SUM_SGD_CLIENTS}: {kernel_ms:.3f} ms "
+        f"a step ({k1:.3f}, {k2:.3f}) against the byte bound "
+        f"{bound:.3f} ms ({nbytes / 1e9:.2f} GB: {100 * bound / kernel_ms:.1f}"
+        f"%, {nbytes / kernel_ms / 1e6:.0f} GB/s); plain route {plain_ms:.3f}"
+        f" ms ({p1:.3f}, {p2:.3f}); peak rise over the step's inputs "
+        f"{rises['kernel']:,} B (kernel) against {rises['plain']:,} B "
+        f"(plain) ({card})")
+    log("sum-sgd: " + json.dumps(res))
+    del tree, params, slots
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "sum_sgd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sum_sgd.cu",
+            "replaces": "no TPU kernel (the reference's sum and update are "
+                        "plain jnp)",
+            "launches": None, "max_abs_err": 0.0, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"dsv2-ep8-stage's {len(leaves)} leaves, {entries:,} "
+                     f"entries, K = {SUM_SGD_CLIENTS}"}
+
+
 class PruneTimer:
     """Device-synchronised wall seconds of every ``Pruner.step`` and
     ``Pruner.compact`` call, keyed by call order, while installed."""
@@ -1321,19 +1633,39 @@ def _launch_counts() -> dict:
     from repro_torch.kernels import apoz as az
     from repro_torch.kernels import channel_norm as cn
     from repro_torch.kernels import select_mask as sm
+    from repro_torch.kernels import sum_sgd as ss
     return {"channel_norm": cn.launches, "select_mask": sm.mask_launches,
             "select_compact_count": sm.compact_count_launches,
             "select_compact_scatter": sm.compact_scatter_launches,
-            "apoz": az.launches}
+            "apoz": az.launches, "sum_sgd": ss.launches}
 
 
 def _reset_launches() -> None:
     from repro_torch.kernels import apoz as az
     from repro_torch.kernels import channel_norm as cn
     from repro_torch.kernels import select_mask as sm
+    from repro_torch.kernels import sum_sgd as ss
     cn.reset_launches()
     sm.reset_launches()
     az.reset_launches()
+    ss.reset_launches()
+
+
+def _step_launches(tag: str, counts: list, tables: int, leaves: int) -> dict:
+    """Hold each federated step's wrapper launches (``counts``, the
+    counters reset just before the step) to K1 and K2 once a leaf table,
+    the sum-and-step kernel once a leaf and nothing else; their sums over
+    the steps."""
+    want = dict(dict.fromkeys(_launch_counts(), 0), channel_norm=tables,
+                select_mask=tables, sum_sgd=leaves)
+    for c in counts:
+        if c != want:
+            raise AssertionError(f"{tag}: a federated step launched {c}; "
+                                 f"want K1 and K2 once a leaf table "
+                                 f"({tables}), the sum-and-step kernel once "
+                                 f"a leaf ({leaves}) and nothing else")
+    return {k: sum(c[k] for c in counts)
+            for k in ("channel_norm", "select_mask", "sum_sgd")}
 
 
 def phase_main_path(torch, card: str):
@@ -1449,7 +1781,8 @@ def _check_run(torch, label, res, counts, card, prune_s, tap,
         want = {"channel_norm": units, "select_mask": units,
                 "select_compact_count": units,
                 "select_compact_scatter": tap.scatter_units(),
-                "apoz": WP_STEPS * VAL_BATCHES if pruned else 0}
+                "apoz": WP_STEPS * VAL_BATCHES if pruned else 0,
+                "sum_sgd": 0}
         for r in res.records:
             if r.num_participants and not 0.0 < r.upload_fraction <= 1.0:
                 raise AssertionError(f"{label} upload_fraction "
@@ -1600,7 +1933,8 @@ KERNEL_EVENTS = {"channel_norm": "channel_norms_kernel",
                  "select_mask": "select_mask_kernel",
                  "select_compact_count": "compact_count_kernel",
                  "select_compact_scatter": "compact_scatter_kernel",
-                 "apoz": "apoz_leaves_kernel"}
+                 "apoz": "apoz_leaves_kernel",
+                 "sum_sgd": "sum_sgd_kernel"}
 
 
 def _kernel_events(by_name: dict) -> dict:
@@ -1829,7 +2163,7 @@ def phase_fused(torch, cohort, card: str, runs: dict) -> dict:
                  "select_compact_scatter": _scatter_pairs(
                      [p for rnd in tap.calls["emit_fused_payloads"][1][
                          "rounds"] for p in rnd[0]]),
-                 "apoz": 0}
+                 "apoz": 0, "sum_sgd": 0}
     # the capture's warm-up calls; the replays launch K1 and K2 outside
     # the wrappers (counted from the profiler below)
     want_run = {"channel_norm": graphs.WARMUP,
@@ -1838,7 +2172,7 @@ def phase_fused(torch, cohort, card: str, runs: dict) -> dict:
                 "select_compact_scatter": sum(
                     _scatter_pairs([p for rnd in c["rounds"] for p in rnd[0]])
                     for c in tap.calls["emit_fused_payloads"]),
-                "apoz": 0}
+                "apoz": 0, "sum_sgd": 0}
     if replay != none or chunk_replays != FUSE or emit != want_emit or \
             counts != want_run or replays["scbf_fused"] != FUSE_LOOPS or \
             caps != 1:
@@ -2425,7 +2759,7 @@ def phase_cross_device(torch, cohort, card: str, runs: dict) -> None:
             want = {"channel_norm": units, "select_mask": units,
                     "select_compact_count": units,
                     "select_compact_scatter": tap.scatter_units(),
-                    "apoz": prune_steps * VAL_BATCHES}
+                    "apoz": prune_steps * VAL_BATCHES, "sum_sgd": 0}
             if counts != want:
                 raise AssertionError(f"{label} kernel launches {counts}, "
                                      f"want {want}")
@@ -2560,7 +2894,8 @@ def phase_big_round(torch, cohort, card: str) -> None:
     counts = _launch_counts()
     bitmaps = sm.compact_bitmap_pairs
     want = {"channel_norm": 1, "select_mask": 1, "select_compact_count": 1,
-            "select_compact_scatter": _scatter_pairs(payloads), "apoz": 0}
+            "select_compact_scatter": _scatter_pairs(payloads), "apoz": 0,
+            "sum_sgd": 0}
     if counts != want or len(payloads) != BIG_ROUND or words <= 1 << 22 \
             or bitmaps != _bitmap_leaves(payloads):
         raise AssertionError(f"C1 round: launches {counts} (want {want}), "
@@ -3112,8 +3447,11 @@ def lm_profile(torch, bundle, params, step, batch, card: str) -> dict:
     """Where the LM's time goes: torch.profiler over 3 steady decode steps
     (batch 4 against a cache of 128 holding a 32-token prompt) and over
     one steady federated step (its kernel events must show K1 and K2 once
-    each): wall, device busy share, device events and the top kernels."""
+    each and the sum-and-step kernel once a leaf): wall, device busy
+    share, device events and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.params import tree_leaves
 
     sv = LM_SERVE
     prompts = torch.randint(0, bundle.cfg.vocab_size,
@@ -3155,8 +3493,9 @@ def lm_profile(torch, bundle, params, step, batch, card: str) -> dict:
         log(f"lm: profile of {what}: " + json.dumps({**out[what],
                                                     "card": card}))
     fed = out["1 federated step"]
-    if (fed["kernel_launches"]["channel_norm"],
-            fed["kernel_launches"]["select_mask"]) != (1, 1):
+    seen = fed["kernel_launches"]
+    if (seen["channel_norm"], seen["select_mask"], seen["sum_sgd"]) != (
+            1, 1, len(tree_leaves(params))):
         raise AssertionError(f"lm: a profiled federated step launched "
                              f"{fed['kernel_launches']}")
     return out
@@ -3222,11 +3561,7 @@ def phase_lm(torch, card: str) -> dict:
     finally:
         ch.apply_factored_mask_slots = real
     peak = _peak_gb(torch)
-    for c in counts:
-        if (c["channel_norm"], c["select_mask"]) != (1, 1) or any(
-                c[k] for k in c if k not in ("channel_norm", "select_mask")):
-            raise AssertionError(f"lm: a federated step launched {c}; want "
-                                 f"K1 and K2 once each and nothing else")
+    launched = _step_launches("lm", counts, 1, len(tree_leaves(params)))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"lm: losses {losses}")
     masked = tree_leaves(seen["masked"])
@@ -3234,7 +3569,8 @@ def phase_lm(torch, card: str) -> dict:
     log(f"lm: {LM_STEPS} federated steps ({LM_CLIENTS} clients x "
         f"{LM_BATCH} x {LM_SEQ} tokens, rate {LM_RATE}, lr {LM_LR}): losses "
         f"{losses}, step walls {[round(w, 4) for w in walls]} s, peak "
-        f"{peak:.2f} GB; K1 and K2 once a step ({checks['leaves']} leaves x "
+        f"{peak:.2f} GB; K1 and K2 once a step and the sum-and-step kernel "
+        f"once a leaf ({launched}); ({checks['leaves']} leaves x "
         f"{checks['slots']} slots, one table); kept fraction a client "
         f"{checks['kept_fraction']}; on the last step's table K1 within "
         f"rtol {LM_K1_RTOL} and no absolute floor (max rel err "
@@ -3250,10 +3586,7 @@ def phase_lm(torch, card: str) -> dict:
     profiles = lm_profile(torch, bundle, params, step, batch, card)
     out.update(losses=losses, step_walls=walls, peak_gb=peak,
                checks=checks, timing=timing, profiles=profiles,
-               launches={"channel_norm": sum(c["channel_norm"]
-                                             for c in counts),
-                         "select_mask": sum(c["select_mask"]
-                                            for c in counts)})
+               launches=launched)
     return out
 
 
@@ -3295,8 +3628,8 @@ class RouteTap:
         torch, real = self.torch, self.moe._route
         self.real = real
 
-        def route(probs, k, capacity):
-            table, gate = real(probs, k, capacity)
+        def route(probs, k, capacity, cfg=None):
+            table, gate = real(probs, k, capacity, cfg)
             eidx = torch.topk(probs, k, axis=-1).indices
             self.load += torch.bincount(eidx.reshape(-1),
                                         minlength=self.load.numel())
@@ -3790,10 +4123,12 @@ def phase_deepseek(torch, card: str) -> dict:
     from repro_torch.config import ScbfConfig
     from repro_torch.core import distributed as dist
     from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.params import tree_leaves
 
     cfg, bundle, params = _moe_model(torch, MOE_DEEPSEEK, card)
     out = {"serve": moe_serve(torch, bundle, params, MOE_SERVE, card),
            "consistency": deepseek_consistency(torch, bundle, params, card)}
+    n_leaves = len(tree_leaves(params))
     torch.cuda.empty_cache()
 
     scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=MOE_CLIENTS)
@@ -3838,13 +4173,7 @@ def phase_deepseek(torch, card: str) -> dict:
             losses.append(float(loss))
     finally:
         dist.client_gradients = real_grads
-    for c in counts:
-        if (c["channel_norm"], c["select_mask"]) != (MOE_TABLES,
-                                                     MOE_TABLES) or any(
-                c[k] for k in c if k not in ("channel_norm", "select_mask")):
-            raise AssertionError(f"lm-moe: a federated step launched {c}; "
-                                 f"want K1 and K2 once a leaf table "
-                                 f"({MOE_TABLES}) and nothing else")
+    launched = _step_launches("lm-moe", counts, MOE_TABLES, n_leaves)
     if tap.k2_tables != MOE_TABLES or len(tap.tables) != MOE_TABLES:
         raise AssertionError(f"lm-moe: the tapped step checked "
                              f"{tap.k2_tables} tables")
@@ -3857,6 +4186,10 @@ def phase_deepseek(torch, card: str) -> dict:
     if not by_name:
         raise AssertionError("lm-moe: the profiled step holds no CUDA event")
     window = _window(by_name, walls[-2])
+    if window["kernel_launches"]["sum_sgd"] != n_leaves:
+        raise AssertionError(f"lm-moe: the profiled step's kernel events "
+                             f"{window['kernel_launches']}, want the "
+                             f"sum-and-step kernel once a leaf ({n_leaves})")
     flips = tap.flips(LM_RATE)
     log(f"lm-moe: {MOE_STEPS} federated steps of {cfg.name} "
         f"({MOE_CLIENTS} clients x {LM_BATCH} x {LM_SEQ} tokens, rate "
@@ -3866,7 +4199,8 @@ def phase_deepseek(torch, card: str) -> dict:
         f"{[round(p, 2) for p in peaks]} GB (under {MOE_PEAK_GB} GB; the "
         f"checked step's checks add to its own), the gradient phase's "
         f"{[round(p, 2) for p in grad_peaks]} GB; K1 "
-        f"and K2 once a leaf table a step ({MOE_TABLES} each): tables "
+        f"and K2 once a leaf table a step ({MOE_TABLES} each), the "
+        f"sum-and-step kernel once a leaf ({n_leaves}): tables "
         + json.dumps(tap.tables) + f"; kept fraction a client {tap.frac}; "
         f"on step {MOE_STEPS}'s tables K1 within rtol "
         f"{LM_K1_RTOL} and no absolute floor (max rel err "
@@ -3879,9 +4213,7 @@ def phase_deepseek(torch, card: str) -> dict:
     out.update(losses=losses, step_walls=walls, peaks_gb=peaks,
                gradient_phase_peaks_gb=grad_peaks, kept_fraction=tap.frac,
                profile=window, k1_max_rel_err=tap.k1_rel, flips=flips,
-               tables=tap.tables,
-               launches={k: sum(c[k] for c in counts)
-                         for k in ("channel_norm", "select_mask")})
+               tables=tap.tables, launches=launched)
     host = tap.host
     del tap, params, bundle
     torch.cuda.empty_cache()
@@ -4197,6 +4529,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
     from repro_torch.params import tree_leaves
 
     params = held.pop()
+    n_leaves = len(tree_leaves(params))
     scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=SSM_CLIENTS)
     step = dist.make_federated_train_step(bundle.loss_fn, scbf, lr=LM_LR)
     losses, walls, counts, peaks, grad_peaks = [], [], [], [], []
@@ -4273,13 +4606,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
         f"{flips['plain_threshold']}; {flips['channel_flips']} channels "
         f"flipped, all at the threshold) and K2 in place bitwise its plain "
         f"version (values and counts) ({card})")
-    for c in counts:
-        if (c["channel_norm"], c["select_mask"]) != (SSM_TABLES,
-                                                     SSM_TABLES) or any(
-                c[k] for k in c if k not in ("channel_norm", "select_mask")):
-            raise AssertionError(f"lm-ssm: a federated step launched {c}; "
-                                 f"want K1 and K2 once a leaf table "
-                                 f"({SSM_TABLES}) and nothing else")
+    step_launches = _step_launches("lm-ssm", counts, SSM_TABLES, n_leaves)
     if (SSM_TABLES, SSM_TABLES) not in launched or any(
             k1 > SSM_TABLES or k2 > SSM_TABLES for k1, k2 in launched):
         raise AssertionError(f"lm-ssm: the profiled selections launched "
@@ -4300,9 +4627,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
     out = {"losses": losses, "step_walls": walls, "peaks_gb": peaks,
            "gradient_phase_peaks_gb": grad_peaks, "kept_fraction": tap.frac,
            "selection_profiles": sel.windows, "k1_max_rel_err": tap.k1_rel,
-           "flips": flips, "tables": tap.tables,
-           "launches": {k: sum(c[k] for c in counts)
-                        for k in ("channel_norm", "select_mask")}}
+           "flips": flips, "tables": tap.tables, "launches": step_launches}
     out["gradient_profile"] = ssm_gradient_profile(torch, bundle, params,
                                                    short, card)
     host = tap.host
@@ -4769,6 +5094,7 @@ def encdec_steps(torch, cfg, bundle, held: list, card: str, cut: str
     if len({t.dtype for t in leaves}) != 1:
         raise AssertionError("lm-encdec: the params hold several dtypes")
     tables = -(-sum(t.ndim >= 2 for t in leaves) // sm.MAX_LEAVES)
+    n_leaves = len(leaves)
     del leaves
     key, _ = model_zoo.context_input(cfg)
     scbf = ScbfConfig(upload_rate=LM_RATE, num_clients=LM_CLIENTS)
@@ -4828,12 +5154,7 @@ def encdec_steps(torch, cfg, bundle, held: list, card: str, cut: str
         f"{flips['channel_flips']} channels flipped, all at the threshold) "
         f"and K2 in place bitwise its plain version (values and counts) "
         f"({card})")
-    for c in counts:
-        if (c["channel_norm"], c["select_mask"]) != (tables, tables) or any(
-                c[k] for k in c if k not in ("channel_norm", "select_mask")):
-            raise AssertionError(f"lm-encdec: a federated step launched "
-                                 f"{c}; want K1 and K2 once a leaf table "
-                                 f"({tables}) and nothing else")
+    launched = _step_launches("lm-encdec", counts, tables, n_leaves)
     if tap.k2_tables != tables or len(tap.tables) != tables:
         raise AssertionError(f"lm-encdec: the tapped step checked "
                              f"{tap.k2_tables} tables")
@@ -4849,9 +5170,7 @@ def encdec_steps(torch, cfg, bundle, held: list, card: str, cut: str
            "gradient_phase_s": [g for g, _ in grad], "peaks_gb": peaks,
            "gradient_phase_peaks_gb": [p for _, p in grad],
            "kept_fraction": tap.frac, "k1_max_rel_err": tap.k1_rel,
-           "flips": flips, "tables": tap.tables,
-           "launches": {k: sum(c[k] for c in counts)
-                        for k in ("channel_norm", "select_mask")}}
+           "flips": flips, "tables": tap.tables, "launches": launched}
     out["gradient_profile"] = ssm_gradient_profile(
         torch, bundle, params, batch, card, tag="lm-encdec")
     host = tap.host
@@ -4903,7 +5222,7 @@ def phase_lm_encdec(torch, card: str) -> dict:
     torch.cuda.empty_cache()
     return {"whisper": whisper, "vision": vision,
             "launches": {k: whisper["launches"][k] + vision["launches"][k]
-                         for k in ("channel_norm", "select_mask")},
+                         for k in whisper["launches"]},
             "timing": {k: {ENC_ARCH: whisper["timing"][k],
                            VIS_ARCH: vision["timing"][k]}
                        for k in ("channel_norm", "select_mask")}}
@@ -4955,7 +5274,7 @@ def phase_comm_table(torch, card: str) -> dict:
                         zip(payload.keys, payload.layers) if k == "w")
     want = {"channel_norm": len(rows), "select_mask": len(rows),
             "select_compact_count": len(rows),
-            "select_compact_scatter": scatters, "apoz": 0}
+            "select_compact_scatter": scatters, "apoz": 0, "sum_sgd": 0}
     if counts != want or bitmaps != _bitmap_leaves(p for _, p in seen):
         raise AssertionError(f"comm-table: launches {counts}, want {want}; "
                              f"{bitmaps} bitmap pairs scattered")
@@ -5112,6 +5431,7 @@ def _pod_lm(torch, mesh, rank: int) -> dict:
         out.append(rec)
     leaves = tree_leaves(params)
     return {"steps": out, "params": sum(t.numel() for t in leaves),
+            "leaves": len(leaves),
             "dense_bytes": sum(t.numel() * t.element_size()
                                for t in leaves)}
 
@@ -5303,8 +5623,12 @@ def phase_pods(torch, cohort, card: str, runs: dict) -> dict:
             s0["one_rank_loss"])
         ulps = max((u for _, u in s0["bf16"]), default=0)
         differ = sum(n for n, _ in s0["bf16"])
+        # both steps update through the sum-and-step kernel, once a leaf
+        # (the dense step's all-reduced sum and the compressed exchange's
+        # sum each one slot)
         want = {"channel_norm": 0, "select_mask": 0} if s0["compressed"] \
             else {"channel_norm": 1, "select_mask": 1}
+        want["sum_sgd"] = lm[0]["leaves"]
         for rank, s in enumerate((s0, s1)):
             seen = {k: s["launches"][k] for k in want}
             if seen != want or s["loss"] != s0["loss"]:
@@ -5682,7 +6006,12 @@ def _mesh_qwen(torch, rank: int) -> dict:
             torch, tree_leaves(new), tree_leaves(one_packed),
             tree_leaves(params))
         out["meshes"][shape] = {
-            "local_param_bytes": local, "logit_max": logit_max,
+            "local_param_bytes": local,
+            # the sum-and-step kernel's launches a step: a leaf whose
+            # local shard is empty needs none
+            "update_leaves": sum(1 for t in tree_leaves(placed)
+                                 if rules.local_shard(t).numel()),
+            "logit_max": logit_max,
             "logit_mean": logit_mean, "prefill_s": t_prefill, "decode_s": t_decode,
             "loss": (float(loss2), float(loss1)),
             "bf16_differ": differ, "update_rel": update_rel,
@@ -5943,12 +6272,15 @@ def phase_mesh(torch, card: str) -> dict:
         for shape, m in q["meshes"].items():
             tag = f"mesh: {LM_ARCH} uncut ({q['params']:,} params) on " \
                 f"{shape} rank {rank}"
-            want = {"channel_norm": q["tables"], "select_mask": q["tables"]}
+            want = {"channel_norm": q["tables"], "select_mask": q["tables"],
+                    "sum_sgd": m["update_leaves"]}
             seen = {k: m["launches"][k] for k in want}
             if seen != want:
                 raise AssertionError(f"{tag}: launches {m['launches']}, "
                                      f"want K1 = K2 = {q['tables']} (its "
-                                     "leaf tables)")
+                                     "leaf tables) and the sum-and-step "
+                                     f"kernel {m['update_leaves']} (its "
+                                     "leaves)")
             launches[f"mesh_rank{rank}_{shape[0]}x{shape[1]}_step"] = \
                 m["launches"]
             if not (m["logit_max"] <= LM_LOGIT_MAX
@@ -6005,9 +6337,12 @@ def phase_mesh(torch, card: str) -> dict:
                     for kind, mem in (("dense", m["memory"]),
                                       ("compressed", c["memory"])))
                 + f" ({card})")
-            if {k: c["launches"][k] for k in want} != {k: 0 for k in want}:
+            if {k: c["launches"][k] for k in want} != dict(
+                    want, channel_norm=0, select_mask=0):
                 raise AssertionError(f"{tag}: the compressed step launched "
-                                     f"{c['launches']}, want K1 = K2 = 0")
+                                     f"{c['launches']}, want K1 = K2 = 0 and "
+                                     "the sum-and-step kernel "
+                                     f"{m['update_leaves']}")
             if relc > MESH_LOSS_REL or c["bf16_differ"] > MESH_BF16_DIFFER \
                     or c["update_rel"] > MESH_UPDATE_REL:
                 raise AssertionError(f"{tag}: compressed step loss rel err "
@@ -6170,25 +6505,22 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = phase_mesh(torch, card)
     log(f"phase mesh: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report.append(phase_sum_sgd(torch, card))
+    log(f"phase sum-sgd: {time.perf_counter() - t0:.1f}s")
     kinds = {"select_compact": ("select_compact_count",
                                 "select_compact_scatter")}
     for r in report:
         by_run = {label: {k: counts[k] for k in kinds.get(r["name"],
                                                          (r["name"],))}
                   for label, (_, counts, _) in runs.items()}
-        if r["name"] in lm["launches"]:
-            by_run["lm_federated_steps"] = {r["name"]:
-                                            lm["launches"][r["name"]]}
-            r["lm"] = lm["timing"][r["name"]]
-            by_run["lm_moe_federated_steps"] = {r["name"]:
-                                                moe["launches"][r["name"]]}
-            r["lm_moe"] = moe["timing"][r["name"]]
-            by_run["lm_ssm_federated_steps"] = {r["name"]:
-                                                ssm["launches"][r["name"]]}
-            r["lm_ssm"] = ssm["timing"][r["name"]]
-            by_run["lm_encdec_federated_steps"] = {
-                r["name"]: encdec["launches"][r["name"]]}
-            r["lm_encdec"] = encdec["timing"][r["name"]]
+        for key, ph in (("lm", lm), ("lm_moe", moe), ("lm_ssm", ssm),
+                        ("lm_encdec", encdec)):
+            if r["name"] in ph["launches"]:
+                by_run[f"{key}_federated_steps"] = {
+                    r["name"]: ph["launches"][r["name"]]}
+            if r["name"] in ph["timing"]:
+                r[key] = ph["timing"][r["name"]]
         by_run["comm_table"] = {k: comm["launches"][k]
                                 for k in kinds.get(r["name"], (r["name"],))}
         for label, counts in list(pods["launches"].items()) + list(

@@ -12,13 +12,15 @@ One federated train step is:
      channel-norm kernel (K1) and one of the select-mask kernel (K2) a
      leaf table of every client — the paper's "Process Gradients" step;
   3. the server sums the masked gradients over the clients and takes the
-     SGD step ``W <- W - lr · Σ_k ΔW̃_k``.
+     SGD step ``W <- W - lr · Σ_k ΔW̃_k``: one launch of the sum-and-step
+     kernel (``kernels.sum_sgd``) a leaf, which reads each client's slot
+     and the param once and writes the new param once.
 
 The step holds one copy of the clients' gradients at a time: K2 writes
-the masked values over them (``in_place``), each leaf's client buffer is
-dropped once it is summed, and each summed leaf once its param is
-updated, so a step needs the params, the (K, ...) buffers and one
-client's gradient tree (its peak, while client_gradients copies it in).
+the masked values over them (``in_place``) and each leaf's client buffer
+is dropped once its param is updated, so a step needs the params, the
+(K, ...) buffers and one client's gradient tree (its peak, while
+client_gradients copies it in).
 
 With ``compressed_exchange`` each client's top-k channels by factored
 score are gathered into an (α·rows)-sized buffer and the dense sum is
@@ -75,7 +77,8 @@ from repro_torch.core import channels
 from repro_torch.sharding import mesh as meshes
 from repro_torch.sharding.rules import like, local_shard
 from repro_torch.models.common import from_block
-from repro_torch.models.model_zoo import sgd_leaf, value_and_grad
+from repro_torch.kernels.sum_sgd import sum_sgd
+from repro_torch.models.model_zoo import value_and_grad
 from repro_torch.obs.trace import span
 from repro_torch.params import tree_leaves, tree_unflatten
 
@@ -154,7 +157,7 @@ def make_federated_train_step(loss_fn: Callable, scbf: ScbfConfig,
             summed = tree_leaves(_compressed_sum(grads_k, scbf.upload_rate,
                                                  pods))
             del grads_k
-            return loss, _update(params, summed, lr)
+            return loss, _sum_and_update(params, summed, lr)
         with span("select"):
             masked_k, _ = channels.apply_factored_mask_slots(
                 grads_k, scbf.upload_rate, scbf.selection, in_place=True)
@@ -178,35 +181,27 @@ def _local_clients(batch: dict, mesh) -> dict:
     return {name: v[r * per:(r + 1) * per] for name, v in batch.items()}
 
 
-def _sum_and_update(params, masked: list, lr: float, mesh=None):
-    """``sgd_update(params, Σ_k masked_k, lr)`` leaf by leaf, each client
-    buffer of ``masked`` (the list's only reference) let go once it is
-    summed and each sum once its param is updated.  On pods each rank's
-    fp32 partial sum is all-reduced and rounded once to the leaf dtype.
-    A DTensor param is summed and updated shard by shard."""
+def _sum_and_update(params, slots: list, lr: float, mesh=None):
+    """``sgd_update(params, Σ_k slots_k, lr)`` leaf by leaf, one launch
+    of the sum-and-step kernel a leaf on the card (``kernels.sum_sgd``),
+    each buffer of ``slots`` (the list's only reference) let go once its
+    param is updated.  A leaf's buffer is the clients' (K, ...) masked
+    gradients, or a sum already made (the compressed exchange's), shaped
+    as its param and taken as one slot.  On pods each rank's fp32
+    partial sum is all-reduced and rounded once to the leaf dtype, then
+    taken as one slot.  A DTensor param is summed and updated shard by
+    shard."""
     new = []
     for i, p in enumerate(tree_leaves(params)):
-        local = local_shard(masked[i])
-        if mesh is None:
-            summed = torch.sum(local, axis=0)
-        else:
-            summed = collectives.all_reduce_sum(torch.sum(
+        local = local_shard(slots[i]).contiguous()
+        slots[i] = None
+        if mesh is not None:
+            local = collectives.all_reduce_sum(torch.sum(
                 local, axis=0, dtype=torch.float32), mesh).to(p.dtype)
-        masked[i] = local = None
-        new.append(like(sgd_leaf(local_shard(p), summed, lr), p))
-        del summed
-    return tree_unflatten(params, new)
-
-
-def _update(params, summed: list, lr: float):
-    """``sgd_update(params, summed, lr)`` shard by shard, each sum of
-    ``summed`` (the list's only reference) let go once its param is
-    updated."""
-    new = []
-    for i, p in enumerate(tree_leaves(params)):
-        new.append(like(sgd_leaf(local_shard(p), local_shard(summed[i]), lr),
-                        p))
-        summed[i] = None
+        p_local = local_shard(p).contiguous()
+        if local.ndim == p_local.ndim:
+            local = local[None]
+        new.append(like(sum_sgd(p_local, local, lr), p))
     return tree_unflatten(params, new)
 
 

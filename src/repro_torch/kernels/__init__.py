@@ -1,7 +1,9 @@
 """Hopper kernels for SCBF's per-loop gradient pass (port of
 ``repro.kernels``): channel_norm (K1), select_mask (K2), select_compact
 (K3) and apoz (K4), each a CUDA C++ source in ``csrc/`` with its plain
-PyTorch version beside it.
+PyTorch version beside it.  ``sum_sgd``, the LM step's clients' sum and
+SGD update in one pass, is the port's own: it replaces no TPU kernel
+and has no name among the reference's ``ops``.
 
 The reference's ``ops`` wrappers, mapped onto the kernel modules' public
 functions and resolved on first use (``lazy_exports``); no import builds

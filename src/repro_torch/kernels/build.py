@@ -25,7 +25,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("channel_norm", "select_mask", "select_compact", "apoz")
+SOURCES = ("channel_norm", "select_mask", "select_compact", "apoz",
+           "sum_sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -60,6 +61,11 @@ SIGNATURES = {
     "apoz": {
         # rows (host int64 table), L, recip, stream
         "apoz_counts_launch": ([_VOID, _INT, ctypes.c_float, _VOID], _INT),
+    },
+    "sum_sgd": {
+        # p, g (K slots), out, n, K, lr, dtype, stream
+        "sum_sgd_launch": ([_VOID, _VOID, _VOID, _LL, _INT, ctypes.c_float,
+                            _INT, _VOID], _INT),
     },
 }
 

@@ -14,7 +14,11 @@ FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     sorted((REPO / "examples").glob("torch_*.py")) + \
     sorted((REPO / "benchmarks").glob("torch_*.py"))
 CSRC = REPO / "src" / "repro_torch" / "kernels" / "csrc"
-KERNELS = ("channel_norm", "select_mask", "select_compact", "apoz")
+# the TPU kernels' ports, each naming the kernel it replaces
+TPU_PORTS = ("channel_norm", "select_mask", "select_compact", "apoz")
+# the port's own kernels, which replace no TPU kernel
+OWN = ("sum_sgd",)
+KERNELS = TPU_PORTS + OWN
 
 
 def _forbidden(name: str) -> bool:
@@ -36,8 +40,8 @@ def _imports(path: Path):
 
 
 def test_the_port_has_files():
-    """Every TPU kernel has its CUDA source, and the build compiles all of
-    them and only them."""
+    """Every TPU kernel has its CUDA source, as has each of the port's own
+    kernels, and the build compiles all of them and only them."""
     from repro_torch.kernels import build
     assert len(FILES) > 15
     assert sorted(p.stem for p in CSRC.glob("*.cu")) == sorted(KERNELS)
@@ -45,11 +49,10 @@ def test_the_port_has_files():
     assert sorted(build.SIGNATURES) == sorted(KERNELS)
 
 
-@pytest.mark.parametrize("name", KERNELS)
-def test_cuda_sources_are_plain_c_without_torch_or_jax(name):
-    """Each kernel source includes only CUDA headers (the build binds it
-    with ctypes, no PyTorch headers) and names the TPU kernel it
-    replaces."""
+def _plain_c(name: str) -> str:
+    """The source's text, after checking that it includes only CUDA
+    headers (the build binds it with ctypes, no PyTorch headers), names
+    neither torch nor JAX and exports C launchers."""
     text = (CSRC / f"{name}.cu").read_text()
     includes = [l.split()[1] for l in text.splitlines()
                 if l.startswith("#include")]
@@ -57,8 +60,26 @@ def test_cuda_sources_are_plain_c_without_torch_or_jax(name):
         includes
     assert "torch" not in text.lower().replace("pytorch", "") and \
         "jax" not in text
-    assert "Replaces the TPU kernel repro/kernels/" in text
     assert 'extern "C" int' in text
+    return text
+
+
+@pytest.mark.parametrize("name", TPU_PORTS)
+def test_cuda_sources_are_plain_c_without_torch_or_jax(name):
+    """Each TPU kernel's port is plain C with CUDA headers only and names
+    the TPU kernel it replaces."""
+    text = _plain_c(name)
+    assert "Replaces the TPU kernel repro/kernels/" in text
+    assert "Replaces no TPU kernel" not in text
+
+
+@pytest.mark.parametrize("name", OWN)
+def test_the_ports_own_kernels_are_plain_c_and_replace_no_tpu_kernel(name):
+    """Each of the port's own kernels is plain C with CUDA headers only and
+    says that it replaces no TPU kernel."""
+    text = _plain_c(name)
+    assert "Replaces no TPU kernel" in text
+    assert "Replaces the TPU kernel" not in text
 
 
 @pytest.mark.parametrize("path", FILES,
