@@ -60,8 +60,12 @@ its own failure:
    second chunk under ``torch.cuda.set_sync_debug_mode("error")``, its
    launches asserted (2 replays a chunk of 2 rounds and no wrapper
    launch inside it, K3's count once an emission, a run's K1 and K2 the
-   capture's warm-up calls) and one capture; FedAvg 2 loops (1e-5 of the
-   main path's per-round FedAvg run, one capture); SCBFwP
+   capture's warm-up calls) and one capture; C10 (``c10_check``): the
+   same run twice more in the process, the first with the collector off
+   and its engine dead by its weak reference once the run returns, the
+   second capturing with the collector on and a collection forced inside
+   its capture, both one capture and bitwise the fused run; FedAvg 2
+   loops (1e-5 of the main path's per-round FedAvg run, one capture); SCBFwP
    mask 8 loops (one-round chunks while pruning; hidden sizes the
    per-round run's; at most 2 captures); SCBF with DP 2 loops (ε the
    per-round run's, every revealed entry shipped noised but exact-zero
@@ -313,12 +317,14 @@ import math
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 T_START = time.perf_counter()
 
+from repro_torch import kernels  # noqa: E402
 from repro_torch.config import HARDWARE  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet; the port's table): HBM bytes/s and
@@ -1414,10 +1420,10 @@ def phase_sum_sgd(torch, card: str) -> dict:
     step_counts = []
     for _ in range(2):
         torch.cuda.synchronize()
-        _reset_launches()
+        kernels.reset_launches()
         loss, params = step(params, batch)
         torch.cuda.synchronize()
-        step_counts.append(_launch_counts())
+        step_counts.append(kernels.launch_counts())
         if not math.isfinite(float(loss)):
             raise AssertionError(f"sum-sgd: the cell's step lost {loss}")
     if any(c["sum_sgd"] != len(leaves) for c in step_counts):
@@ -1629,34 +1635,12 @@ class RoundTap:
         return rows
 
 
-def _launch_counts() -> dict:
-    from repro_torch.kernels import apoz as az
-    from repro_torch.kernels import channel_norm as cn
-    from repro_torch.kernels import select_mask as sm
-    from repro_torch.kernels import sum_sgd as ss
-    return {"channel_norm": cn.launches, "select_mask": sm.mask_launches,
-            "select_compact_count": sm.compact_count_launches,
-            "select_compact_scatter": sm.compact_scatter_launches,
-            "apoz": az.launches, "sum_sgd": ss.launches}
-
-
-def _reset_launches() -> None:
-    from repro_torch.kernels import apoz as az
-    from repro_torch.kernels import channel_norm as cn
-    from repro_torch.kernels import select_mask as sm
-    from repro_torch.kernels import sum_sgd as ss
-    cn.reset_launches()
-    sm.reset_launches()
-    az.reset_launches()
-    ss.reset_launches()
-
-
 def _step_launches(tag: str, counts: list, tables: int, leaves: int) -> dict:
     """Hold each federated step's wrapper launches (``counts``, the
     counters reset just before the step) to K1 and K2 once a leaf table,
     the sum-and-step kernel once a leaf and nothing else; their sums over
     the steps."""
-    want = dict(dict.fromkeys(_launch_counts(), 0), channel_norm=tables,
+    want = dict(dict.fromkeys(kernels.launch_counts(), 0), channel_norm=tables,
                 select_mask=tables, sum_sgd=leaves)
     for c in counts:
         if c != want:
@@ -1712,10 +1696,10 @@ def phase_main_path(torch, card: str):
         with PruneTimer(torch) as timer, \
                 RoundTap(masks=label in ("scbf", "scbf_sequential",
                                          "scbf_dp")) as tap:
-            _reset_launches()
+            kernels.reset_launches()
             res = run_federated(cohort, cfg, method=method,
                                 mlp_features=feats, device="cuda")
-            counts = _launch_counts()
+            counts = kernels.launch_counts()
         runs[label] = (res, counts, timer.seconds)
         taps[label] = tap
         _check_run(torch, label, res, counts, card, timer.seconds, tap,
@@ -1988,7 +1972,7 @@ class ChunkTap:
             from repro_torch.fed import graphs
             i = len(tap.calls[name])
             torch.cuda.synchronize()
-            before, replays = _launch_counts(), graphs.replays
+            before, replays = kernels.launch_counts(), graphs.replays
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA],
                            schedule=schedule(wait=0, warmup=1, active=1)) \
@@ -2015,7 +1999,7 @@ class ChunkTap:
             wall = time.perf_counter() - t0
             if prof is not None:
                 prof.stop()
-            after = _launch_counts()
+            after = kernels.launch_counts()
             rec = {"launches": {n: after[n] - before[n] for n in after},
                    "replays": graphs.replays - replays, "wall_s": wall,
                    "window": None if prof is None
@@ -2076,12 +2060,64 @@ def _scatter_pairs(payloads) -> int:
                    for (_, k), lp in zip(p.keys, p.layers)))
 
 
+def c10_check(torch, cohort, train_cfg, feats) -> dict:
+    """ROADMAP C10 on the card: two fused SCBF runs of ``train_cfg`` in one
+    process.  The first runs with the collector disabled, and a weak
+    reference to its engine must be dead once ``run_federated`` returns
+    (its engine and graph freed by reference count).  The second runs
+    with the collector on and a full collection forced inside its capture,
+    where a graph left as cyclic garbage would be destroyed and the
+    capture invalidated.  Returns both runs, the captures of each, whether
+    the first engine was freed and the collections made under capture."""
+    from repro_torch.core import scbf
+    from repro_torch.fed import engine as fe
+    from repro_torch.fed import graphs
+    real_make, real_round = scbf.make_engine, fe._fused_round
+    refs, collected, runs, captures = [], [], [], []
+
+    def make(*a, **k):
+        eng = real_make(*a, **k)
+        refs.append(weakref.ref(eng))
+        return eng
+
+    def collecting_round(*a):
+        if torch.cuda.is_current_stream_capturing():
+            collected.append(gc.collect())
+        return real_round(*a)
+
+    def run():
+        graphs.reset_captures()
+        runs.append(scbf.run_federated(cohort, train_cfg, method="scbf",
+                                       mlp_features=feats, device="cuda"))
+        captures.append(graphs.captures)
+
+    scbf.make_engine = make
+    try:
+        gc.collect()
+        gc.disable()
+        try:
+            run()
+            freed = refs[0]() is None
+        finally:
+            gc.enable()
+        fe._fused_round = collecting_round
+        run()
+    finally:
+        scbf.make_engine, fe._fused_round = real_make, real_round
+    return {"runs": runs, "captures": captures, "engine_freed": freed,
+            "collections_in_capture": len(collected),
+            "objects_collected_in_capture": collected}
+
+
 def phase_fused(torch, cohort, card: str, runs: dict) -> dict:
     """The fused round loop at full width (``fuse_rounds`` = 2 on the
     batched engine): SCBF 4 loops beside the per-round run of the same 4
     loops (bytes and upload fractions equal, weights to 1e-5, support
     flips counted; one chunk under sync-debug "error"; launches and one
-    capture asserted), FedAvg 2 loops against per-round (1e-5), SCBFwP
+    capture asserted), C10 (``c10_check``: a finished run's engine freed
+    without the collector, a second run capturing with a collection forced
+    inside its capture, both bitwise the fused run), FedAvg 2 loops
+    against per-round (1e-5), SCBFwP
     mask 8 loops (hidden sizes the per-round run's, at most 2 captures),
     SCBF with DP 2 loops (ε the per-round run's, revealed entries
     noised); then a profile of one fused chunk, whose kernel events must
@@ -2111,10 +2147,10 @@ def phase_fused(torch, cohort, card: str, runs: dict) -> dict:
 
     def run(label, method, loops, fuse, scbf=None, tap=None):
         graphs.reset_captures()
-        _reset_launches()
+        kernels.reset_launches()
         res = run_federated(cohort, cfg(method, loops, fuse, scbf),
                             method=method, mlp_features=feats, device="cuda")
-        counts = _launch_counts()
+        counts = kernels.launch_counts()
         runs[label] = (res, counts, [])
         replays[label] = graphs.replays
         for r in res.records:
@@ -2197,6 +2233,18 @@ def phase_fused(torch, cohort, card: str, runs: dict) -> dict:
                          tap.calls["fused_scbf_chunk"]],
         "emission_wall_s": [c["wall_s"] for c in
                             tap.calls["emit_fused_payloads"]]}))
+
+    # --- C10: a finished run frees its engine; two runs both capture ----
+    c10 = c10_check(torch, cohort, cfg("scbf", FUSE_LOOPS, FUSE), feats)
+    same = [all(torch.equal(x[k], y[k]) for x, y in
+                zip(fused.final_params, r.final_params) for k in x)
+            for r in c10.pop("runs")]
+    if not c10["engine_freed"] or c10["captures"] != [1, 1] or \
+            not c10["collections_in_capture"] or not all(same):
+        raise AssertionError(f"C10: {c10}, bitwise the fused run {same}")
+    log("fused: " + json.dumps({
+        "run": "C10: two scbf runs, fuse_rounds=2, in one process",
+        "card": card, **c10, "final_weights_bitwise_vs_fused": same}))
 
     # --- FedAvg ---------------------------------------------------------
     fa_per = runs["fedavg"][0]                      # per round, 2 loops
@@ -2317,7 +2365,7 @@ class ChunkWindow:
             if i != tap.profile:
                 return fn(eng, *a, **k)
             torch.cuda.synchronize()
-            before, replays = _launch_counts(), graphs.replays
+            before, replays = kernels.launch_counts(), graphs.replays
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA],
                            schedule=schedule(wait=0, warmup=1, active=1))
@@ -2335,7 +2383,7 @@ class ChunkWindow:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             prof.stop()
-            after = _launch_counts()
+            after = kernels.launch_counts()
             tap.window = dict(_window(_device_events(prof), wall),
                               launches={n: after[n] - before[n]
                                         for n in after},
@@ -2429,13 +2477,13 @@ def phase_obs(torch, cohort, card: str, runs: dict, fused: dict) -> None:
         replays, recorder and offloaded telemetry dicts (flat, a round
         each)."""
         graphs.reset_captures()
-        _reset_launches()
+        kernels.reset_launches()
         offloads.clear()
         with trace.recording() as rec:
             res = run_federated(cohort, cfg(method, loops, fuse, scbf, **kw),
                                 method=method, mlp_features=feats,
                                 device="cuda")
-        counts = _launch_counts()
+        counts = kernels.launch_counts()
         dms = [d for o in offloads for d in (o if isinstance(o, list)
                                              else [o])]
         runs[label] = (res, counts, [])
@@ -2728,10 +2776,10 @@ def phase_cross_device(torch, cohort, card: str, runs: dict) -> None:
         rec = Recorder()
         graphs.reset_captures()
         with RoundTap() as tap, recording(recorder=rec):
-            _reset_launches()
+            kernels.reset_launches()
             res = run_federated(cohort, c, method="scbf",
                                 mlp_features=feats, device="cuda")
-            counts = _launch_counts()
+            counts = kernels.launch_counts()
         runs[label] = (res, counts, [])
         for r, e in zip(res.records, _round_events(rec)):
             xlog(f"[{label}] loop {r.loop} clients={r.num_participants} "
@@ -2884,14 +2932,14 @@ def phase_big_round(torch, cohort, card: str) -> None:
     shapes = [(BIG_ROUND, a, b) for a, b in zip(feats[:-1], feats[1:])]
     words = cn.workspace_words([torch.empty(s, device="meta")
                                 for s in shapes])
-    _reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     payloads, stats = eng.scbf_round(params, part, 0.01, perms, cfg,
                                      generator=torch.Generator()
                                      .manual_seed(5))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _launch_counts()
+    counts = kernels.launch_counts()
     bitmaps = sm.compact_bitmap_pairs
     want = {"channel_norm": 1, "select_mask": 1, "select_compact_count": 1,
             "select_compact_scatter": _scatter_pairs(payloads), "apoz": 0,
@@ -3551,12 +3599,12 @@ def phase_lm(torch, card: str) -> dict:
             batch = {k: torch.from_numpy(v).cuda().reshape(
                 LM_CLIENTS, LM_BATCH, LM_SEQ) for k, v in nb.items()}
             torch.cuda.synchronize()
-            _reset_launches()
+            kernels.reset_launches()
             t1 = time.perf_counter()
             loss, params = step(params, batch)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t1)
-            counts.append(_launch_counts())
+            counts.append(kernels.launch_counts())
             losses.append(float(loss))
     finally:
         ch.apply_factored_mask_slots = real
@@ -4153,7 +4201,7 @@ def phase_deepseek(torch, card: str) -> dict:
                 MOE_CLIENTS, LM_BATCH, LM_SEQ) for k, v in nb.items()}
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
+            kernels.reset_launches()
             t1 = time.perf_counter()
             if i == MOE_STEPS - 2:
                 with profile(activities=[ProfilerActivity.CPU,
@@ -4168,7 +4216,7 @@ def phase_deepseek(torch, card: str) -> dict:
                 loss, params = step(params, batch)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t1)
-            counts.append(_launch_counts())
+            counts.append(kernels.launch_counts())
             peaks.append(_peak_gb(torch))
             losses.append(float(loss))
     finally:
@@ -4557,7 +4605,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
                 k, LM_BATCH, seq) for n, v in nb.items()}
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
+            kernels.reset_launches()
             t1 = time.perf_counter()
             if i == SSM_STEPS - 1:
                 with tap:
@@ -4568,7 +4616,7 @@ def ssm_steps(torch, cfg, bundle, held: list, card: str) -> dict:
                     loss, params = step(params, batch)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t1)
-            counts.append(_launch_counts())
+            counts.append(kernels.launch_counts())
             peaks.append(_peak_gb(torch))
             losses.append(float(loss))
             if seq == LM_SEQ:
@@ -5122,7 +5170,7 @@ def encdec_steps(torch, cfg, bundle, held: list, card: str, cut: str
                                          seed=10 + i)[1]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
+            kernels.reset_launches()
             t1 = time.perf_counter()
             if i == ENCDEC_STEPS - 1:
                 with tap:
@@ -5131,7 +5179,7 @@ def encdec_steps(torch, cfg, bundle, held: list, card: str, cut: str
                 loss, params = step(params, batch)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t1)
-            counts.append(_launch_counts())
+            counts.append(kernels.launch_counts())
             peaks.append(_peak_gb(torch))
             losses.append(float(loss))
     finally:
@@ -5255,12 +5303,12 @@ def phase_comm_table(torch, card: str) -> dict:
         return payload
 
     wire.encode_selected = encode_selected
-    _reset_launches()
+    kernels.reset_launches()
     try:
         rows = tc.run(quick=False, device="cuda")
     finally:
         wire.encode_selected = real
-    counts = _launch_counts()
+    counts = kernels.launch_counts()
     bitmaps = sm.compact_bitmap_pairs
     scatters = 0
     for masked, payload in seen:
@@ -5332,11 +5380,11 @@ def _pod_run(torch, cohort, label: str, mesh) -> dict:
                       fed=FedConfig(pods=mesh.size(), **fed))
     graphs.reset_captures()
     collectives.reset_traffic()
-    _reset_launches()
+    kernels.reset_launches()
     res = run_federated(cohort, cfg, method=method,
                         mlp_features=(cohort.num_features, 256, 64, 1),
                         device="cuda", mesh=mesh)
-    return {"records": _pod_records(res), "launches": _launch_counts(),
+    return {"records": _pod_records(res), "launches": kernels.launch_counts(),
             "params": [{k: v.cpu().numpy() for k, v in layer.items()}
                        for layer in res.final_params],
             "traffic": [collectives.calls, collectives.bytes_sent],
@@ -5406,14 +5454,14 @@ def _pod_lm(torch, mesh, rank: int) -> dict:
             POD_LM_CLIENTS, LM_BATCH, LM_SEQ) for k, v in nb.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
+        kernels.reset_launches()
         collectives.reset_traffic()
         t0 = time.perf_counter()
         loss, new = steps[compressed][0](params, batch)
         torch.cuda.synchronize()
         rec = {"compressed": compressed, "loss": float(loss),
                "wall_s": time.perf_counter() - t0,
-               "peak_gb": _peak_gb(torch), "launches": _launch_counts(),
+               "peak_gb": _peak_gb(torch), "launches": kernels.launch_counts(),
                "traffic": [collectives.calls, collectives.bytes_sent]}
         if rank == 0:
             loss1, one = steps[compressed][1](params, batch)
@@ -5973,14 +6021,14 @@ def _mesh_qwen(torch, rank: int) -> dict:
                                          mesh=mesh)
         base = _memory_base(torch)
         collectives.reset_traffic()
-        _reset_launches()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         with StepCounter(mesh) as counter, SelectionTap(torch) as tap:
             loss2, new = step(placed, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         memory = _step_memory(torch, counter, base)
-        launches = _launch_counts()
+        launches = kernels.launch_counts()
         score_exchange = collectives.traffic("mesh")
         selection = _selection_check(torch, sel1, tap.result(), names)
         differ, update_rel = _update_gap(torch, tree_leaves(new),
@@ -5992,14 +6040,14 @@ def _mesh_qwen(torch, rank: int) -> dict:
                                          mesh=mesh)
         base = _memory_base(torch)
         collectives.reset_traffic()
-        _reset_launches()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         with StepCounter(mesh) as packed_counter, TopTap() as top:
             loss2c, new = step(placed, batch)
         torch.cuda.synchronize()
         packed_wall = time.perf_counter() - t0
         packed_memory = _step_memory(torch, packed_counter, base)
-        packed_launches = _launch_counts()
+        packed_launches = kernels.launch_counts()
         packed_sent = {f"{fam} {kind}": v[2] for (fam, kind), v in
                        collectives.by_kind.items()}
         packed_differ, packed_update_rel = _update_gap(

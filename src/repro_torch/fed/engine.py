@@ -23,12 +23,16 @@ The fused round loop (``fuse_rounds`` > 1) runs a chunk of S planned
 rounds with the server sum on the device: ``prepare_fused_plan`` makes
 every host→device copy of the chunk (its ``(S, B)`` rows, validity, lr
 values, permutations, DP normals and sampled-quantile indices);
-``fused_scbf_chunk`` runs each round — ``_slot_pass`` then
-``fed.strategy.scbf_sum_step`` — as one replay of a CUDA graph captured
-once a geometry (``fed.graphs``; the body itself, eagerly, on the CPU);
+``BatchedEngine._replay_rounds`` runs each round — a method's train
+half, the pods' gather, its server half (``_fused_round``, the
+reference's ``round_body``) — as one replay of a CUDA graph captured
+once a geometry (``fed.graphs``; eagerly on the CPU), and a captured
+round holds its inputs and the data of ``RoundData``, never the engine;
 ``emit_fused_payloads`` encodes the chunk's uploads after it.  The
-round's slot count is run-constant (``fused_num_slots``), so a run
-captures one graph a geometry.
+round's slot count is run-constant (``fused_num_slots``).  The server
+sum folds in only the slots of the plan's ``(S, B)`` admit mask
+(``torch.where(admit, Δ, 0)``: a rejected slot adds exact zeros); a
+fault-free plan admits the valid slots, which changes no bit.
 
 ``SequentialEngine`` keeps the per-client loop (one client's pass a
 launch of each kernel).  At full participation on equal shards the two
@@ -60,11 +64,6 @@ one shared model; the batched engine stacks them (a padded slot repeats
 slot 0's) and the slot pass trains, differences and selects every slot
 from its own start, still one launch of each kernel a round.
 
-The fused round's server sum folds in only the slots of the plan's
-``(S, B)`` admit mask (``torch.where(admit, Δ, 0)``: a rejected slot adds
-exact zeros, whatever it holds); a fault-free plan admits the valid
-slots, which changes no bit.
-
 Device telemetry (``collect=True``, ``repro_torch.obs``): the trainers
 return each slot's loss with the parameters (``with_loss``), and the
 batched engine's round returns its ``MetricsCarry`` (loss, selected
@@ -86,6 +85,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.comm import wire
 from repro_torch.config import ScbfConfig
@@ -486,6 +486,7 @@ class BatchedEngine:
         self.epochs = epochs
         self.bucket = bucket
         self._programs = {}           # program key -> RoundProgram
+        self._round_data = {}         # (cfg, collect) -> RoundData
 
     @property
     def num_clients(self) -> int:
@@ -565,36 +566,12 @@ class BatchedEngine:
                           _zero_fill_slots(idx, b)[mine]]
         # on pods the sampled quantile's indices come drawn for the whole
         # round (``sample_idx``): a rank's own draws would shift the stream
-        res = _slot_pass(params, self.cohort, rows, valid, lr, pm, cfg,
-                         batch_size=self.batch_size, epochs=self.epochs,
-                         nmasks=nmasks, noise=noise, sample_idx=sample_idx,
-                         generator=generator if self.mesh is None else None,
-                         collect=collect, eff_sizes=eff_sizes)
-        if self.mesh is None:
-            return res
-        masked, masks, met = self._gather_round(res[0], res[1],
-                                                res[2] if collect else None)
-        return (masked, masks, met) if collect else (masked, masks)
-
-    def _gather_round(self, masked, masks, met=None):
-        """Every pod's slots of a round's masked deltas, masks (None stays
-        None) and slot-stacked carry, in slot order."""
-        def gather(t):
-            return None if t is None else collectives.gather_slots(t, self.mesh)
-        masked = tuple({k: gather(t) for k, t in layer.items()}
-                       for layer in masked)
-        masks = tuple({k: gather(t) for k, t in layer.items()}
-                      for layer in masks)
-        if met is not None:
-            met = type(met)(*(gather(t) for t in met))
-        return masked, masks, met
-
-    def _gather_trained(self, trained, losses=None):
-        """Every pod's slots of a FedAvg round's trained weights (and
-        losses), in slot order."""
-        return (tree_map(lambda t: collectives.gather_slots(t, self.mesh), trained),
-                None if losses is None else
-                collectives.gather_slots(losses, self.mesh))
+        return _gather_slots(self.mesh, _slot_pass(
+            params, self.cohort, rows, valid, lr, pm, cfg,
+            batch_size=self.batch_size, epochs=self.epochs, nmasks=nmasks,
+            noise=noise, sample_idx=sample_idx,
+            generator=generator if self.mesh is None else None,
+            collect=collect, eff_sizes=eff_sizes))
 
     def scbf_round(self, params, participants, lr: float,
                    perms: Sequence[Sequence], cfg: ScbfConfig,
@@ -664,8 +641,8 @@ class BatchedEngine:
         if collect:
             new_p, losses = new_p
         if self.mesh is not None:
-            new_p, losses = self._gather_trained(new_p,
-                                                 losses if collect else None)
+            new_p, losses = _gather_slots(
+                self.mesh, (new_p, losses if collect else None))
             valid = torch.arange(b, device=self.device) < p_count
         real = tuple({k: v[:p_count] for k, v in layer.items()}
                      for layer in new_p)
@@ -764,16 +741,14 @@ class BatchedEngine:
         if key not in self._programs:
             self._programs[key] = graphs.RoundProgram(fn, *example)
         # looked up, not passed on: a caller names the body it replays
-        # (``body if … else self._program(…)``), which the lints follow
+        # (``first = train if … else self._program(…)``) for the lints
         return self._programs[key]
 
     def round_form(self) -> str:
-        """How a fused round runs: ``"one graph"`` (CUDA: one captured
-        graph a round; on pods under NCCL the slot gather is captured
-        inside it), ``"two graphs"`` (pods under gloo, which cannot be
-        captured: the slot pass and the server step are two graphs with
-        the gather between them) or ``"eager"`` (the CPU: the same bodies
-        called directly — on pods the two steps, the gather between)."""
+        """How a fused round runs: ``"one graph"`` (CUDA; on pods under
+        NCCL the gather is captured inside it), ``"two graphs"`` (pods
+        under gloo, which cannot be captured: the train and server halves,
+        the gather between) or ``"eager"`` (the CPU)."""
         if self.device.type != "cuda":
             return "eager"
         if self.mesh is not None and torch.distributed.get_backend(
@@ -791,158 +766,109 @@ class BatchedEngine:
         a, e = shard_rules.slot_range(plan.num_slots, self.mesh)
         return lambda t: t.narrow(shard.dim, a, e - a)
 
+    def _slot_rows(self, plan: FusedPlan):
+        """This rank's (rows, valid, lrs, perms) of the plan, S views each."""
+        view = self._plan_view(plan)
+        return (view(plan.part_idx).unbind(0), view(plan.valid).unbind(0),
+                plan.lrs.unbind(0), view(plan.perms).unbind(0))
+
+    def _data(self, cfg: Optional[ScbfConfig], collect: bool) -> "RoundData":
+        """The round halves' fixed arguments, one object a (cfg, collect)."""
+        key = (cfg, bool(collect))
+        return self._round_data.setdefault(key, RoundData(
+            self.cohort, self.batch_size, self.epochs, self.mesh, *key))
+
+    def _replay_rounds(self, train, server, data: "RoundData", params,
+                       inputs, live: torch.Tensor, weights=None):
+        """Run a fused chunk's rounds, either method's: round r trains this
+        rank's slots (``train(data, p, tin)``, ``tin, extra = inputs(r)``),
+        gathers, and steps (``server(data, p, outputs, live[r], extra)``).
+        Form and program key are taken once a chunk.  Yields (params,
+        outputs, carry) a round, valid until the next round."""
+        form = self.round_form()
+        # the validity the server takes: ``live``'s row (SCBF's admit row,
+        # FedAvg's valid row) — except after a gather captured inside one
+        # graph, where FedAvg's server takes the slots of positive weight
+        # (a quorum-missed round weighs every slot 0)
+        if weights is not None and form == "one graph" and \
+                self.mesh is not None:
+            live = weights > 0.0
+        live = live.unbind(0)
+        p = tuple(params)
+        tin, ex = inputs(0)
+        key = graphs.program_key(train, data, p, tin, live[0], ex)
+        whole = _fused_round if form != "one graph" else self._program(
+            key, _fused_round, (train, server, data, p, tin, live[0], ex))
+        for r, lv in enumerate(live):
+            tin, ex = inputs(r)
+            if self.mesh is not None and form != "one graph":
+                # the gather between the halves, outside any graph
+                first = train if form == "eager" else self._program(
+                    key + ("train",), train, (data, p, tin))
+                out = _gather_slots(self.mesh, first(data, p, tin))
+                second = server if form == "eager" else self._program(
+                    key + ("server",), server, (data, p, out, lv, ex))
+                p, met = second(data, p, out, lv, ex)
+            else:
+                p, out, met = whole(train, server, data, p, tin, lv, ex)
+            yield p, out, met
+
     def fused_scbf_chunk(self, params, plan: FusedPlan, cfg: ScbfConfig,
                          nmasks=None, collect: bool = False
                          ) -> Tuple[Tuple[dict, ...], FusedOutputs]:
-        """Run one fused SCBF chunk: for each round of the plan, the round
-        body — slot pass, validity zeroing and ``scbf_sum_step`` — as one
-        replay of a captured graph (an eager call on the CPU), with the
-        round's rows of the plan copied into its inputs on the device.
-        No host sync.  Returns (new params, the chunk's stacked masked
-        deltas and masks for ``emit_fused_payloads``).
-        The server sum folds in the plan's admitted slots only; the
-        emitted deltas are every valid slot's, as computed.
-        ``nmasks`` (mask-mode SCBFwP): the chunk's keep-masks, an input.
-        ``collect``: each round also computes its ``MetricsCarry`` inside
-        the captured round (priced on ``plan.eff_sizes`` when given),
-        stored into the outputs' ``(S,)`` stack ``metrics`` on the
-        device.  On pods a round trains this rank's slots of the plan,
-        then gathers the round's masked deltas, masks and carry in slot
-        order (``round_form`` says where the gather runs) and takes the
-        server step on all of them."""
-        def train(p, rows, valid, admit, lr, perms, noise, sample, nm, es):
-            # ``admit`` unused: the round body's signature
-            sample = None if sample is None else \
-                [[s[k] for s in sample] for k in range(rows.shape[0])]
-            res = _slot_pass(
-                p, self.cohort, rows, valid, lr, perms, cfg,
-                batch_size=self.batch_size, epochs=self.epochs, nmasks=nm,
-                noise=noise, sample_idx=sample, collect=collect,
-                eff_sizes=es)
-            return res[0], res[1], res[2] if collect else None
-
-        def server(p, masked, admit, nm, met):
-            admitted = tuple({k: _zero_invalid(t, admit)
-                              for k, t in layer.items()}
-                             for layer in masked)
-            return scbf_sum_step(p, admitted, neuron_masks=nm), \
-                obsm.reduce_slots(met) if collect else None
-
-        def body(p, rows, valid, admit, lr, perms, noise, sample, nm, es):
-            masked, masks, met = train(p, rows, valid, admit, lr, perms,
-                                       noise, sample, nm, es)
-            if self.mesh is not None:
-                masked, masks, met = self._gather_round(masked, masks, met)
-            new_p, met = server(p, masked, admit, nm, met)
-            return new_p, masked, masks, met
-
-        p = tuple(params)
+        """Run one fused SCBF chunk (``_replay_rounds``: slot pass, the
+        gather on pods, ``scbf_sum_step`` on the admitted slots), no host
+        sync.  Returns (new params, the chunk's stacked masked deltas and
+        masks, every valid slot's, for ``emit_fused_payloads``).
+        ``nmasks`` (mask-mode SCBFwP): the chunk's keep-masks.
+        ``collect``: each round's ``MetricsCarry`` too (priced on
+        ``plan.eff_sizes``), in the outputs' ``(S,)`` stack ``metrics``."""
+        rows, valid, lrs, perms = self._slot_rows(plan)
+        view, s = self._plan_view(plan), len(rows)
+        # DP normals and sampled indices: a list of (S, B, …) legs each
+        noise, sample = ([None] * s if legs is None else [
+            list(r) for r in zip(*(view(t).unbind(0) for t in legs))]
+            for legs in (plan.noise, plan.sample_idx))
         nm = None if nmasks is None else tuple(nmasks)
         es = plan.eff_sizes if collect else None
-        view, form = self._plan_view(plan), self.round_form()
-        out = None
-        for r in range(plan.part_idx.shape[0]):
-            rows, valid, admit, lr, perms = (
-                view(plan.part_idx)[r], view(plan.valid)[r], plan.admit[r],
-                plan.lrs[r], view(plan.perms)[r])
-            noise = None if plan.noise is None else \
-                [view(z)[r] for z in plan.noise]
-            sample = None if plan.sample_idx is None else \
-                [view(s)[r] for s in plan.sample_idx]
-            if self.mesh is not None and form != "one graph":
-                first = train if form == "eager" else self._program(
-                    graphs.program_key("scbf-train", cfg, p, rows, perms,
-                                       noise, sample, nm, collect, es),
-                    train, (p, rows, valid, admit, lr, perms, noise, sample,
-                            nm, es))
-                masked, masks, met = first(p, rows, valid, admit, lr, perms,
-                                           noise, sample, nm, es)
-                masked, masks, met = self._gather_round(masked, masks, met)
-                second = server if form == "eager" else self._program(
-                    graphs.program_key("scbf-server", p, masked, admit, nm,
-                                       met),
-                    server, (p, masked, admit, nm, met))
-                p, met = second(p, masked, admit, nm, met)
-            else:
-                prog = body if form == "eager" else self._program(
-                    graphs.program_key("scbf", cfg, p, rows, perms, noise,
-                                       sample, nm, collect, es),
-                    body, (p, rows, valid, admit, lr, perms, noise, sample,
-                           nm, es))
-                p, masked, masks, met = prog(p, rows, valid, admit, lr,
-                                             perms, noise, sample, nm, es)
+
+        def inputs(r):
+            return (rows[r], valid[r], lrs[r], perms[r], noise[r], sample[r],
+                    nm, es), nm
+
+        p, out = tuple(params), None
+        for r, (p, (masked, masks, _), met) in enumerate(self._replay_rounds(
+                _fused_scbf_train, _fused_scbf_server,
+                self._data(cfg, collect), p, inputs, plan.admit)):
             if out is None:
-                out = _stacked_like(plan.part_idx.shape[0], masked, masks,
-                                    met)
+                out = _stacked_like(s, masked, masks, met)
             _store_round(out, r, masked, masks, met)
         return tuple({k: v.clone() for k, v in layer.items()}
                      for layer in p), out
 
     def fused_fedavg_chunk(self, params, plan: FusedPlan,
                            collect: bool = False):
-        """Run one fused FedAvg chunk (a captured round each: slot-stacked
-        training, then ``fedavg_step`` with the plan's weights); returns
-        the final params, and with ``collect`` the chunk's ``(S,)``-stacked
-        ``FedAvgMetrics`` on the device (a slot counts where its weight is
-        positive, as in the reference).  On pods each rank trains its
-        slots, and the trained weights (what FedAvg ships) and losses are
-        gathered in slot order before the step, as ``fused_scbf_chunk``
-        gathers SCBF's."""
+        """Run one fused FedAvg chunk (``_replay_rounds``: slot-stacked
+        training, the gather on pods, ``fedavg_step`` with the plan's
+        weights); returns the final params, and with ``collect`` the
+        chunk's ``(S,)``-stacked ``FedAvgMetrics`` on the device."""
         if plan.weights is None:
             raise ValueError("fused fedavg needs the plan built with "
                              "per-slot example weights")
+        rows, valid, lrs, perms = self._slot_rows(plan)
+        wts = plan.weights.unbind(0)
 
-        def train(p, rows, valid, lr, perms):
-            trained = _train_slots(p, self.cohort, rows, valid, lr, perms,
-                                   batch_size=self.batch_size,
-                                   epochs=self.epochs, with_loss=collect)[1]
-            return trained if collect else (trained, None)
+        def inputs(r):
+            return (rows[r], valid[r], lrs[r], perms[r]), wts[r]
 
-        def server(p, trained, valid, wts, losses):
-            met = obsm.fedavg_metrics(losses, wts > 0.0) if collect \
-                else None
-            # a padded slot (weight 0) adds exact zeros
-            return fedavg_step(p, tuple(
-                {k: _zero_invalid(t, valid) for k, t in layer.items()}
-                for layer in trained), wts), met
-
-        def body(p, rows, valid, lr, perms, wts):
-            trained, losses = train(p, rows, valid, lr, perms)
-            if self.mesh is not None:
-                trained, losses = self._gather_trained(trained, losses)
-                # the round's real slots: those of positive weight (a
-                # quorum-missed round weighs every slot 0 and passes the
-                # model through)
-                valid = wts > 0.0
-            return server(p, trained, valid, wts, losses)
-
-        p = tuple(params)
-        view, form = self._plan_view(plan), self.round_form()
-        stack = None
-        for r in range(plan.part_idx.shape[0]):
-            rows, valid, lr, perms, wts = (
-                view(plan.part_idx)[r], view(plan.valid)[r], plan.lrs[r],
-                view(plan.perms)[r], plan.weights[r])
-            if self.mesh is not None and form != "one graph":
-                first = train if form == "eager" else self._program(
-                    graphs.program_key("fedavg-train", p, rows, perms,
-                                       collect),
-                    train, (p, rows, valid, lr, perms))
-                trained, losses = first(p, rows, valid, lr, perms)
-                trained, losses = self._gather_trained(trained, losses)
-                live = plan.valid[r]
-                second = server if form == "eager" else self._program(
-                    graphs.program_key("fedavg-server", p, trained, collect),
-                    server, (p, trained, live, wts, losses))
-                p, met = second(p, trained, live, wts, losses)
-            else:
-                prog = body if form == "eager" else self._program(
-                    graphs.program_key("fedavg", p, rows, perms, collect),
-                    body, (p, rows, valid, lr, perms, wts))
-                p, met = prog(p, rows, valid, lr, perms, wts)
+        p, stack = tuple(params), None
+        for r, (p, _, met) in enumerate(self._replay_rounds(
+                _fused_fedavg_train, _fused_fedavg_server,
+                self._data(None, collect), p, inputs, plan.valid,
+                weights=plan.weights)):
             if collect:
                 if stack is None:
-                    stack = _carry_stack(plan.part_idx.shape[0], met)
+                    stack = _carry_stack(len(rows), met)
                 _store_carry(stack, r, met)
         p = tuple({k: v.clone() for k, v in layer.items()} for layer in p)
         return (p, stack) if collect else p
@@ -1083,6 +1009,80 @@ def _store_round(out: FusedOutputs, r: int, masked, masks,
             for k, v in s.items():
                 if v is not None:
                     d[k][r].copy_(v)
+
+
+@dataclass(frozen=True, eq=False)
+class RoundData:
+    """A fused round's fixed arguments: data only, so a captured round
+    holds no engine; compared by identity (``BatchedEngine._data``)."""
+
+    cohort: PaddedCohort
+    batch_size: int
+    epochs: int
+    mesh: object                      # the pod mesh, or None
+    cfg: Optional[ScbfConfig]         # None for FedAvg
+    collect: bool
+
+
+def _gather_slots(mesh, tree):
+    """Every pod's slots of a round's slot-stacked outputs, in slot order;
+    ``tree`` itself without a mesh."""
+    if mesh is None:
+        return tree
+    return pytree.tree_map_only(
+        torch.Tensor, lambda t: collectives.gather_slots(t, mesh), tree)
+
+
+def _fused_round(train, server, data: RoundData, p, tin, live, extra):
+    """One fused round (the reference's ``round_body``), one graph's body
+    or an eager call: the train half on this rank's slots, the gather, the
+    server half.  Returns (new params, the gathered outputs, the carry)."""
+    out = _gather_slots(data.mesh, train(data, p, tin))
+    new_p, met = server(data, p, out, live, extra)
+    return new_p, out, met
+
+
+def _fused_scbf_train(data: RoundData, p, tin):
+    """SCBF's train half (``_fused_scbf_rounds``' slot pass): the slots'
+    masked deltas, masks and carry (None unless collecting)."""
+    rows, valid, lr, perms, noise, sample, nm, es = tin
+    sample = None if sample is None else \
+        [[s[k] for s in sample] for k in range(rows.shape[0])]
+    res = _slot_pass(p, data.cohort, rows, valid, lr, perms, data.cfg,
+                     batch_size=data.batch_size, epochs=data.epochs,
+                     nmasks=nm, noise=noise, sample_idx=sample,
+                     collect=data.collect, eff_sizes=es)
+    return res[0], res[1], res[2] if data.collect else None
+
+
+def _fused_scbf_server(data: RoundData, p, out, admit, nm):
+    """SCBF's server half: the admitted slots' deltas summed into the model
+    (a rejected slot adds exact zeros), the carry reduced."""
+    masked, _, met = out
+    admitted = tuple({k: _zero_invalid(t, admit) for k, t in layer.items()}
+                     for layer in masked)
+    return scbf_sum_step(p, admitted, neuron_masks=nm), \
+        obsm.reduce_slots(met) if data.collect else None
+
+
+def _fused_fedavg_train(data: RoundData, p, tin):
+    """FedAvg's train half: the slots' trained weights and losses (None
+    unless collecting)."""
+    rows, valid, lr, perms = tin
+    trained = _train_slots(p, data.cohort, rows, valid, lr, perms,
+                           batch_size=data.batch_size, epochs=data.epochs,
+                           with_loss=data.collect)[1]
+    return trained if data.collect else (trained, None)
+
+
+def _fused_fedavg_server(data: RoundData, p, out, live, wts):
+    """FedAvg's server half: ``fedavg_step`` over the ``live`` slots (a
+    padded slot adds exact zeros); a slot of positive weight counts."""
+    trained, losses = out
+    met = obsm.fedavg_metrics(losses, wts > 0.0) if data.collect else None
+    return fedavg_step(p, tuple(
+        {k: _zero_invalid(t, live) for k, t in layer.items()}
+        for layer in trained), wts), met
 
 
 ENGINES = {"batched": BatchedEngine, "sequential": SequentialEngine}

@@ -1,13 +1,12 @@
 """A round of the fused loop as one captured CUDA graph.
 
 ``RoundProgram`` wraps a round body ``fn(*inputs) -> outputs`` (pytrees of
-tensors on a CUDA device).  It is captured once as a
-``torch.cuda.CUDAGraph`` and then replayed a round at a time: the round's
-inputs are copied into the graph's static input buffers (device to
-device, on the stream), the graph is replayed, and the static outputs
-hold the round's results until the next replay.  Nothing in a replay
-waits on the host.  (On the CPU the engine calls the body itself, a
-round at a time, with the same inputs.)
+tensors on a CUDA device; other leaves must compare equal).  It is
+captured once as a ``torch.cuda.CUDAGraph`` and then replayed a round at
+a time: the round's inputs are copied into the graph's static input
+buffers (device to device, on the stream), the graph is replayed, and the
+static outputs hold the round's results until the next replay.  Nothing
+in a replay waits on the host.  (On the CPU the engine calls the body.)
 
 Capture follows PyTorch's whole-network recipe: the body runs a few times
 on a side stream first (cuBLAS handles and workspaces, the autograd

@@ -25,8 +25,9 @@ of ``repro.obs.trace``).
     events; with no profiler running a span costs one check more.
 
 The log keeps the reference's schema: the same span events and
-counters.  The spans the reference does not have (``TIMELINE_ONLY``,
-``LM_TIMELINE_ONLY``) reach the profiler's timeline only.
+counters.  It records the reference's spans (``LOGGED``); every other
+span reaches a running profiler's timeline only, so a new span needs no
+edit here.
 
 Host-only code: no tensor is touched here, and torch is not imported
 (a profiler can only run once something else has loaded it).
@@ -45,16 +46,9 @@ EVENT_SCHEMA = 1
 
 EMITTER = f"repro_torch.obs/{EVENT_SCHEMA}"
 
-# The port's spans at the fused loop's layer boundaries that the
-# reference's log does not have: they reach a running profiler only, so
-# the log's span events and counters stay the reference's.
-TIMELINE_ONLY = frozenset({"plan", "replay", "encode.wait", "record"})
-
-# The same for the LM step's phases (``core/distributed``) and the model's
-# layers (``models/layers``, ``models/moe``; remat's recompute opens these
-# again in the backward).
-LM_TIMELINE_ONLY = frozenset({"client_grad", "select", "sum_update", "mla",
-                              "moe.route", "moe.experts", "mlp"})
+# The spans the reference's ``events.jsonl`` has, the only ones the
+# recorder logs: the log's span events and counters stay the reference's.
+LOGGED = frozenset({"round", "fused_chunk", "encode", "eval"})
 
 
 class Span:
@@ -178,15 +172,13 @@ def _profiler_running() -> bool:
 @contextlib.contextmanager
 def span(name: str, **attrs):
     """Timed region: always measures; records when a recorder is active
-    and the reference's log has the span (not ``TIMELINE_ONLY`` or
-    ``LM_TIMELINE_ONLY``); is a
+    and the reference's log has the span (``LOGGED``); is a
     ``record_function`` range while a torch profiler is running."""
     rf = None
     if _profiler_running():
         rf = sys.modules["torch"].profiler.record_function(name)
         rf.__enter__()
-    rec = None if name in TIMELINE_ONLY or name in LM_TIMELINE_ONLY \
-        else get_recorder()
+    rec = get_recorder() if name in LOGGED else None
     try:
         if rec is None:
             sp = _NullSpan(name, attrs)

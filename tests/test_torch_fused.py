@@ -12,6 +12,11 @@ injected.  The fallbacks (sequential engine, reshape pruning), the
 the reference's.  These mirror ``tests/test_fused_rounds.py`` and
 ``tests/test_fused_pruning.py``.
 """
+import functools
+import gc
+import types
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +35,7 @@ from repro.fed.scheduler import make_scheduler as ref_make_scheduler
 from repro_torch import config as tcfg
 from repro_torch.comm import wire
 from repro_torch.core import channels
+from repro_torch.core import scbf as port_scbf
 from repro_torch.core.client import local_train_slots
 from repro_torch.core.scbf import run_federated
 from repro_torch.data.medical import generate_cohort
@@ -469,3 +475,79 @@ def test_round_program_is_cuda_only_and_keys_by_shape():
                                    [torch.zeros(4)])
     assert a != graphs.program_key("scbf", torch.zeros(2, 3),
                                    [torch.zeros(1)], [torch.zeros(4)])
+
+
+class _HeldRound:
+    """What ``graphs.RoundProgram`` keeps of a captured round — the body and
+    the inputs it was captured from — with the body called eagerly, so the
+    CPU runs the engine's "one graph" form."""
+
+    def __init__(self, fn, *example):
+        self.fn, self.example = fn, example
+
+    def __call__(self, *inputs):
+        return self.fn(*inputs)
+
+
+def _one_graph_run(cohort, monkeypatch, method, engines):
+    """A fused run in the "one graph" form with ``_HeldRound`` standing in
+    for the capture; ``engines`` collects what ``make_engine`` built
+    (through ``keep``)."""
+    monkeypatch.setattr(engine.BatchedEngine, "round_form",
+                        lambda self: "one graph")
+    monkeypatch.setattr(graphs, "RoundProgram", _HeldRound)
+    real = port_scbf.make_engine
+    monkeypatch.setattr(port_scbf, "make_engine", lambda *a, **k: engines(
+        real(*a, **k)))
+    return run_federated(cohort, _cfg(2, loops=4), method=method,
+                         mlp_features=FEATS, device="cpu")
+
+
+def _reachable(roots) -> list:
+    """Every object reachable from ``roots`` through functions, partials,
+    closure cells, tuples, lists, dicts and the rounds' ``RoundData``."""
+    follow = (types.FunctionType, functools.partial, types.CellType, tuple,
+              list, dict, engine.RoundData)
+    seen, todo = {}, list(roots)
+    while todo:
+        obj = todo.pop()
+        if id(obj) not in seen:
+            seen[id(obj)] = obj
+            if isinstance(obj, follow):
+                todo += gc.get_referents(obj)
+    return list(seen.values())
+
+
+@pytest.mark.parametrize("method", ["scbf", "fedavg"])
+def test_a_captured_round_holds_no_engine(port_cohort, monkeypatch, method):
+    """The body and inputs the engine hands ``graphs.RoundProgram`` reach
+    no ``BatchedEngine`` and no program table (ROADMAP C10: a captured
+    round that held its engine made the engine and its graph cyclic
+    garbage), and the "one graph" form is bitwise the eager run."""
+    eager = run_federated(port_cohort, _cfg(2, loops=4), method=method,
+                          mlp_features=FEATS, device="cpu")
+    made = []
+    res = _one_graph_run(port_cohort, monkeypatch, method,
+                         lambda e: made.append(e) or e)
+    (eng,) = made
+    progs = list(eng._programs.values())
+    assert len(progs) == 1 and progs[0].fn is engine._fused_round
+    found = _reachable([progs[0].fn, progs[0].example])
+    assert not any(isinstance(o, engine.BatchedEngine) for o in found)
+    assert not any(o is eng._programs for o in found)
+    assert _bitwise(eager.final_params, res.final_params)
+
+
+def test_a_run_frees_its_engine_without_the_collector(port_cohort,
+                                                      monkeypatch):
+    """With the collector off, the engine of a finished run (and the
+    rounds it held) is freed by reference count alone."""
+    refs = []
+    gc.collect()
+    gc.disable()
+    try:
+        _one_graph_run(port_cohort, monkeypatch, "scbf",
+                       lambda e: refs.append(weakref.ref(e)) or e)
+        assert len(refs) == 1 and refs[0]() is None
+    finally:
+        gc.enable()

@@ -188,6 +188,25 @@ def test_kernel_wrappers_are_the_references_ops():
     assert build.libraries.cache_info().currsize == 0
 
 
+def test_launch_counts_name_every_kernel(monkeypatch):
+    """``repro_torch.kernels.launch_counts`` reads the five kernels'
+    counters (K1–K4 and ``sum_sgd``) by name, and ``reset_launches``
+    clears every one of them."""
+    import repro_torch.kernels as pk
+    from repro_torch.kernels import apoz, channel_norm, select_mask, sum_sgd
+    counters = [(channel_norm, "launches"), (select_mask, "mask_launches"),
+                (select_mask, "compact_count_launches"),
+                (select_mask, "compact_scatter_launches"),
+                (apoz, "launches"), (sum_sgd, "launches")]
+    for n, (mod, name) in enumerate(counters):
+        monkeypatch.setattr(mod, name, n + 1)
+    assert pk.launch_counts() == {
+        "channel_norm": 1, "select_mask": 2, "select_compact_count": 3,
+        "select_compact_scatter": 4, "apoz": 5, "sum_sgd": 6}
+    pk.reset_launches()
+    assert set(pk.launch_counts().values()) == {0}
+
+
 def test_tree_dense_bytes():
     """An MLP tree and a tree of bf16 and fp32 leaves with an absent bias:
     the reference's bytes."""

@@ -189,15 +189,15 @@ def test_the_reference_pl006_sites_have_counterparts(port):
     """The reference baselines three PL006 aggregation points (the slot
     pass's ``slot_metrics`` and two ``FedAvgMetrics`` sites).  The port's
     lint finds all three: the batched ``fedavg_round`` and the fused
-    FedAvg round's server step are in the baseline; the slot pass's is
-    found and suppressed in source, where the reference's own lint of
-    the port needs the comment."""
+    FedAvg round's server half (``_fused_fedavg_server``) are in the
+    baseline; the slot pass's is found and suppressed in source, where
+    the reference's own lint of the port needs the comment."""
     raw, findings, _ = port
     sites = {(pathlib.Path(f.path).name, f.symbol) for f in raw
              if f.rule == "PL006"}
     assert {("engine.py", "_slot_pass"),
             ("engine.py", "BatchedEngine.fedavg_round"),
-            ("engine.py", "BatchedEngine.fused_fedavg_chunk.server")} \
+            ("engine.py", "_fused_fedavg_server")} \
         <= sites
     assert "slot_metrics" in next(
         f.message for f in raw if f.symbol == "_slot_pass")

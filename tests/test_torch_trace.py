@@ -31,7 +31,9 @@ def _drive(mod):
                       client=3)
             mod.count("payloads_rejected")
             mod.count("rejected_checksum", 2)
-            with mod.span("inner", depth=1):
+            # a span of the reference's log (``trace.LOGGED``): the port
+            # logs no other
+            with mod.span("encode", clients=1):
                 pass
         mod.event("run_end", **rec.counters)
     assert mod.get_recorder() is None

@@ -9,7 +9,7 @@ translation of every reference bad fixture fires its rule as many times
 as the original (TL005: a ``SIGNATURES`` entry one argument short of its
 ``.cu`` prototype, and one passing an int for a pointer), the good
 fixtures are clean, and capture reachability follows the port's own
-``RoundProgram`` and ``BatchedEngine._program``.  (c) The port linted
+``RoundProgram``, ``BatchedEngine._program`` and the replay loop.  (c) The port linted
 once gives exactly ``analysis/torch_baseline.json``; its real
 ``kernels/build.SIGNATURES`` match ``kernels/csrc``, and a copy with one
 argtype dropped is a TL005.
@@ -109,24 +109,31 @@ def test_good_fixtures_are_clean():
 
 def test_capture_reachability_follows_the_round_programs(port):
     """``RoundProgram.__init__`` captures its ``fn``; ``_program`` passes
-    its ``fn`` on, so it captures it too; the fused chunks' bodies, the
-    slot pass and local training under them are in-trace; the host
-    loop (``run_federated``) is not."""
+    its ``fn`` on, so it captures it too, and the one replay loop
+    (``_replay_rounds``) passes its methods' train and server halves on;
+    the one-graph round (``_fused_round``), both methods' halves, the
+    gather, the slot pass and local training under them are in-trace;
+    the host loops (``run_federated``, ``_replay_rounds``) are not."""
     _, _, graph = port
     assert graph.capturers == {
         "repro_torch.fed.graphs:RoundProgram.__init__": {"fn"},
-        "repro_torch.fed.engine:BatchedEngine._program": {"fn"}}
+        "repro_torch.fed.engine:BatchedEngine._program": {"fn"},
+        "repro_torch.fed.engine:BatchedEngine._replay_rounds": {"train",
+                                                               "server"}}
     marked = {k for k, fn in graph.functions.items() if fn.in_trace}
-    for key in ("fed.engine:BatchedEngine.fused_scbf_chunk.body",
-                "fed.engine:BatchedEngine.fused_scbf_chunk.train",
-                "fed.engine:BatchedEngine.fused_fedavg_chunk.server",
+    for key in ("fed.engine:_fused_round", "fed.engine:_fused_scbf_train",
+                "fed.engine:_fused_scbf_server",
+                "fed.engine:_fused_fedavg_train",
+                "fed.engine:_fused_fedavg_server", "fed.engine:_gather_slots",
+                "comm.collectives:gather_slots",
                 "fed.engine:_slot_pass", "core.client:local_train_slots",
                 "core.selection:select_gradients",
                 "kernels.channel_norm:channel_norms_leaves",
-                "fed.strategy:scbf_sum_step"):
+                "fed.strategy:scbf_sum_step", "fed.strategy:fedavg_step"):
         assert f"repro_torch.{key}" in marked, key
     for key in ("core.scbf:run_federated", "fed.engine:BatchedEngine"
-                ".scbf_round", "fed.graphs:RoundProgram.__call__"):
+                ".scbf_round", "fed.engine:BatchedEngine._replay_rounds",
+                "fed.graphs:RoundProgram.__call__"):
         assert f"repro_torch.{key}" not in marked, key
 
 
